@@ -1,0 +1,131 @@
+"""Shared transformer building blocks (PyTorch), bf16-compute friendly.
+
+Counterpart of ``xpretrain_tpu/models/common.py``. As there, parameters stay
+fp32 and each layer computes in a configurable ``dtype`` (the cast happens at
+use, like flax's ``Dense(dtype=...)``); attention scores, softmax and
+layer-norm statistics run in fp32. Inference only: dropout comes with the
+training slice.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+NEG_INF = -1e9  # additive-mask fill; large but finite so bf16 stays well-behaved
+
+
+def quick_gelu(x: torch.Tensor) -> torch.Tensor:
+    """CLIP's activation: x * sigmoid(1.702 x)."""
+    return x * torch.sigmoid(1.702 * x)
+
+
+ACT2FN: dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
+    "quick_gelu": quick_gelu,
+    # flax.linen.gelu defaults to the tanh approximation, so both names take it
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "gelu_new": lambda x: F.gelu(x, approximate="tanh"),
+    "relu": F.relu,
+}
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` with fp32 parameters that computes in ``dtype``."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__(in_features, out_features, bias=bias, device=device)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
+
+
+class LayerNorm(nn.LayerNorm):
+    """Layer norm computed in fp32, output in ``dtype`` (flax's LayerNorm)."""
+
+    def __init__(self, dim: int, eps: float = 1e-5, dtype: torch.dtype = torch.float32,
+                 device=None):
+        super().__init__(dim, eps=eps, device=device)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias, self.eps)
+        return y.to(self.compute_dtype)
+
+
+def dot_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    scale: float,
+    mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Scaled dot-product attention over [..., Q, D] x [..., K, D].
+
+    Scores and softmax run in fp32 regardless of the input dtype; ``mask`` is
+    additive (0 keep / NEG_INF drop), broadcastable to [..., Q, K].
+    """
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if mask is not None:
+        scores = scores + mask.float()
+    weights = torch.softmax(scores, dim=-1).to(v.dtype)
+    return torch.matmul(weights, v)
+
+
+class MultiHeadAttention(nn.Module):
+    """Multi-head self-attention with separate q/k/v/out projections (the
+    CLIP/BERT checkpoint naming)."""
+
+    def __init__(self, embed_dim: int, num_heads: int, dtype: torch.dtype = torch.float32,
+                 device=None):
+        super().__init__()
+        if embed_dim % num_heads:
+            raise ValueError(f"embed_dim {embed_dim} % heads {num_heads} != 0")
+        self.embed_dim = embed_dim
+        self.num_heads = num_heads
+        self.q_proj = Linear(embed_dim, embed_dim, dtype=dtype, device=device)
+        self.k_proj = Linear(embed_dim, embed_dim, dtype=dtype, device=device)
+        self.v_proj = Linear(embed_dim, embed_dim, dtype=dtype, device=device)
+        self.out_proj = Linear(embed_dim, embed_dim, dtype=dtype, device=device)
+
+    def _split(self, x: torch.Tensor) -> torch.Tensor:
+        b, s, _ = x.shape
+        return x.view(b, s, self.num_heads, -1).transpose(1, 2)  # [B,H,S,D]
+
+    def forward(self, hidden_states: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        scale = (self.embed_dim // self.num_heads) ** -0.5
+        q = self._split(self.q_proj(hidden_states))
+        k = self._split(self.k_proj(hidden_states))
+        v = self._split(self.v_proj(hidden_states))
+        out = dot_attention(q, k, v, scale, mask)  # [B,H,Q,D]
+        b, _, s, _ = out.shape
+        return self.out_proj(out.transpose(1, 2).reshape(b, s, self.embed_dim))
+
+
+class TransformerMLP(nn.Module):
+    def __init__(self, hidden_size: int, intermediate_size: int, act: str = "quick_gelu",
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        self.fc1 = Linear(hidden_size, intermediate_size, dtype=dtype, device=device)
+        self.fc2 = Linear(intermediate_size, hidden_size, dtype=dtype, device=device)
+        self.act = ACT2FN[act]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(self.act(self.fc1(x)))
+
+
+def make_causal_mask(seq_len: int, device=None) -> torch.Tensor:
+    """Additive causal mask [1, 1, S, S] (upper triangle = NEG_INF), fp32."""
+    mask = torch.full((seq_len, seq_len), NEG_INF, dtype=torch.float32, device=device)
+    return torch.triu(mask, diagonal=1)[None, None]
+
+
+def expand_padding_mask(attention_mask: torch.Tensor) -> torch.Tensor:
+    """[B, S] 1/0 keep mask -> additive fp32 [B, 1, 1, S]."""
+    return ((1.0 - attention_mask.float()) * NEG_INF)[:, None, None, :]

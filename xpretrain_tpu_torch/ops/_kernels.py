@@ -1,0 +1,105 @@
+"""Build and bind the port's hand-written CUDA kernels (``csrc/*.cu``).
+
+The sources are compiled with ``nvcc`` for ``sm_90a`` into one shared library
+with a plain C interface, bound with ``ctypes``. The build runs at first use
+into ``build/xpretrain_tpu_torch/`` beside the package, keyed by a hash of the
+sources and flags, so a fresh checkout builds itself and an unchanged one
+reuses its library. A missing ``nvcc`` or a failed build raises; nothing falls
+back to another path.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "xpretrain_tpu_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",  # registers / shared memory / spills go to the build log
+)
+
+
+def _nvcc() -> str:
+    nvcc = shutil.which("nvcc")
+    if nvcc is None:
+        cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+        candidate = Path(cuda_home) / "bin" / "nvcc"
+        if not candidate.exists():
+            raise RuntimeError(
+                "nvcc not found on PATH or under CUDA_HOME (default /usr/local/cuda): "
+                "the port's CUDA kernels cannot be built"
+            )
+        nvcc = str(candidate)
+    return nvcc
+
+
+def library_path() -> Path:
+    """Where the library for the current sources lives (built or not)."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC_DIR.glob("*.cu")):
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    return BUILD_DIR / f"libxpt_kernels_{digest.hexdigest()[:16]}.so"
+
+
+@functools.cache
+def load_library() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library; cached per process."""
+    lib_path = library_path()
+    if not lib_path.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
+        sources = [str(s) for s in sorted(CSRC_DIR.glob("*.cu"))]
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *sources],
+            capture_output=True, text=True,
+        )
+        lib_path.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed with code {proc.returncode}:\n{proc.stderr[-6000:]}"
+            )
+        os.replace(tmp, lib_path)  # atomic: a concurrent build never sees half a file
+    lib = ctypes.CDLL(str(lib_path))
+    lib.xpt_proxy_attention_fwd.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    )
+    lib.xpt_proxy_attention_fwd.restype = ctypes.c_int
+    lib.xpt_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.xpt_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(lib: ctypes.CDLL, rc: int, name: str) -> None:
+    if rc != 0:
+        msg = lib.xpt_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc} ({msg})")
+
+
+def proxy_attention_fwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+    M: int, N: int, L: int, scale: float,
+) -> None:
+    """Launch ``csrc/proxy_attention_fwd.cu`` on the current stream.
+
+    The caller has checked device, dtype, shape and contiguity."""
+    lib = load_library()
+    B, H, S, D = q.shape
+    with torch.cuda.device(q.device):
+        rc = lib.xpt_proxy_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            B, H, S, D, M, N, L, float(scale), int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    _check(lib, rc, "proxy_attention_fwd")
