@@ -5,16 +5,31 @@ Phases, in order; any failure exits non-zero and prints no result:
 
 1. require a CUDA card, print its name and power limit, turn TF32 off;
 2. build the port's CUDA kernels from ``xpretrain_tpu_torch/csrc``;
-3. check the proxy-attention kernel against its plain PyTorch version on the
-   card at B/32, B/16 and small shapes, in fp32 and bf16;
+3. check the proxy-attention forward kernel against its plain PyTorch
+   version on the card at B/32, B/16 and small shapes, in fp32 and bf16;
+3b. the same for the backward kernel, at those shapes and the B/32 train
+   shape (b=32), plus its gradient against autograd of the plain forward;
 4. run CLIP-ViP B/32 zero-shot retrieval eval (random weights from a seed,
    bf16, synthetic uint8 clips) through the CLI, counting kernel launches;
+4b. run the MSR-VTT B/32 fine-tune preset through the CLI for a few steps
+   (``--mode train``), counting forward and backward launches;
 5. serve a few requests through ``RetrievalTowers`` in fp32 and compare the
    card's features with the CPU's (plain path) for the same weights;
-6. time the kernel against the plain version, and the whole forward;
+5b. take one fp32 train step of B/32 at batch 2 on the card (kernels) and on
+   the CPU (plain) from the same weights and batch, and compare;
+6. time the forward kernel against the plain version, and the whole forward;
+6b. time the backward kernel against its plain version, forward and backward
+   through autograd (kernels against the plain forward), and the B/32 bf16
+   train step at b=32;
 7. print the kernel summary and, as the last line, the status JSON.
 
-Run from the repository root with no arguments: ``python3 chip_smoke.py``.
+Each main-path run (4, 4b) sets every launch count to 0 just before it and
+reads the counts just after; the summary reports each path's count and
+their sum. While they run, a call of a plain version on CUDA tensors fails
+the phase.
+
+Run from the repository root with no arguments: ``python3 chip_smoke.py``
+(about 2 minutes on one H100, the kernels' build included).
 """
 
 from __future__ import annotations
@@ -30,11 +45,20 @@ import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-KERNEL_SOURCE = "xpretrain_tpu_torch/csrc/proxy_attention_fwd.cu"
-REPLACES = "xpretrain_tpu/ops/proxy_attention.py:201"  # _attention_pallas
+KERNELS = {  # name -> (source, the TPU kernel it replaces)
+    "proxy_attention_fwd": ("xpretrain_tpu_torch/csrc/proxy_attention_fwd.cu",
+                            "xpretrain_tpu/ops/proxy_attention.py:201"),  # _attention_pallas
+    "proxy_attention_bwd": ("xpretrain_tpu_torch/csrc/proxy_attention_bwd.cu",
+                            "xpretrain_tpu/ops/proxy_attention.py:345"),  # _attention_pallas_bwd
+}
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # max abs; fp32: summation order; bf16: output rounding
 BF16_MAX_ULP = 1.0  # bf16 output vs the fp32 plain version of the same inputs: rounding alone
+BWD_TOL_FP32 = 1e-4  # max abs: summation order over up to S terms
+BWD_MAX_ULP = 2.0  # bf16 vs fp32 plain gradients: fp32 accumulation and one rounding at the store
 B32 = dict(B=24, H=12, M=4, N=12, L=49, D=64)  # CLIP-ViP B/32 serving, batch 24
+B32_TRAIN = dict(B32, B=32)  # CLIP-ViP B/32 training, batch 32
+PRESET = "xpretrain_tpu/configs/presets/msrvtt_retrieval_vip_base_32.json"
+TRAIN_STEPS, TRAIN_EVERY = 6, 3  # the fine-tune run of phase 4b: steps, validate/save cadence
 CHECK_SHAPES = {
     "b32": B32,
     "b16": dict(B=2, H=12, M=4, N=12, L=196, D=64),
@@ -68,30 +92,6 @@ def phase(name: str):
     print(f"== {name}: ok ({time.perf_counter() - t0:.1f} s)", flush=True)
 
 
-def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def window_ms(fn, iters: int, windows: int = 5) -> list[float]:
-    """Per-call ms of ``fn`` in ``windows`` back-to-back windows of ``iters`` calls."""
-    return [cuda_time_ms(fn, iters, warmup=3 if i == 0 else 0) for i in range(windows)]
-
-
-def spread(ms: list[float]) -> str:
-    ms = sorted(ms)
-    return f"median {ms[len(ms) // 2]:.4f} ms (min {ms[0]:.4f}, max {ms[-1]:.4f}, {len(ms)} windows)"
-
-
 def bf16_ulps(got, want):
     """Largest |got - want| in bf16 ulps of ``want`` (fp32); |want| below
     2^-8 counts as 2^-8."""
@@ -102,25 +102,73 @@ def bf16_ulps(got, want):
     return ((got.float() - want) / ulp).abs().max().item()
 
 
-def captions(rng, batch: int, seq: int = 70):
-    """CLIP-style token ids: BOS, random ids, EOT (the highest id, where the
-    text tower pools); mask = ids > 0."""
-    import numpy as np
-
-    ids = np.zeros((batch, seq), np.int64)
-    ids[:, 0] = 49406
-    for i, n in enumerate(rng.integers(3, seq - 1, size=batch)):
-        ids[i, 1:n] = rng.integers(10, 49406, size=n - 1)
-        ids[i, n] = 49407
-    return ids, (ids > 0).astype(np.int64)
-
-
-def qkv(shape: dict, dtype, seed: int = 0):
+def qkv(shape: dict, dtype, seed: int = 0, n: int = 3):
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     size = (shape["B"], shape["H"], shape["M"] + shape["N"] * shape["L"], shape["D"])
-    return [torch.randn(size, device="cuda", generator=g).to(dtype) for _ in range(3)]
+    return [torch.randn(size, device="cuda", generator=g).to(dtype) for _ in range(n)]
+
+
+def bf16_grad_ulps(got, want):
+    """Largest |got - want| in bf16 ulps of ``want`` (fp32); |want| below
+    2^-8 max|want| counts at that floor."""
+    import torch
+
+    mag = want.abs().clamp_min(2.0**-8 * want.abs().max().item())
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return ((got.float() - want) / ulp).abs().max().item()
+
+
+@contextlib.contextmanager
+def plain_on_cuda_guard():
+    """Record every call on CUDA tensors, while inside, of the plain functions
+    the main path's kernels stand in for: both proxy-attention versions, and
+    the masked ``dot_attention`` that ``ProxyAttention`` takes under dropout.
+    Yields the list of calls."""
+    from xpretrain_tpu_torch.models.clip_vip import model as clip_vip_model
+    from xpretrain_tpu_torch.ops import proxy_attention as pa
+
+    hooks = [(pa, "proxy_attention_plain"), (pa, "proxy_attention_bwd_plain"),
+             (clip_vip_model, "dot_attention")]
+    originals = [getattr(module, name) for module, name in hooks]
+    calls = []
+
+    def guard(fn):
+        def wrapped(q, *args, **kwargs):
+            if q.is_cuda:
+                calls.append((fn.__name__, tuple(q.shape)))
+            return fn(q, *args, **kwargs)
+        return wrapped
+
+    for (module, name), fn in zip(hooks, originals):
+        setattr(module, name, guard(fn))
+    try:
+        yield calls
+    finally:
+        for (module, name), fn in zip(hooks, originals):
+            setattr(module, name, fn)
+
+
+def launch_counts(pa) -> dict[str, int]:
+    return {"proxy_attention_fwd": pa.proxy_attention.launches,
+            "proxy_attention_bwd": pa.proxy_attention_bwd.launches}
+
+
+def reset_launches(pa) -> None:
+    pa.proxy_attention.launches = 0
+    pa.proxy_attention_bwd.launches = 0
+
+
+def alternate(fns: dict, iters: int = 200) -> dict[str, list[float]]:
+    """ms per call of ``fns["plain"]`` and ``fns["kernel"]``, timed in the
+    order plain, kernel, kernel, plain (CUDA events, ``iters`` calls each)."""
+    from xpretrain_tpu_torch.tools.profile_train_step import cuda_time_ms
+
+    runs = {"plain": [], "kernel": []}
+    for name in ("plain", "kernel", "kernel", "plain"):
+        runs[name].append(cuda_time_ms(fns[name], iters=iters))
+    return runs
 
 
 def main() -> None:
@@ -136,7 +184,11 @@ def main() -> None:
         from xpretrain_tpu_torch.models.clip_vip.model import CLIPVipConfig, CLIPViPModel
         from xpretrain_tpu_torch.ops import _kernels
         from xpretrain_tpu_torch.ops import proxy_attention as pa
+        from xpretrain_tpu_torch.parallel.train_step import batch_to_device
         from xpretrain_tpu_torch.serving.towers import RetrievalTowers
+        from xpretrain_tpu_torch.tools.profile_train_step import (
+            captions, median, spread, synthetic_batch, time_train_step, train_step_parts, window_ms,
+        )
     except ImportError as e:
         fail(f"the port is not beside this script ({e})")
     import numpy as np
@@ -157,7 +209,8 @@ def main() -> None:
         t0 = time.perf_counter()
         _kernels.load_library()
         lib = _kernels.library_path()
-        print(f"built {lib.relative_to(REPO)} from {KERNEL_SOURCE} "
+        sources = ", ".join(src for src, _ in KERNELS.values())
+        print(f"built {lib.relative_to(REPO)} from {sources} "
               f"({' '.join(_kernels.NVCC_FLAGS[:2])}) in {time.perf_counter() - t0:.1f} s")
         for line in lib.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line:
@@ -192,32 +245,70 @@ def main() -> None:
                     check(ulps <= BF16_MAX_ULP, f"{name} bf16: {ulps} ulp from the fp32 plain version")
                 print(line)
 
-    with phase("4 B/32 retrieval eval (main path)"), tempfile.TemporaryDirectory() as out_dir:
-        plain_cuda_calls = []
-        plain = pa.proxy_attention_plain
-
-        def guarded_plain(q, *args):
-            if q.is_cuda:
-                plain_cuda_calls.append(tuple(q.shape))
-            return plain(q, *args)
-
-        pa.proxy_attention_plain = guarded_plain
-        torch.cuda.reset_peak_memory_stats()
-        pa.proxy_attention.launches = 0
-        report = run_retrieval_clipvip.main([
-            "--dummy_data", "1", "--mode", "eval", "--clip_size", "base_32",
-            "--device_ingest", "1", "--num_frm", "12", "--crop_img_size", "224",
-            "--val_batch_size", str(EVAL_BATCH), "--device", "cuda",
-            "--output_dir", out_dir, "--save_feats", f"{out_dir}/feats.npz",
-        ])
+    with phase("3b backward kernel vs plain"):
+        bwd_errors = {}
+        for name, s in {**CHECK_SHAPES, "b32_train": B32_TRAIN}.items():
+            scale = s["D"] ** -0.5
+            for dtype in (torch.float32, torch.bfloat16):
+                q, k, v, d_out = qkv(s, dtype, seed=1, n=4)
+                before = pa.proxy_attention_bwd.launches
+                got = pa.proxy_attention_bwd(q, k, v, d_out, s["M"], s["N"], s["L"], scale)
+                torch.cuda.synchronize()
+                check(pa.proxy_attention_bwd.launches == before + 1, f"{name}: backward launch not counted")
+                # the fp32 plain gradients of the same inputs: for bf16 that
+                # leaves the kernel's one rounding at the store
+                want = pa.proxy_attention_bwd_plain(*(t.float() for t in (q, k, v, d_out)),
+                                                    s["M"], s["L"], scale)
+                dt = str(dtype).split(".")[-1]
+                for g, w, gname in zip(got, want, ("dq", "dk", "dv")):
+                    check(g.dtype == dtype and g.shape == q.shape, f"{name} {dt} {gname}: dtype/shape")
+                err = max((g.float() - w).abs().max().item() for g, w in zip(got, want))
+                bwd_errors[(name, dt)] = err
+                line = f"  {name:10s} {dt:8s} max_abs {err:.3e}"
+                check(math.isfinite(err), f"{name} {dt}: backward not finite")
+                if dtype == torch.float32:
+                    line += f" (tol {BWD_TOL_FP32:.0e})"
+                    check(err <= BWD_TOL_FP32, f"{name} fp32 backward: max_abs {err} > {BWD_TOL_FP32}")
+                else:
+                    ulps = max(bf16_grad_ulps(g, w) for g, w in zip(got, want))
+                    line += f", {ulps:.3f} ulp of the fp32 plain gradients (tol {BWD_MAX_ULP:.0f})"
+                    check(ulps <= BWD_MAX_ULP, f"{name} bf16 backward: {ulps} ulp")
+                print(line)
+                del q, k, v, d_out, got, want
+        # gradcheck-style: the kernels' gradient through proxy_attention is
+        # autograd's through the plain forward (fp32, the tiny shape)
+        s = CHECK_SHAPES["tiny"]
+        q, k, v, d_out = qkv(s, torch.float32, seed=2, n=4)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        before = pa.proxy_attention_bwd.launches
+        pa.proxy_attention(*leaves, s["M"], s["N"], s["L"], s["D"] ** -0.5).backward(d_out)
         torch.cuda.synchronize()
-        launches = pa.proxy_attention.launches
-        pa.proxy_attention_plain = plain
+        check(pa.proxy_attention_bwd.launches == before + 1, "autograd did not launch the backward kernel")
+        ref = [t.clone().requires_grad_() for t in (q, k, v)]
+        pa.proxy_attention_plain(*ref, s["M"], s["L"], s["D"] ** -0.5).backward(d_out)
+        err = max((a.grad - b.grad).abs().max().item() for a, b in zip(leaves, ref))
+        print(f"  autograd through the kernels vs through the plain forward (tiny, fp32): "
+              f"max_abs {err:.3e} (tol {BWD_TOL_FP32:.0e})")
+        check(err <= BWD_TOL_FP32, f"kernel autograd vs plain autograd: {err}")
+
+    with phase("4 B/32 retrieval eval (main path)"), tempfile.TemporaryDirectory() as out_dir:
+        torch.cuda.reset_peak_memory_stats()
+        with plain_on_cuda_guard() as plain_cuda_calls:
+            reset_launches(pa)
+            report = run_retrieval_clipvip.main([
+                "--dummy_data", "1", "--mode", "eval", "--clip_size", "base_32",
+                "--device_ingest", "1", "--num_frm", "12", "--crop_img_size", "224",
+                "--val_batch_size", str(EVAL_BATCH), "--device", "cuda",
+                "--output_dir", out_dir, "--save_feats", f"{out_dir}/feats.npz",
+            ])
+            torch.cuda.synchronize()
+            eval_launches = launch_counts(pa)
         n_batches = math.ceil(run_retrieval_clipvip.DUMMY_VAL_SIZE / EVAL_BATCH)
-        print(f"  kernel launches {launches} (expected {VIDEO_LAYERS} layers x {n_batches} batches); "
-              f"plain path on CUDA: {len(plain_cuda_calls)} calls")
-        check(launches == VIDEO_LAYERS * n_batches, "kernel launch count")
-        check(not plain_cuda_calls, "the plain version ran on CUDA tensors")
+        print(f"  launches {eval_launches} (expected {VIDEO_LAYERS} layers x {n_batches} batches forward, "
+              f"none backward); plain path on CUDA: {len(plain_cuda_calls)} calls")
+        check(eval_launches == {"proxy_attention_fwd": VIDEO_LAYERS * n_batches, "proxy_attention_bwd": 0},
+              "eval kernel launch counts")
+        check(not plain_cuda_calls, f"the plain version ran on CUDA tensors: {plain_cuda_calls[:4]}")
         for direction in ("t2v", "v2t"):
             row = {k: report[direction][k] for k in ("R1", "R5", "R10", "MedR")}
             print(f"  {direction} {row}")
@@ -232,6 +323,52 @@ def main() -> None:
             check(bool(np.isfinite(f).all()) and np.abs(norms - 1).max() < 1e-2, f"{key} not unit rows")
         print(f"  eval wall {report['perf']['wall_s']:.2f} s, {report['perf']['clips_per_s']:.1f} clips/s "
               f"(host clock, synthetic decode + upload included) [{card}]")
+        print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+
+    with phase("4b B/32 fine-tune (main path)"), tempfile.TemporaryDirectory() as out_dir:
+        with open(os.path.join(REPO, PRESET)) as f:
+            preset = json.load(f)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with plain_on_cuda_guard() as plain_cuda_calls:
+            reset_launches(pa)
+            report = run_retrieval_clipvip.main([
+                "--config", os.path.join(REPO, PRESET), "--dummy_data", "1", "--device_ingest", "1",
+                "--mode", "train", "--num_train_steps", str(TRAIN_STEPS),
+                "--valid_steps", str(TRAIN_EVERY), "--save_steps", str(TRAIN_EVERY), "--log_steps", "1",
+                "--device", "cuda", "--output_dir", out_dir,
+            ])
+            torch.cuda.synchronize()
+            train_launches = launch_counts(pa)
+        wall = time.perf_counter() - t0
+        # validation at start, at every TRAIN_EVERY steps, and the final report's
+        n_val = math.ceil(run_retrieval_clipvip.DUMMY_VAL_SIZE / preset["val_batch_size"])
+        validations = 1 + TRAIN_STEPS // TRAIN_EVERY + 1
+        want = {
+            "proxy_attention_fwd": VIDEO_LAYERS * (TRAIN_STEPS + validations * n_val),
+            "proxy_attention_bwd": VIDEO_LAYERS * TRAIN_STEPS,
+        }
+        print(f"  launches {train_launches} (expected {want}: {VIDEO_LAYERS} layers x ({TRAIN_STEPS} steps "
+              f"+ {validations} validations x {n_val} batches) forward, x {TRAIN_STEPS} steps backward); "
+              f"plain path on CUDA: {len(plain_cuda_calls)} calls")
+        check(train_launches == want, "fine-tune kernel launch counts")
+        check(not plain_cuda_calls, f"the plain version ran on CUDA tensors: {plain_cuda_calls[:4]}")
+        with open(os.path.join(out_dir, "log", "scalars.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        losses = [r["value"] for r in rows if r["tag"] == "train/loss"]
+        norms = [r["value"] for r in rows if r["tag"] == "train/grad_norm"]
+        print(f"  batch {preset['train_batch_size']}, losses {[round(x, 4) for x in losses]}, "
+              f"grad norms {[round(x, 4) for x in norms]}")
+        check(len(losses) == TRAIN_STEPS and all(math.isfinite(x) for x in losses + norms),
+              "fine-tune losses not finite")
+        for direction in ("t2v", "v2t"):
+            row = {k: report[direction][k] for k in ("R1", "R5", "R10", "MedR")}
+            print(f"  final {direction} {row}")
+            check(all(math.isfinite(x) for x in row.values()), f"{direction} R@K not finite")
+        ckpts = sorted(os.listdir(os.path.join(out_dir, "ckpt")))
+        check(ckpts == [f"{TRAIN_EVERY}.pt", f"{TRAIN_STEPS}.pt"], f"checkpoints {ckpts}")
+        print(f"  checkpoints {ckpts}; run wall {wall:.1f} s (host clock, synthetic data and "
+              f"{validations} validations included) [{card}]")
         print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
 
     with phase("5 serve: card vs CPU, fp32"):
@@ -260,17 +397,51 @@ def main() -> None:
         check(bool(torch.isfinite(sims).all()), "similarity not finite")
         del gpu, cpu, model_cpu
 
+    with phase("5b train step: card vs CPU, fp32"):
+        lr = 1e-5
+        model_cpu = CLIPViPModel(CLIPVipConfig.base_patch32(dtype=torch.float32))
+        model_cpu.init_weights(torch.Generator().manual_seed(0))
+        model_gpu = copy.deepcopy(model_cpu).cuda()
+        rng = np.random.default_rng(2)
+        ids, mask = captions(rng, 2)
+        batch = {"video": rng.integers(0, 256, size=(2, 12, 224, 224, 3), dtype=np.uint8),
+                 "text_input_ids": ids, "text_input_mask": mask}
+        metrics = {}
+        for device, model in (("cuda", model_gpu), ("cpu", model_cpu)):
+            step, state = train_step_parts(model, lr)
+            before = (pa.proxy_attention.launches, pa.proxy_attention_bwd.launches)
+            _, m = step(state, batch_to_device(device)(batch), 0)
+            metrics[device] = {k: v.item() for k, v in m.items()}
+            if device == "cuda":
+                launched = (pa.proxy_attention.launches - before[0], pa.proxy_attention_bwd.launches - before[1])
+                check(launched == (VIDEO_LAYERS, VIDEO_LAYERS), f"card train step launches {launched}")
+        print(f"  card {metrics['cuda']}\n  cpu  {metrics['cpu']}")
+        loss_err = abs(metrics["cuda"]["loss"] - metrics["cpu"]["loss"])
+        norm_err = abs(metrics["cuda"]["grad_norm"] / metrics["cpu"]["grad_norm"] - 1)
+        # fp32 sums in other orders through 24 layers: 1e-4 on the loss,
+        # 1e-3 relative on the gradients' global norm
+        check(loss_err <= 1e-4, f"train loss card vs cpu {loss_err}")
+        check(norm_err <= 1e-3, f"grad_norm card vs cpu rel {norm_err}")
+        cpu_state = model_cpu.state_dict()
+        diffs = torch.cat([(v.cpu() - cpu_state[k]).abs().flatten() for k, v in model_gpu.state_dict().items()])
+        # AdamW's first step is lr * g / (|g| + eps) (+ decay): where |g| is
+        # near eps the last digits of g move it, by up to 2 lr
+        print(f"  loss diff {loss_err:.3e} (tol 1e-4), grad_norm rel diff {norm_err:.3e} (tol 1e-3); "
+              f"params after the step: max diff {diffs.max().item():.3e} (tol 2 lr = {2 * lr:.0e}), "
+              f"{(diffs > 1e-7).double().mean().item():.2e} of them above 1e-7")
+        check(diffs.max().item() <= 2 * lr, "params after one step differ by more than 2 lr")
+        del model_cpu, model_gpu
+
     with phase("6 timing"):
         s = B32
         args = (s["M"], s["N"], s["L"], s["D"] ** -0.5)
         timings = {}
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v = qkv(s, dtype)
-            kernel = lambda: pa.proxy_attention(q, k, v, *args)  # noqa: E731
-            plain_fn = lambda: pa.proxy_attention_plain(q, k, v, s["M"], s["L"], args[-1])  # noqa: E731
-            runs = {"plain": [], "kernel": []}
-            for name in ("plain", "kernel", "kernel", "plain"):
-                runs[name].append(cuda_time_ms(kernel if name == "kernel" else plain_fn, iters=200))
+            runs = alternate({
+                "kernel": lambda: pa.proxy_attention(q, k, v, *args),
+                "plain": lambda: pa.proxy_attention_plain(q, k, v, s["M"], s["L"], args[-1]),
+            })
             dt = str(dtype).split(".")[-1]
             timings[dt] = {name: sum(r) / len(r) for name, r in runs.items()}
             print(f"  proxy attention B/32 b=24 {dt}: kernel {runs['kernel']} ms, "
@@ -279,34 +450,78 @@ def main() -> None:
 
         model = CLIPViPModel(CLIPVipConfig.base_patch32(dtype=torch.bfloat16), device="cuda")
         model.init_weights(torch.Generator(device="cuda").manual_seed(0)).eval()
-        g = torch.Generator(device="cuda").manual_seed(1)
-        video = torch.randint(0, 256, (EVAL_BATCH, 12, 224, 224, 3), device="cuda",
-                              dtype=torch.uint8, generator=g)
-        ids, mask = captions(np.random.default_rng(1), EVAL_BATCH)
-        ids, mask = torch.from_numpy(ids).cuda(), torch.from_numpy(mask).cuda()
+        batch = synthetic_batch(EVAL_BATCH, "cuda", seed=1)
+        video, ids, mask = batch["video"], batch["text_input_ids"], batch["text_input_mask"]
         # Windows of about 2 s each, so host-launch noise shows as spread.
         with torch.inference_mode():
             fwd = window_ms(lambda: model(video, ids, mask), iters=100)
             vid = window_ms(lambda: model.forward_video(video), iters=100)
             txt = window_ms(lambda: model.forward_text(ids, mask), iters=300)
-        fwd_median = sorted(fwd)[len(fwd) // 2]
         print(f"  B/32 bf16 video+text forward b={EVAL_BATCH}: {spread(fwd)} = "
-              f"{EVAL_BATCH / fwd_median * 1e3:.1f} clips/s at the median; windows {fwd} "
+              f"{EVAL_BATCH / median(fwd) * 1e3:.1f} clips/s at the median; windows {fwd} "
               f"(CUDA events, 100 calls per window, inputs on the card) [{card}]")
         print(f"  B/32 bf16 video tower b={EVAL_BATCH}: {spread(vid)}; windows {vid} [{card}]")
         print(f"  B/32 bf16 text tower b={EVAL_BATCH}: {spread(txt)}; windows {txt} "
               f"(300 calls per window) [{card}]")
 
-    summary = {"kernels": [{
-        "name": "proxy_attention_fwd",
-        "route": "cuda",
-        "source": KERNEL_SOURCE,
-        "replaces": REPLACES,
-        "launches": launches,
-        "max_abs_err": errors[("b32", "bfloat16")],
-        "ms": timings["bfloat16"]["kernel"],
-        "plain_ms": timings["bfloat16"]["plain"],
-    }]}
+    with phase("6b timing: backward kernel and train step"):
+        s = B32_TRAIN
+        args = (s["M"], s["N"], s["L"], s["D"] ** -0.5)
+        bwd_timings = {}
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, d_out = qkv(s, dtype, n=4)
+            dt = str(dtype).split(".")[-1]
+            # like for like: the backward kernel against its plain version
+            runs = alternate({
+                "kernel": lambda: pa.proxy_attention_bwd(q, k, v, d_out, *args),
+                "plain": lambda: pa.proxy_attention_bwd_plain(q, k, v, d_out, s["M"], s["L"], args[-1]),
+            })
+            bwd_timings[dt] = {name: sum(r) / len(r) for name, r in runs.items()}
+            print(f"  proxy attention backward B/32 b=32 {dt}: kernel {runs['kernel']} ms, plain "
+                  f"(proxy_attention_bwd_plain) {runs['plain']} ms (CUDA events, 200 calls each) [{card}]")
+
+            # what a layer pays in training: forward and backward through
+            # autograd, the two kernels against the plain forward
+            def through(forward):
+                def run():
+                    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+                    forward(*leaves).backward(d_out)
+                return run
+
+            both = alternate({
+                "kernel": through(lambda *t: pa.proxy_attention(*t, *args)),
+                "plain": through(lambda *t: pa.proxy_attention_plain(*t, s["M"], s["L"], args[-1])),
+            })
+            print(f"  proxy attention forward+backward (autograd) B/32 b=32 {dt}: kernels {both['kernel']} ms, "
+                  f"plain forward + autograd {both['plain']} ms (CUDA events, 200 calls each) [{card}]")
+            del q, k, v, d_out
+
+        b = B32_TRAIN["B"]
+        _, steps_ms, iters, peak_gib = time_train_step(b)
+        print(f"  B/32 bf16 train step b={b}: {spread(steps_ms)} = {b / median(steps_ms) * 1e3:.1f} clips/s at "
+              f"the median; windows {steps_ms} (CUDA events, {iters} steps per window, inputs on the card) "
+              f"[{card}]")
+        print(f"  train step peak device memory {peak_gib:.2f} GiB [{card}]")
+        check(all(math.isfinite(x) for x in steps_ms), "train step timing")
+
+    summary = {"kernels": [
+        {
+            "name": name,
+            "route": "cuda",
+            "source": KERNELS[name][0],
+            "replaces": KERNELS[name][1],
+            # each main path's count, read just after its own run
+            "launches": eval_launches[name] + train_launches[name],
+            "launches_by_path": {"eval": eval_launches[name], "train": train_launches[name]},
+            "max_abs_err": err,
+            "ms": timing["bfloat16"]["kernel"],
+            "plain_ms": timing["bfloat16"]["plain"],
+        }
+        for name, err, timing in (
+            ("proxy_attention_fwd", errors[("b32", "bfloat16")], timings),
+            ("proxy_attention_bwd", bwd_errors[("b32_train", "bfloat16")], bwd_timings),
+        )
+    ]}
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

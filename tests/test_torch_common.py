@@ -93,3 +93,106 @@ def test_dot_attention_bf16_scores_in_fp32():
     np.testing.assert_allclose(
         got.float().numpy(), np.asarray(want, np.float32), atol=1.6e-2, rtol=0
     )
+
+
+def test_dropout_rate_zero_equals_no_dropout():
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.normal(size=(B, S, E)).astype(np.float32))
+    mha = common.MultiHeadAttention(E, HEADS, dropout_rate=0.0).train()
+    want = common.MultiHeadAttention(E, HEADS).eval()
+    want.load_state_dict(mha.state_dict())
+    got = mha(x, common.make_causal_mask(S), torch.Generator().manual_seed(0))
+    torch.testing.assert_close(got, want(x, common.make_causal_mask(S)), rtol=0, atol=0)
+    # and a rate only acts in training mode
+    mha.dropout_rate = 0.5
+    torch.testing.assert_close(mha.eval()(x), want(x), rtol=0, atol=0)
+
+
+def test_dot_attention_dropout_matches_flax_with_its_keep_mask():
+    """The flax version draws ``bernoulli(rng, 1 - rate)`` over the weights;
+    handed that same mask, the port drops and rescales the same entries."""
+    rng = np.random.default_rng(5)
+    q, k, v = (rng.normal(size=(B, HEADS, S, 8)).astype(np.float32) for _ in range(3))
+    mask = np.array(jax_common.make_causal_mask(S))
+    key, rate = jax.random.PRNGKey(3), 0.3
+    want = jax_common.dot_attention(
+        *map(jnp.asarray, (q, k, v)), 8**-0.5, jnp.asarray(mask), key, rate, deterministic=False
+    )
+    keep = np.asarray(jax.random.bernoulli(key, 1.0 - rate, (B, HEADS, S, S)))
+    got = common.dot_attention(
+        *map(torch.from_numpy, (q, k, v)), 8**-0.5, torch.from_numpy(mask), rate,
+        keep=torch.from_numpy(keep),
+    )
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-6, rtol=0)
+
+
+def test_dot_attention_dropout_draws_from_its_generator():
+    rng = np.random.default_rng(6)
+    q, k, v = (torch.from_numpy(rng.normal(size=(B, HEADS, S, 8)).astype(np.float32)) for _ in range(3))
+    a = common.dot_attention(q, k, v, 8**-0.5, dropout_rate=0.5, generator=torch.Generator().manual_seed(1))
+    b = common.dot_attention(q, k, v, 8**-0.5, dropout_rate=0.5, generator=torch.Generator().manual_seed(1))
+    c = common.dot_attention(q, k, v, 8**-0.5, dropout_rate=0.5, generator=torch.Generator().manual_seed(2))
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert (a - c).abs().max() > 1e-3
+
+
+def _capture_bernoulli(monkeypatch):
+    """Record the keep masks the flax dropout draws, to hand them to the port."""
+    drawn = []
+    real = jax.random.bernoulli
+
+    def bernoulli(*args, **kwargs):
+        drawn.append(np.asarray(real(*args, **kwargs)))
+        return jnp.asarray(drawn[-1])
+
+    monkeypatch.setattr(jax.random, "bernoulli", bernoulli)
+    return drawn
+
+
+def test_multi_head_attention_dropout_matches_flax(monkeypatch):
+    rng = np.random.default_rng(7)
+    x = rng.normal(size=(B, S, E)).astype(np.float32)
+    mask = np.array(jax_common.make_causal_mask(S))
+    flax_mha = jax_common.MultiHeadAttention(E, HEADS, dropout_rate=0.3)
+    params = flax_mha.init(jax.random.PRNGKey(0), jnp.asarray(x))["params"]
+    drawn = _capture_bernoulli(monkeypatch)
+    want = flax_mha.apply({"params": params}, jnp.asarray(x), jnp.asarray(mask), deterministic=False,
+                          rngs={"dropout": jax.random.PRNGKey(4)})
+    mha = common.MultiHeadAttention(E, HEADS, dropout_rate=0.3).train()
+    for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+        _load_dense(getattr(mha, name), params[name])
+    got = mha(torch.from_numpy(x), torch.from_numpy(mask), keep=torch.from_numpy(drawn[0]))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), atol=2e-6, rtol=0)
+
+
+def test_proxy_attention_dropout_branch_matches_flax(monkeypatch):
+    """With dropout on in training, both models leave the kernel for the
+    masked ``dot_attention`` over the proxy mask."""
+    from xpretrain_tpu.models.clip_vip.model import ProxyAttention as FlaxProxy
+    from xpretrain_tpu_torch.models.clip_vip.model import ProxyAttention
+
+    M, N, L = 2, 3, 4
+    rng = np.random.default_rng(8)
+    x = rng.normal(size=(B, M + N * L, E)).astype(np.float32)
+    flax_attn = FlaxProxy(E, HEADS, dropout_rate=0.25)
+    params = flax_attn.init(jax.random.PRNGKey(0), jnp.asarray(x), (M, N, L))["params"]
+    drawn = _capture_bernoulli(monkeypatch)
+    want = flax_attn.apply({"params": params}, jnp.asarray(x), (M, N, L), deterministic=False,
+                           rngs={"dropout": jax.random.PRNGKey(5)})
+    attn = ProxyAttention(E, HEADS, dropout_rate=0.25).train()
+    for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+        _load_dense(getattr(attn, name), params[name])
+    got = attn(torch.from_numpy(x), (M, N, L), keep=torch.from_numpy(drawn[0]))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), atol=2e-6, rtol=0)
+
+
+def test_proxy_attention_dropout_raises_off_the_cpu():
+    """The kernels apply no dropout, so with dropout on in training a tensor
+    that is not on the CPU raises instead of taking the plain path (a meta
+    tensor stands in for a CUDA one here)."""
+    from xpretrain_tpu_torch.models.clip_vip.model import ProxyAttention
+
+    M, N, L = 2, 3, 4
+    attn = ProxyAttention(E, HEADS, dropout_rate=0.25, device="meta").train()
+    with pytest.raises(NotImplementedError, match="dropout"):
+        attn(torch.empty(B, M + N * L, E, device="meta"), (M, N, L))

@@ -1,0 +1,80 @@
+"""The port's profile breakdown (``xpretrain_tpu_torch/train/profiling.py``):
+device kernels by op class, and the runner's ``--profile_steps`` files."""
+
+import json
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from xpretrain_tpu_torch.cli import run_retrieval_clipvip  # noqa: E402
+from xpretrain_tpu_torch.train import profiling  # noqa: E402
+
+# device kernel names as torch.profiler reports them on an H100 (abridged)
+KERNELS = {
+    "void (anonymous namespace)::proxy_attention_fwd_kernel<__nv_bfloat16, 16>(...)":
+        "proxy attention forward kernel",
+    "void (anonymous namespace)::bwd_dq_kernel<__nv_bfloat16, 16>(...)":
+        "proxy attention backward kernel, dq pass",
+    "void (anonymous namespace)::bwd_dkv_kernel<__nv_bfloat16, 16>(...)":
+        "proxy attention backward kernel, dk/dv pass",
+    "nvjet_tst_192x192_64x3_2x1_v_bz_coopB_NNN": "GEMMs",
+    "sm80_xmma_gemm_f32f32_f32f32_f32_nn_n_tilesize32x32x8_stage3": "GEMMs",
+    "void cublasLt::splitKreduce_kernel<32, 16, int, float, __nv_bfloat16>(...)": "GEMMs",
+    "void at::native::(anonymous namespace)::multi_tensor_apply_kernel<TensorListMetadata<2>>(...)":
+        "AdamW and norms (_foreach)",
+    "void at::native::(anonymous namespace)::vectorized_layer_norm_kernel<float, float, false>(...)":
+        "LayerNorm forward and backward",
+    "void at::native::(anonymous namespace)::GammaBetaBackwardCUDAKernelTemplate<float>(...)":
+        "LayerNorm forward and backward",
+    "void at::native::unrolled_elementwise_kernel<at::native::direct_copy_kernel_cuda(...)>(...)":
+        "copies and casts",
+    "void at::native::vectorized_elementwise_kernel<8, at::native::bfloat16_copy_kernel_cuda(...)>(...)":
+        "copies and casts",
+    "Memcpy HtoD (Pinned -> Device)": "copies and casts",
+    "void at::native::reduce_kernel<128, 4, at::native::ReduceOp<c10::BFloat16>>(...)": "reductions",
+    "void (anonymous namespace)::softmax_warp_forward<float, float, float, 7>(...)": "softmax",
+    "void at::native::vectorized_elementwise_kernel<8, at::native::CUDAFunctor_add<c10::BFloat16>>(...)":
+        "elementwise",
+    "void at::native::index_elementwise_kernel<128, 4>(...)": "elementwise",
+    "void at::native::(anonymous namespace)::embedding_backward_feature_kernel<float>(...)": "other",
+}
+
+
+@pytest.mark.parametrize("name", sorted(KERNELS))
+def test_op_class(name):
+    assert profiling.op_class(name) == KERNELS[name]
+
+
+def test_op_class_table_counts_device_kernels_per_step():
+    rows = [
+        # host ops carry the device time of the kernels they launch: not counted
+        {"name": "aten::mm", "device_type": "CPU", "count": 4, "self_device_us": 900.0},
+        {"name": "nvjet_tst_a", "device_type": "CUDA", "count": 4, "self_device_us": 600.0},
+        {"name": "sm80_xmma_gemm_b", "device_type": "CUDA", "count": 2, "self_device_us": 300.0},
+        {"name": "bwd_dq_kernel<float, 16>", "device_type": "CUDA", "count": 2, "self_device_us": 300.0},
+    ]
+    table = profiling.op_class_table(rows, steps=2)
+    assert [r["class"] for r in table] == ["GEMMs", "proxy attention backward kernel, dq pass"]
+    assert table[0]["device_ms_per_step"] == pytest.approx(0.45)
+    assert table[0]["launches_per_step"] == 3
+    assert table[0]["share"] == pytest.approx(0.75)
+    assert table[1]["device_ms_per_step"] == pytest.approx(0.15)
+
+
+def test_runner_profile_steps_writes_the_breakdown(tmp_path):
+    run_retrieval_clipvip.main([
+        "--dummy_data", "1", "--clip_size", "tiny", "--num_frm", "2", "--crop_img_size", "32",
+        "--train_batch_size", "8", "--val_batch_size", "24", "--num_train_steps", "3",
+        "--validate_at_start", "0", "--valid_steps", "100", "--save_steps", "100", "--bf16", "0",
+        "--profile_start_step", "1", "--profile_steps", "2", "--device", "cpu",
+        "--output_dir", str(tmp_path),
+    ])
+    profile = tmp_path / "profile"
+    for name in ("trace.json", "key_averages.txt", "key_averages.json", "op_classes.json"):
+        assert (profile / name).is_file(), name
+    rows = json.loads((profile / "key_averages.json").read_text())
+    assert any(r["name"] == "aten::mm" and r["device_type"] == "CPU" for r in rows)
+    breakdown = json.loads((profile / "op_classes.json").read_text())
+    # the two profiled steps; the CPU runs no device kernel
+    assert breakdown == {"steps": 2, "classes": []}

@@ -1,10 +1,11 @@
-"""The port's retrieval eval CLI on the CPU, and its JAX-free imports."""
+"""The port's retrieval CLI on the CPU (eval and fine-tune), and its JAX-free imports."""
 
 import json
 import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -14,6 +15,10 @@ from xpretrain_tpu_torch.cli import run_retrieval_clipvip  # noqa: E402
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = ["--dummy_data", "1", "--mode", "eval", "--clip_size", "tiny", "--num_frm", "2",
         "--crop_img_size", "32", "--val_batch_size", "24", "--device", "cpu"]
+TRAIN = [a for a in TINY if a not in ("--mode", "eval")] + [
+    "--train_batch_size", "8", "--num_train_steps", "4", "--log_steps", "1", "--bf16", "0",
+    "--learning_rate", "1e-3", "--decay", "constant", "--warmup_ratio", "0",
+]  # no --mode: the default is train, as in the JAX runner
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax")
 
 
@@ -28,9 +33,54 @@ def test_eval_cli_reports_recall(tmp_path, ingest):
 
 
 def test_train_mode_not_ported(tmp_path):
-    argv = [a if a != "eval" else "train" for a in TINY] + ["--output_dir", str(tmp_path)]
-    with pytest.raises(NotImplementedError, match="training slice"):
-        run_retrieval_clipvip.main(argv)
+    """The parts of --mode train not ported yet raise, each naming the ROADMAP."""
+    for extra in (["--clip_weights", "clip.pt"], ["--param_dtype", "bf16"], ["--steps_per_call", "2"],
+                  ["--async_checkpoint", "1"]):
+        with pytest.raises(NotImplementedError):
+            run_retrieval_clipvip.main(TRAIN + extra + ["--output_dir", str(tmp_path / extra[0][2:])])
+
+
+def test_train_cli_writes_final_report(tmp_path):
+    report = run_retrieval_clipvip.main(TRAIN + ["--valid_steps", "2", "--save_steps", "2",
+                                                 "--output_dir", str(tmp_path)])
+    with open(tmp_path / "final_report.json") as f:
+        assert json.load(f)["t2v"] == report["t2v"]
+    rows = [json.loads(line) for line in open(tmp_path / "log" / "scalars.jsonl")]
+    losses = [r["value"] for r in rows if r["tag"] == "train/loss"]
+    assert len(losses) == 4 and all(np.isfinite(losses))
+    assert sorted(os.listdir(tmp_path / "ckpt")) == ["2.pt", "4.pt"]
+    assert os.listdir(tmp_path / "best")  # validated at 2 and 4: a best model was kept
+
+
+def test_default_mode_is_train(monkeypatch):
+    """As the JAX runner (``xpretrain_tpu/cli/run_retrieval_clipvip.py``)."""
+    seen = {}
+
+    def capture(parser, argv):
+        seen["mode"] = parser.get_default("mode")
+        raise SystemExit(0)
+
+    monkeypatch.setattr(run_retrieval_clipvip, "parse_with_config", capture)
+    with pytest.raises(SystemExit):
+        run_retrieval_clipvip.main([])
+    assert seen["mode"] == "train"
+
+
+def test_resume_equals_an_unbroken_run(tmp_path):
+    """4 steps with a save at 2 == 2 steps, then a fresh process resuming to 4."""
+    flags = ["--validate_at_start", "0", "--valid_steps", "100", "--save_steps", "2"]
+    straight = TRAIN + flags + ["--output_dir", str(tmp_path / "a")]
+    run_retrieval_clipvip.main(straight)
+    broken = [a if a != "4" else "2" for a in TRAIN] + flags + ["--output_dir", str(tmp_path / "b")]
+    run_retrieval_clipvip.main(broken)
+    run_retrieval_clipvip.main(TRAIN + flags + ["--output_dir", str(tmp_path / "b")])
+    a = torch.load(tmp_path / "a" / "ckpt" / "4.pt", weights_only=True)
+    b = torch.load(tmp_path / "b" / "ckpt" / "4.pt", weights_only=True)
+    assert a["step"] == b["step"] == 4 and a["optimizer"]["count"] == b["optimizer"]["count"] == 4
+    for key, value in a["model"].items():
+        torch.testing.assert_close(b["model"][key], value, rtol=0, atol=0, msg=key)
+    for key, value in a["optimizer"]["mu"].items():
+        torch.testing.assert_close(b["optimizer"]["mu"][key], value, rtol=0, atol=0, msg=key)
 
 
 def test_absent_cuda_fails_instead_of_falling_back():
@@ -41,14 +91,16 @@ def test_absent_cuda_fails_instead_of_falling_back():
 
 
 def test_port_and_its_cli_load_no_jax(tmp_path):
-    """Import every module of the port, run the eval CLI, and check that
-    nothing of JAX was loaded on the way (the card's machine has no JAX)."""
+    """Import every module of the port, run the eval and the train CLI, and
+    check that nothing of JAX was loaded on the way (the card's machine has
+    no JAX)."""
     code = (
         "import pkgutil, sys, xpretrain_tpu_torch\n"
         "for m in pkgutil.walk_packages(xpretrain_tpu_torch.__path__, 'xpretrain_tpu_torch.'):\n"
         "    __import__(m.name)\n"
         "from xpretrain_tpu_torch.cli.run_retrieval_clipvip import main\n"
         f"main({TINY + ['--device_ingest', '1', '--output_dir', str(tmp_path)]!r})\n"
+        f"main({TRAIN + ['--num_train_steps', '2', '--output_dir', str(tmp_path / 'train')]!r})\n"
         f"print(sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}))\n"
     )
     proc = subprocess.run(

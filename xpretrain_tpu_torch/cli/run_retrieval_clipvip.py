@@ -1,13 +1,16 @@
-"""CLIP-ViP zero-shot retrieval eval on one device (PyTorch port).
+"""CLIP-ViP retrieval on one device (PyTorch port of
+``xpretrain_tpu/cli/run_retrieval_clipvip.py``).
 
-The ``--mode eval`` path of ``xpretrain_tpu/cli/run_retrieval_clipvip.py``:
-build the model, run every val batch through the eval step, rank text ->
-video and report R@K (``xpretrain_tpu.train.evaluate.evaluate_retrieval``).
-``--mode train`` comes with the training slice.
+``--mode train`` (the default) fine-tunes with the contrastive loss through
+``ClipVipTrainer``, validating at start and every ``--valid_steps``, and
+writes ``final_report.json``; ``--mode eval`` ranks text -> video with the
+model as built and writes ``eval_report.json`` (both through
+``xpretrain_tpu.train.evaluate.evaluate_retrieval``).
 
-Usage (synthetic ingest, B/32, on the card):
+Usage (synthetic ingest, the MSR-VTT B/32 fine-tune preset, on the card):
     python -m xpretrain_tpu_torch.cli.run_retrieval_clipvip --dummy_data 1 \
-        --mode eval --clip_size base_32 --device_ingest 1 --device cuda
+        --config xpretrain_tpu/configs/presets/msrvtt_retrieval_vip_base_32.json \
+        --device_ingest 1 --device cuda --output_dir output/ft
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ from xpretrain_tpu.data.datasets import (
     SyntheticVideoTextDataset,
     VideoRetrievalDataset,
 )
-from xpretrain_tpu.data.loader import SequentialEvalLoader
+from xpretrain_tpu.data.loader import BatchLoader, InfiniteIterator, SequentialEvalLoader
 from xpretrain_tpu.data.tokenization import build_tokenizer
 from xpretrain_tpu.data.transforms import clip_resize_crop_u8, clip_transform
 from xpretrain_tpu.train.evaluate import evaluate_retrieval
@@ -30,8 +33,10 @@ from xpretrain_tpu.utils.basic import save_json
 from xpretrain_tpu.utils.logging import LOGGER, setup_logging
 from xpretrain_tpu_torch.models.clip_vip.model import CLIPViPModel
 from xpretrain_tpu_torch.parallel.train_step import make_eval_step
-from xpretrain_tpu_torch.train.trainer import clip_vip_config_from
+from xpretrain_tpu_torch.train.checkpoints import save_training_meta
+from xpretrain_tpu_torch.train.trainer import ClipVipTrainer, clip_vip_config_from, without_ids
 
+DUMMY_TRAIN_SIZE = 512  # clips in the synthetic train set (as the JAX runner)
 DUMMY_VAL_SIZE = 128  # clips in the synthetic val set (as the JAX runner)
 
 
@@ -64,19 +69,34 @@ def build_tokenizer_from_cfg(cfg):
     return build_tokenizer(kind, **kwargs)
 
 
-def build_val_loader(cfg) -> tuple[SequentialEvalLoader, int]:
+def build_loaders(cfg) -> tuple[InfiniteIterator | None, SequentialEvalLoader, int]:
+    """(train loader or None, val loader, val clip count), as the JAX runner
+    builds them for process 0 of 1."""
     collate = RetrievalCollator(build_tokenizer_from_cfg(cfg), max_txt_len=int(cfg.get("max_txt_len", 70)))
     ingest = bool(cfg.get("device_ingest"))
     if cfg.get("dummy_data"):
+        train_ds = _TransformedSynthetic(
+            DUMMY_TRAIN_SIZE, cfg.num_frm, cfg.crop_img_size, seed=cfg.seed, device_ingest=ingest
+        )
         val_ds = _TransformedSynthetic(
             DUMMY_VAL_SIZE, cfg.num_frm, cfg.crop_img_size, seed=cfg.seed + 1, device_ingest=ingest
         )
     else:
+        source = FrameSource(cfg.video_root)
+        train_ds = VideoRetrievalDataset(
+            cfg.train_annotation, source, cfg.num_frm, cfg.crop_img_size,
+            train=True, seed=cfg.seed, device_ingest=ingest,
+        ) if cfg.get("train_annotation") else None
         val_ds = VideoRetrievalDataset(
-            cfg.val_annotation, FrameSource(cfg.video_root), cfg.num_frm, cfg.crop_img_size,
+            cfg.val_annotation, source, cfg.num_frm, cfg.crop_img_size,
             train=False, device_ingest=ingest,
         )
-    return SequentialEvalLoader(val_ds, cfg.val_batch_size, collate), len(val_ds)
+    train_loader = None
+    if train_ds is not None:
+        train_loader = InfiniteIterator(
+            BatchLoader(train_ds, cfg.train_batch_size, collate, seed=cfg.seed)
+        )
+    return train_loader, SequentialEvalLoader(val_ds, cfg.val_batch_size, collate), len(val_ds)
 
 
 def resolve_device(name: str) -> torch.device:
@@ -86,50 +106,56 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
-def build_model(cfg, device: torch.device) -> CLIPViPModel:
-    """The CLIP-ViP model on ``device``, random weights from ``--seed``."""
+def check_no_weight_files(cfg) -> None:
+    """--clip_weights / --e2e_weights_path raise until the port loads them."""
     if cfg.get("clip_weights") or cfg.get("e2e_weights_path"):
         raise NotImplementedError(
             "loading torch CLIP checkpoints into the port comes later (ROADMAP Queue 1)"
         )
+
+
+def build_model(cfg, device: torch.device) -> CLIPViPModel:
+    """The CLIP-ViP model on ``device``, random weights from ``--seed``."""
     model = CLIPViPModel(clip_vip_config_from(cfg), device=device)
     generator = torch.Generator(device=device).manual_seed(int(cfg.seed))
     return model.init_weights(generator).eval()
 
 
-def _without_ids(loader):
-    # evaluate_retrieval gathers "ids" through JAX (_host_rows); the port is
-    # one process, so the clip ids add nothing and stay on the host
-    for batch in loader:
-        batch.pop("ids", None)
-        yield batch
-
-
 def main(argv=None):
     parser = build_shared_parser("CLIP-ViP video retrieval (PyTorch)")
-    parser.add_argument("--mode", type=str, default="eval", choices=["train", "eval"])
+    parser.add_argument("--mode", type=str, default="train", choices=["train", "eval"])
     parser.add_argument("--save_feats", type=str, default="",
                         help="dump eval features to this .npz (ref run_video_retrieval.py:233 save_feat)")
     parser.add_argument("--device", type=str, default="cuda", help="torch device: cuda, cuda:N or cpu")
     # shared_args.parse_args would start JAX's distributed runtime
     cfg = parse_with_config(parser, argv)
     if cfg.get("data_mount_dir"):
-        for key in ("val_annotation", "video_root"):
+        for key in ("train_annotation", "val_annotation", "video_root"):
             if cfg.get(key) and not str(cfg[key]).startswith("/"):
                 cfg[key] = f"{cfg['data_mount_dir'].rstrip('/')}/{cfg[key]}"
-    if cfg.mode == "train":
-        raise NotImplementedError("--mode train comes with the training slice (ROADMAP Queue 1)")
     setup_logging(cfg.output_dir, 0)
+    save_training_meta(cfg.output_dir, cfg)
     device = resolve_device(cfg.device)
+    check_no_weight_files(cfg)
+    feats_path = cfg.get("save_feats") or None
 
-    val_loader, valid_len = build_val_loader(cfg)
-    model = build_model(cfg, device)
-    LOGGER.info("eval on %s: %d clips, batch %d", device, valid_len, cfg.val_batch_size)
-    report = evaluate_retrieval(
-        make_eval_step(device), model, _without_ids(val_loader), valid_len,
-        save_feats_path=cfg.get("save_feats") or None,
-    )
-    save_json(report, f"{cfg.output_dir}/eval_report.json", pretty=True)
+    train_loader, val_loader, valid_len = build_loaders(cfg)
+    if cfg.mode == "eval":
+        model = build_model(cfg, device)
+        LOGGER.info("eval on %s: %d clips, batch %d", device, valid_len, cfg.val_batch_size)
+        report = evaluate_retrieval(
+            make_eval_step(device), model, without_ids(val_loader), valid_len,
+            save_feats_path=feats_path,
+        )
+        save_json(report, f"{cfg.output_dir}/eval_report.json", pretty=True)
+        return report
+    if train_loader is None:
+        raise ValueError("--mode train needs --train_annotation or --dummy_data 1")
+    trainer = ClipVipTrainer(cfg, train_loader, val_loader, valid_len, device=device)
+    LOGGER.info("train on %s: %d steps, batch %d", device, trainer.num_train_steps, cfg.train_batch_size)
+    trainer.train()
+    report = trainer.validate(save_feats_path=feats_path)
+    save_json(report, f"{cfg.output_dir}/final_report.json", pretty=True)
     return report
 
 

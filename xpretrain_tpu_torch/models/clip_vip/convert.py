@@ -122,3 +122,11 @@ def load_jax_params(model: nn.Module, flax_params: Mapping[str, Any]) -> nn.Modu
             raise ValueError(f"{key}: port shape {tuple(own[key].shape)} != loaded {tuple(value.shape)}")
     model.load_state_dict(state, strict=True)
     return model
+
+
+def flax_param_paths(config) -> dict[str, str]:
+    """Port parameter name -> its "/"-joined path in the flax params tree,
+    where the optimizer's label patterns are matched
+    (``xpretrain_tpu_torch.optim.optimizer.param_group_labels``)."""
+    rules = clip_key_rules(config.text.num_hidden_layers, config.vision.num_hidden_layers)
+    return {key: "/".join(path) for key, (path, _kind) in rules.items()}

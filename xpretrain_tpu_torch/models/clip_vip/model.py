@@ -1,6 +1,6 @@
 """CLIP-ViP in PyTorch: proxy-token video attention over a CLIP dual encoder.
 
-Counterpart of ``xpretrain_tpu/models/clip_vip/model.py`` (inference):
+Counterpart of ``xpretrain_tpu/models/clip_vip/model.py``:
 
 - Video patchify with temporal embeddings and M = 1 + ``add_cls_num`` video
   proxy tokens (ref ``CLIP-ViP/src/modeling/CLIP_ViP.py:142-197``).
@@ -10,6 +10,10 @@ Counterpart of ``xpretrain_tpu/models/clip_vip/model.py`` (inference):
 - CLIP text tower with causal masking and EOT-argmax pooling.
 - Bias-free projections, L2 normalization, learnable ``logit_scale``.
 - ``vision_type="mean"`` is the frame-mean baseline (ref ``VidCLIP.py:55-65``).
+- Training: ``module.training`` stands for flax's ``deterministic=False``.
+  Attention dropout draws from the ``torch.Generator`` handed to ``forward``;
+  ``CLIPVipConfig.remat`` recomputes each encoder layer in the backward
+  (``torch.utils.checkpoint``, as ``nn.remat`` in the JAX ``Encoder``).
 
 Parameters are fp32 and named with the HF-CLIP keys (``pre_layrnorm`` is
 HF's spelling), so ``state_dict()`` keys are those of ``convert.py``'s table;
@@ -24,6 +28,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from xpretrain_tpu.data.transforms import CLIP_MEAN, CLIP_STD
 from xpretrain_tpu_torch.models.common import (
@@ -31,11 +36,12 @@ from xpretrain_tpu_torch.models.common import (
     Linear,
     MultiHeadAttention,
     TransformerMLP,
+    dot_attention,
     expand_padding_mask,
     make_causal_mask,
 )
 from xpretrain_tpu_torch.ops.patchify import extract_patches_u8, patch_embed_u8
-from xpretrain_tpu_torch.ops.proxy_attention import proxy_attention
+from xpretrain_tpu_torch.ops.proxy_attention import proxy_attention, proxy_bias
 
 # ---------------------------------------------------------------------------
 # Configs
@@ -90,6 +96,7 @@ class CLIPVipConfig:
     projection_dim: int = 512
     logit_scale_init_value: float = 2.6592  # HF CLIP default; ViP overrides at load
     dtype: torch.dtype = torch.float32  # compute dtype; parameters stay fp32
+    remat: bool = False  # recompute each encoder layer in the backward
 
     @staticmethod
     def base_patch32(**overrides) -> "CLIPVipConfig":
@@ -135,10 +142,13 @@ class ProxyAttention(nn.Module):
     """The ViP proxy video attention (ref ``CLIP_ViP.py:332-381``).
 
     Sequence layout [M proxy tokens | N frames x L patches]: patch tokens
-    attend [proxies | own frame], proxies attend everything."""
+    attend [proxies | own frame], proxies attend everything. The kernel path
+    runs unless attention dropout is on in training; then CPU tensors take
+    the masked ``dot_attention``, as the JAX model does, and any other device
+    raises: the kernels apply no dropout, and the card runs no plain path."""
 
     def __init__(self, embed_dim: int, num_heads: int, dtype: torch.dtype = torch.float32,
-                 mode: str = "masked_full", device=None):
+                 mode: str = "masked_full", device=None, dropout_rate: float = 0.0):
         super().__init__()
         if mode != "masked_full":
             raise NotImplementedError(
@@ -147,12 +157,19 @@ class ProxyAttention(nn.Module):
             )
         self.embed_dim = embed_dim
         self.num_heads = num_heads
+        self.dropout_rate = dropout_rate
         self.q_proj = Linear(embed_dim, embed_dim, dtype=dtype, device=device)
         self.k_proj = Linear(embed_dim, embed_dim, dtype=dtype, device=device)
         self.v_proj = Linear(embed_dim, embed_dim, dtype=dtype, device=device)
         self.out_proj = Linear(embed_dim, embed_dim, dtype=dtype, device=device)
 
-    def forward(self, hidden_states: torch.Tensor, inputs_size: tuple[int, int, int]) -> torch.Tensor:
+    def forward(
+        self,
+        hidden_states: torch.Tensor,
+        inputs_size: tuple[int, int, int],
+        generator: Optional[torch.Generator] = None,
+        keep: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
         M, N, L = inputs_size
         B, S, _ = hidden_states.shape
         H = self.num_heads
@@ -162,7 +179,17 @@ class ProxyAttention(nn.Module):
         q = split(self.q_proj(hidden_states))
         k = split(self.k_proj(hidden_states))
         v = split(self.v_proj(hidden_states))
-        out = proxy_attention(q, k, v, M, N, L, D**-0.5)
+        if self.training and self.dropout_rate > 0.0:
+            if q.device.type != "cpu":
+                raise NotImplementedError(
+                    "attention dropout in the proxy attention has no kernel yet (ROADMAP "
+                    "Queue 2: dropout inside the proxy-attention kernels); train with "
+                    "attention_dropout 0 on the card"
+                )
+            out = dot_attention(q, k, v, D**-0.5, proxy_bias(S, M, L, q.device),
+                                self.dropout_rate, generator, keep)
+        else:
+            out = proxy_attention(q, k, v, M, N, L, D**-0.5)
         return self.out_proj(out.transpose(1, 2).reshape(B, S, self.embed_dim))
 
 
@@ -297,14 +324,16 @@ class EncoderLayer(nn.Module):
     def __init__(self, hidden_size: int, num_heads: int, intermediate_size: int,
                  hidden_act: str = "quick_gelu", use_proxy: bool = False,
                  dtype: torch.dtype = torch.float32, proxy_mode: str = "masked_full",
-                 device=None):
+                 device=None, attention_dropout: float = 0.0):
         super().__init__()
         self.use_proxy = use_proxy
         self.layer_norm1 = LayerNorm(hidden_size, dtype=dtype, device=device)
         if use_proxy:
-            self.self_attn = ProxyAttention(hidden_size, num_heads, dtype, proxy_mode, device)
+            self.self_attn = ProxyAttention(hidden_size, num_heads, dtype, proxy_mode, device,
+                                            attention_dropout)
         else:
-            self.self_attn = MultiHeadAttention(hidden_size, num_heads, dtype, device)
+            self.self_attn = MultiHeadAttention(hidden_size, num_heads, dtype, device,
+                                                attention_dropout)
         self.layer_norm2 = LayerNorm(hidden_size, dtype=dtype, device=device)
         self.mlp = TransformerMLP(hidden_size, intermediate_size, hidden_act, dtype, device)
 
@@ -313,25 +342,39 @@ class EncoderLayer(nn.Module):
         hidden_states: torch.Tensor,
         mask: Optional[torch.Tensor] = None,
         inputs_size: Optional[tuple[int, int, int]] = None,
+        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         x = self.layer_norm1(hidden_states)
         if self.use_proxy:
-            x = self.self_attn(x, inputs_size)
+            x = self.self_attn(x, inputs_size, generator)
         else:
-            x = self.self_attn(x, mask)
+            x = self.self_attn(x, mask, generator)
         hidden_states = hidden_states + x
         return hidden_states + self.mlp(self.layer_norm2(hidden_states))
 
 
+def _replay_layer(layer, hidden_states, mask, inputs_size, generator, generator_state):
+    # rewinds the dropout generator, so the backward's recompute draws the
+    # forward's keep masks
+    if generator is not None:
+        generator.set_state(generator_state)
+    return layer(hidden_states, mask, inputs_size, generator)
+
+
 class Encoder(nn.Module):
+    """A stack of ``EncoderLayer``; with ``remat`` each layer keeps only its
+    input for the backward and recomputes the rest (``torch.utils.checkpoint``)."""
+
     def __init__(self, num_layers: int, hidden_size: int, num_heads: int,
                  intermediate_size: int, hidden_act: str = "quick_gelu",
                  use_proxy: bool = False, dtype: torch.dtype = torch.float32,
-                 proxy_mode: str = "masked_full", device=None):
+                 proxy_mode: str = "masked_full", device=None,
+                 attention_dropout: float = 0.0, remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.layers = nn.ModuleList(
             EncoderLayer(hidden_size, num_heads, intermediate_size, hidden_act,
-                         use_proxy, dtype, proxy_mode, device)
+                         use_proxy, dtype, proxy_mode, device, attention_dropout)
             for _ in range(num_layers)
         )
 
@@ -340,9 +383,17 @@ class Encoder(nn.Module):
         hidden_states: torch.Tensor,
         mask: Optional[torch.Tensor] = None,
         inputs_size: Optional[tuple[int, int, int]] = None,
+        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         for layer in self.layers:
-            hidden_states = layer(hidden_states, mask, inputs_size)
+            if self.remat and torch.is_grad_enabled():
+                state = generator.get_state() if generator is not None else None
+                hidden_states = checkpoint(
+                    _replay_layer, layer, hidden_states, mask, inputs_size, generator, state,
+                    use_reentrant=False,
+                )
+            else:
+                hidden_states = layer(hidden_states, mask, inputs_size, generator)
         return hidden_states
 
 
@@ -352,24 +403,28 @@ class Encoder(nn.Module):
 
 
 class TextTransformer(nn.Module):
-    def __init__(self, config: CLIPTextConfig, dtype: torch.dtype = torch.float32, device=None):
+    def __init__(self, config: CLIPTextConfig, dtype: torch.dtype = torch.float32, device=None,
+                 remat: bool = False):
         super().__init__()
         self.embeddings = TextEmbeddings(config, dtype, device)
         self.encoder = Encoder(
             config.num_hidden_layers, config.hidden_size, config.num_attention_heads,
             config.intermediate_size, config.hidden_act, use_proxy=False, dtype=dtype,
-            device=device,
+            device=device, attention_dropout=config.attention_dropout, remat=remat,
         )
         self.final_layer_norm = LayerNorm(config.hidden_size, dtype=dtype, device=device)
 
     def forward(
-        self, input_ids: torch.Tensor, attention_mask: Optional[torch.Tensor] = None
+        self,
+        input_ids: torch.Tensor,
+        attention_mask: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
     ) -> tuple[torch.Tensor, torch.Tensor]:
         x = self.embeddings(input_ids)
         mask = make_causal_mask(input_ids.shape[1], device=input_ids.device)
         if attention_mask is not None:
             mask = mask + expand_padding_mask(attention_mask)
-        x = self.final_layer_norm(self.encoder(x, mask=mask))
+        x = self.final_layer_norm(self.encoder(x, mask=mask, generator=generator))
         # EOT pooling: the EOT token has the highest id in CLIP's vocab
         # (ref CLIP_ViP.py:776); argmax returns the first maximum
         eot = torch.argmax(input_ids, dim=-1)
@@ -379,7 +434,7 @@ class TextTransformer(nn.Module):
 
 class VipVisionTransformer(nn.Module):
     def __init__(self, config: CLIPVisionConfig, vip: VipConfig,
-                 dtype: torch.dtype = torch.float32, device=None):
+                 dtype: torch.dtype = torch.float32, device=None, remat: bool = False):
         super().__init__()
         self.use_proxy = vip.type == "ViP"
         self.embeddings = VipVisionEmbeddings(config, vip, dtype, device)
@@ -388,13 +443,17 @@ class VipVisionTransformer(nn.Module):
             config.num_hidden_layers, config.hidden_size, config.num_attention_heads,
             config.intermediate_size, config.hidden_act, use_proxy=self.use_proxy,
             dtype=dtype, proxy_mode=vip.attention_mode, device=device,
+            attention_dropout=config.attention_dropout, remat=remat,
         )
         self.post_layernorm = LayerNorm(config.hidden_size, dtype=dtype, device=device)
 
-    def forward(self, pixel_values: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    def forward(
+        self, pixel_values: torch.Tensor, generator: Optional[torch.Generator] = None
+    ) -> tuple[torch.Tensor, torch.Tensor]:
         embeds, inputs_size = self.embeddings(pixel_values)
         x = self.pre_layrnorm(embeds)
-        x = self.encoder(x, inputs_size=inputs_size if self.use_proxy else None)
+        x = self.encoder(x, inputs_size=inputs_size if self.use_proxy else None,
+                         generator=generator)
         return x, self.post_layernorm(x[:, 0])
 
 
@@ -413,14 +472,15 @@ class CLIPViPModel(nn.Module):
     """Dual-tower video CLIP with proxy attention (the ``VidCLIP`` surface,
     ref ``VidCLIP.py:32-81``): normalized ``text_features`` /
     ``vis_features`` plus ``logit_scale``. The pretraining image/caption
-    branch comes with the training slice."""
+    branch is not ported yet (ROADMAP Queue 1, pretraining)."""
 
     def __init__(self, config: CLIPVipConfig, device=None):
         super().__init__()
         self.config = config
         dt = config.dtype
-        self.text_model = TextTransformer(config.text, dt, device)
-        self.vision_model = VipVisionTransformer(config.vision, config.vip, dt, device)
+        self.text_model = TextTransformer(config.text, dt, device, config.remat)
+        self.vision_model = VipVisionTransformer(config.vision, config.vip, dt, device,
+                                                 config.remat)
         self.visual_projection = Linear(
             config.vision.hidden_size, config.projection_dim, bias=False, dtype=dt, device=device
         )
@@ -459,21 +519,26 @@ class CLIPViPModel(nn.Module):
         return self
 
     def encode_text(
-        self, input_ids: torch.Tensor, attention_mask: Optional[torch.Tensor] = None
+        self,
+        input_ids: torch.Tensor,
+        attention_mask: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
-        _, pooled = self.text_model(input_ids, attention_mask)
+        _, pooled = self.text_model(input_ids, attention_mask, generator)
         return self.text_projection(pooled)
 
-    def encode_video(self, pixel_values: torch.Tensor) -> torch.Tensor:
+    def encode_video(
+        self, pixel_values: torch.Tensor, generator: Optional[torch.Generator] = None
+    ) -> torch.Tensor:
         """pixel_values: uint8 [B, T, H, W, 3] or fp32 [B, T, C, H, W]."""
         if self.config.vip.type == "ViP":
-            _, pooled = self.vision_model(pixel_values)
+            _, pooled = self.vision_model(pixel_values, generator)
             return self.visual_projection(pooled)
         # frame-mean baseline: encode each frame independently, normalize,
         # mean-pool over frames (ref VidCLIP.py:55-65)
         B, T = pixel_values.shape[:2]
         frames = pixel_values.reshape(B * T, 1, *pixel_values.shape[2:])
-        _, pooled = self.vision_model(frames)
+        _, pooled = self.vision_model(frames, generator)
         feats = l2_normalize(self.visual_projection(pooled))
         return feats.reshape(B, T, -1).mean(dim=1)
 
@@ -482,17 +547,27 @@ class CLIPViPModel(nn.Module):
         video: torch.Tensor,
         text_input_ids: torch.Tensor,
         text_input_mask: Optional[torch.Tensor] = None,
+        image: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
     ) -> dict[str, torch.Tensor]:
-        return {
-            "text_features": self.forward_text(text_input_ids, text_input_mask),
-            "vis_features": self.forward_video(video),
-            "logit_scale": self.logit_scale,
-        }
+        """``generator`` feeds attention dropout in training mode."""
+        if image is not None:
+            raise NotImplementedError(
+                "the image/caption branch comes with pretraining (ROADMAP Queue 1)"
+            )
+        vis = self.forward_video(video, generator)  # video first, as the JAX model
+        txt = self.forward_text(text_input_ids, text_input_mask, generator)
+        return {"text_features": txt, "vis_features": vis, "logit_scale": self.logit_scale}
 
-    def forward_video(self, pixel_values: torch.Tensor) -> torch.Tensor:
-        return l2_normalize(self.encode_video(pixel_values))
+    def forward_video(
+        self, pixel_values: torch.Tensor, generator: Optional[torch.Generator] = None
+    ) -> torch.Tensor:
+        return l2_normalize(self.encode_video(pixel_values, generator))
 
     def forward_text(
-        self, input_ids: torch.Tensor, attention_mask: Optional[torch.Tensor] = None
+        self,
+        input_ids: torch.Tensor,
+        attention_mask: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
-        return l2_normalize(self.encode_text(input_ids, attention_mask))
+        return l2_normalize(self.encode_text(input_ids, attention_mask, generator))

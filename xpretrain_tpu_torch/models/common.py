@@ -3,8 +3,9 @@
 Counterpart of ``xpretrain_tpu/models/common.py``. As there, parameters stay
 fp32 and each layer computes in a configurable ``dtype`` (the cast happens at
 use, like flax's ``Dense(dtype=...)``); attention scores, softmax and
-layer-norm statistics run in fp32. Inference only: dropout comes with the
-training slice.
+layer-norm statistics run in fp32. Attention dropout draws its keep mask from
+an explicit ``torch.Generator`` (or takes the mask itself), since torch's
+bits cannot match ``jax.random``'s.
 """
 
 from __future__ import annotations
@@ -65,17 +66,30 @@ def dot_attention(
     v: torch.Tensor,
     scale: float,
     mask: Optional[torch.Tensor] = None,
+    dropout_rate: float = 0.0,
+    generator: Optional[torch.Generator] = None,
+    keep: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Scaled dot-product attention over [..., Q, D] x [..., K, D].
 
     Scores and softmax run in fp32 regardless of the input dtype; ``mask`` is
     additive (0 keep / NEG_INF drop), broadcastable to [..., Q, K].
+
+    ``dropout_rate > 0`` drops softmax weights (fp32) and rescales the kept
+    ones by 1/(1 - rate), as the flax version does: with the boolean
+    ``keep`` mask when given, else with one drawn from ``generator``. The
+    caller passes a rate only in training.
     """
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     if mask is not None:
         scores = scores + mask.float()
-    weights = torch.softmax(scores, dim=-1).to(v.dtype)
-    return torch.matmul(weights, v)
+    weights = torch.softmax(scores, dim=-1)
+    if dropout_rate > 0.0:
+        if keep is None:
+            draw = torch.rand(weights.shape, generator=generator, device=weights.device)
+            keep = draw < 1.0 - dropout_rate
+        weights = torch.where(keep, weights / (1.0 - dropout_rate), 0.0)
+    return torch.matmul(weights.to(v.dtype), v)
 
 
 class MultiHeadAttention(nn.Module):
@@ -83,12 +97,13 @@ class MultiHeadAttention(nn.Module):
     CLIP/BERT checkpoint naming)."""
 
     def __init__(self, embed_dim: int, num_heads: int, dtype: torch.dtype = torch.float32,
-                 device=None):
+                 device=None, dropout_rate: float = 0.0):
         super().__init__()
         if embed_dim % num_heads:
             raise ValueError(f"embed_dim {embed_dim} % heads {num_heads} != 0")
         self.embed_dim = embed_dim
         self.num_heads = num_heads
+        self.dropout_rate = dropout_rate
         self.q_proj = Linear(embed_dim, embed_dim, dtype=dtype, device=device)
         self.k_proj = Linear(embed_dim, embed_dim, dtype=dtype, device=device)
         self.v_proj = Linear(embed_dim, embed_dim, dtype=dtype, device=device)
@@ -98,12 +113,20 @@ class MultiHeadAttention(nn.Module):
         b, s, _ = x.shape
         return x.view(b, s, self.num_heads, -1).transpose(1, 2)  # [B,H,S,D]
 
-    def forward(self, hidden_states: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(
+        self,
+        hidden_states: torch.Tensor,
+        mask: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
+        keep: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        """Dropout applies in training mode only (``self.training``)."""
         scale = (self.embed_dim // self.num_heads) ** -0.5
         q = self._split(self.q_proj(hidden_states))
         k = self._split(self.k_proj(hidden_states))
         v = self._split(self.v_proj(hidden_states))
-        out = dot_attention(q, k, v, scale, mask)  # [B,H,Q,D]
+        rate = self.dropout_rate if self.training else 0.0
+        out = dot_attention(q, k, v, scale, mask, rate, generator, keep)  # [B,H,Q,D]
         b, _, s, _ = out.shape
         return self.out_proj(out.transpose(1, 2).reshape(b, s, self.embed_dim))
 

@@ -1,11 +1,12 @@
 """Build and bind the port's hand-written CUDA kernels (``csrc/*.cu``).
 
-The sources are compiled with ``nvcc`` for ``sm_90a`` into one shared library
-with a plain C interface, bound with ``ctypes``. The build runs at first use
-into ``build/xpretrain_tpu_torch/`` beside the package, keyed by a hash of the
-sources and flags, so a fresh checkout builds itself and an unchanged one
-reuses its library. A missing ``nvcc`` or a failed build raises; nothing falls
-back to another path.
+Each source is compiled with ``nvcc`` for ``sm_90a`` into an object, all of
+them at once in parallel processes, and the objects are linked into one
+shared library with a plain C interface, bound with ``ctypes``. The build runs
+at first use into ``build/xpretrain_tpu_torch/`` beside the package, keyed by
+a hash of the sources and flags, so a fresh checkout builds itself and an
+unchanged one reuses its library. A missing ``nvcc`` or a failed build raises;
+nothing falls back to another path.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "xpretrain_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers / shared memory / spills go to the build log
 )
 
@@ -52,30 +53,60 @@ def library_path() -> Path:
     return BUILD_DIR / f"libxpt_kernels_{digest.hexdigest()[:16]}.so"
 
 
+def _build(lib_path: Path) -> None:
+    """One ``nvcc -c`` per source, all started together, then one link.
+
+    The ``-Xptxas -v`` reports and any errors go to ``<lib>.log``."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{lib_path.stem}.{os.getpid()}"
+    nvcc = _nvcc()
+    jobs = []
+    for src in sorted(CSRC_DIR.glob("*.cu")):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs.append((obj, proc))
+    log, failed = [], []
+    for obj, proc in jobs:
+        out, _ = proc.communicate()
+        log.append(f"== {obj.name}\n{out}")
+        if proc.returncode != 0:
+            failed.append(f"{obj.name}: nvcc exited {proc.returncode}\n{out[-6000:]}")
+    tmp = lib_path.with_name(f"{tag}.so.tmp")
+    if not failed:
+        link = subprocess.run(
+            [nvcc, "-shared", "-o", str(tmp), *(str(obj) for obj, _ in jobs)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        log.append(f"== link\n{link.stdout}")
+        if link.returncode != 0:
+            failed.append(f"link: nvcc exited {link.returncode}\n{link.stdout[-6000:]}")
+    for obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    lib_path.with_suffix(".log").write_text("\n".join(log))
+    if failed:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError("building the CUDA kernels failed:\n" + "\n".join(failed))
+    os.replace(tmp, lib_path)  # atomic: a concurrent build never sees half a file
+
+
 @functools.cache
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library; cached per process."""
     lib_path = library_path()
     if not lib_path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
-        sources = [str(s) for s in sorted(CSRC_DIR.glob("*.cu"))]
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *sources],
-            capture_output=True, text=True,
-        )
-        lib_path.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed with code {proc.returncode}:\n{proc.stderr[-6000:]}"
-            )
-        os.replace(tmp, lib_path)  # atomic: a concurrent build never sees half a file
+        _build(lib_path)
     lib = ctypes.CDLL(str(lib_path))
     lib.xpt_proxy_attention_fwd.argtypes = (
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     )
     lib.xpt_proxy_attention_fwd.restype = ctypes.c_int
+    lib.xpt_proxy_attention_bwd.argtypes = (
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    )
+    lib.xpt_proxy_attention_bwd.restype = ctypes.c_int
     lib.xpt_cuda_error_string.argtypes = [ctypes.c_int]
     lib.xpt_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -103,3 +134,25 @@ def proxy_attention_fwd(
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     _check(lib, rc, "proxy_attention_fwd")
+
+
+def proxy_attention_bwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, d_out: torch.Tensor,
+    dq: torch.Tensor, dk: torch.Tensor, dv: torch.Tensor,
+    lse: torch.Tensor, delta: torch.Tensor,
+    M: int, N: int, L: int, scale: float,
+) -> None:
+    """Launch both passes of ``csrc/proxy_attention_bwd.cu`` on the current
+    stream; ``lse`` and ``delta`` are fp32 [B, H, S] scratch.
+
+    The caller has checked device, dtype, shape and contiguity."""
+    lib = load_library()
+    B, H, S, D = q.shape
+    with torch.cuda.device(q.device):
+        rc = lib.xpt_proxy_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), d_out.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            B, H, S, D, M, N, L, float(scale), int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    _check(lib, rc, "proxy_attention_bwd")

@@ -1,0 +1,265 @@
+"""Grouped AdamW with the JAX package's update rule
+(``xpretrain_tpu/optim/optimizer.py``, ref ``CLIP-ViP/src/optimization/utils.py:96-154``).
+
+Parameters are labelled ``frozen`` or {``top_``, ``base_``} x {``decay``,
+``no_decay``} by their path in the flax params tree (for CLIP-ViP,
+``models/clip_vip/convert.py:flax_param_paths``), so the pattern rules hit the
+same leaves as in JAX. :class:`GroupedAdamW` is ``fused_grouped_adamw``, and
+``grad_accum_steps > 1`` wraps it the way ``optax.MultiSteps`` does:
+
+- the lr is ``schedule(count)`` evaluated before the increment, so a
+  warmup's first step has lr = 1e-8 (the floor);
+- clipping is by the global norm over all gradients, frozen ones included,
+  as ``(g / gnorm) * max_norm`` and only when ``gnorm >= max_norm``;
+- decoupled decay: ``u = m_hat / (sqrt(v_hat) + eps) + wd * p``, step
+  ``-lr * mul * u``; frozen parameters never move;
+- accumulation keeps the running mean of the k gradients (Welford, as
+  ``MultiSteps``) and updates on every k-th call.
+
+The update runs in place on the parameters, with ``torch._foreach_*`` ops per
+group so that a step costs a few launches per group, not per tensor.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Mapping, Optional, Sequence
+
+import numpy as np
+import torch
+
+NO_DECAY_DEFAULT = ("bias", "layer_norm", "layernorm", "_norm", "norm_", "logit_scale")
+
+LOGIT_SCALE_MAX = 5.2983  # ln(200), ref run_pretrain.py:335-340
+
+
+def _is_no_decay(path_s: str, ndim: int, patterns: Sequence[str]) -> bool:
+    # 1-D (and 0-D) leaves are biases, norm scales and embedding-like vectors
+    return ndim <= 1 or any(p in path_s for p in patterns)
+
+
+def param_group_labels(
+    named_params: Mapping[str, torch.Tensor],
+    lr_mul_prefix: str = "",
+    no_decay_patterns: Sequence[str] = NO_DECAY_DEFAULT,
+    frozen_patterns: Sequence[str] = (),
+    paths: Optional[Mapping[str, str]] = None,
+) -> dict[str, str]:
+    """Label per parameter name: ``frozen`` or {top_,base_} x {decay,no_decay}.
+
+    ``paths`` maps a parameter name to its "/"-joined flax path, where the
+    patterns are matched (lower case); without it the dotted name is used."""
+    labels = {}
+    for name, p in named_params.items():
+        path_s = (paths[name] if paths is not None else name.replace(".", "/")).lower()
+        if any(pat.lower() in path_s for pat in frozen_patterns):
+            labels[name] = "frozen"
+            continue
+        top = bool(lr_mul_prefix) and lr_mul_prefix.lower() in path_s
+        nd = _is_no_decay(path_s, p.dim(), no_decay_patterns)
+        labels[name] = ("top_" if top else "base_") + ("no_decay" if nd else "decay")
+    return labels
+
+
+def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum of squares over every element (``optax.global_norm``)."""
+    norms = torch._foreach_norm([t.float() for t in tensors])
+    return torch.linalg.vector_norm(torch.stack(norms))
+
+
+class GroupedAdamW:
+    """``fused_grouped_adamw`` (+ ``MultiSteps`` when ``grad_accum_steps > 1``)
+    over named torch parameters, updated in place by :meth:`step`."""
+
+    def __init__(
+        self,
+        named_params: Mapping[str, torch.Tensor],
+        labels: Mapping[str, str],
+        schedule: Callable[[int], float],
+        weight_decay: float,
+        betas: tuple[float, float],
+        eps: float,
+        lr_mul: float,
+        max_grad_norm: Optional[float],
+        moment_dtype: Optional[torch.dtype] = None,
+        grad_accum_steps: int = 1,
+    ):
+        self.names = list(named_params)
+        self.params = [named_params[n] for n in self.names]
+        self.labels = [labels[n] for n in self.names]
+        self.schedule = schedule
+        self.b1, self.b2 = betas
+        self.eps = eps
+        self.max_grad_norm = max_grad_norm if max_grad_norm and max_grad_norm > 0 else None
+        self.moment_dtype = moment_dtype
+        self.k = max(1, int(grad_accum_steps))
+        self.count = 0  # inner Adam steps taken
+        self.mini_step = 0  # gradients accumulated towards the next step
+
+        def moment(p: torch.Tensor, label: str) -> torch.Tensor:
+            dt = moment_dtype or p.dtype
+            # frozen leaves carry scalar placeholder moments, as in JAX
+            if label == "frozen":
+                return torch.zeros((), dtype=dt, device=p.device)
+            return torch.zeros_like(p, dtype=dt, memory_format=torch.contiguous_format)
+
+        with torch.no_grad():
+            self.mu = [moment(p, lb) for p, lb in zip(self.params, self.labels)]
+            self.nu = [moment(p, lb) for p, lb in zip(self.params, self.labels)]
+            self.acc = [torch.zeros_like(p) for p in self.params] if self.k > 1 else []
+        # (lr multiplier, weight decay) -> indices of the parameters that use it
+        self.groups: dict[tuple[float, float], list[int]] = {}
+        for i, label in enumerate(self.labels):
+            if label == "frozen":
+                continue
+            mul = lr_mul if label.startswith("top_") else 1.0
+            wd = weight_decay if label.endswith("_decay") and not label.endswith("no_decay") else 0.0
+            self.groups.setdefault((mul, wd), []).append(i)
+
+    @torch.no_grad()
+    def step(self, grads: Sequence[torch.Tensor], grad_norm: Optional[torch.Tensor] = None) -> None:
+        """Take one gradient (one per parameter, in order); under
+        accumulation, update the parameters on every k-th call only.
+
+        ``grad_norm`` is :func:`global_norm` of ``grads`` when the caller
+        already has it; clipping reuses it when ``grads`` are what is applied
+        (no accumulation)."""
+        if self.k == 1:
+            self._update(list(grads), grad_norm)
+            return
+        n = self.mini_step
+        # acc + (g - acc) / (n + 1), as MultiSteps' running mean
+        diff = torch._foreach_sub(list(grads), self.acc)
+        torch._foreach_div_(diff, float(n + 1))
+        torch._foreach_add_(self.acc, diff)
+        if n + 1 < self.k:
+            self.mini_step = n + 1
+            return
+        grads = [a.clone() for a in self.acc]
+        for a in self.acc:
+            a.zero_()
+        self.mini_step = 0
+        self._update(grads, None)
+
+    def _update(self, grads: list[torch.Tensor], gnorm: Optional[torch.Tensor]) -> None:
+        if self.max_grad_norm is not None:
+            if gnorm is None:
+                gnorm = global_norm(grads)
+            keep = gnorm < self.max_grad_norm
+            # (g / gnorm) * max_norm when clipping, g / 1 * 1 (exact) when not;
+            # 0-d device tensors, so no host sync
+            one = torch.ones_like(gnorm)
+            grads = torch._foreach_div(grads, torch.where(keep, one, gnorm))
+            torch._foreach_mul_(grads, torch.where(keep, one, torch.full_like(gnorm, self.max_grad_norm)))
+        lr = self.schedule(self.count)  # evaluated before the increment, as optax
+        self.count += 1
+        # bias corrections in fp32, as JAX computes them
+        c1 = float(1 - np.float32(self.b1) ** np.float32(self.count))
+        c2 = float(1 - np.float32(self.b2) ** np.float32(self.count))
+        for (mul, wd), idx in self.groups.items():
+            p = [self.params[i] for i in idx]
+            g = [grads[i] for i in idx]
+            if self.moment_dtype is not None:  # stored reduced, accumulated in fp32
+                g = [t.float() for t in g]
+                m = [self.mu[i].float() for i in idx]
+                v = [self.nu[i].float() for i in idx]
+            else:
+                m = [self.mu[i] for i in idx]
+                v = [self.nu[i] for i in idx]
+            torch._foreach_mul_(m, self.b1)
+            torch._foreach_add_(m, torch._foreach_mul(g, 1 - self.b1))
+            torch._foreach_mul_(v, self.b2)
+            torch._foreach_add_(v, torch._foreach_mul(torch._foreach_mul(g, g), 1 - self.b2))
+            denom = torch._foreach_div(v, c2)
+            torch._foreach_sqrt_(denom)
+            torch._foreach_add_(denom, self.eps)
+            u = torch._foreach_div(m, c1)
+            torch._foreach_div_(u, denom)
+            if wd:
+                torch._foreach_add_(u, torch._foreach_mul([t.float() for t in p], wd))
+            torch._foreach_mul_(u, -lr * mul)
+            if self.moment_dtype is not None:
+                for j, i in enumerate(idx):
+                    self.mu[i].copy_(m[j])
+                    self.nu[i].copy_(v[j])
+                u = [t.to(q.dtype) for t, q in zip(u, p)]
+            torch._foreach_add_(p, u)
+
+    def state_dict(self) -> dict:
+        return {
+            "count": self.count,
+            "mini_step": self.mini_step,
+            "mu": dict(zip(self.names, self.mu)),
+            "nu": dict(zip(self.names, self.nu)),
+            "acc": dict(zip(self.names, self.acc)),
+        }
+
+    def load_state_dict(self, state: Mapping) -> None:
+        self.count = int(state["count"])
+        self.mini_step = int(state["mini_step"])
+        with torch.no_grad():
+            for key, tensors in (("mu", self.mu), ("nu", self.nu), ("acc", self.acc)):
+                saved = state[key]
+                if set(saved) != (set(self.names) if tensors else set()):
+                    raise KeyError(f"optimizer state {key!r} does not match the parameters")
+                for name, t in zip(self.names, tensors):
+                    if tuple(saved[name].shape) != tuple(t.shape):
+                        raise ValueError(f"optimizer state {key}[{name}]: shape "
+                                         f"{tuple(saved[name].shape)} != {tuple(t.shape)}")
+                    t.copy_(saved[name])
+
+
+def moment_dtype_from_cfg(cfg: Mapping) -> Optional[torch.dtype]:
+    """``moment_dtype`` config key ("fp32"/"bf16") -> None or torch.bfloat16."""
+    name = str(cfg.get("moment_dtype", "fp32") or "fp32").lower()
+    if name in ("fp32", "float32", "none", ""):
+        return None
+    if name in ("bf16", "bfloat16"):
+        return torch.bfloat16
+    raise ValueError(f"unsupported moment_dtype {name!r} (use fp32 or bf16)")
+
+
+def check_param_dtype(cfg: Mapping) -> None:
+    """``param_dtype`` bf16 (``master_weights`` / ``cast_params_for_storage``
+    in JAX) is not ported; fp32 passes."""
+    name = str(cfg.get("param_dtype", "fp32") or "fp32").lower()
+    if name in ("fp32", "float32", "none", ""):
+        return
+    if name in ("bf16", "bfloat16"):
+        raise NotImplementedError(
+            "param_dtype bf16 (fp32 master weights in the optimizer) is not ported yet "
+            "(ROADMAP Queue 1)"
+        )
+    raise ValueError(f"unsupported param_dtype {name!r} (use fp32 or bf16)")
+
+
+def build_optimizer(
+    named_params: Mapping[str, torch.Tensor],
+    schedule: Callable[[int], float],
+    weight_decay: float = 0.2,
+    betas: tuple[float, float] = (0.9, 0.98),
+    eps: float = 1e-6,
+    lr_mul: float = 1.0,
+    lr_mul_prefix: str = "",
+    max_grad_norm: Optional[float] = 2.0,
+    no_decay_patterns: Sequence[str] = NO_DECAY_DEFAULT,
+    grad_accum_steps: int = 1,
+    frozen_patterns: Sequence[str] = (),
+    moment_dtype: Optional[torch.dtype] = None,
+    paths: Optional[Mapping[str, str]] = None,
+) -> tuple[GroupedAdamW, dict[str, str]]:
+    """Build the grouped AdamW; returns (optimizer, labels)."""
+    labels = param_group_labels(named_params, lr_mul_prefix, no_decay_patterns, frozen_patterns, paths)
+    opt = GroupedAdamW(
+        named_params, labels, schedule, weight_decay, betas, eps, lr_mul, max_grad_norm,
+        moment_dtype=moment_dtype, grad_accum_steps=grad_accum_steps,
+    )
+    return opt, labels
+
+
+@torch.no_grad()
+def clamp_logit_scale(named_params: Mapping[str, torch.Tensor], max_value: float = LOGIT_SCALE_MAX) -> None:
+    """Clamp every ``logit_scale`` to [0, max_value] in place (ref
+    ``run_pretrain.py:335-340``: ``torch.clamp_(logit_scale, 0, np.log(200))``)."""
+    for name, p in named_params.items():
+        if "logit_scale" in name.lower():
+            p.clamp_(0.0, max_value)
