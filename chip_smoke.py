@@ -9,27 +9,36 @@ Phases, in order; any failure exits non-zero and prints no result:
    version on the card at B/32, B/16 and small shapes, in fp32 and bf16;
 3b. the same for the backward kernel, at those shapes and the B/32 train
    shape (b=32), plus its gradient against autograd of the plain forward;
+3c. the same for the window-attention kernel, at the LF-VILA stage shapes of
+   batch 8 (stages 3-5, and the grouped stages 0-1), a tail and other head dims;
 4. run CLIP-ViP B/32 zero-shot retrieval eval (random weights from a seed,
    bf16, synthetic uint8 clips) through the CLI, counting kernel launches;
 4b. run the MSR-VTT B/32 fine-tune preset through the CLI for a few steps
    (``--mode train``), counting forward and backward launches;
+4c. run LF-VILA paragraph-to-video retrieval (the stage-1 preset's model at
+   full width and depth, the window kernel on, bf16, synthetic data) through
+   its CLI with no train step, counting window-kernel launches;
 5. serve a few requests through ``RetrievalTowers`` in fp32 and compare the
    card's features with the CPU's (plain path) for the same weights;
 5b. take one fp32 train step of B/32 at batch 2 on the card (kernels) and on
    the CPU (plain) from the same weights and batch, and compare;
+5c. encode one clip and its paragraph through ``LfVilaTowers`` in fp32 on the
+   card and on the CPU from the same weights, and compare;
 6. time the forward kernel against the plain version, and the whole forward;
 6b. time the backward kernel against its plain version, forward and backward
    through autograd (kernels against the plain forward), and the B/32 bf16
    train step at b=32;
+6c. time the window kernel against its plain version at the batch-8 shapes,
+   and the LF-VILA video and text towers at batch 8 in bf16;
 7. print the kernel summary and, as the last line, the status JSON.
 
-Each main-path run (4, 4b) sets every launch count to 0 just before it and
+Each main-path run (4, 4b, 4c) sets every launch count to 0 just before it and
 reads the counts just after; the summary reports each path's count and
 their sum. While they run, a call of a plain version on CUDA tensors fails
 the phase.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``
-(about 2 minutes on one H100, the kernels' build included).
+(about 3 minutes on one H100, the kernels' build included).
 """
 
 from __future__ import annotations
@@ -50,6 +59,8 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
                             "xpretrain_tpu/ops/proxy_attention.py:201"),  # _attention_pallas
     "proxy_attention_bwd": ("xpretrain_tpu_torch/csrc/proxy_attention_bwd.cu",
                             "xpretrain_tpu/ops/proxy_attention.py:345"),  # _attention_pallas_bwd
+    "window_attention_fwd": ("xpretrain_tpu_torch/csrc/window_attention_fwd.cu",
+                             "xpretrain_tpu/ops/window_attention.py:59"),  # window_attention_pallas
 }
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # max abs; fp32: summation order; bf16: output rounding
 BF16_MAX_ULP = 1.0  # bf16 output vs the fp32 plain version of the same inputs: rounding alone
@@ -68,6 +79,24 @@ CHECK_SHAPES = {
 }
 EVAL_BATCH = 24
 VIDEO_LAYERS = 12
+# LF-VILA: the stage-1 preset (as JSON, with the window kernel on) at batch 8,
+# the JAX bench's LF-VILA batch (tools/bench_report.py:189)
+LFVILA_PRESET = "xpretrain_tpu_torch/configs/lfvila_stage1_window_kernel.json"
+LFVILA_BATCH = 8
+WINDOW_BLOCKS = 6  # blocks of stages 3-5, whose windows hold >= 240 tokens: launches per video forward
+# name -> (Bn, H, N, d, mask), the mask as the model builds it: stage shapes of
+# 32 frames at 192x320, batch 8 (stage 3's shifted block, stage 3, stage 5,
+# the grouped shifted blocks of stages 0 and 1), then random -100 masks
+WINDOW_SHAPES = {
+    "s3_shifted": (64, 16, 240, 32, ("shifted", (32, 6, 10), (16, 3, 5), (0, 1, 2))),
+    "s3": (64, 16, 240, 32, None),
+    "s5": (8, 32, 480, 32, None),
+    "s0_grouped": (2048, 4, 120, 32, ("grouped", (32, 24, 40), (2, 3, 5), (0, 1, 2), 4)),
+    "s1_grouped": (512, 8, 120, 32, ("grouped", (32, 12, 20), (4, 3, 5), (0, 1, 2), 2)),
+    "tail_d16": (6, 3, 77, 16, ("random", 3)),
+    "d64": (4, 2, 200, 64, ("random", 2)),
+}
+WINDOW_TIMED = ("s3_shifted", "s3", "s5")
 
 
 def fail(msg: str) -> None:
@@ -110,6 +139,31 @@ def qkv(shape: dict, dtype, seed: int = 0, n: int = 3):
     return [torch.randn(size, device="cuda", generator=g).to(dtype) for _ in range(n)]
 
 
+def window_inputs(shape: tuple, dtype, seed: int = 0):
+    """q, k, v [Bn, H, N, d] in ``dtype``, an fp32 bias [H, N, N] and the
+    fp32 mask of ``WINDOW_SHAPES``' kind (or None), on the card."""
+    import numpy as np
+    import torch
+    from xpretrain_tpu_torch.models.lf_vila.swin3d import grouped_window_mask, shifted_window_mask
+
+    Bn, H, N, d, kind = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn(Bn, H, N, d, device="cuda", generator=g).to(dtype) for _ in range(3))
+    bias = torch.randn(H, N, N, device="cuda", generator=g)
+    if kind is None:
+        mask = None
+    elif kind[0] == "shifted":
+        mask = torch.from_numpy(np.array(shifted_window_mask(*kind[1:]))).cuda()
+    elif kind[0] == "grouped":
+        mask = torch.from_numpy(np.array(grouped_window_mask(*kind[1:]))).cuda()
+    else:
+        draw = torch.rand(kind[1], N, N, device="cuda", generator=g)
+        mask = torch.where(draw < 0.3, -100.0, 0.0)
+    if mask is not None:
+        check(tuple(mask.shape) == (mask.shape[0], N, N) and Bn % mask.shape[0] == 0, f"mask {mask.shape}")
+    return q, k, v, bias, mask
+
+
 def bf16_grad_ulps(got, want):
     """Largest |got - want| in bf16 ulps of ``want`` (fp32); |want| below
     2^-8 max|want| counts at that floor."""
@@ -123,14 +177,15 @@ def bf16_grad_ulps(got, want):
 @contextlib.contextmanager
 def plain_on_cuda_guard():
     """Record every call on CUDA tensors, while inside, of the plain functions
-    the main path's kernels stand in for: both proxy-attention versions, and
-    the masked ``dot_attention`` that ``ProxyAttention`` takes under dropout.
-    Yields the list of calls."""
+    the main path's kernels stand in for: both proxy-attention versions, the
+    masked ``dot_attention`` that ``ProxyAttention`` takes under dropout, and
+    the window-attention version. Yields the list of calls."""
     from xpretrain_tpu_torch.models.clip_vip import model as clip_vip_model
     from xpretrain_tpu_torch.ops import proxy_attention as pa
+    from xpretrain_tpu_torch.ops import window_attention as wa
 
     hooks = [(pa, "proxy_attention_plain"), (pa, "proxy_attention_bwd_plain"),
-             (clip_vip_model, "dot_attention")]
+             (clip_vip_model, "dot_attention"), (wa, "window_attention_plain")]
     originals = [getattr(module, name) for module, name in hooks]
     calls = []
 
@@ -150,14 +205,16 @@ def plain_on_cuda_guard():
             setattr(module, name, fn)
 
 
-def launch_counts(pa) -> dict[str, int]:
+def launch_counts(pa, wa) -> dict[str, int]:
     return {"proxy_attention_fwd": pa.proxy_attention.launches,
-            "proxy_attention_bwd": pa.proxy_attention_bwd.launches}
+            "proxy_attention_bwd": pa.proxy_attention_bwd.launches,
+            "window_attention_fwd": wa.window_attention.launches}
 
 
-def reset_launches(pa) -> None:
+def reset_launches(pa, wa) -> None:
     pa.proxy_attention.launches = 0
     pa.proxy_attention_bwd.launches = 0
+    wa.window_attention.launches = 0
 
 
 def alternate(fns: dict, iters: int = 200) -> dict[str, list[float]]:
@@ -180,12 +237,14 @@ def main() -> None:
         fail("torch sees no CUDA device: this smoke test runs on an NVIDIA card only")
     sys.path.insert(0, REPO)
     try:
-        from xpretrain_tpu_torch.cli import run_retrieval_clipvip
+        from xpretrain_tpu_torch.cli import run_retrieval_clipvip, run_tasks_lfvila
         from xpretrain_tpu_torch.models.clip_vip.model import CLIPVipConfig, CLIPViPModel
         from xpretrain_tpu_torch.ops import _kernels
+        from xpretrain_tpu_torch.models.lf_vila.tasks import LfVilaRetrieval
         from xpretrain_tpu_torch.ops import proxy_attention as pa
+        from xpretrain_tpu_torch.ops import window_attention as wa
         from xpretrain_tpu_torch.parallel.train_step import batch_to_device
-        from xpretrain_tpu_torch.serving.towers import RetrievalTowers
+        from xpretrain_tpu_torch.serving.towers import LfVilaTowers, RetrievalTowers
         from xpretrain_tpu_torch.tools.profile_train_step import (
             captions, median, spread, synthetic_batch, time_train_step, train_step_parts, window_ms,
         )
@@ -291,10 +350,37 @@ def main() -> None:
               f"max_abs {err:.3e} (tol {BWD_TOL_FP32:.0e})")
         check(err <= BWD_TOL_FP32, f"kernel autograd vs plain autograd: {err}")
 
+    with phase("3c window kernel vs plain"):
+        win_errors = {}
+        for name, shape in WINDOW_SHAPES.items():
+            for dtype in (torch.float32, torch.bfloat16):
+                q, k, v, bias, mask = window_inputs(shape, dtype)
+                before = wa.window_attention.launches
+                got = wa.window_attention(q, k, v, bias, mask)
+                torch.cuda.synchronize()
+                check(wa.window_attention.launches == before + 1, f"{name}: launch not counted")
+                want = wa.window_attention_plain(q, k, v, bias, mask)
+                dt = str(dtype).split(".")[-1]
+                err = (got.float() - want.float()).abs().max().item()
+                win_errors[(name, dt)] = err
+                line = (f"  {name:10s} {dt:8s} [Bn,H,N,d]={list(shape[:4])} mask "
+                        f"{None if mask is None else list(mask.shape)} max_abs {err:.3e} tol {TOL[dt]:.0e}")
+                check(got.dtype == dtype and got.shape == q.shape, f"{name} {dt}: output dtype/shape")
+                check(math.isfinite(err) and err <= TOL[dt], f"{name} {dt}: max_abs {err} > {TOL[dt]}")
+                if dtype == torch.bfloat16:
+                    # as in phase 3: against the fp32 plain version of the same
+                    # inputs only the kernel's output rounding is left
+                    exact = wa.window_attention_plain(q.float(), k.float(), v.float(), bias, mask)
+                    ulps = bf16_ulps(got, exact)
+                    line += f"; vs fp32 plain {ulps:.3f} ulp (tol {BF16_MAX_ULP:.0f})"
+                    check(ulps <= BF16_MAX_ULP, f"{name} bf16: {ulps} ulp from the fp32 plain version")
+                print(line)
+                del q, k, v, bias, mask, got, want
+
     with phase("4 B/32 retrieval eval (main path)"), tempfile.TemporaryDirectory() as out_dir:
         torch.cuda.reset_peak_memory_stats()
         with plain_on_cuda_guard() as plain_cuda_calls:
-            reset_launches(pa)
+            reset_launches(pa, wa)
             report = run_retrieval_clipvip.main([
                 "--dummy_data", "1", "--mode", "eval", "--clip_size", "base_32",
                 "--device_ingest", "1", "--num_frm", "12", "--crop_img_size", "224",
@@ -302,11 +388,12 @@ def main() -> None:
                 "--output_dir", out_dir, "--save_feats", f"{out_dir}/feats.npz",
             ])
             torch.cuda.synchronize()
-            eval_launches = launch_counts(pa)
+            eval_launches = launch_counts(pa, wa)
         n_batches = math.ceil(run_retrieval_clipvip.DUMMY_VAL_SIZE / EVAL_BATCH)
         print(f"  launches {eval_launches} (expected {VIDEO_LAYERS} layers x {n_batches} batches forward, "
               f"none backward); plain path on CUDA: {len(plain_cuda_calls)} calls")
-        check(eval_launches == {"proxy_attention_fwd": VIDEO_LAYERS * n_batches, "proxy_attention_bwd": 0},
+        check(eval_launches == {"proxy_attention_fwd": VIDEO_LAYERS * n_batches, "proxy_attention_bwd": 0,
+                                "window_attention_fwd": 0},
               "eval kernel launch counts")
         check(not plain_cuda_calls, f"the plain version ran on CUDA tensors: {plain_cuda_calls[:4]}")
         for direction in ("t2v", "v2t"):
@@ -331,7 +418,7 @@ def main() -> None:
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         with plain_on_cuda_guard() as plain_cuda_calls:
-            reset_launches(pa)
+            reset_launches(pa, wa)
             report = run_retrieval_clipvip.main([
                 "--config", os.path.join(REPO, PRESET), "--dummy_data", "1", "--device_ingest", "1",
                 "--mode", "train", "--num_train_steps", str(TRAIN_STEPS),
@@ -339,7 +426,7 @@ def main() -> None:
                 "--device", "cuda", "--output_dir", out_dir,
             ])
             torch.cuda.synchronize()
-            train_launches = launch_counts(pa)
+            train_launches = launch_counts(pa, wa)
         wall = time.perf_counter() - t0
         # validation at start, at every TRAIN_EVERY steps, and the final report's
         n_val = math.ceil(run_retrieval_clipvip.DUMMY_VAL_SIZE / preset["val_batch_size"])
@@ -347,6 +434,7 @@ def main() -> None:
         want = {
             "proxy_attention_fwd": VIDEO_LAYERS * (TRAIN_STEPS + validations * n_val),
             "proxy_attention_bwd": VIDEO_LAYERS * TRAIN_STEPS,
+            "window_attention_fwd": 0,
         }
         print(f"  launches {train_launches} (expected {want}: {VIDEO_LAYERS} layers x ({TRAIN_STEPS} steps "
               f"+ {validations} validations x {n_val} batches) forward, x {TRAIN_STEPS} steps backward); "
@@ -369,6 +457,39 @@ def main() -> None:
         check(ckpts == [f"{TRAIN_EVERY}.pt", f"{TRAIN_STEPS}.pt"], f"checkpoints {ckpts}")
         print(f"  checkpoints {ckpts}; run wall {wall:.1f} s (host clock, synthetic data and "
               f"{validations} validations included) [{card}]")
+        print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+
+    with open(os.path.join(REPO, LFVILA_PRESET)) as f:
+        lfvila_preset = json.load(f)
+
+    with phase("4c LF-VILA retrieval, window kernel on (main path)"), tempfile.TemporaryDirectory() as out_dir:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with plain_on_cuda_guard() as plain_cuda_calls:
+            reset_launches(pa, wa)
+            report = run_tasks_lfvila.main([
+                "--config", os.path.join(REPO, LFVILA_PRESET), "--task", "retrieval", "--dummy_data", "1",
+                "--num_train_steps", "0", "--val_batch_size", str(LFVILA_BATCH), "--device", "cuda",
+                "--output_dir", out_dir,
+            ])
+            torch.cuda.synchronize()
+            lfvila_launches = launch_counts(pa, wa)
+        wall = time.perf_counter() - t0
+        n_batches = math.ceil(run_tasks_lfvila.DUMMY_SIZE / LFVILA_BATCH)
+        want = {"proxy_attention_fwd": 0, "proxy_attention_bwd": 0,
+                "window_attention_fwd": WINDOW_BLOCKS * n_batches}
+        print(f"  launches {lfvila_launches} (expected {WINDOW_BLOCKS} window blocks x {n_batches} batches); "
+              f"plain path on CUDA: {len(plain_cuda_calls)} calls")
+        check(lfvila_launches == want, "LF-VILA retrieval kernel launch counts")
+        check(not plain_cuda_calls, f"the plain version ran on CUDA tensors: {plain_cuda_calls[:4]}")
+        with open(os.path.join(out_dir, "final_report.json")) as f:
+            check(json.load(f)["t2v"] == report["t2v"], "final_report.json")
+        for direction in ("t2v", "v2t"):
+            row = {k: report[direction][k] for k in ("R1", "R5", "R10", "MedR")}
+            print(f"  {direction} {row}")
+            check(all(math.isfinite(x) for x in row.values()), f"{direction} R@K not finite")
+        print(f"  eval {report['perf']['wall_s']:.2f} s, {report['perf']['clips_per_s']:.2f} clips/s; run wall "
+              f"{wall:.1f} s (host clock; model build, synthetic data and upload included) [{card}]")
         print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
 
     with phase("5 serve: card vs CPU, fp32"):
@@ -431,6 +552,32 @@ def main() -> None:
               f"{(diffs > 1e-7).double().mean().item():.2e} of them above 1e-7")
         check(diffs.max().item() <= 2 * lr, "params after one step differ by more than 2 lr")
         del model_cpu, model_gpu
+
+    with phase("5c LF-VILA towers: card vs CPU, fp32"):
+        model_cpu = LfVilaRetrieval(run_tasks_lfvila.lfvila_config_from({**lfvila_preset, "bf16": 0}))
+        model_cpu.init_weights(torch.Generator().manual_seed(0))
+        gpu = LfVilaTowers(copy.deepcopy(model_cpu), "cuda")
+        cpu = LfVilaTowers(model_cpu, "cpu")
+        rng = np.random.default_rng(3)
+        frames = rng.normal(size=(1, 3, 32, 192, 320)).astype(np.float32)
+        ids = rng.integers(1, 30522, size=(1, 4, 70))
+        mask = (np.arange(70)[None, None] < rng.integers(5, 70, size=(1, 4, 1))).astype(np.int64)
+        before = wa.window_attention.launches
+        feats = {
+            "video": (gpu.encode_video(frames), cpu.encode_video(frames)),
+            "text": (gpu.encode_text(ids, mask), cpu.encode_text(ids, mask)),
+        }
+        torch.cuda.synchronize()
+        check(wa.window_attention.launches == before + WINDOW_BLOCKS, "the video tower did not use the kernel")
+        for name, (on_card, on_cpu) in feats.items():
+            a, b = on_card.cpu(), on_cpu
+            err = (a - b).abs().max().item()
+            print(f"  {name} {tuple(a.shape)} card vs cpu max_abs {err:.3e} (tol 1e-4)")
+            check(math.isfinite(err) and err <= 1e-4, f"{name}: card vs cpu {err}")
+        sims = gpu.similarity(feats["text"][0], feats["video"][0], scaled=True)
+        print(f"  scaled text->video score {sims.cpu().numpy().round(3).tolist()}")
+        check(bool(torch.isfinite(sims).all()), "similarity not finite")
+        del gpu, cpu, model_cpu
 
     with phase("6 timing"):
         s = B32
@@ -504,6 +651,47 @@ def main() -> None:
         print(f"  train step peak device memory {peak_gib:.2f} GiB [{card}]")
         check(all(math.isfinite(x) for x in steps_ms), "train step timing")
 
+    with phase("6c timing: window kernel and LF-VILA towers"):
+        win_timings = {}
+        for name in WINDOW_TIMED:
+            for dtype in (torch.bfloat16, torch.float32):
+                q, k, v, bias, mask = window_inputs(WINDOW_SHAPES[name], dtype)
+                runs = alternate({
+                    "kernel": lambda: wa.window_attention(q, k, v, bias, mask),
+                    "plain": lambda: wa.window_attention_plain(q, k, v, bias, mask),
+                })
+                dt = str(dtype).split(".")[-1]
+                win_timings[(name, dt)] = {n: sum(r) / len(r) for n, r in runs.items()}
+                print(f"  window attention {name} {list(WINDOW_SHAPES[name][:4])} {dt}: kernel {runs['kernel']} ms, "
+                      f"plain {runs['plain']} ms (CUDA events, 200 calls each) [{card}]")
+                del q, k, v, bias, mask
+
+        model = LfVilaRetrieval(run_tasks_lfvila.lfvila_config_from(lfvila_preset), device="cuda")
+        model.init_weights(torch.Generator(device="cuda").manual_seed(0)).eval()
+        g = torch.Generator(device="cuda").manual_seed(1)
+        b = LFVILA_BATCH
+        frames = torch.randn(b, 3, 32, 192, 320, device="cuda", generator=g)
+        ids = torch.randint(1, 30522, (b, 4, 70), device="cuda", generator=g)
+        mask = (torch.arange(70, device="cuda")[None, None] < torch.randint(5, 70, (b, 4, 1), device="cuda",
+                                                                             generator=g)).long()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.inference_mode():
+            before = wa.window_attention.launches
+            vid = window_ms(lambda: model.forward_video(frames), iters=10)
+            txt = window_ms(lambda: model.forward_text(ids, mask), iters=50)
+            # window_ms: 3 warm-up calls, then 5 windows of 10
+            check(wa.window_attention.launches - before == WINDOW_BLOCKS * (3 + 5 * 10), "video tower launches")
+        print(f"  LF-VILA bf16 video tower b={b} (32x192x320 fp32 frames on the card): {spread(vid)} = "
+              f"{b / median(vid) * 1e3:.2f} clips/s at the median; windows {vid} (CUDA events, 10 calls "
+              f"per window) [{card}]")
+        print(f"  LF-VILA bf16 text tower b={b} (4 x 70 tokens): {spread(txt)}; windows {txt} (50 calls per "
+              f"window) [{card}]")
+        print(f"  towers peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+        check(all(math.isfinite(x) for x in vid + txt), "tower timing")
+        del model, frames
+
+    paths = {"eval": eval_launches, "train": train_launches, "lfvila_retrieval": lfvila_launches}
+    window_timing = {dt: win_timings[("s3_shifted", dt)] for dt in ("bfloat16", "float32")}
     summary = {"kernels": [
         {
             "name": name,
@@ -511,8 +699,8 @@ def main() -> None:
             "source": KERNELS[name][0],
             "replaces": KERNELS[name][1],
             # each main path's count, read just after its own run
-            "launches": eval_launches[name] + train_launches[name],
-            "launches_by_path": {"eval": eval_launches[name], "train": train_launches[name]},
+            "launches": sum(counts[name] for counts in paths.values()),
+            "launches_by_path": {path: counts[name] for path, counts in paths.items()},
             "max_abs_err": err,
             "ms": timing["bfloat16"]["kernel"],
             "plain_ms": timing["bfloat16"]["plain"],
@@ -520,6 +708,7 @@ def main() -> None:
         for name, err, timing in (
             ("proxy_attention_fwd", errors[("b32", "bfloat16")], timings),
             ("proxy_attention_bwd", bwd_errors[("b32_train", "bfloat16")], bwd_timings),
+            ("window_attention_fwd", win_errors[("s3_shifted", "bfloat16")], window_timing),
         )
     ]}
     print(json.dumps(summary))

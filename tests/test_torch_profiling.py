@@ -18,6 +18,8 @@ KERNELS = {
         "proxy attention backward kernel, dq pass",
     "void (anonymous namespace)::bwd_dkv_kernel<__nv_bfloat16, 16>(...)":
         "proxy attention backward kernel, dk/dv pass",
+    "void (anonymous namespace)::window_attention_fwd_kernel<__nv_bfloat16, 8>(...)":
+        "window attention forward kernel",
     "nvjet_tst_192x192_64x3_2x1_v_bz_coopB_NNN": "GEMMs",
     "sm80_xmma_gemm_f32f32_f32f32_f32_nn_n_tilesize32x32x8_stage3": "GEMMs",
     "void cublasLt::splitKreduce_kernel<32, 16, int, float, __nv_bfloat16>(...)": "GEMMs",

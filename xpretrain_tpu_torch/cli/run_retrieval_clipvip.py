@@ -99,6 +99,17 @@ def build_loaders(cfg) -> tuple[InfiniteIterator | None, SequentialEvalLoader, i
     return train_loader, SequentialEvalLoader(val_ds, cfg.val_batch_size, collate), len(val_ds)
 
 
+def reroot_data_paths(cfg):
+    """Re-root relative data paths under ``--data_mount_dir``, as
+    ``xpretrain_tpu.cli.shared_args.parse_args`` does (which starts JAX's
+    distributed runtime)."""
+    if cfg.get("data_mount_dir"):
+        for key in ("train_annotation", "val_annotation", "video_root"):
+            if cfg.get(key) and not str(cfg[key]).startswith("/"):
+                cfg[key] = f"{cfg['data_mount_dir'].rstrip('/')}/{cfg[key]}"
+    return cfg
+
+
 def resolve_device(name: str) -> torch.device:
     device = torch.device(name)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -127,12 +138,7 @@ def main(argv=None):
     parser.add_argument("--save_feats", type=str, default="",
                         help="dump eval features to this .npz (ref run_video_retrieval.py:233 save_feat)")
     parser.add_argument("--device", type=str, default="cuda", help="torch device: cuda, cuda:N or cpu")
-    # shared_args.parse_args would start JAX's distributed runtime
-    cfg = parse_with_config(parser, argv)
-    if cfg.get("data_mount_dir"):
-        for key in ("train_annotation", "val_annotation", "video_root"):
-            if cfg.get(key) and not str(cfg[key]).startswith("/"):
-                cfg[key] = f"{cfg['data_mount_dir'].rstrip('/')}/{cfg[key]}"
+    cfg = reroot_data_paths(parse_with_config(parser, argv))
     setup_logging(cfg.output_dir, 0)
     save_training_meta(cfg.output_dir, cfg)
     device = resolve_device(cfg.device)

@@ -47,6 +47,38 @@ class Linear(nn.Linear):
         return F.linear(x.to(dt), self.weight.to(dt), bias)
 
 
+class Embedding(nn.Embedding):
+    """``nn.Embedding`` with an fp32 table that looks up in ``dtype`` (flax's
+    ``Embed(dtype=...)``: the gathered rows are cast, not the whole table)."""
+
+    def __init__(self, num_embeddings: int, dim: int, dtype: torch.dtype = torch.float32,
+                 device=None):
+        super().__init__(num_embeddings, dim, device=device)
+        self.compute_dtype = dtype
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return F.embedding(ids, self.weight).to(self.compute_dtype)
+
+
+def dropout(
+    x: torch.Tensor,
+    rate: float,
+    generator: Optional[torch.Generator] = None,
+    keep: Optional[torch.Tensor] = None,
+    shape: Optional[tuple[int, ...]] = None,
+) -> torch.Tensor:
+    """flax's ``nn.Dropout``: drop with probability ``rate`` and rescale the
+    kept values by 1/(1 - rate). The boolean keep mask is ``keep`` when
+    given, else drawn from ``generator`` in ``shape`` (``x.shape`` by
+    default; a shape that broadcasts drops whole slices, as stochastic depth
+    drops whole samples). The caller passes a rate only in training."""
+    if rate <= 0.0:
+        return x
+    if keep is None:
+        keep = torch.rand(shape or x.shape, generator=generator, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 class LayerNorm(nn.LayerNorm):
     """Layer norm computed in fp32, output in ``dtype`` (flax's LayerNorm)."""
 
@@ -83,12 +115,7 @@ def dot_attention(
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     if mask is not None:
         scores = scores + mask.float()
-    weights = torch.softmax(scores, dim=-1)
-    if dropout_rate > 0.0:
-        if keep is None:
-            draw = torch.rand(weights.shape, generator=generator, device=weights.device)
-            keep = draw < 1.0 - dropout_rate
-        weights = torch.where(keep, weights / (1.0 - dropout_rate), 0.0)
+    weights = dropout(torch.softmax(scores, dim=-1), dropout_rate, generator, keep)
     return torch.matmul(weights.to(v.dtype), v)
 
 

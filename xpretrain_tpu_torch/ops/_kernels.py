@@ -18,6 +18,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import Optional
 
 import torch
 
@@ -107,6 +108,11 @@ def load_library() -> ctypes.CDLL:
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     )
     lib.xpt_proxy_attention_bwd.restype = ctypes.c_int
+    lib.xpt_window_attention_fwd.argtypes = (
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    )
+    lib.xpt_window_attention_fwd.restype = ctypes.c_int
     lib.xpt_cuda_error_string.argtypes = [ctypes.c_int]
     lib.xpt_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -156,3 +162,24 @@ def proxy_attention_bwd(
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     _check(lib, rc, "proxy_attention_bwd")
+
+
+def window_attention_fwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    bias: torch.Tensor, mask: Optional[torch.Tensor], out: torch.Tensor,
+) -> None:
+    """Launch ``csrc/window_attention_fwd.cu`` on the current stream; ``mask``
+    may be None (no shifted-window mask).
+
+    The caller has checked device, dtype, shape and contiguity."""
+    lib = load_library()
+    Bn, H, N, D = q.shape
+    nW = 1 if mask is None else mask.shape[0]
+    with torch.cuda.device(q.device):
+        rc = lib.xpt_window_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+            None if mask is None else mask.data_ptr(), out.data_ptr(),
+            Bn, H, N, D, nW, float(D**-0.5), int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    _check(lib, rc, "window_attention_fwd")

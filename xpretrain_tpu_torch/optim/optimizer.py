@@ -28,6 +28,9 @@ import numpy as np
 import torch
 
 NO_DECAY_DEFAULT = ("bias", "layer_norm", "layernorm", "_norm", "norm_", "logit_scale")
+# LF-VILA also exempts position embeddings and the relative-position-bias
+# tables (ref ``LF-VILA/src/optimization/optimizer.py:6-31``)
+NO_DECAY_LFVILA = NO_DECAY_DEFAULT + ("pos_embed", "position_embedding", "relative_position_bias")
 
 LOGIT_SCALE_MAX = 5.2983  # ln(200), ref run_pretrain.py:335-340
 

@@ -122,21 +122,73 @@ def make_train_step(
     return step_fn
 
 
-def make_eval_step(device: torch.device | str) -> Callable[[nn.Module, dict], dict]:
+def make_model_train_step(
+    apply_fn: Callable[[nn.Module, dict, torch.Generator], dict],
+    device: torch.device | str,
+    loss_key: str = "loss",
+    metric_keys: tuple[str, ...] = (),
+    steps_per_call: int = 1,
+) -> Callable[[TrainState, dict, int], tuple[TrainState, dict]]:
+    """Build ``step(state, batch, seed) -> (state, metrics)`` for models that
+    compute their own loss (LF-VILA; ``GenericTrainer`` drives it).
+
+    ``apply_fn(model, batch, generator)`` returns a dict holding ``loss_key``;
+    the ``metric_keys`` it also holds are copied (detached) into the metrics,
+    beside ``loss`` (fp32) and ``grad_norm`` of the raw gradients. In order:
+    forward, backward, update."""
+    if steps_per_call > 1:
+        raise NotImplementedError(
+            "steps_per_call > 1 (K steps in one dispatch) is not ported; run with 1"
+        )
+    device = torch.device(device)
+
+    def step_fn(state: TrainState, batch: dict, seed: int) -> tuple[TrainState, dict]:
+        model = state.model
+        params = list(model.parameters())
+        model.train()
+        for p in params:
+            p.grad = None
+        generator = torch.Generator(device=device).manual_seed(int(seed))
+        outputs = apply_fn(model, batch, generator)
+        loss = outputs[loss_key].float()
+        loss.backward()
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+        metrics = {"loss": loss.detach(), "grad_norm": global_norm(grads)}
+        for key in metric_keys:
+            if key in outputs:
+                metrics[key] = outputs[key].detach()
+        state.optimizer.step(grads, metrics["grad_norm"])
+        for p in params:
+            p.grad = None
+        state.step += 1
+        return state, metrics
+
+    return step_fn
+
+
+CLIPVIP_EVAL_IO = (("video", "text_input_ids", "text_input_mask"),
+                   {"vis_features": "vis_features", "text_features": "text_features"})
+# LF-VILA batches and outputs (``_rename`` of ``xpretrain_tpu/cli/run_tasks_lfvila.py``)
+LFVILA_EVAL_IO = (("video_frames", "text_ids", "attention_mask"),
+                  {"vis_features": "video_global_feat", "text_features": "text_global_feat"})
+
+
+def make_eval_step(device: torch.device | str, io: tuple = CLIPVIP_EVAL_IO
+                   ) -> Callable[[nn.Module, dict], dict]:
     """Forward of one numpy batch on ``device``: ``step(model, batch)``.
 
-    The batch goes to the device through pinned memory with
-    ``non_blocking`` copies; the forward runs under ``inference_mode``; the
-    features come back as fp32 numpy, the contract of
+    ``io`` is (the batch keys the model takes, in order; {feature name:
+    model output key}). The batch goes to the device through pinned memory
+    with ``non_blocking`` copies; the forward runs under ``inference_mode``;
+    the features come back as fp32 numpy under the names of
     ``xpretrain_tpu.train.evaluate.evaluate_retrieval``."""
     place = batch_to_device(device)
+    inputs, outputs = io
 
     def eval_step(model: nn.Module, batch: dict) -> dict[str, np.ndarray]:
         with torch.inference_mode():
-            b = place({k: batch[k] for k in ("video", "text_input_ids", "text_input_mask")})
-            out = model(b["video"], b["text_input_ids"], b["text_input_mask"])
-            return {
-                key: out[key].float().cpu().numpy() for key in ("vis_features", "text_features")
-            }
+            b = place({k: batch[k] for k in inputs})
+            out = model(*(b[k] for k in inputs))
+            return {name: out[key].float().cpu().numpy() for name, key in outputs.items()}
 
     return eval_step

@@ -1,9 +1,11 @@
 """In-process retrieval towers, the counterpart of
 ``xpretrain_tpu/serving/artifact.py:RetrievalArtifact``.
 
-The same three calls: ``encode_video`` on raw uint8 frames, ``encode_text``
-on token ids + mask, both to L2-normalized features, and ``similarity`` for
-ranking. Saving a standalone artifact (``torch.export``) comes later.
+The same three calls: ``encode_video`` on frames, ``encode_text`` on token
+ids + mask, both to L2-normalized features, and ``similarity`` for ranking;
+:class:`RetrievalTowers` for CLIP-ViP, :class:`LfVilaTowers` for LF-VILA
+(the towers of ``export_lfvila_retrieval_towers`` there). Saving a
+standalone artifact (``torch.export``) comes later.
 """
 
 from __future__ import annotations
@@ -12,13 +14,14 @@ import numpy as np
 import torch
 
 from xpretrain_tpu_torch.models.clip_vip.model import CLIPViPModel
+from xpretrain_tpu_torch.models.lf_vila.tasks import LfVilaRetrieval
 
 
-class RetrievalTowers:
-    """A CLIP-ViP model on one device (moved there in place), served under
-    ``inference_mode``."""
+class _Towers:
+    """A retrieval model on one device (moved there in place), served under
+    ``inference_mode``; the subclass says how features are scored."""
 
-    def __init__(self, model: CLIPViPModel, device: torch.device | str):
+    def __init__(self, model: torch.nn.Module, device: torch.device | str):
         self.device = torch.device(device)
         self.model = model.to(self.device).eval()
 
@@ -27,17 +30,24 @@ class RetrievalTowers:
             x = torch.from_numpy(np.ascontiguousarray(x))
         return x.to(self.device)
 
-    def encode_video(self, video_u8) -> torch.Tensor:
-        """uint8 [B, T, H, W, 3] -> L2-normalized [B, proj] features."""
+    def encode_video(self, video) -> torch.Tensor:
+        """Frames -> L2-normalized [B, dim] features (the model's
+        ``forward_video``)."""
         with torch.inference_mode():
-            return self.model.forward_video(self._to_device(video_u8))
+            return self.model.forward_video(self._to_device(video))
 
     def encode_text(self, input_ids, attention_mask) -> torch.Tensor:
-        """[B, seq] ids + [B, seq] mask -> L2-normalized [B, proj] features."""
+        """Token ids + mask -> L2-normalized [B, dim] features (the model's
+        ``forward_text``)."""
         with torch.inference_mode():
-            return self.model.forward_text(
-                self._to_device(input_ids), self._to_device(attention_mask)
-            )
+            return self.model.forward_text(self._to_device(input_ids), self._to_device(attention_mask))
+
+
+class RetrievalTowers(_Towers):
+    """CLIP-ViP: ``encode_video`` on uint8 [B, T, H, W, 3] frames,
+    ``encode_text`` on [B, seq] ids + mask; features [B, proj]."""
+
+    model: CLIPViPModel
 
     def similarity(self, text_feats: torch.Tensor, video_feats: torch.Tensor,
                    scaled: bool = False) -> torch.Tensor:
@@ -47,3 +57,19 @@ class RetrievalTowers:
             if scaled:
                 scores = scores * self.model.logit_scale.exp()
             return scores
+
+
+class LfVilaTowers(_Towers):
+    """LF-VILA paragraph-to-video retrieval: ``encode_video`` on float
+    [B, 3, N, H, W] (ImageNet-normalized) or uint8 [B, N, H, W, 3] frames,
+    ``encode_text`` on [B, M, L] sentence ids + mask; features [B, hidden]."""
+
+    model: LfVilaRetrieval
+
+    def similarity(self, text_feats: torch.Tensor, video_feats: torch.Tensor,
+                   scaled: bool = False) -> torch.Tensor:
+        """[Nt, Nv] retrieval scores; ``scaled`` divides by the model's
+        contrastive temperature (``LfVilaConfig.temp``)."""
+        with torch.inference_mode():
+            scores = text_feats.float() @ video_feats.float().T
+            return scores / self.model.config.temp if scaled else scores

@@ -4,7 +4,7 @@ class.
 :func:`stop_profiler` writes, under one directory, the Chrome trace
 (``trace.json``), the per-op averages (``key_averages.{txt,json}``) and
 ``op_classes.json``: the device kernels' time and launches per step, summed
-by the classes of :data:`OP_CLASSES` (GEMMs, the proxy-attention kernels,
+by the classes of :data:`OP_CLASSES` (GEMMs, the attention kernels,
 copies, AdamW, ...). On a host without a card the class table is empty.
 """
 
@@ -23,6 +23,7 @@ OP_CLASSES = (
     ("proxy attention forward kernel", ("proxy_attention_fwd_kernel",)),
     ("proxy attention backward kernel, dq pass", ("bwd_dq_kernel",)),
     ("proxy attention backward kernel, dk/dv pass", ("bwd_dkv_kernel",)),
+    ("window attention forward kernel", ("window_attention_fwd_kernel",)),
     ("GEMMs", ("nvjet", "gemm", "cutlass", "splitKreduce", "cublas")),
     ("AdamW and norms (_foreach)", ("multi_tensor_apply", "lpnorm_cleanup")),
     ("LayerNorm forward and backward", ("layer_norm", "GammaBeta")),
