@@ -11,6 +11,13 @@ Phases, in order; any failure exits non-zero and prints no result:
    shape (b=32), plus its gradient against autograd of the plain forward;
 3c. the same for the window-attention kernel, at the LF-VILA stage shapes of
    batch 8 (stages 3-5, and the grouped stages 0-1), a tail and other head dims;
+3d. the packed [B, S, H*D] proxy attention (the two proxy kernels through
+   their stride arguments): forward at the phase-3 shapes, backward at the
+   B/32 train shape, against the plain version (the phase 3/3b bars) and
+   against the [B, H, S, D] kernels on the same data (bit-equal or not);
+3e. the fused uint8 patch-embed kernel against ``fused_patch_embed``'s plain
+   GEMM at the B/32 serving frames (288 of 224x224, P=32, D=768), at P=16 and
+   at ragged shapes, fp32 and bf16 out;
 4. run CLIP-ViP B/32 zero-shot retrieval eval (random weights from a seed,
    bf16, synthetic uint8 clips) through the CLI, counting kernel launches;
 4b. run the MSR-VTT B/32 fine-tune preset through the CLI for a few steps
@@ -18,6 +25,11 @@ Phases, in order; any failure exits non-zero and prints no result:
 4c. run LF-VILA paragraph-to-video retrieval (the stage-1 preset's model at
    full width and depth, the window kernel on, bf16, synthetic data) through
    its CLI with no train step, counting window-kernel launches;
+4d. the ops path: the public op entries that no model calls, at the full
+   B/32 widths in bf16: ``proxy_attention_packed`` forward (b=24) and
+   forward + backward through autograd (b=32), and ``fused_patch_embed``
+   with ``use_kernel=True`` on the 288 frames of a b=24 batch, counting the
+   packed and patch-embed launches;
 5. serve a few requests through ``RetrievalTowers`` in fp32 and compare the
    card's features with the CPU's (plain path) for the same weights;
 5b. take one fp32 train step of B/32 at batch 2 on the card (kernels) and on
@@ -30,9 +42,16 @@ Phases, in order; any failure exits non-zero and prints no result:
    train step at b=32;
 6c. time the window kernel against its plain version at the batch-8 shapes,
    and the LF-VILA video and text towers at batch 8 in bf16;
-7. print the kernel summary and, as the last line, the status JSON.
+6d. time the packed kernels and the patch-embed kernel against their plain
+   versions and one PyTorch call that computes the same function
+   (``library_ms``: ``scaled_dot_product_attention`` with the proxy mask,
+   ``addmm`` of pre-gathered patches), and that call for the kernels of
+   phases 6-6c at their shapes;
+7. print the kernel summary (each kernel's time, plain time, library time
+   and the bound of its work at the card's peak rates) and, as the last
+   line, the status JSON.
 
-Each main-path run (4, 4b, 4c) sets every launch count to 0 just before it and
+Each main-path run (4, 4b, 4c, 4d) sets every launch count to 0 just before it and
 reads the counts just after; the summary reports each path's count and
 their sum. While they run, a call of a plain version on CUDA tensors fails
 the phase.
@@ -54,21 +73,45 @@ import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-KERNELS = {  # name -> (source, the TPU kernel it replaces)
+KERNELS = {  # name -> (source, the TPU kernel it replaces): one per pallas_call site
     "proxy_attention_fwd": ("xpretrain_tpu_torch/csrc/proxy_attention_fwd.cu",
                             "xpretrain_tpu/ops/proxy_attention.py:201"),  # _attention_pallas
     "proxy_attention_bwd": ("xpretrain_tpu_torch/csrc/proxy_attention_bwd.cu",
                             "xpretrain_tpu/ops/proxy_attention.py:345"),  # _attention_pallas_bwd
+    "proxy_attention_packed_fwd": ("xpretrain_tpu_torch/csrc/proxy_attention_fwd.cu",
+                                   "xpretrain_tpu/ops/proxy_attention.py:228"),  # _attention_pallas_packed
+    "proxy_attention_packed_bwd": ("xpretrain_tpu_torch/csrc/proxy_attention_bwd.cu",
+                                   "xpretrain_tpu/ops/proxy_attention.py:379"),  # _attention_pallas_bwd_packed
+    "patch_embed_u8": ("xpretrain_tpu_torch/csrc/patch_embed_u8.cu",
+                       "xpretrain_tpu/ops/patchify.py:84"),  # _pallas_patch_embed
     "window_attention_fwd": ("xpretrain_tpu_torch/csrc/window_attention_fwd.cu",
                              "xpretrain_tpu/ops/window_attention.py:59"),  # window_attention_pallas
 }
+# H100 SXM data-sheet peaks (dense): the bound of a kernel's work is the larger
+# of its bytes over HBM_BYTES_PER_S and its operations over the peak for the
+# type it computes on (bf16 inputs: the tensor cores' bf16 rate; the patch
+# embed's fp32 weight: the CUDA cores' fp32 rate)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # max abs; fp32: summation order; bf16: output rounding
+# patch embed, fp32 out, relative to max|out|: K = 3*P*P terms of up to 255*|w|
+# summed in fp32 in another order than cuBLAS's, so the difference grows with
+# the size of the sums, not with an output that happens to be small
+PATCH_FP32_REL = 3e-5
+# (N, H, W, P, D): the B/32 serving frames (24 clips x 12), P=16, ragged rows/K/D
+PATCH_SHAPES = {
+    "b32": (288, 224, 224, 32, 768),
+    "p16": (288, 224, 224, 16, 768),
+    "ragged_d200": (7, 64, 96, 16, 200),
+    "ragged_rows": (5, 96, 160, 32, 768),
+    "p14_k588": (2, 28, 42, 14, 64),
+}
 BF16_MAX_ULP = 1.0  # bf16 output vs the fp32 plain version of the same inputs: rounding alone
 BWD_TOL_FP32 = 1e-4  # max abs: summation order over up to S terms
 BWD_MAX_ULP = 2.0  # bf16 vs fp32 plain gradients: fp32 accumulation and one rounding at the store
 B32 = dict(B=24, H=12, M=4, N=12, L=49, D=64)  # CLIP-ViP B/32 serving, batch 24
 B32_TRAIN = dict(B32, B=32)  # CLIP-ViP B/32 training, batch 32
-PRESET = "xpretrain_tpu/configs/presets/msrvtt_retrieval_vip_base_32.json"
+PRESET = "xpretrain_tpu_torch/configs/msrvtt_retrieval_vip_base_32.json"  # the port's copy of the MSR-VTT preset
 TRAIN_STEPS, TRAIN_EVERY = 6, 3  # the fine-tune run of phase 4b: steps, validate/save cadence
 CHECK_SHAPES = {
     "b32": B32,
@@ -177,15 +220,18 @@ def bf16_grad_ulps(got, want):
 @contextlib.contextmanager
 def plain_on_cuda_guard():
     """Record every call on CUDA tensors, while inside, of the plain functions
-    the main path's kernels stand in for: both proxy-attention versions, the
-    masked ``dot_attention`` that ``ProxyAttention`` takes under dropout, and
-    the window-attention version. Yields the list of calls."""
+    the main paths' kernels stand in for: both proxy-attention versions and
+    their packed forms, the masked ``dot_attention`` that ``ProxyAttention``
+    takes under dropout, the window-attention version and the plain patch
+    embed GEMM. Yields the list of calls."""
     from xpretrain_tpu_torch.models.clip_vip import model as clip_vip_model
+    from xpretrain_tpu_torch.ops import patchify as pp
     from xpretrain_tpu_torch.ops import proxy_attention as pa
     from xpretrain_tpu_torch.ops import window_attention as wa
 
     hooks = [(pa, "proxy_attention_plain"), (pa, "proxy_attention_bwd_plain"),
-             (clip_vip_model, "dot_attention"), (wa, "window_attention_plain")]
+             (pa, "proxy_attention_packed_plain"), (pa, "proxy_attention_packed_bwd_plain"),
+             (clip_vip_model, "dot_attention"), (wa, "window_attention_plain"), (pp, "patch_embed_plain")]
     originals = [getattr(module, name) for module, name in hooks]
     calls = []
 
@@ -205,27 +251,77 @@ def plain_on_cuda_guard():
             setattr(module, name, fn)
 
 
-def launch_counts(pa, wa) -> dict[str, int]:
-    return {"proxy_attention_fwd": pa.proxy_attention.launches,
-            "proxy_attention_bwd": pa.proxy_attention_bwd.launches,
-            "window_attention_fwd": wa.window_attention.launches}
+def counted_wrappers() -> dict:
+    """Kernel name -> the wrapper whose ``launches`` counts its launches."""
+    from xpretrain_tpu_torch.ops import patchify as pp
+    from xpretrain_tpu_torch.ops import proxy_attention as pa
+    from xpretrain_tpu_torch.ops import window_attention as wa
+
+    return {"proxy_attention_fwd": pa.proxy_attention, "proxy_attention_bwd": pa.proxy_attention_bwd,
+            "proxy_attention_packed_fwd": pa.proxy_attention_packed,
+            "proxy_attention_packed_bwd": pa.proxy_attention_packed_bwd,
+            "patch_embed_u8": pp.fused_patch_embed, "window_attention_fwd": wa.window_attention}
 
 
-def reset_launches(pa, wa) -> None:
-    pa.proxy_attention.launches = 0
-    pa.proxy_attention_bwd.launches = 0
-    wa.window_attention.launches = 0
+def launch_counts() -> dict[str, int]:
+    return {name: fn.launches for name, fn in counted_wrappers().items()}
+
+
+def reset_launches() -> None:
+    for fn in counted_wrappers().values():
+        fn.launches = 0
+
+
+def expected(**launches: int) -> dict[str, int]:
+    """Every kernel's expected launch count: 0 unless given."""
+    return {name: launches.get(name, 0) for name in KERNELS}
 
 
 def alternate(fns: dict, iters: int = 200) -> dict[str, list[float]]:
-    """ms per call of ``fns["plain"]`` and ``fns["kernel"]``, timed in the
-    order plain, kernel, kernel, plain (CUDA events, ``iters`` calls each)."""
+    """ms per call of each of ``fns`` (plain, kernel and any other), timed in
+    turns there and back: plain, kernel, ..., ..., kernel, plain (CUDA
+    events, ``iters`` calls each)."""
     from xpretrain_tpu_torch.tools.profile_train_step import cuda_time_ms
 
-    runs = {"plain": [], "kernel": []}
-    for name in ("plain", "kernel", "kernel", "plain"):
+    order = ["plain", "kernel"] + [name for name in fns if name not in ("plain", "kernel")]
+    runs = {name: [] for name in order}
+    for name in order + order[::-1]:
         runs[name].append(cuda_time_ms(fns[name], iters=iters))
     return runs
+
+
+def mean(xs: list[float]) -> float:
+    return sum(xs) / len(xs)
+
+
+def bound_ms(flops: float, nbytes: float, dtype: str) -> tuple[float, str]:
+    """The least time the card could take for work of ``flops`` operations
+    on ``dtype`` and ``nbytes`` moved, and which of the two bounds it."""
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype] * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def packed(t):
+    """[B, H, S, D] -> the packed [B, S, H*D] projection layout (a copy)."""
+    B, H, S, D = t.shape
+    return t.transpose(1, 2).reshape(B, S, H * D).contiguous()
+
+
+def head_view(t, head_dim: int):
+    """The [B, H, S, D] head view of a packed tensor (no copy)."""
+    B, S, E = t.shape
+    return t.view(B, S, E // head_dim, head_dim).transpose(1, 2)
+
+
+def patch_inputs(shape: tuple, seed: int = 0):
+    """uint8 frames [N, H, W, 3] and a patch kernel [P, P, 3, D] (std 0.02)
+    on the card."""
+    import torch
+
+    N, H, W, P, D = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    frames = torch.randint(0, 256, (N, H, W, 3), device="cuda", generator=g, dtype=torch.uint8)
+    return frames, torch.randn(P, P, 3, D, device="cuda", generator=g) * 0.02
 
 
 def main() -> None:
@@ -238,9 +334,11 @@ def main() -> None:
     sys.path.insert(0, REPO)
     try:
         from xpretrain_tpu_torch.cli import run_retrieval_clipvip, run_tasks_lfvila
+        from xpretrain_tpu_torch.data.transforms import CLIP_MEAN, CLIP_STD
         from xpretrain_tpu_torch.models.clip_vip.model import CLIPVipConfig, CLIPViPModel
         from xpretrain_tpu_torch.ops import _kernels
         from xpretrain_tpu_torch.models.lf_vila.tasks import LfVilaRetrieval
+        from xpretrain_tpu_torch.ops import patchify as pp
         from xpretrain_tpu_torch.ops import proxy_attention as pa
         from xpretrain_tpu_torch.ops import window_attention as wa
         from xpretrain_tpu_torch.parallel.train_step import batch_to_device
@@ -268,7 +366,7 @@ def main() -> None:
         t0 = time.perf_counter()
         _kernels.load_library()
         lib = _kernels.library_path()
-        sources = ", ".join(src for src, _ in KERNELS.values())
+        sources = ", ".join(sorted({src for src, _ in KERNELS.values()}))
         print(f"built {lib.relative_to(REPO)} from {sources} "
               f"({' '.join(_kernels.NVCC_FLAGS[:2])}) in {time.perf_counter() - t0:.1f} s")
         for line in lib.with_suffix(".log").read_text().splitlines():
@@ -377,10 +475,110 @@ def main() -> None:
                 print(line)
                 del q, k, v, bias, mask, got, want
 
+    with phase("3d packed proxy attention (strided kernels) vs plain and vs the [B,H,S,D] kernels"):
+        packed_errors = {}
+        for name, s in CHECK_SHAPES.items():
+            D, scale = s["D"], s["D"] ** -0.5
+            for dtype in (torch.float32, torch.bfloat16):
+                q, k, v = qkv(s, dtype)
+                pq, pk, pv = (packed(t) for t in (q, k, v))
+                before = pa.proxy_attention_packed.launches
+                got = pa.proxy_attention_packed(pq, pk, pv, s["M"], s["N"], s["L"], scale, D)
+                torch.cuda.synchronize()
+                check(pa.proxy_attention_packed.launches == before + 1, f"{name}: packed launch not counted")
+                check(got.dtype == dtype and got.shape == pq.shape, f"{name}: packed output dtype/shape")
+                same = torch.equal(got, packed(pa.proxy_attention(q, k, v, s["M"], s["N"], s["L"], scale)))
+                want = pa.proxy_attention_packed_plain(pq, pk, pv, s["M"], s["L"], scale, D)
+                dt = str(dtype).split(".")[-1]
+                err = (got.float() - want.float()).abs().max().item()
+                packed_errors[(name, dt)] = err
+                line = (f"  forward {name:10s} {dt:8s} max_abs {err:.3e} tol {TOL[dt]:.0e}; "
+                        f"bit-equal to the [B,H,S,D] kernel: {same}")
+                check(math.isfinite(err) and err <= TOL[dt], f"{name} {dt} packed: max_abs {err} > {TOL[dt]}")
+                if dtype == torch.bfloat16:
+                    exact = pa.proxy_attention_packed_plain(pq.float(), pk.float(), pv.float(), s["M"], s["L"],
+                                                            scale, D)
+                    ulps = bf16_ulps(got, exact)
+                    line += f"; vs fp32 plain {ulps:.3f} ulp (tol {BF16_MAX_ULP:.0f})"
+                    check(ulps <= BF16_MAX_ULP, f"{name} bf16 packed: {ulps} ulp from the fp32 plain version")
+                print(line)
+        s = B32_TRAIN
+        D, scale = s["D"], s["D"] ** -0.5
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, d_out = qkv(s, dtype, seed=1, n=4)
+            pq, pk, pv, pd = (packed(t) for t in (q, k, v, d_out))
+            before = pa.proxy_attention_packed_bwd.launches
+            got = pa.proxy_attention_packed_bwd(pq, pk, pv, pd, s["M"], s["N"], s["L"], scale, D)
+            torch.cuda.synchronize()
+            check(pa.proxy_attention_packed_bwd.launches == before + 1, "packed backward launch not counted")
+            same = all(torch.equal(g, packed(w)) for g, w in
+                       zip(got, pa.proxy_attention_bwd(q, k, v, d_out, s["M"], s["N"], s["L"], scale)))
+            want = pa.proxy_attention_packed_bwd_plain(*(t.float() for t in (pq, pk, pv, pd)), s["M"], s["L"],
+                                                       scale, D)
+            dt = str(dtype).split(".")[-1]
+            for g, gname in zip(got, ("dq", "dk", "dv")):
+                check(g.dtype == dtype and g.shape == pq.shape, f"packed {dt} {gname}: dtype/shape")
+            err = max((g.float() - w).abs().max().item() for g, w in zip(got, want))
+            packed_errors[("b32_train_bwd", dt)] = err
+            line = f"  backward b32_train  {dt:8s} max_abs {err:.3e}"
+            check(math.isfinite(err), f"packed {dt}: backward not finite")
+            if dtype == torch.float32:
+                line += f" (tol {BWD_TOL_FP32:.0e})"
+                check(err <= BWD_TOL_FP32, f"packed fp32 backward: max_abs {err} > {BWD_TOL_FP32}")
+            else:
+                ulps = max(bf16_grad_ulps(g, w) for g, w in zip(got, want))
+                line += f", {ulps:.3f} ulp of the fp32 plain gradients (tol {BWD_MAX_ULP:.0f})"
+                check(ulps <= BWD_MAX_ULP, f"packed bf16 backward: {ulps} ulp")
+            print(line + f"; bit-equal to the [B,H,S,D] kernel: {same}")
+            del q, k, v, d_out, pq, pk, pv, pd, got, want
+        # autograd through the packed entry on the card against autograd of
+        # the plain path (fp32, the tiny shape): a strided output gradient
+        s = CHECK_SHAPES["tiny"]
+        leaves = [packed(t).requires_grad_() for t in qkv(s, torch.float32, seed=2)]
+        ref = [t.detach().clone().requires_grad_() for t in leaves]
+        weight = packed(qkv(s, torch.float32, seed=3, n=1)[0])
+        before = pa.proxy_attention_packed_bwd.launches
+        (pa.proxy_attention_packed(*leaves, s["M"], s["N"], s["L"], s["D"] ** -0.5, s["D"]).transpose(0, 1)
+         * weight.transpose(0, 1)).sum().backward()
+        torch.cuda.synchronize()
+        check(pa.proxy_attention_packed_bwd.launches == before + 1, "autograd did not launch the packed backward")
+        (pa.proxy_attention_packed_plain(*ref, s["M"], s["L"], s["D"] ** -0.5, s["D"]) * weight).sum().backward()
+        err = max((a.grad - b.grad).abs().max().item() for a, b in zip(leaves, ref))
+        print(f"  autograd through the packed kernels vs through the plain path (tiny, fp32): "
+              f"max_abs {err:.3e} (tol {BWD_TOL_FP32:.0e})")
+        check(err <= BWD_TOL_FP32, f"packed kernel autograd vs plain autograd: {err}")
+
+    with phase("3e patch-embed kernel vs plain"):
+        patch_errors = {}
+        for name, shape in PATCH_SHAPES.items():
+            frames, kernel = patch_inputs(shape)
+            want = pp.fused_patch_embed(frames, kernel, CLIP_MEAN, CLIP_STD)  # the plain fp32 GEMM
+            top = want.abs().max().item()
+            for dtype in (torch.float32, torch.bfloat16):
+                before = pp.fused_patch_embed.launches
+                got = pp.fused_patch_embed(frames, kernel, CLIP_MEAN, CLIP_STD, dtype, use_kernel=True)
+                torch.cuda.synchronize()
+                check(pp.fused_patch_embed.launches == before + 1, f"{name}: patch-embed launch not counted")
+                check(got.dtype == dtype and got.shape == want.shape, f"{name}: patch-embed output dtype/shape")
+                dt = str(dtype).split(".")[-1]
+                err = (got.float() - want).abs().max().item()
+                patch_errors[(name, dt)] = err
+                line = f"  {name:12s} [N,H,W,P,D]={list(shape)} {dt:8s} max_abs {err:.3e} (max|out| {top:.3f})"
+                check(math.isfinite(err), f"{name} {dt}: patch embed not finite")
+                if dtype == torch.float32:
+                    line += f", {err / top:.2e} of max|out| (tol {PATCH_FP32_REL:.0e})"
+                    check(err <= PATCH_FP32_REL * top, f"{name} fp32 patch embed: {err} > {PATCH_FP32_REL} max|out|")
+                else:
+                    ulps = bf16_grad_ulps(got, want)
+                    line += f", {ulps:.3f} ulp of the fp32 plain GEMM (tol {BF16_MAX_ULP:.0f})"
+                    check(ulps <= BF16_MAX_ULP, f"{name} bf16 patch embed: {ulps} ulp")
+                print(line)
+            del frames, kernel, want, got
+
     with phase("4 B/32 retrieval eval (main path)"), tempfile.TemporaryDirectory() as out_dir:
         torch.cuda.reset_peak_memory_stats()
         with plain_on_cuda_guard() as plain_cuda_calls:
-            reset_launches(pa, wa)
+            reset_launches()
             report = run_retrieval_clipvip.main([
                 "--dummy_data", "1", "--mode", "eval", "--clip_size", "base_32",
                 "--device_ingest", "1", "--num_frm", "12", "--crop_img_size", "224",
@@ -388,13 +586,11 @@ def main() -> None:
                 "--output_dir", out_dir, "--save_feats", f"{out_dir}/feats.npz",
             ])
             torch.cuda.synchronize()
-            eval_launches = launch_counts(pa, wa)
+            eval_launches = launch_counts()
         n_batches = math.ceil(run_retrieval_clipvip.DUMMY_VAL_SIZE / EVAL_BATCH)
         print(f"  launches {eval_launches} (expected {VIDEO_LAYERS} layers x {n_batches} batches forward, "
               f"none backward); plain path on CUDA: {len(plain_cuda_calls)} calls")
-        check(eval_launches == {"proxy_attention_fwd": VIDEO_LAYERS * n_batches, "proxy_attention_bwd": 0,
-                                "window_attention_fwd": 0},
-              "eval kernel launch counts")
+        check(eval_launches == expected(proxy_attention_fwd=VIDEO_LAYERS * n_batches), "eval kernel launch counts")
         check(not plain_cuda_calls, f"the plain version ran on CUDA tensors: {plain_cuda_calls[:4]}")
         for direction in ("t2v", "v2t"):
             row = {k: report[direction][k] for k in ("R1", "R5", "R10", "MedR")}
@@ -418,7 +614,7 @@ def main() -> None:
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         with plain_on_cuda_guard() as plain_cuda_calls:
-            reset_launches(pa, wa)
+            reset_launches()
             report = run_retrieval_clipvip.main([
                 "--config", os.path.join(REPO, PRESET), "--dummy_data", "1", "--device_ingest", "1",
                 "--mode", "train", "--num_train_steps", str(TRAIN_STEPS),
@@ -426,16 +622,13 @@ def main() -> None:
                 "--device", "cuda", "--output_dir", out_dir,
             ])
             torch.cuda.synchronize()
-            train_launches = launch_counts(pa, wa)
+            train_launches = launch_counts()
         wall = time.perf_counter() - t0
         # validation at start, at every TRAIN_EVERY steps, and the final report's
         n_val = math.ceil(run_retrieval_clipvip.DUMMY_VAL_SIZE / preset["val_batch_size"])
         validations = 1 + TRAIN_STEPS // TRAIN_EVERY + 1
-        want = {
-            "proxy_attention_fwd": VIDEO_LAYERS * (TRAIN_STEPS + validations * n_val),
-            "proxy_attention_bwd": VIDEO_LAYERS * TRAIN_STEPS,
-            "window_attention_fwd": 0,
-        }
+        want = expected(proxy_attention_fwd=VIDEO_LAYERS * (TRAIN_STEPS + validations * n_val),
+                        proxy_attention_bwd=VIDEO_LAYERS * TRAIN_STEPS)
         print(f"  launches {train_launches} (expected {want}: {VIDEO_LAYERS} layers x ({TRAIN_STEPS} steps "
               f"+ {validations} validations x {n_val} batches) forward, x {TRAIN_STEPS} steps backward); "
               f"plain path on CUDA: {len(plain_cuda_calls)} calls")
@@ -466,18 +659,17 @@ def main() -> None:
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         with plain_on_cuda_guard() as plain_cuda_calls:
-            reset_launches(pa, wa)
+            reset_launches()
             report = run_tasks_lfvila.main([
                 "--config", os.path.join(REPO, LFVILA_PRESET), "--task", "retrieval", "--dummy_data", "1",
                 "--num_train_steps", "0", "--val_batch_size", str(LFVILA_BATCH), "--device", "cuda",
                 "--output_dir", out_dir,
             ])
             torch.cuda.synchronize()
-            lfvila_launches = launch_counts(pa, wa)
+            lfvila_launches = launch_counts()
         wall = time.perf_counter() - t0
         n_batches = math.ceil(run_tasks_lfvila.DUMMY_SIZE / LFVILA_BATCH)
-        want = {"proxy_attention_fwd": 0, "proxy_attention_bwd": 0,
-                "window_attention_fwd": WINDOW_BLOCKS * n_batches}
+        want = expected(window_attention_fwd=WINDOW_BLOCKS * n_batches)
         print(f"  launches {lfvila_launches} (expected {WINDOW_BLOCKS} window blocks x {n_batches} batches); "
               f"plain path on CUDA: {len(plain_cuda_calls)} calls")
         check(lfvila_launches == want, "LF-VILA retrieval kernel launch counts")
@@ -491,6 +683,41 @@ def main() -> None:
         print(f"  eval {report['perf']['wall_s']:.2f} s, {report['perf']['clips_per_s']:.2f} clips/s; run wall "
               f"{wall:.1f} s (host clock; model build, synthetic data and upload included) [{card}]")
         print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+
+    with phase("4d ops: the packed proxy attention and the fused patch embed (main path)"):
+        s, st = B32, B32_TRAIN
+        D, scale = s["D"], s["D"] ** -0.5
+        serve = [packed(t) for t in qkv(s, torch.bfloat16, seed=4)]
+        train = [packed(t) for t in qkv(st, torch.bfloat16, seed=5, n=4)]
+        leaves = [t.clone().requires_grad_() for t in train[:3]]
+        g = torch.Generator(device="cuda").manual_seed(6)
+        # the 24 x 12 frames of a B/32 serving batch, and a patch kernel of the model's shape
+        frames = torch.randint(0, 256, (EVAL_BATCH * 12, 224, 224, 3), device="cuda", generator=g,
+                               dtype=torch.uint8)
+        kernel = torch.randn(32, 32, 3, 768, device="cuda", generator=g) * 0.02
+        with plain_on_cuda_guard() as plain_cuda_calls:
+            reset_launches()
+            out = pa.proxy_attention_packed(*serve, s["M"], s["N"], s["L"], scale, D)
+            pa.proxy_attention_packed(*leaves, st["M"], st["N"], st["L"], scale, D).backward(train[3])
+            emb = pp.fused_patch_embed(frames, kernel, CLIP_MEAN, CLIP_STD, torch.bfloat16, use_kernel=True)
+            torch.cuda.synchronize()
+            ops_launches = launch_counts()
+        want = expected(proxy_attention_packed_fwd=2, proxy_attention_packed_bwd=1, patch_embed_u8=1)
+        print(f"  launches {ops_launches} (expected {want}); plain path on CUDA: {len(plain_cuda_calls)} calls")
+        check(ops_launches == want, "ops path kernel launch counts")
+        check(not plain_cuda_calls, f"the plain version ran on CUDA tensors: {plain_cuda_calls[:4]}")
+        # what came out, against the plain versions of the same inputs in fp32
+        ulps = bf16_ulps(out, pa.proxy_attention_packed_plain(*(t.float() for t in serve), s["M"], s["L"], scale, D))
+        grads = pa.proxy_attention_packed_bwd_plain(*(t.float() for t in train), st["M"], st["L"], scale, D)
+        grad_ulps = max(bf16_grad_ulps(t.grad, w) for t, w in zip(leaves, grads))
+        emb_ulps = bf16_grad_ulps(emb, pp.fused_patch_embed(frames, kernel, CLIP_MEAN, CLIP_STD))
+        print(f"  packed forward {tuple(out.shape)} {ulps:.3f} ulp, gradients {grad_ulps:.3f} ulp, "
+              f"patch embeddings {tuple(emb.shape)} {emb_ulps:.3f} ulp of the fp32 plain versions")
+        check(out.shape == serve[0].shape and all(t.grad.shape == train[0].shape for t in leaves)
+              and emb.shape == (EVAL_BATCH * 12, 49, 768), "ops path output shapes")
+        check(ulps <= BF16_MAX_ULP and grad_ulps <= BWD_MAX_ULP and emb_ulps <= BF16_MAX_ULP,
+              "ops path outputs against their plain versions")
+        del serve, train, leaves, frames, kernel, out, emb, grads
 
     with phase("5 serve: card vs CPU, fp32"):
         model_cpu = CLIPViPModel(CLIPVipConfig.base_patch32(dtype=torch.float32))
@@ -690,7 +917,138 @@ def main() -> None:
         check(all(math.isfinite(x) for x in vid + txt), "tower timing")
         del model, frames
 
-    paths = {"eval": eval_launches, "train": train_launches, "lfvila_retrieval": lfvila_launches}
+    with phase("6d timing: packed and patch-embed kernels, and one library call for each kernel"):
+        import torch.nn.functional as F
+
+        lib = {}  # kernel name -> ms of one PyTorch call computing the same function
+        sdpa_checks = []
+
+        def sdpa(q, k, v, mask, scale):
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale)
+
+        def sdpa_fwd_bwd(tensors, d_out, view, mask, scale):
+            def run():
+                leaves = [t.detach().requires_grad_() for t in tensors]
+                sdpa(*(view(t) for t in leaves), mask, scale).backward(view(d_out))
+            return run
+
+        # #1 and #3: B/32 serving, b=24, bf16; the proxy mask built outside the window
+        s = B32
+        D, scale, S = s["D"], s["D"] ** -0.5, s["M"] + s["N"] * s["L"]
+        mask = pa.proxy_bias(S, s["M"], s["L"], "cuda").to(torch.bfloat16)
+        q, k, v = qkv(s, torch.bfloat16)
+        pq, pk, pv = (packed(t) for t in (q, k, v))
+        hq, hk, hv = (head_view(t, D) for t in (pq, pk, pv))
+        runs = alternate({
+            "kernel": lambda: pa.proxy_attention_packed(pq, pk, pv, s["M"], s["N"], s["L"], scale, D),
+            "plain": lambda: pa.proxy_attention_packed_plain(pq, pk, pv, s["M"], s["L"], scale, D),
+            "library": lambda: sdpa(hq, hk, hv, mask, scale),
+            "library_bhsd": lambda: sdpa(q, k, v, mask, scale),
+        })
+        packed_fwd_timing = {k_: mean(r) for k_, r in runs.items()}
+        lib["proxy_attention_packed_fwd"] = packed_fwd_timing["library"]
+        lib["proxy_attention_fwd"] = packed_fwd_timing["library_bhsd"]
+        sdpa_checks.append(("proxy fwd", sdpa(q, k, v, mask, scale), pa.proxy_attention(q, k, v, s["M"], s["N"],
+                                                                                        s["L"], scale)))
+        print(f"  packed proxy attention B/32 b=24 bf16: kernel {runs['kernel']} ms, plain {runs['plain']} ms, "
+              f"SDPA on the head views {runs['library']} ms; [B,H,S,D] SDPA {runs['library_bhsd']} ms "
+              f"(CUDA events, 200 calls each) [{card}]")
+        del q, k, v, pq, pk, pv, hq, hk, hv
+
+        # #2 and #4: B/32 train, b=32, bf16; the library's backward is its
+        # forward + backward through autograd minus its forward alone
+        s = B32_TRAIN
+        q, k, v, d_out = qkv(s, torch.bfloat16, seed=1, n=4)
+        pq, pk, pv, pd = (packed(t) for t in (q, k, v, d_out))
+        hv_ = lambda t: head_view(t, D)  # noqa: E731
+        same = lambda t: t  # noqa: E731
+        runs = alternate({
+            "kernel": lambda: pa.proxy_attention_packed_bwd(pq, pk, pv, pd, s["M"], s["N"], s["L"], scale, D),
+            "plain": lambda: pa.proxy_attention_packed_bwd_plain(pq, pk, pv, pd, s["M"], s["L"], scale, D),
+            "library_fwd_bwd": sdpa_fwd_bwd((pq, pk, pv), pd, hv_, mask, scale),
+            "library_fwd": lambda: sdpa(hv_(pq), hv_(pk), hv_(pv), mask, scale),
+            "bhsd_fwd_bwd": sdpa_fwd_bwd((q, k, v), d_out, same, mask, scale),
+            "bhsd_fwd": lambda: sdpa(q, k, v, mask, scale),
+        })
+        packed_bwd_timing = {k_: mean(r) for k_, r in runs.items()}
+        lib["proxy_attention_packed_bwd"] = packed_bwd_timing["library_fwd_bwd"] - packed_bwd_timing["library_fwd"]
+        lib["proxy_attention_bwd"] = packed_bwd_timing["bhsd_fwd_bwd"] - packed_bwd_timing["bhsd_fwd"]
+        print(f"  packed proxy attention backward B/32 b=32 bf16: kernel {runs['kernel']} ms, plain "
+              f"{runs['plain']} ms, SDPA forward+backward on the head views {runs['library_fwd_bwd']} ms, its "
+              f"forward {runs['library_fwd']} ms; [B,H,S,D] SDPA forward+backward {runs['bhsd_fwd_bwd']} ms, "
+              f"forward {runs['bhsd_fwd']} ms (CUDA events, 200 calls each) [{card}]")
+        del q, k, v, d_out, pq, pk, pv, pd
+
+        # #5: the B/32 serving frames, bf16 out; the library call is one fp32
+        # addmm of patches gathered outside the window (TF32 off), the gather
+        # timed apart
+        N_, H_, W_, P_, D_ = PATCH_SHAPES["b32"]
+        frames, kernel = patch_inputs(PATCH_SHAPES["b32"])
+        folded_w, bias = pp.fold_normalization(kernel, CLIP_MEAN, CLIP_STD)
+        gather = lambda: pp.extract_patches_u8(frames, P_).reshape(-1, 3 * P_ * P_).float()  # noqa: E731
+        patches = gather()
+        runs = alternate({
+            "kernel": lambda: pp.fused_patch_embed(frames, kernel, CLIP_MEAN, CLIP_STD, torch.bfloat16,
+                                                   use_kernel=True),
+            "plain": lambda: pp.fused_patch_embed(frames, kernel, CLIP_MEAN, CLIP_STD, torch.bfloat16),
+            "library": lambda: torch.addmm(bias, patches, folded_w),
+            "gather": gather,
+            "kernel_fp32": lambda: pp.fused_patch_embed(frames, kernel, CLIP_MEAN, CLIP_STD, use_kernel=True),
+        }, iters=50)
+        patch_timing = {k_: mean(r) for k_, r in runs.items()}
+        lib["patch_embed_u8"] = patch_timing["library"]
+        sdpa_checks.append(("patch embed", torch.addmm(bias, patches, folded_w),
+                            pp.fused_patch_embed(frames, kernel, CLIP_MEAN, CLIP_STD, use_kernel=True).flatten(0, 1)))
+        print(f"  patch embed [N,H,W,P,D]={list(PATCH_SHAPES['b32'])} bf16 out: kernel {runs['kernel']} ms "
+              f"(fp32 out {runs['kernel_fp32']} ms), plain {runs['plain']} ms, fp32 addmm of gathered patches "
+              f"{runs['library']} ms, the gather {runs['gather']} ms (CUDA events, 50 calls each) [{card}]")
+        del frames, kernel, folded_w, bias, patches
+
+        # #6: stage 3's shifted block at b=8, bf16; bias + mask as one
+        # [nW, H, N, N] mask, broadcast over the batch of windows
+        shape = WINDOW_SHAPES["s3_shifted"]
+        q, k, v, bias, wmask = window_inputs(shape, torch.bfloat16)
+        Bn, Hw, Nw, dw = shape[:4]
+        nW = wmask.shape[0]
+        joint = (bias[None] + wmask[:, None]).to(torch.bfloat16)
+        wview = lambda t: t.view(Bn // nW, nW, Hw, Nw, dw)  # noqa: E731
+        runs = alternate({
+            "kernel": lambda: wa.window_attention(q, k, v, bias, wmask),
+            "plain": lambda: wa.window_attention_plain(q, k, v, bias, wmask),
+            "library": lambda: sdpa(wview(q), wview(k), wview(v), joint, dw ** -0.5),
+        })
+        lib["window_attention_fwd"] = mean(runs["library"])
+        sdpa_checks.append(("window", sdpa(wview(q), wview(k), wview(v), joint, dw ** -0.5).reshape(q.shape),
+                            wa.window_attention(q, k, v, bias, wmask)))
+        print(f"  window attention s3_shifted {list(shape[:4])} bf16: kernel {runs['kernel']} ms, plain "
+              f"{runs['plain']} ms, SDPA with the joint mask {runs['library']} ms (CUDA events, 200 calls each) "
+              f"[{card}]")
+        del q, k, v, bias, wmask, joint
+        # the yardsticks compute the kernels' functions (bf16 rounding apart)
+        for name, a, b in sdpa_checks:
+            err = (a.float() - b.float()).abs().max().item()
+            print(f"  library call vs kernel, {name}: max_abs {err:.3e}")
+            check(math.isfinite(err) and err <= 5e-2 * max(1.0, b.float().abs().max().item()),
+                  f"library call for {name} computes another function: {err}")
+
+        # the least time the card could take for each kernel's work on this run's inputs
+        bounds = {}
+        for name, s, backward in (("proxy_attention_fwd", B32, False), ("proxy_attention_bwd", B32_TRAIN, True)):
+            flops, nbytes, _ = pa.proxy_attention_cost(s["B"], s["H"], s["M"] + s["N"] * s["L"], s["D"], s["M"],
+                                                       s["L"], 2, backward)
+            bounds[name] = bounds[name.replace("attention_", "attention_packed_")] = \
+                bound_ms(flops, nbytes, "bfloat16")
+        rows, K = N_ * (H_ // P_) * (W_ // P_), 3 * P_ * P_
+        bounds["patch_embed_u8"] = bound_ms(2 * rows * K * D_, N_ * H_ * W_ * 3 + (K + 1) * D_ * 4 + rows * D_ * 2,
+                                            "float32")
+        bounds["window_attention_fwd"] = bound_ms(4 * Bn * Hw * Nw * Nw * dw,
+                                                  4 * Bn * Hw * Nw * dw * 2 + (Hw + nW) * Nw * Nw * 4, "bfloat16")
+        for name, (t, by) in bounds.items():
+            print(f"  bound {name}: {t:.4f} ms ({by}; {HBM_BYTES_PER_S / 1e12:.2f} TB/s, "
+                  f"{PEAK_FLOPS['bfloat16' if 'patch' not in name else 'float32'] / 1e12:.0f} TFLOP/s)")
+
+    paths = {"eval": eval_launches, "train": train_launches, "lfvila_retrieval": lfvila_launches,
+             "ops": ops_launches}
     window_timing = {dt: win_timings[("s3_shifted", dt)] for dt in ("bfloat16", "float32")}
     summary = {"kernels": [
         {
@@ -702,15 +1060,22 @@ def main() -> None:
             "launches": sum(counts[name] for counts in paths.values()),
             "launches_by_path": {path: counts[name] for path, counts in paths.items()},
             "max_abs_err": err,
-            "ms": timing["bfloat16"]["kernel"],
-            "plain_ms": timing["bfloat16"]["plain"],
+            "ms": timing["kernel"],
+            "plain_ms": timing["plain"],
+            "bound_ms": bounds[name][0],
+            "bound_by": bounds[name][1],
+            "library_ms": lib[name],
         }
         for name, err, timing in (
-            ("proxy_attention_fwd", errors[("b32", "bfloat16")], timings),
-            ("proxy_attention_bwd", bwd_errors[("b32_train", "bfloat16")], bwd_timings),
-            ("window_attention_fwd", win_errors[("s3_shifted", "bfloat16")], window_timing),
+            ("proxy_attention_fwd", errors[("b32", "bfloat16")], timings["bfloat16"]),
+            ("proxy_attention_bwd", bwd_errors[("b32_train", "bfloat16")], bwd_timings["bfloat16"]),
+            ("proxy_attention_packed_fwd", packed_errors[("b32", "bfloat16")], packed_fwd_timing),
+            ("proxy_attention_packed_bwd", packed_errors[("b32_train_bwd", "bfloat16")], packed_bwd_timing),
+            ("patch_embed_u8", patch_errors[("b32", "bfloat16")], patch_timing),
+            ("window_attention_fwd", win_errors[("s3_shifted", "bfloat16")], window_timing["bfloat16"]),
         )
     ]}
+    check(all(k_["launches"] > 0 for k_ in summary["kernels"]), "a kernel was launched no time on the main paths")
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -80,3 +80,21 @@ def test_runner_profile_steps_writes_the_breakdown(tmp_path):
     breakdown = json.loads((profile / "op_classes.json").read_text())
     # the two profiled steps; the CPU runs no device kernel
     assert breakdown == {"steps": 2, "classes": []}
+
+
+def test_ab_tool_reads_the_proxy_kernels_registers(tmp_path):
+    """``tools/ab_proxy_kernels.py`` picks the D=64 proxy kernels' register
+    counts out of an ``nvcc -Xptxas -v`` log, by kernel and dtype."""
+    from xpretrain_tpu_torch.tools import ab_proxy_kernels
+
+    log = tmp_path / "lib.log"
+    log.write_text(
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_113bwd_dq_kernelIfLi16EEEvPKT_' for 'sm_90a'\n"
+        "ptxas info    : Used 123 registers, used 1 barriers\n"
+        "ptxas info    : Compiling entry function "
+        "'_ZN12_GLOBAL__N_126proxy_attention_fwd_kernelI13__nv_bfloat16Li16EEEvPKT_' for 'sm_90a'\n"
+        "ptxas info    : Used 80 registers, used 1 barriers\n"
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_114bwd_dkv_kernelIfLi32EEEvPKT_' for 'sm_90a'\n"
+        "ptxas info    : Used 200 registers, used 1 barriers\n"
+    )
+    assert ab_proxy_kernels.registers(str(log)) == {"bwd_dq_kernel_fp32": 123, "proxy_attention_fwd_kernel_bf16": 80}

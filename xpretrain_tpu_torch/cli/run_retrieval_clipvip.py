@@ -5,11 +5,11 @@
 ``ClipVipTrainer``, validating at start and every ``--valid_steps``, and
 writes ``final_report.json``; ``--mode eval`` ranks text -> video with the
 model as built and writes ``eval_report.json`` (both through
-``xpretrain_tpu.train.evaluate.evaluate_retrieval``).
+``xpretrain_tpu_torch.train.evaluate.evaluate_retrieval``).
 
 Usage (synthetic ingest, the MSR-VTT B/32 fine-tune preset, on the card):
     python -m xpretrain_tpu_torch.cli.run_retrieval_clipvip --dummy_data 1 \
-        --config xpretrain_tpu/configs/presets/msrvtt_retrieval_vip_base_32.json \
+        --config xpretrain_tpu_torch/configs/msrvtt_retrieval_vip_base_32.json \
         --device_ingest 1 --device cuda --output_dir output/ft
 """
 
@@ -17,31 +17,31 @@ from __future__ import annotations
 
 import torch
 
-from xpretrain_tpu.cli.shared_args import build_shared_parser
-from xpretrain_tpu.config import parse_with_config
-from xpretrain_tpu.data.datasets import (
+from xpretrain_tpu_torch.cli.shared_args import build_shared_parser
+from xpretrain_tpu_torch.config import parse_with_config
+from xpretrain_tpu_torch.data.datasets import (
     FrameSource,
     RetrievalCollator,
     SyntheticVideoTextDataset,
     VideoRetrievalDataset,
 )
-from xpretrain_tpu.data.loader import BatchLoader, InfiniteIterator, SequentialEvalLoader
-from xpretrain_tpu.data.tokenization import build_tokenizer
-from xpretrain_tpu.data.transforms import clip_resize_crop_u8, clip_transform
-from xpretrain_tpu.train.evaluate import evaluate_retrieval
-from xpretrain_tpu.utils.basic import save_json
-from xpretrain_tpu.utils.logging import LOGGER, setup_logging
+from xpretrain_tpu_torch.data.loader import BatchLoader, InfiniteIterator, SequentialEvalLoader
+from xpretrain_tpu_torch.data.tokenization import build_tokenizer
+from xpretrain_tpu_torch.data.transforms import clip_resize_crop_u8, clip_transform
 from xpretrain_tpu_torch.models.clip_vip.model import CLIPViPModel
 from xpretrain_tpu_torch.parallel.train_step import make_eval_step
 from xpretrain_tpu_torch.train.checkpoints import save_training_meta
-from xpretrain_tpu_torch.train.trainer import ClipVipTrainer, clip_vip_config_from, without_ids
+from xpretrain_tpu_torch.train.evaluate import evaluate_retrieval
+from xpretrain_tpu_torch.train.trainer import ClipVipTrainer, clip_vip_config_from
+from xpretrain_tpu_torch.utils.basic import save_json
+from xpretrain_tpu_torch.utils.logging import LOGGER, setup_logging
 
 DUMMY_TRAIN_SIZE = 512  # clips in the synthetic train set (as the JAX runner)
 DUMMY_VAL_SIZE = 128  # clips in the synthetic val set (as the JAX runner)
 
 
-# _TransformedSynthetic and build_tokenizer_from_cfg restate the JAX runner's
-# helpers: that module imports jax at its top.
+# _TransformedSynthetic and build_tokenizer_from_cfg are the JAX runner's
+# helpers (``xpretrain_tpu/cli/run_retrieval_clipvip.py``).
 class _TransformedSynthetic:
     def __init__(self, size, num_frames, image_size, seed=0, device_ingest=False):
         self.ds = SyntheticVideoTextDataset(size, num_frames, image_size, seed)
@@ -100,9 +100,8 @@ def build_loaders(cfg) -> tuple[InfiniteIterator | None, SequentialEvalLoader, i
 
 
 def reroot_data_paths(cfg):
-    """Re-root relative data paths under ``--data_mount_dir``, as
-    ``xpretrain_tpu.cli.shared_args.parse_args`` does (which starts JAX's
-    distributed runtime)."""
+    """Re-root relative data paths under ``--data_mount_dir``, as the JAX
+    package's ``cli/shared_args.py:parse_args`` does."""
     if cfg.get("data_mount_dir"):
         for key in ("train_annotation", "val_annotation", "video_root"):
             if cfg.get(key) and not str(cfg[key]).startswith("/"):
@@ -150,7 +149,7 @@ def main(argv=None):
         model = build_model(cfg, device)
         LOGGER.info("eval on %s: %d clips, batch %d", device, valid_len, cfg.val_batch_size)
         report = evaluate_retrieval(
-            make_eval_step(device), model, without_ids(val_loader), valid_len,
+            make_eval_step(device), model, val_loader, valid_len,
             save_feats_path=feats_path,
         )
         save_json(report, f"{cfg.output_dir}/eval_report.json", pretty=True)

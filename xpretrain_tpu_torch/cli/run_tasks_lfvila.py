@@ -5,7 +5,7 @@ Paragraph-to-video retrieval: the model is built at the config's widths
 (random weights from ``--seed``), trained through ``GenericTrainer`` for
 ``--num_train_steps`` steps (0 goes straight to the eval, as in JAX), and
 ranked text -> video on the validation set through
-``xpretrain_tpu.train.evaluate.evaluate_retrieval``; the report, R@K, goes
+``xpretrain_tpu_torch.train.evaluate.evaluate_retrieval``; the report, R@K, goes
 to ``final_report.json``. ``video_encoder.use_pallas_attention: true`` in
 the config routes the window attention of stages whose window holds at
 least ``pallas_min_window`` tokens through the hand-written CUDA kernel.
@@ -26,20 +26,17 @@ from __future__ import annotations
 
 import torch
 
-from xpretrain_tpu.cli.shared_args import build_shared_parser
-from xpretrain_tpu.config import parse_with_config
-from xpretrain_tpu.data.datasets import FrameSource
-from xpretrain_tpu.data.datasets_lfvila import (
+from xpretrain_tpu_torch.cli.run_retrieval_clipvip import reroot_data_paths, resolve_device
+from xpretrain_tpu_torch.cli.shared_args import build_shared_parser
+from xpretrain_tpu_torch.config import parse_with_config
+from xpretrain_tpu_torch.data.datasets import FrameSource
+from xpretrain_tpu_torch.data.datasets_lfvila import (
     LfVilaPretrainCollator,
     LfVilaPretrainDataset,
     LfVilaRetrievalDataset,
 )
-from xpretrain_tpu.data.loader import BatchLoader, InfiniteIterator, SequentialEvalLoader
-from xpretrain_tpu.data.tokenization import build_model_tokenizer
-from xpretrain_tpu.train.evaluate import evaluate_retrieval
-from xpretrain_tpu.utils.basic import load_jsonl, save_json
-from xpretrain_tpu.utils.logging import LOGGER, setup_logging
-from xpretrain_tpu_torch.cli.run_retrieval_clipvip import reroot_data_paths, resolve_device
+from xpretrain_tpu_torch.data.loader import BatchLoader, InfiniteIterator, SequentialEvalLoader
+from xpretrain_tpu_torch.data.tokenization import build_model_tokenizer
 from xpretrain_tpu_torch.models.bert import BertConfig
 from xpretrain_tpu_torch.models.lf_vila.convert import flax_param_paths
 from xpretrain_tpu_torch.models.lf_vila.pretrain import LfVilaConfig
@@ -48,7 +45,10 @@ from xpretrain_tpu_torch.models.lf_vila.tasks import LfVilaRetrieval
 from xpretrain_tpu_torch.optim.optimizer import NO_DECAY_LFVILA
 from xpretrain_tpu_torch.parallel.train_step import LFVILA_EVAL_IO, make_eval_step
 from xpretrain_tpu_torch.train.checkpoints import save_training_meta
+from xpretrain_tpu_torch.train.evaluate import evaluate_retrieval
 from xpretrain_tpu_torch.train.generic_trainer import GenericTrainer
+from xpretrain_tpu_torch.utils.basic import load_jsonl, save_json
+from xpretrain_tpu_torch.utils.logging import LOGGER, setup_logging
 
 DUMMY_SIZE = 256  # synthetic samples in each of the train and val sets (as the JAX runner)
 
@@ -193,7 +193,6 @@ def main(argv=None):
     trainer.train()
 
     model.eval()
-    # the collator emits no clip ids (nor labels), so the ranking gathers nothing through JAX
     report = evaluate_retrieval(make_eval_step(device, LFVILA_EVAL_IO), model, val_loader, val_loader.valid_len)
     report["score"] = report["t2v"]["R1"]
     save_json(report, f"{cfg.output_dir}/final_report.json", pretty=True)

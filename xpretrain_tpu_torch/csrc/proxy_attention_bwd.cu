@@ -2,8 +2,12 @@
 //
 // Replaces the Pallas TPU kernel `_attention_pallas_bwd` (cell body
 // `_cell_bwd`) in xpretrain_tpu/ops/proxy_attention.py. The sequence is
-// [M proxy tokens | N frames x L patches], S = M + N*L, laid out as
-// contiguous q/k/v/dO/dq/dk/dv [B, H, S, D]. The M proxy rows attend all S
+// [M proxy tokens | N frames x L patches], S = M + N*L. Each of
+// q/k/v/dO/dq/dk/dv is indexed [B, H, S, D] through its own (batch, head,
+// row) strides with D contiguous, as in the forward kernel: a contiguous
+// [B, H, S, D] tensor, or the raw [B, S, H*D] projection layout of
+// `_attention_pallas_bwd_packed` (strides (S*H*D, D, H*D)), whose head split
+// happens in the addresses. The M proxy rows attend all S
 // keys; each frame's L rows attend [M proxies | own L patches]. With
 // P = softmax(s * QK^T) over each row's allowed keys:
 //   dV = P^T dO,  dP = dO V^T,  dS = P * (dP - delta),  delta = rowsum(P * dP),
@@ -50,7 +54,7 @@
 // C interface for ctypes: xpt_proxy_attention_bwd launches both passes on
 // the caller's stream and returns cudaGetLastError() after each launch (0 on
 // success). It does not synchronise and allocates nothing: LSE and delta are
-// [B, H, S] fp32 buffers the caller provides.
+// contiguous [B, H, S] fp32 buffers the caller provides.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -63,6 +67,26 @@ constexpr int kLanes = 4;                   // lanes sharing one register-reside
 constexpr int kGroups = kThreads / kLanes;  // row groups per block
 constexpr int kTile = 32;                   // streamed rows staged per tile
 constexpr int kPad = 4;                     // floats of row padding (bank spread)
+
+// Element strides of one tensor indexed [B, H, S, D] (D has stride 1). The
+// batch and head strides place a block's (b, h) once, in 64 bits; the row
+// stride addresses the rows inside it in 32 bits (the C entry checks that
+// S rows fit), as cheap as the contiguous layout's constant D.
+struct Layout {
+  long long b, h;
+  int r;
+};
+
+// Layouts from the caller's (batch, head, row) element strides; false when a
+// row offset inside one head would not fit in 32 bits.
+inline bool make_layouts(const long long* strides, int n, int S, int D, Layout* lay) {
+  for (int i = 0; i < n; ++i) {
+    const long long r = strides[3 * i + 2];
+    if (r < D || (S - 1) * r + D > 0x7fffffffLL) return false;
+    lay[i] = {strides[3 * i], strides[3 * i + 1], static_cast<int>(r)};
+  }
+  return true;
+}
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -85,17 +109,19 @@ __device__ __forceinline__ float group_sum(float x, unsigned gmask) {
 
 // Stage `nt` streamed rows, starting at logical row t0, into fp32 tiles.
 // Logical row t maps to sequence row t when `all_rows`, else proxies first
-// (t < M) and then the frame that starts at `frame0`.
+// (t < M) and then the frame that starts at `frame0`; `ar` and `br` are the
+// row strides of `a` and `b`.
 template <typename T, int D>
 __device__ __forceinline__ void stage_rows(float* a_s, float* b_s, const T* a, const T* b,
-                                           int t0, int nt, bool all_rows, int M, int frame0) {
+                                           int ar, int br, int t0, int nt,
+                                           bool all_rows, int M, int frame0) {
   constexpr int RS = D + kPad;
   for (int i = threadIdx.x; i < nt * D; i += kThreads) {
     const int t = i / D, d = i % D;
     const int lt = t0 + t;
     const int srow = (all_rows || lt < M) ? lt : frame0 + (lt - M);
-    a_s[t * RS + d] = to_float(a[(size_t)srow * D + d]);
-    if (b_s != nullptr) b_s[t * RS + d] = to_float(b[(size_t)srow * D + d]);
+    a_s[t * RS + d] = to_float(a[srow * ar + d]);
+    if (b_s != nullptr) b_s[t * RS + d] = to_float(b[srow * br + d]);
   }
 }
 
@@ -104,7 +130,8 @@ template <typename T, int DPT>  // DPT = head dim / kLanes
 __global__ void __launch_bounds__(kThreads)
 bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
               const T* __restrict__ dout, T* __restrict__ dq, float* __restrict__ lse,
-              float* __restrict__ delta, int S, int M, int L, float scale) {
+              float* __restrict__ delta, Layout lq, Layout lk, Layout lv, Layout ldo,
+              Layout ldq, int S, int M, int L, float scale) {
   constexpr int D = DPT * kLanes;
   constexpr int RS = D + kPad;
   extern __shared__ float smem[];
@@ -115,13 +142,13 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   float* red_m = smem + kGroups * D;   // [kGroups]
   float* red_l = red_m + kGroups;      // [kGroups]
 
+  const long long bz = blockIdx.z, hy = blockIdx.y;
   const size_t bh = (size_t)blockIdx.z * gridDim.y + blockIdx.y;
-  const size_t head = bh * (size_t)S * D;
-  const T* qh = q + head;
-  const T* kh = k + head;
-  const T* vh = v + head;
-  const T* doh = dout + head;
-  T* dqh = dq + head;
+  const T* qh = q + bz * lq.b + hy * lq.h;
+  const T* kh = k + bz * lk.b + hy * lk.h;
+  const T* vh = v + bz * lv.b + hy * lv.h;
+  const T* doh = dout + bz * ldo.b + hy * ldo.h;
+  T* dqh = dq + bz * ldq.b + hy * ldq.h;
   float* lseh = lse + bh * S;
   float* deltah = delta + bh * S;
 
@@ -141,13 +168,13 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
     const int split = g % nsplit;
     const int base = g - split;  // first group of this row
     const bool active = g < rows * nsplit;  // uniform within a group
-    const size_t qrow = (size_t)(row0 + r);
+    const int qrow = row0 + r;
 
     float qr[DPT], dor[DPT];
 #pragma unroll
     for (int e = 0; e < DPT; ++e) {
-      qr[e] = active ? to_float(qh[qrow * D + e * kLanes + lane]) : 0.f;
-      dor[e] = active ? to_float(doh[qrow * D + e * kLanes + lane]) : 0.f;
+      qr[e] = active ? to_float(qh[qrow * lq.r + e * kLanes + lane]) : 0.f;
+      dor[e] = active ? to_float(doh[qrow * ldo.r + e * kLanes + lane]) : 0.f;
     }
 
     // ---- sweep 1: the row's running max and sum over its keys ----
@@ -155,7 +182,7 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
     for (int t0 = 0; t0 < nkeys; t0 += kTile) {
       const int nt = min(kTile, nkeys - t0);
       __syncthreads();  // the previous tile (or merge scratch) is consumed
-      stage_rows<T, D>(ks, nullptr, kh, nullptr, t0, nt, proxy, M, row0);
+      stage_rows<T, D>(ks, nullptr, kh, nullptr, lk.r, 0, t0, nt, proxy, M, row0);
       __syncthreads();
       if (active) {
         for (int j = split; j < nt; j += nsplit) {
@@ -199,7 +226,7 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
     for (int t0 = 0; t0 < nkeys; t0 += kTile) {
       const int nt = min(kTile, nkeys - t0);
       __syncthreads();
-      stage_rows<T, D>(ks, vs, kh, vh, t0, nt, proxy, M, row0);
+      stage_rows<T, D>(ks, vs, kh, vh, lk.r, lv.r, t0, nt, proxy, M, row0);
       __syncthreads();
       if (active) {
         for (int j = split; j < nt; j += nsplit) {
@@ -253,7 +280,8 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
     }
     if (active && split == 0) {
 #pragma unroll
-      for (int e = 0; e < DPT; ++e) dqh[qrow * D + e * kLanes + lane] = from_float<T>(part[e] * scale);
+      for (int e = 0; e < DPT; ++e)
+        dqh[qrow * ldq.r + e * kLanes + lane] = from_float<T>(part[e] * scale);
       if (lane == 0) {
         lseh[qrow] = row_lse;
         deltah[qrow] = dsum;
@@ -268,7 +296,8 @@ template <typename T, int DPT>
 __global__ void __launch_bounds__(kThreads)
 bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                const T* __restrict__ dout, const float* __restrict__ lse,
-               const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv, int S,
+               const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
+               Layout lq, Layout lk, Layout lv, Layout ldo, Layout ldk, Layout ldv, int S,
                int M, int L, float scale) {
   constexpr int D = DPT * kLanes;
   constexpr int RS = D + kPad;
@@ -279,14 +308,14 @@ bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
   float* dls = ls + kTile;           // [kTile] delta of the staged rows
   float* red_acc = smem;             // [kGroups][D], aliasing the tiles
 
+  const long long bz = blockIdx.z, hy = blockIdx.y;
   const size_t bh = (size_t)blockIdx.z * gridDim.y + blockIdx.y;
-  const size_t head = bh * (size_t)S * D;
-  const T* qh = q + head;
-  const T* kh = k + head;
-  const T* vh = v + head;
-  const T* doh = dout + head;
-  T* dkh = dk + head;
-  T* dvh = dv + head;
+  const T* qh = q + bz * lq.b + hy * lq.h;
+  const T* kh = k + bz * lk.b + hy * lk.h;
+  const T* vh = v + bz * lv.b + hy * lv.h;
+  const T* doh = dout + bz * ldo.b + hy * ldo.h;
+  T* dkh = dk + bz * ldk.b + hy * ldk.h;
+  T* dvh = dv + bz * ldv.b + hy * ldv.h;
   const float* lseh = lse + bh * S;
   const float* deltah = delta + bh * S;
 
@@ -305,20 +334,20 @@ bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
     const int r = p0 + g / nsplit;
     const int split = g % nsplit;
     const bool active = g < items * nsplit;
-    const size_t krow = (size_t)(key0 + r);
+    const int krow = key0 + r;
 
     float kr[DPT], vr[DPT], dka[DPT], dva[DPT];
 #pragma unroll
     for (int e = 0; e < DPT; ++e) {
-      kr[e] = active ? to_float(kh[krow * D + e * kLanes + lane]) : 0.f;
-      vr[e] = active ? to_float(vh[krow * D + e * kLanes + lane]) : 0.f;
+      kr[e] = active ? to_float(kh[krow * lk.r + e * kLanes + lane]) : 0.f;
+      vr[e] = active ? to_float(vh[krow * lv.r + e * kLanes + lane]) : 0.f;
       dka[e] = dva[e] = 0.f;
     }
 
     for (int t0 = 0; t0 < nrows; t0 += kTile) {
       const int nt = min(kTile, nrows - t0);
       __syncthreads();  // the previous tile (or merge scratch) is consumed
-      stage_rows<T, D>(qs, dos, qh, doh, t0, nt, proxy, M, key0);
+      stage_rows<T, D>(qs, dos, qh, doh, lq.r, ldo.r, t0, nt, proxy, M, key0);
       for (int t = threadIdx.x; t < nt; t += kThreads) {
         const int lt = t0 + t;
         const int srow = (proxy || lt < M) ? lt : key0 + (lt - M);
@@ -383,8 +412,8 @@ bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
     if (active && split == 0) {
 #pragma unroll
       for (int e = 0; e < DPT; ++e) {
-        dkh[krow * D + e * kLanes + lane] = from_float<T>(dka[e] * scale);
-        dvh[krow * D + e * kLanes + lane] = from_float<T>(dva[e]);
+        dkh[krow * ldk.r + e * kLanes + lane] = from_float<T>(dka[e] * scale);
+        dvh[krow * ldv.r + e * kLanes + lane] = from_float<T>(dva[e]);
       }
     }
     p0 += items;
@@ -393,8 +422,8 @@ bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
 
 template <typename T, int DPT>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* dout, void* dq,
-                   void* dk, void* dv, float* lse, float* delta, int B, int H, int S, int M,
-                   int N, int L, float scale, cudaStream_t stream) {
+                   void* dk, void* dv, float* lse, float* delta, const Layout* lay, int B,
+                   int H, int S, int M, int N, int L, float scale, cudaStream_t stream) {
   constexpr int D = DPT * kLanes;
   const size_t merge = (kGroups * D + 2 * kGroups) * sizeof(float);
   const size_t tiles_dq = 2 * kTile * (D + kPad) * sizeof(float);
@@ -408,24 +437,26 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
   const T* vt = static_cast<const T*>(v);
   const T* dot = static_cast<const T*>(dout);
   bwd_dq_kernel<T, DPT><<<grid, kThreads, smem_dq, stream>>>(
-      qt, kt, vt, dot, static_cast<T*>(dq), lse, delta, S, M, L, scale);
+      qt, kt, vt, dot, static_cast<T*>(dq), lse, delta, lay[0], lay[1], lay[2], lay[3], lay[4],
+      S, M, L, scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   bwd_dkv_kernel<T, DPT><<<grid, kThreads, smem_dkv, stream>>>(
-      qt, kt, vt, dot, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), S, M, L, scale);
+      qt, kt, vt, dot, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), lay[0], lay[1],
+      lay[2], lay[3], lay[5], lay[6], S, M, L, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch_head_dim(const void* q, const void* k, const void* v, const void* dout,
-                              void* dq, void* dk, void* dv, float* lse, float* delta, int B,
-                              int H, int S, int D, int M, int N, int L, float scale,
-                              cudaStream_t stream) {
+                              void* dq, void* dk, void* dv, float* lse, float* delta,
+                              const Layout* lay, int B, int H, int S, int D, int M, int N,
+                              int L, float scale, cudaStream_t stream) {
   switch (D) {
-#define XPT_CASE(DIM)                                                                        \
-  case DIM:                                                                                  \
-    return launch<T, DIM / kLanes>(q, k, v, dout, dq, dk, dv, lse, delta, B, H, S, M, N, L, \
-                                   scale, stream);
+#define XPT_CASE(DIM)                                                                       \
+  case DIM:                                                                                 \
+    return launch<T, DIM / kLanes>(q, k, v, dout, dq, dk, dv, lse, delta, lay, B, H, S, M, N, \
+                                   L, scale, stream);
     XPT_CASE(16)
     XPT_CASE(32)
     XPT_CASE(48)
@@ -441,19 +472,23 @@ cudaError_t dispatch_head_dim(const void* q, const void* k, const void* v, const
 
 }  // namespace
 
+// `strides` holds 21 element strides: (batch, head, row) of q, k, v, dO, dq,
+// dk and dv.
 extern "C" int xpt_proxy_attention_bwd(const void* q, const void* k, const void* v,
                                        const void* dout, void* dq, void* dk, void* dv,
-                                       void* lse, void* delta, int B, int H, int S, int D,
-                                       int M, int N, int L, float scale, int is_bf16,
-                                       void* stream) {
+                                       void* lse, void* delta, const long long* strides, int B,
+                                       int H, int S, int D, int M, int N, int L, float scale,
+                                       int is_bf16, void* stream) {
   if (B < 1 || B > 65535 || H < 1 || H > 65535 || M < 1 || N < 1 || L < 1 ||
       S != M + N * L)
     return cudaErrorInvalidValue;
+  Layout lay[7];
+  if (!make_layouts(strides, 7, S, D, lay)) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* lse_f = static_cast<float*>(lse);
   float* delta_f = static_cast<float*>(delta);
   return is_bf16 ? dispatch_head_dim<__nv_bfloat16>(q, k, v, dout, dq, dk, dv, lse_f, delta_f,
-                                                    B, H, S, D, M, N, L, scale, st)
-                 : dispatch_head_dim<float>(q, k, v, dout, dq, dk, dv, lse_f, delta_f, B, H,
-                                            S, D, M, N, L, scale, st);
+                                                    lay, B, H, S, D, M, N, L, scale, st)
+                 : dispatch_head_dim<float>(q, k, v, dout, dq, dk, dv, lse_f, delta_f, lay, B,
+                                            H, S, D, M, N, L, scale, st);
 }

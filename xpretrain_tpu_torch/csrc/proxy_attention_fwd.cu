@@ -2,8 +2,12 @@
 //
 // Replaces the Pallas TPU kernel `_attention_pallas` (cell body `_cell_fwd`)
 // in xpretrain_tpu/ops/proxy_attention.py. The sequence is
-// [M proxy tokens | N frames x L patches], S = M + N*L, laid out as
-// contiguous q/k/v/o [B, H, S, D]. The M proxy rows take one softmax over all
+// [M proxy tokens | N frames x L patches], S = M + N*L. Each of q/k/v/o is
+// indexed [B, H, S, D] through its own (batch, head, row) strides, with D
+// contiguous: a contiguous [B, H, S, D] tensor has strides (H*S*D, S*D, D);
+// the raw [B, S, H*D] projection layout of `_attention_pallas_packed` has
+// (S*H*D, D, H*D), so the head split happens in the load addresses and no
+// transpose is ever written. The M proxy rows take one softmax over all
 // S keys; each frame's L rows take one joint softmax over
 // [M proxies | own L patches]. Masked columns are never loaded, scored or
 // exponentiated, and no mask exists anywhere.
@@ -41,6 +45,26 @@ constexpr int kKeyTile = 32;                // keys staged per tile
 constexpr int kPad = 4;                     // floats of row padding: a warp's groups
                                             // reading 8 different keys hit 8 banks
 
+// Element strides of one tensor indexed [B, H, S, D] (D has stride 1). The
+// batch and head strides place a block's (b, h) once, in 64 bits; the row
+// stride addresses the rows inside it in 32 bits (the C entry checks that
+// S rows fit), as cheap as the contiguous layout's constant D.
+struct Layout {
+  long long b, h;
+  int r;
+};
+
+// Layouts from the caller's (batch, head, row) element strides; false when a
+// row offset inside one head would not fit in 32 bits.
+inline bool make_layouts(const long long* strides, int n, int S, int D, Layout* lay) {
+  for (int i = 0; i < n; ++i) {
+    const long long r = strides[3 * i + 2];
+    if (r < D || (S - 1) * r + D > 0x7fffffffLL) return false;
+    lay[i] = {strides[3 * i], strides[3 * i + 1], static_cast<int>(r)};
+  }
+  return true;
+}
+
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
 
@@ -56,8 +80,9 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
 template <typename T, int DPT>  // DPT = head dim / kLanes
 __global__ void __launch_bounds__(kThreads)
 proxy_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, T* __restrict__ o,
-                           int S, int M, int L, float scale) {
+                           const T* __restrict__ v, T* __restrict__ o, Layout lq,
+                           Layout lk, Layout lv, Layout lo, int S, int M, int L,
+                           float scale) {
   constexpr int D = DPT * kLanes;
   constexpr int RS = D + kPad;  // shared-memory row stride (floats)
   extern __shared__ float smem[];
@@ -68,11 +93,11 @@ proxy_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* red_m = smem + kGroups * D;       // [kGroups]
   float* red_l = red_m + kGroups;          // [kGroups]
 
-  const size_t head = ((size_t)blockIdx.z * gridDim.y + blockIdx.y) * (size_t)S * D;
-  const T* qh = q + head;
-  const T* kh = k + head;
-  const T* vh = v + head;
-  T* oh = o + head;
+  const long long bz = blockIdx.z, hy = blockIdx.y;
+  const T* qh = q + bz * lq.b + hy * lq.h;
+  const T* kh = k + bz * lk.b + hy * lk.h;
+  const T* vh = v + bz * lv.b + hy * lv.h;
+  T* oh = o + bz * lo.b + hy * lo.h;
 
   const bool proxy = blockIdx.x == 0;
   const int row0 = proxy ? 0 : M + (blockIdx.x - 1) * L;  // first query row
@@ -94,7 +119,7 @@ proxy_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     float m = -INFINITY, l = 0.f;
 #pragma unroll
     for (int e = 0; e < DPT; ++e) {
-      qr[e] = active ? to_float(qh[(size_t)(row0 + r) * D + e * kLanes + lane]) : 0.f;
+      qr[e] = active ? to_float(qh[(row0 + r) * lq.r + e * kLanes + lane]) : 0.f;
       acc[e] = 0.f;
     }
 
@@ -105,8 +130,8 @@ proxy_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int t = i / D, d = i % D;
         const int lt = t0 + t;
         const int srow = (proxy || lt < M) ? lt : row0 + (lt - M);
-        ks[t * RS + d] = to_float(kh[(size_t)srow * D + d]);
-        vs[t * RS + d] = to_float(vh[(size_t)srow * D + d]);
+        ks[t * RS + d] = to_float(kh[srow * lk.r + d]);
+        vs[t * RS + d] = to_float(vh[srow * lv.r + d]);
       }
       __syncthreads();
       if (active) {
@@ -168,15 +193,15 @@ proxy_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float inv = 1.f / l;
 #pragma unroll
       for (int e = 0; e < DPT; ++e)
-        oh[(size_t)(row0 + r) * D + e * kLanes + lane] = from_float<T>(acc[e] * inv);
+        oh[(row0 + r) * lo.r + e * kLanes + lane] = from_float<T>(acc[e] * inv);
     }
     p0 += rows;
   }
 }
 
 template <typename T, int DPT>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int H,
-                   int S, int M, int N, int L, float scale, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, const Layout* lay,
+                   int B, int H, int S, int M, int N, int L, float scale, cudaStream_t stream) {
   constexpr int D = DPT * kLanes;
   const size_t tiles = 2 * kKeyTile * (D + kPad) * sizeof(float);
   const size_t merge = (kGroups * D + 2 * kGroups) * sizeof(float);
@@ -184,38 +209,47 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
   const dim3 grid(1 + N, H, B);
   proxy_attention_fwd_kernel<T, DPT><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), S, M, L, scale);
+      static_cast<T*>(o), lay[0], lay[1], lay[2], lay[3], S, M, L, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch_head_dim(const void* q, const void* k, const void* v, void* o, int B,
-                              int H, int S, int D, int M, int N, int L, float scale,
-                              cudaStream_t stream) {
+cudaError_t dispatch_head_dim(const void* q, const void* k, const void* v, void* o,
+                              const Layout* lay, int B, int H, int S, int D, int M, int N,
+                              int L, float scale, cudaStream_t stream) {
   switch (D) {
-    case 16: return launch<T, 4>(q, k, v, o, B, H, S, M, N, L, scale, stream);
-    case 32: return launch<T, 8>(q, k, v, o, B, H, S, M, N, L, scale, stream);
-    case 48: return launch<T, 12>(q, k, v, o, B, H, S, M, N, L, scale, stream);
-    case 64: return launch<T, 16>(q, k, v, o, B, H, S, M, N, L, scale, stream);
-    case 80: return launch<T, 20>(q, k, v, o, B, H, S, M, N, L, scale, stream);
-    case 96: return launch<T, 24>(q, k, v, o, B, H, S, M, N, L, scale, stream);
-    case 112: return launch<T, 28>(q, k, v, o, B, H, S, M, N, L, scale, stream);
-    case 128: return launch<T, 32>(q, k, v, o, B, H, S, M, N, L, scale, stream);
+#define XPT_CASE(DIM) \
+  case DIM:           \
+    return launch<T, DIM / kLanes>(q, k, v, o, lay, B, H, S, M, N, L, scale, stream);
+    XPT_CASE(16)
+    XPT_CASE(32)
+    XPT_CASE(48)
+    XPT_CASE(64)
+    XPT_CASE(80)
+    XPT_CASE(96)
+    XPT_CASE(112)
+    XPT_CASE(128)
+#undef XPT_CASE
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
+// `strides` holds 12 element strides: (batch, head, row) of q, k, v and o.
 extern "C" int xpt_proxy_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                       int B, int H, int S, int D, int M, int N, int L,
-                                       float scale, int is_bf16, void* stream) {
+                                       const long long* strides, int B, int H, int S, int D,
+                                       int M, int N, int L, float scale, int is_bf16,
+                                       void* stream) {
   if (B < 1 || B > 65535 || H < 1 || H > 65535 || M < 1 || N < 1 || L < 1 ||
       S != M + N * L)
     return cudaErrorInvalidValue;
+  Layout lay[4];
+  if (!make_layouts(strides, 4, S, D, lay)) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? dispatch_head_dim<__nv_bfloat16>(q, k, v, o, B, H, S, D, M, N, L, scale, st)
-                 : dispatch_head_dim<float>(q, k, v, o, B, H, S, D, M, N, L, scale, st);
+  return is_bf16
+             ? dispatch_head_dim<__nv_bfloat16>(q, k, v, o, lay, B, H, S, D, M, N, L, scale, st)
+             : dispatch_head_dim<float>(q, k, v, o, lay, B, H, S, D, M, N, L, scale, st);
 }
 
 extern "C" const char* xpt_cuda_error_string(int code) {

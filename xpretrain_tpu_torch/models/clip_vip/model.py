@@ -30,7 +30,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from xpretrain_tpu.data.transforms import CLIP_MEAN, CLIP_STD
+from xpretrain_tpu_torch.data.transforms import CLIP_MEAN, CLIP_STD
 from xpretrain_tpu_torch.models.common import (
     LayerNorm,
     Linear,

@@ -39,7 +39,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from xpretrain_tpu.data.transforms import IMAGENET_MEAN, IMAGENET_STD
+from xpretrain_tpu_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
 from xpretrain_tpu_torch.models.common import LayerNorm, Linear, dot_attention, dropout
 from xpretrain_tpu_torch.ops.window_attention import window_attention
 
@@ -192,8 +192,11 @@ def grouped_window_mask(dims: tuple[int, int, int], window: tuple[int, int, int]
 @functools.lru_cache(maxsize=128)
 def _on_device(builder, args: tuple, device: torch.device) -> torch.Tensor:
     """``builder(*args)`` as a tensor on ``device``, made once per (builder,
-    args, device) and shared: callers must not write to it."""
-    return torch.from_numpy(np.array(builder(*args))).to(device)
+    args, device) and shared: callers must not write to it. Made outside
+    inference mode even when first asked for inside it, so that a process
+    that serves and then trains can use it under autograd."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(np.array(builder(*args))).to(device)
 
 
 def _bias_index(window: tuple[int, int, int], N: int) -> np.ndarray:

@@ -99,12 +99,12 @@ def load_library() -> ctypes.CDLL:
         _build(lib_path)
     lib = ctypes.CDLL(str(lib_path))
     lib.xpt_proxy_attention_fwd.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     )
     lib.xpt_proxy_attention_fwd.restype = ctypes.c_int
     lib.xpt_proxy_attention_bwd.argtypes = (
-        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     )
     lib.xpt_proxy_attention_bwd.restype = ctypes.c_int
@@ -113,6 +113,8 @@ def load_library() -> ctypes.CDLL:
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     )
     lib.xpt_window_attention_fwd.restype = ctypes.c_int
+    lib.xpt_patch_embed_u8.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    lib.xpt_patch_embed_u8.restype = ctypes.c_int
     lib.xpt_cuda_error_string.argtypes = [ctypes.c_int]
     lib.xpt_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -124,18 +126,27 @@ def _check(lib: ctypes.CDLL, rc: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc} ({msg})")
 
 
+def _strides(*tensors: torch.Tensor) -> ctypes.Array:
+    """The (batch, head, row) element strides of [B, H, S, D] views whose
+    last dim has stride 1, as the kernels' ``const long long*`` argument."""
+    flat = [st for t in tensors for st in t.stride()[:3]]
+    return (ctypes.c_longlong * len(flat))(*flat)
+
+
 def proxy_attention_fwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
     M: int, N: int, L: int, scale: float,
 ) -> None:
     """Launch ``csrc/proxy_attention_fwd.cu`` on the current stream.
 
-    The caller has checked device, dtype, shape and contiguity."""
+    q, k, v and out are [B, H, S, D] views, each with its own strides and a
+    unit stride on D (contiguous tensors, or head views of the packed
+    [B, S, H*D] layout). The caller has checked device, dtype and shape."""
     lib = load_library()
     B, H, S, D = q.shape
     with torch.cuda.device(q.device):
         rc = lib.xpt_proxy_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _strides(q, k, v, out),
             B, H, S, D, M, N, L, float(scale), int(q.dtype == torch.bfloat16),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
@@ -149,15 +160,18 @@ def proxy_attention_bwd(
     M: int, N: int, L: int, scale: float,
 ) -> None:
     """Launch both passes of ``csrc/proxy_attention_bwd.cu`` on the current
-    stream; ``lse`` and ``delta`` are fp32 [B, H, S] scratch.
+    stream; ``lse`` and ``delta`` are contiguous fp32 [B, H, S] scratch.
 
-    The caller has checked device, dtype, shape and contiguity."""
+    The seven tensors are [B, H, S, D] views with their own strides and a
+    unit stride on D, as for :func:`proxy_attention_fwd`. The caller has
+    checked device, dtype and shape."""
     lib = load_library()
     B, H, S, D = q.shape
     with torch.cuda.device(q.device):
         rc = lib.xpt_proxy_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), d_out.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            _strides(q, k, v, d_out, dq, dk, dv),
             B, H, S, D, M, N, L, float(scale), int(q.dtype == torch.bfloat16),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
@@ -183,3 +197,24 @@ def window_attention_fwd(
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     _check(lib, rc, "window_attention_fwd")
+
+
+def patch_embed_u8(
+    frames: torch.Tensor, folded_w: torch.Tensor, bias: torch.Tensor, out: torch.Tensor, patch: int,
+) -> None:
+    """Launch ``csrc/patch_embed_u8.cu`` on the current stream: contiguous
+    uint8 frames [N, H, W, 3], fp32 folded weight [P*P*3, D] and bias [D]
+    into ``out`` [N, L, D] (fp32 or bf16).
+
+    The caller has checked device, dtype, shape and contiguity; the weight
+    is read as float4, so its rows start 16-byte aligned (D % 4 == 0 and a
+    freshly allocated tensor)."""
+    lib = load_library()
+    N, H, W, _ = frames.shape
+    with torch.cuda.device(frames.device):
+        rc = lib.xpt_patch_embed_u8(
+            frames.data_ptr(), folded_w.data_ptr(), bias.data_ptr(), out.data_ptr(),
+            N, H, W, patch, folded_w.shape[1], int(out.dtype == torch.bfloat16),
+            torch.cuda.current_stream(frames.device).cuda_stream,
+        )
+    _check(lib, rc, "patch_embed_u8")

@@ -1,17 +1,26 @@
 """Device-side ingest math: uint8 frames -> normalized patch embeddings.
 
-Counterpart of the math in ``xpretrain_tpu/ops/patchify.py``. Patchify with
-stride == kernel is a reshape plus one matmul, so the /255 + mean/std
-normalization folds into the weights:
+Counterpart of ``xpretrain_tpu/ops/patchify.py``. Patchify with stride ==
+kernel is a reshape plus one matmul, so the /255 + mean/std normalization
+folds into the weights:
 ``((x/255 - mean)/std) @ W == x @ (W/(255*std)) - sum(W*mean/std)``.
-The product itself is a plain ``torch.matmul``, as the JAX model leaves it to
-XLA (its Pallas ``_pallas_patch_embed`` is not on the model's path).
+
+- :func:`patch_embed_u8` is the model's path: a plain ``torch.matmul``, as
+  the JAX model leaves the product to XLA.
+- :func:`fused_patch_embed` is the public op entry of the same name in JAX.
+  With ``use_kernel=True`` a CUDA tensor launches ``csrc/patch_embed_u8.cu``
+  (replacing ``_pallas_patch_embed``), which reads the frames directly with
+  the patch gather folded into its load addresses, or raises; a CPU tensor,
+  and ``use_kernel`` None or False, take :func:`patch_embed_plain`
+  (``_xla_patch_embed``).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from xpretrain_tpu_torch.ops import _kernels
 
 
 def fold_normalization(
@@ -58,3 +67,65 @@ def patch_embed_u8(
     folded_w, bias = fold_normalization(patch_kernel, mean, std)
     patches = extract_patches_u8(frames_u8, patch_kernel.shape[0]).to(dtype)
     return torch.matmul(patches, folded_w.to(dtype)) + bias.to(dtype)
+
+
+def patch_embed_plain(
+    frames_u8: torch.Tensor, folded_w: torch.Tensor, bias: torch.Tensor, patch: int, out_dtype: torch.dtype
+) -> torch.Tensor:
+    """``_xla_patch_embed``: fp32 patches @ fp32 folded weight + bias, cast
+    once to ``out_dtype``; the kernel's reference."""
+    patches = extract_patches_u8(frames_u8, patch).float()
+    return (torch.matmul(patches, folded_w) + bias).to(out_dtype)
+
+
+_KERNEL_OUT_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def fused_patch_embed(
+    frames_u8: torch.Tensor,  # [N, H, W, 3] uint8
+    patch_kernel: torch.Tensor,  # [P, P, 3, D]
+    mean: np.ndarray,
+    std: np.ndarray,
+    out_dtype: torch.dtype = torch.float32,
+    use_kernel: bool | None = None,
+) -> torch.Tensor:
+    """-> [N, L, D] patch embeddings with the normalization folded in.
+
+    ``use_kernel`` mirrors JAX's ``use_pallas``: None (the default, as in
+    JAX) and False compute the plain GEMM; True launches the CUDA kernel on a
+    CUDA tensor, or raises on inputs it does not take, and on a CPU tensor
+    computes the plain GEMM. ``fused_patch_embed.launches`` counts kernel
+    launches."""
+    if frames_u8.dim() != 4 or frames_u8.shape[-1] != 3 or frames_u8.dtype != torch.uint8:
+        raise ValueError(f"frames must be uint8 [N, H, W, 3], got {frames_u8.dtype} {tuple(frames_u8.shape)}")
+    P = patch_kernel.shape[0]
+    if tuple(patch_kernel.shape[:3]) != (P, P, 3):
+        raise ValueError(f"patch_kernel must be [P, P, 3, D], got {tuple(patch_kernel.shape)}")
+    _, H, W, _ = frames_u8.shape
+    if H % P or W % P:
+        raise ValueError(f"frame size {H}x{W} is not a multiple of the patch size {P}")
+    folded_w, bias = fold_normalization(patch_kernel, mean, std)
+    if not use_kernel or frames_u8.device.type == "cpu":
+        return patch_embed_plain(frames_u8, folded_w, bias, P, out_dtype)
+    if frames_u8.device.type != "cuda":
+        raise ValueError(f"fused_patch_embed's kernel runs on cuda tensors, got {frames_u8.device}")
+    return _launch(frames_u8, folded_w, bias, P, out_dtype)
+
+
+def _launch(frames_u8, folded_w, bias, patch, out_dtype) -> torch.Tensor:
+    """Check what the kernel takes, allocate [N, L, D], launch, count."""
+    if out_dtype not in _KERNEL_OUT_DTYPES:
+        raise TypeError(f"fused_patch_embed kernel writes float32 or bfloat16, got {out_dtype}")
+    D = folded_w.shape[1]
+    if D % 4:
+        raise ValueError(f"fused_patch_embed kernel takes an embedding dim that is a multiple of 4, got {D}")
+    if folded_w.device != frames_u8.device:
+        raise ValueError(f"frames on {frames_u8.device}, patch_kernel on {folded_w.device}")
+    N, H, W, _ = frames_u8.shape
+    out = torch.empty((N, (H // patch) * (W // patch), D), dtype=out_dtype, device=frames_u8.device)
+    _kernels.patch_embed_u8(frames_u8.contiguous(), folded_w.contiguous(), bias.contiguous(), out, patch)
+    fused_patch_embed.launches += 1
+    return out
+
+
+fused_patch_embed.launches = 0

@@ -18,6 +18,12 @@ everything, each frame's patches attend [proxies | own frame]
   and whose backward launches ``csrc/proxy_attention_bwd.cu`` through
   :func:`proxy_attention_bwd` (replacing ``_attention_pallas_bwd``). A CUDA
   tensor the kernels do not take raises.
+- :func:`proxy_attention_packed` (``proxy_flash_attention_packed``) is the
+  same attention on the raw [B, S, H*D] projection layout. The same two
+  kernels take it through their stride arguments, the head split happening
+  in their load and store addresses (replacing ``_attention_pallas_packed``
+  and ``_attention_pallas_bwd_packed``); its CPU path is split, plain,
+  merge, as the JAX fallback.
 """
 
 from __future__ import annotations
@@ -36,6 +42,24 @@ def proxy_bias(S: int, M: int, L: int, device: torch.device) -> torch.Tensor:
     allowed = (i[:, None] < M) | (i[None, :] < M) | (frame[:, None] == frame[None, :])
     zero = torch.zeros((), dtype=torch.float32, device=device)
     return torch.where(allowed, zero, torch.full_like(zero, NEG_INF))
+
+
+def proxy_attention_cost(
+    B: int, H: int, S: int, D: int, M: int, L: int, itemsize: int, backward: bool = False
+) -> tuple[int, int, int]:
+    """Analytic (flops, bytes, exps) of one kernel call, as
+    ``xpretrain_tpu/ops/proxy_attention.py:proxy_attention_cost``.
+
+    FLOPs: per (b, h) the proxy-row block (QK^T + PV over [M, S]:
+    ``4*M*S*D``) plus N frame blocks ([L, M+L]: ``4*L*(M+L)*D`` each); the
+    backward's five products are 2.5x that. Bytes: q/k/v (+dO) read once,
+    o (dq/dk/dv) written once. One exp per allowed score."""
+    N = (S - M) // L
+    score_elems = B * H * (M * S + N * L * (M + L))
+    matmul_flops = 4 * score_elems * D
+    n_tensors = 7 if backward else 4
+    flops = (matmul_flops * 5) // 2 if backward else matmul_flops
+    return flops, n_tensors * B * H * S * D * itemsize, score_elems
 
 
 def proxy_attention_plain(
@@ -68,15 +92,47 @@ def proxy_attention_bwd_plain(
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
+def _heads(x: torch.Tensor, head_dim: int) -> torch.Tensor:
+    """The [B, H, S, D] head view of a packed [B, S, H*D] tensor (no copy)."""
+    B, S, E = x.shape
+    return x.view(B, S, E // head_dim, head_dim).transpose(1, 2)
+
+
+def _merge_heads(x: torch.Tensor) -> torch.Tensor:
+    """[B, H, S, D] -> packed [B, S, H*D]."""
+    B, H, S, D = x.shape
+    return x.transpose(1, 2).reshape(B, S, H * D)
+
+
+def proxy_attention_packed_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, M: int, L: int, scale: float, head_dim: int
+) -> torch.Tensor:
+    """Split heads, :func:`proxy_attention_plain`, merge: the JAX fallback of
+    ``proxy_flash_attention_packed``; the packed kernels' reference."""
+    return _merge_heads(proxy_attention_plain(*(_heads(t, head_dim) for t in (q, k, v)), M, L, scale))
+
+
+def proxy_attention_packed_bwd_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, d_out: torch.Tensor,
+    M: int, L: int, scale: float, head_dim: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) in the packed layout from :func:`proxy_attention_bwd_plain`."""
+    grads = proxy_attention_bwd_plain(*(_heads(t, head_dim) for t in (q, k, v, d_out)), M, L, scale)
+    return tuple(_merge_heads(g) for g in grads)
+
+
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 
-def _check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    if q.dtype not in _KERNEL_DTYPES:
-        raise TypeError(f"proxy_attention kernel takes float32 or bfloat16, got {q.dtype}")
-    D = q.shape[-1]
+def _check_kernel_dtype_and_head_dim(dtype: torch.dtype, D: int) -> None:
+    if dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"proxy_attention kernel takes float32 or bfloat16, got {dtype}")
     if D % 16 or D > 128:
         raise ValueError(f"proxy_attention kernel takes a head dim that is a multiple of 16 up to 128, got {D}")
+
+
+def _check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    _check_kernel_dtype_and_head_dim(q.dtype, q.shape[-1])
     if not all(t.is_contiguous() for t in (q, k, v)):
         raise ValueError("proxy_attention kernel takes contiguous [B, H, S, D] tensors")
 
@@ -97,12 +153,9 @@ class _ProxyAttentionFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, M, N, L, scale):
-        out = torch.empty_like(q)
-        _kernels.proxy_attention_fwd(q, k, v, out, M, N, L, scale)
-        proxy_attention.launches += 1
         ctx.save_for_backward(q, k, v)
         ctx.dims = (M, N, L, scale)
-        return out
+        return _launch_fwd(q, k, v, M, N, L, scale)
 
     @staticmethod
     def backward(ctx, d_out):
@@ -110,6 +163,26 @@ class _ProxyAttentionFn(torch.autograd.Function):
         # the model's head merge hands the gradient over as a strided view
         dq, dk, dv = _launch_bwd(q, k, v, d_out.contiguous(), *ctx.dims)
         return dq, dk, dv, None, None, None, None
+
+
+class _ProxyAttentionPackedFn(torch.autograd.Function):
+    """``_ProxyAttentionFn`` on the packed [B, S, H*D] layout (the
+    ``jax.custom_vjp`` ``_flash_packed``): the same two kernels, reading and
+    writing the packed tensors through their head strides."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, M, N, L, scale, head_dim):
+        ctx.save_for_backward(q, k, v)
+        ctx.dims = (M, N, L, scale, head_dim)
+        return _launch_fwd(q, k, v, M, N, L, scale, head_dim)
+
+    @staticmethod
+    def backward(ctx, d_out):
+        q, k, v = ctx.saved_tensors
+        # autograd may hand the gradient over strided; the kernel reads it as
+        # packed [B, S, H*D], like q, k and v
+        dq, dk, dv = _launch_bwd(q, k, v, d_out.contiguous(), *ctx.dims)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def proxy_attention(
@@ -168,14 +241,109 @@ def proxy_attention_bwd(
     return _launch_bwd(q, k, v, d_out, M, N, L, scale)
 
 
-def _launch_bwd(q, k, v, d_out, M, N, L, scale):
-    B, H, S, _ = q.shape
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+proxy_attention_bwd.launches = 0
+
+
+def _check_packed_shapes(q, k, v, M: int, N: int, L: int, head_dim: int) -> None:
+    if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"q/k/v must share one [B, S, H*D] shape: {q.shape}, {k.shape}, {v.shape}")
+    if q.shape[1] != M + N * L:
+        raise ValueError(f"S={q.shape[1]} != M + N*L = {M} + {N}*{L}")
+    if head_dim < 1 or q.shape[2] % head_dim:
+        raise ValueError(f"the feature dim {q.shape[2]} is not a multiple of head_dim={head_dim}")
+    if not (q.dtype == k.dtype == v.dtype):
+        raise TypeError(f"q/k/v dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
+    if not (q.device == k.device == v.device):
+        raise ValueError(f"q/k/v devices differ: {q.device}, {k.device}, {v.device}")
+
+
+def _check_packed_kernel_inputs(head_dim: int, *tensors: torch.Tensor) -> None:
+    _check_kernel_dtype_and_head_dim(tensors[0].dtype, head_dim)
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("proxy_attention_packed kernel takes contiguous [B, S, H*D] tensors")
+
+
+def proxy_attention_packed(
+    q: torch.Tensor,  # [B, S, H*D] raw projection output, S = M + N*L
+    k: torch.Tensor,
+    v: torch.Tensor,
+    M: int,
+    N: int,
+    L: int,
+    scale: float,
+    head_dim: int,
+) -> torch.Tensor:
+    """Proxy attention in the packed [B, S, H*D] layout, output [B, S, H*D]
+    in q's dtype; equal to split heads, :func:`proxy_attention`, merge.
+
+    Differentiable in q, k and v: on CUDA the gradient comes from the backward
+    kernel. ``proxy_attention_packed.launches`` counts forward kernel launches
+    (CUDA calls only)."""
+    _check_packed_shapes(q, k, v, M, N, L, head_dim)
+    if q.device.type == "cpu":
+        return proxy_attention_packed_plain(q, k, v, M, L, scale, head_dim)
+    if q.device.type != "cuda":
+        raise ValueError(f"proxy_attention_packed runs on cpu or cuda tensors, got {q.device}")
+    _check_packed_kernel_inputs(head_dim, q, k, v)
+    return _ProxyAttentionPackedFn.apply(q, k, v, M, N, L, scale, head_dim)
+
+
+proxy_attention_packed.launches = 0
+
+
+def proxy_attention_packed_bwd(
+    q: torch.Tensor,  # [B, S, H*D], S = M + N*L
+    k: torch.Tensor,
+    v: torch.Tensor,
+    d_out: torch.Tensor,
+    M: int,
+    N: int,
+    L: int,
+    scale: float,
+    head_dim: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of :func:`proxy_attention_packed` for the output gradient
+    ``d_out``, each [B, S, H*D] in q's dtype.
+
+    ``proxy_attention_packed_bwd.launches`` counts kernel launches, from here
+    and from autograd through :func:`proxy_attention_packed` (CUDA only)."""
+    _check_packed_shapes(q, k, v, M, N, L, head_dim)
+    if d_out.shape != q.shape or d_out.dtype != q.dtype or d_out.device != q.device:
+        raise ValueError(
+            f"d_out {tuple(d_out.shape)} {d_out.dtype} {d_out.device} does not match "
+            f"q {tuple(q.shape)} {q.dtype} {q.device}"
+        )
+    if q.device.type == "cpu":
+        return proxy_attention_packed_bwd_plain(q, k, v, d_out, M, L, scale, head_dim)
+    if q.device.type != "cuda":
+        raise ValueError(f"proxy_attention_packed_bwd runs on cpu or cuda tensors, got {q.device}")
+    _check_packed_kernel_inputs(head_dim, q, k, v, d_out)
+    return _launch_bwd(q, k, v, d_out, M, N, L, scale, head_dim)
+
+
+proxy_attention_packed_bwd.launches = 0
+
+
+def _launch_fwd(q, k, v, M, N, L, scale, head_dim=None):
+    """The forward kernel on [B, H, S, D] tensors or, given ``head_dim``, on
+    packed [B, S, H*D] ones through their head views; counts the launch."""
+    out = torch.empty_like(q)
+    views = (q, k, v, out) if head_dim is None else tuple(_heads(t, head_dim) for t in (q, k, v, out))
+    _kernels.proxy_attention_fwd(*views, M, N, L, scale)
+    (proxy_attention if head_dim is None else proxy_attention_packed).launches += 1
+    return out
+
+
+def _launch_bwd(q, k, v, d_out, M, N, L, scale, head_dim=None):
+    """Both backward passes, as :func:`_launch_fwd`; LSE and delta are fp32
+    [B, H, S] scratch."""
+    grads = (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v))
+    views = (q, k, v, d_out, *grads)
+    if head_dim is not None:
+        views = tuple(_heads(t, head_dim) for t in views)
+    B, H, S, _ = views[0].shape
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     delta = torch.empty_like(lse)
-    _kernels.proxy_attention_bwd(q, k, v, d_out, dq, dk, dv, lse, delta, M, N, L, scale)
-    proxy_attention_bwd.launches += 1
-    return dq, dk, dv
-
-
-proxy_attention_bwd.launches = 0
+    _kernels.proxy_attention_bwd(*views, lse, delta, M, N, L, scale)
+    (proxy_attention_bwd if head_dim is None else proxy_attention_packed_bwd).launches += 1
+    return grads

@@ -19,8 +19,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from xpretrain_tpu.utils.logging import LOGGER
 from xpretrain_tpu_torch.optim.optimizer import LOGIT_SCALE_MAX, GroupedAdamW, clamp_logit_scale, global_norm
+from xpretrain_tpu_torch.utils.logging import LOGGER
 
 
 @dataclasses.dataclass
@@ -181,7 +181,7 @@ def make_eval_step(device: torch.device | str, io: tuple = CLIPVIP_EVAL_IO
     model output key}). The batch goes to the device through pinned memory
     with ``non_blocking`` copies; the forward runs under ``inference_mode``;
     the features come back as fp32 numpy under the names of
-    ``xpretrain_tpu.train.evaluate.evaluate_retrieval``."""
+    ``xpretrain_tpu_torch.train.evaluate.evaluate_retrieval``."""
     place = batch_to_device(device)
     inputs, outputs = io
 

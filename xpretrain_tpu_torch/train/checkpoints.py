@@ -18,8 +18,8 @@ from typing import Any, Optional
 
 import torch
 
-from xpretrain_tpu.utils.basic import save_json
-from xpretrain_tpu.utils.logging import LOGGER
+from xpretrain_tpu_torch.utils.basic import save_json
+from xpretrain_tpu_torch.utils.logging import LOGGER
 
 _STEP_FILE = re.compile(r"^(\d+)\.pt$")
 

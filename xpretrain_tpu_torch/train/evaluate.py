@@ -1,0 +1,66 @@
+"""Retrieval evaluation (the port's copy of
+``xpretrain_tpu/train/evaluate.py:evaluate_retrieval``).
+
+Mirrors the reference eval loop (``CLIP-ViP/src/tasks/run_video_retrieval.py:122-203``):
+per-batch forward -> trim sampler padding -> similarity matrix -> R@K raw +
+DSL. One process holds every row, so batch metadata (clip ids) comes to the
+host as it is; the metric block is numpy.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Any, Callable
+
+import numpy as np
+
+from xpretrain_tpu_torch.utils.logging import LOGGER
+from xpretrain_tpu_torch.utils.metrics import retrieval_report
+
+
+def evaluate_retrieval(
+    eval_step: Callable,
+    params: Any,
+    loader,
+    valid_len: int | None = None,
+    save_feats_path: str | None = None,
+) -> dict[str, dict[str, float]]:
+    """Run retrieval eval; ``loader`` yields device-ready batches.
+
+    Returns the metric report plus a ``perf`` block with wall time and
+    clips/sec (the reference logs wall-clock at ``run_pretrain.py:186``).
+    ``save_feats_path`` dumps the gathered features as .npz (the reference's
+    ``save_feat`` option, ``run_video_retrieval.py:233``).
+    """
+    vis_chunks, text_chunks, id_chunks = [], [], []
+    start = time.time()
+    n_clips = 0
+    for batch in loader:
+        out = eval_step(params, batch)
+        vis_chunks.append(np.asarray(out["vis_features"], dtype=np.float32))
+        text_chunks.append(np.asarray(out["text_features"], dtype=np.float32))
+        if "ids" in batch:
+            id_chunks.append(np.asarray(batch["ids"]))
+        n_clips += vis_chunks[-1].shape[0]
+    wall = time.time() - start
+    vis = np.concatenate(vis_chunks)
+    text = np.concatenate(text_chunks)
+    ids = np.concatenate(id_chunks) if id_chunks else None
+    if valid_len is not None:
+        vis, text = vis[:valid_len], text[:valid_len]
+        ids = ids[:valid_len] if ids is not None else None
+    if save_feats_path is not None:
+        extra = {"ids": ids} if ids is not None else {}
+        np.savez(save_feats_path, vis_features=vis, text_features=text, **extra)
+    sim_t2v = text @ vis.T
+    report = retrieval_report(sim_t2v)
+    report["perf"] = {"wall_s": wall, "clips_per_s": n_clips / max(wall, 1e-9)}
+    LOGGER.info(
+        "retrieval eval: t2v R1=%.2f R5=%.2f R10=%.2f (DSL R1=%.2f) | %.1f clips/s",
+        report["t2v"]["R1"],
+        report["t2v"]["R5"],
+        report["t2v"]["R10"],
+        report["t2v_dsl"]["R1"],
+        report["perf"]["clips_per_s"],
+    )
+    return report

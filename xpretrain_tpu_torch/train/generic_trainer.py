@@ -16,7 +16,6 @@ from typing import Callable, Mapping, Optional, Sequence
 import torch
 from torch import nn
 
-from xpretrain_tpu.utils.logging import LOGGER, RunningMeter, ScalarWriter
 from xpretrain_tpu_torch.optim.optimizer import (
     NO_DECAY_DEFAULT,
     build_optimizer,
@@ -28,6 +27,7 @@ from xpretrain_tpu_torch.parallel.train_step import TrainState, batch_to_device,
 from xpretrain_tpu_torch.train.checkpoints import BestModelSaver, CheckpointManager
 from xpretrain_tpu_torch.train.loop import drive_train_loop
 from xpretrain_tpu_torch.train.trainer import check_single_device
+from xpretrain_tpu_torch.utils.logging import LOGGER, RunningMeter, ScalarWriter
 
 
 class GenericTrainer:

@@ -15,7 +15,7 @@ import os
 
 import torch
 
-from xpretrain_tpu.utils.logging import LOGGER
+from xpretrain_tpu_torch.utils.logging import LOGGER
 
 # (class, substrings of a device kernel's name); the first class that
 # matches takes the kernel, so the specific names come first

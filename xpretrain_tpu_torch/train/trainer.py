@@ -14,8 +14,6 @@ from typing import Any, Mapping, Optional
 
 import torch
 
-from xpretrain_tpu.train.evaluate import evaluate_retrieval
-from xpretrain_tpu.utils.logging import LOGGER, RunningMeter, ScalarWriter
 from xpretrain_tpu_torch.models.clip_vip.convert import flax_param_paths, load_jax_params
 from xpretrain_tpu_torch.models.clip_vip.model import CLIPVipConfig, CLIPViPModel, VipConfig
 from xpretrain_tpu_torch.ops.losses import build_loss_fn
@@ -28,7 +26,9 @@ from xpretrain_tpu_torch.parallel.train_step import (
     make_train_step,
 )
 from xpretrain_tpu_torch.train.checkpoints import BestModelSaver, CheckpointManager
+from xpretrain_tpu_torch.train.evaluate import evaluate_retrieval
 from xpretrain_tpu_torch.train.loop import drive_train_loop
+from xpretrain_tpu_torch.utils.logging import LOGGER, RunningMeter, ScalarWriter
 
 
 def clip_vip_config_from(cfg) -> CLIPVipConfig:
@@ -63,14 +63,6 @@ def check_single_device(cfg) -> None:
             raise NotImplementedError(f"--{key} > 1 (a multi-device mesh) is not ported yet (ROADMAP Queue 1)")
     if cfg.get("zero3"):
         raise NotImplementedError("--zero3 (FSDP) is not ported yet (ROADMAP Queue 1)")
-
-
-def without_ids(loader):
-    """Batches without their clip ids: ``evaluate_retrieval`` gathers "ids"
-    through JAX (``_host_rows``), and one process has nothing to gather."""
-    for batch in loader:
-        batch.pop("ids", None)
-        yield batch
 
 
 class ClipVipTrainer:
@@ -169,7 +161,7 @@ class ClipVipTrainer:
         self.model.eval()
         try:
             return evaluate_retrieval(
-                self.eval_step, self.model, without_ids(self.val_loader), self.val_valid_len,
+                self.eval_step, self.model, self.val_loader, self.val_valid_len,
                 save_feats_path=save_feats_path,
             )
         finally:
