@@ -4,11 +4,16 @@
 Phases, in order; any failure exits non-zero and prints no result:
 
 1. require a CUDA card, print its name and power limit, turn TF32 off;
-2. build the port's CUDA kernels from ``xpretrain_tpu_torch/csrc``;
+2. build the port's CUDA kernels from ``xpretrain_tpu_torch/csrc`` and list,
+   per proxy-attention entry point, its registers, spills, shared memory and
+   the tensor-core (``HMMA``) instructions in its SASS;
 3. check the proxy-attention forward kernel against its plain PyTorch
-   version on the card at B/32, B/16 and small shapes, in fp32 and bf16;
+   version on the card at B/32, B/16 and small shapes, in fp32 and bf16, and
+   the LSE it saves for the backward against ``proxy_attention_lse_plain``;
 3b. the same for the backward kernel, at those shapes and the B/32 train
-   shape (b=32), plus its gradient against autograd of the plain forward;
+   shape (b=32), called alone (it computes the LSE itself) and with the
+   forward's LSE (as autograd calls it), each twice (bit-identical), plus its
+   gradient against autograd of the plain forward;
 3c. the same for the window-attention kernel, at the LF-VILA stage shapes of
    batch 8 (stages 3-5, and the grouped stages 0-1), a tail and other head dims;
 3d. the packed [B, S, H*D] proxy attention (the two proxy kernels through
@@ -37,12 +42,13 @@ Phases, in order; any failure exits non-zero and prints no result:
 5c. encode one clip and its paragraph through ``LfVilaTowers`` in fp32 on the
    card and on the CPU from the same weights, and compare;
 6. time the forward kernel against the plain version, and the whole forward;
-6b. time the backward kernel against its plain version, forward and backward
-   through autograd (kernels against the plain forward), and the B/32 bf16
-   train step at b=32;
+6b. time the backward kernel (with the forward's LSE, and alone) against its
+   plain version, forward and backward through autograd (kernels against the
+   plain forward and, in bf16, SDPA), and the B/32 bf16 train step at b=32;
 6c. time the window kernel against its plain version at the batch-8 shapes,
    and the LF-VILA video and text towers at batch 8 in bf16;
-6d. time the packed kernels and the patch-embed kernel against their plain
+6d. time the packed kernels (the backward as autograd runs it, on the
+   forward's LSE, and alone) and the patch-embed kernel against their plain
    versions and one PyTorch call that computes the same function
    (``library_ms``: ``scaled_dot_product_attention`` with the proxy mask,
    ``addmm`` of pre-gathered patches), and that call for the kernels of
@@ -109,6 +115,7 @@ PATCH_SHAPES = {
 BF16_MAX_ULP = 1.0  # bf16 output vs the fp32 plain version of the same inputs: rounding alone
 BWD_TOL_FP32 = 1e-4  # max abs: summation order over up to S terms
 BWD_MAX_ULP = 2.0  # bf16 vs fp32 plain gradients: fp32 accumulation and one rounding at the store
+LSE_TOL = 1e-5  # max abs, the forward's fp32 LSE: a sum of up to S exponentials in another order
 B32 = dict(B=24, H=12, M=4, N=12, L=49, D=64)  # CLIP-ViP B/32 serving, batch 24
 B32_TRAIN = dict(B32, B=32)  # CLIP-ViP B/32 training, batch 32
 PRESET = "xpretrain_tpu_torch/configs/msrvtt_retrieval_vip_base_32.json"  # the port's copy of the MSR-VTT preset
@@ -372,6 +379,15 @@ def main() -> None:
         for line in lib.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas: {line.strip()}")
+        # bf16 runs on the tensor cores, fp32 on the CUDA cores
+        resources = _kernels.proxy_kernel_resources(B32["D"])
+        for row in resources:
+            dynamic = f"{row['dynamic_smem']} B dynamic" if "dynamic_smem" in row else "dynamic by tile"
+            print(f"  {row['kernel']:28s} {row['dtype']:8s} D={B32['D']}: {row['registers']} registers, "
+                  f"spills {row.get('spill_stores', 0)}/{row.get('spill_loads', 0)} B (stores/loads), "
+                  f"shared memory {row['static_smem']} B static + {dynamic}, {row['hmma']} HMMA in its SASS")
+        check(all(row["hmma"] > 0 for row in resources if row["dtype"] == "bfloat16"),
+              "a bf16 proxy-attention kernel has no tensor-core instruction")
 
     with phase("3 kernel vs plain"):
         errors = {}
@@ -400,6 +416,14 @@ def main() -> None:
                     line += (f"; vs fp32 plain max_abs {(got.float() - exact).abs().max().item():.3e}, "
                              f"{ulps:.3f} ulp (tol {BF16_MAX_ULP:.0f})")
                     check(ulps <= BF16_MAX_ULP, f"{name} bf16: {ulps} ulp from the fp32 plain version")
+                # the LSE the forward saves for the backward (when a gradient follows)
+                with_lse, lse = pa._launch_fwd(q, k, v, s["M"], s["N"], s["L"], s["D"] ** -0.5, with_lse=True)
+                lse_err = (lse - pa.proxy_attention_lse_plain(q.float(), k.float(), s["M"], s["L"],
+                                                              s["D"] ** -0.5)).abs().max().item()
+                line += f"; LSE max_abs {lse_err:.3e} (tol {LSE_TOL:.0e})"
+                check(torch.equal(with_lse, got), f"{name} {dt}: the output changes when the LSE is saved")
+                check(lse.dtype == torch.float32 and lse.shape == q.shape[:3], f"{name} {dt}: LSE dtype/shape")
+                check(math.isfinite(lse_err) and lse_err <= LSE_TOL, f"{name} {dt}: LSE max_abs {lse_err}")
                 print(line)
 
     with phase("3b backward kernel vs plain"):
@@ -409,29 +433,41 @@ def main() -> None:
             for dtype in (torch.float32, torch.bfloat16):
                 q, k, v, d_out = qkv(s, dtype, seed=1, n=4)
                 before = pa.proxy_attention_bwd.launches
-                got = pa.proxy_attention_bwd(q, k, v, d_out, s["M"], s["N"], s["L"], scale)
+                alone = pa.proxy_attention_bwd(q, k, v, d_out, s["M"], s["N"], s["L"], scale)
                 torch.cuda.synchronize()
                 check(pa.proxy_attention_bwd.launches == before + 1, f"{name}: backward launch not counted")
+                # as autograd calls it: on the LSE the forward saved
+                _, lse = pa._launch_fwd(q, k, v, s["M"], s["N"], s["L"], scale, with_lse=True)
+                runs = {"alone": (alone, pa.proxy_attention_bwd(q, k, v, d_out, s["M"], s["N"], s["L"], scale)),
+                        "forward's LSE": tuple(pa._launch_bwd(q, k, v, d_out, s["M"], s["N"], s["L"], scale, lse=lse)
+                                               for _ in range(2))}
+                torch.cuda.synchronize()
                 # the fp32 plain gradients of the same inputs: for bf16 that
                 # leaves the kernel's one rounding at the store
                 want = pa.proxy_attention_bwd_plain(*(t.float() for t in (q, k, v, d_out)),
                                                     s["M"], s["L"], scale)
                 dt = str(dtype).split(".")[-1]
-                for g, w, gname in zip(got, want, ("dq", "dk", "dv")):
-                    check(g.dtype == dtype and g.shape == q.shape, f"{name} {dt} {gname}: dtype/shape")
-                err = max((g.float() - w).abs().max().item() for g, w in zip(got, want))
-                bwd_errors[(name, dt)] = err
-                line = f"  {name:10s} {dt:8s} max_abs {err:.3e}"
-                check(math.isfinite(err), f"{name} {dt}: backward not finite")
-                if dtype == torch.float32:
-                    line += f" (tol {BWD_TOL_FP32:.0e})"
-                    check(err <= BWD_TOL_FP32, f"{name} fp32 backward: max_abs {err} > {BWD_TOL_FP32}")
-                else:
-                    ulps = max(bf16_grad_ulps(g, w) for g, w in zip(got, want))
-                    line += f", {ulps:.3f} ulp of the fp32 plain gradients (tol {BWD_MAX_ULP:.0f})"
-                    check(ulps <= BWD_MAX_ULP, f"{name} bf16 backward: {ulps} ulp")
-                print(line)
-                del q, k, v, d_out, got, want
+                line = f"  {name:10s} {dt:8s}"
+                for mode, (got, again) in runs.items():
+                    for g, w, gname in zip(got, want, ("dq", "dk", "dv")):
+                        check(g.dtype == dtype and g.shape == q.shape, f"{name} {dt} {gname}: dtype/shape")
+                    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                          f"{name} {dt} {mode}: two calls differ (the backward is not deterministic)")
+                    err = max((g.float() - w).abs().max().item() for g, w in zip(got, want))
+                    bwd_errors[(name, dt, mode)] = err
+                    line += f" {mode}: max_abs {err:.3e}"
+                    check(math.isfinite(err), f"{name} {dt} {mode}: backward not finite")
+                    if dtype == torch.float32:
+                        line += f" (tol {BWD_TOL_FP32:.0e})"
+                        check(err <= BWD_TOL_FP32, f"{name} fp32 backward {mode}: max_abs {err} > {BWD_TOL_FP32}")
+                    else:
+                        ulps = max(bf16_grad_ulps(g, w) for g, w in zip(got, want))
+                        line += f", {ulps:.3f} ulp of the fp32 plain gradients (tol {BWD_MAX_ULP:.0f})"
+                        check(ulps <= BWD_MAX_ULP, f"{name} bf16 backward {mode}: {ulps} ulp")
+                    line += ";"
+                same = all(torch.equal(a, b) for a, b in zip(*(got for got, _ in runs.values())))
+                print(f"{line} two calls bit-identical; alone bit-equal to with the forward's LSE: {same}")
+                del q, k, v, d_out, alone, runs, want
         # gradcheck-style: the kernels' gradient through proxy_attention is
         # autograd's through the plain forward (fp32, the tiny shape)
         s = CHECK_SHAPES["tiny"]
@@ -845,14 +881,19 @@ def main() -> None:
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v, d_out = qkv(s, dtype, n=4)
             dt = str(dtype).split(".")[-1]
-            # like for like: the backward kernel against its plain version
+            # like for like: the backward kernel against its plain version;
+            # "kernel" is what autograd runs (on the forward's LSE), "alone"
+            # the public entry, which computes the LSE first
+            _, lse = pa._launch_fwd(q, k, v, *args, with_lse=True)
             runs = alternate({
-                "kernel": lambda: pa.proxy_attention_bwd(q, k, v, d_out, *args),
+                "kernel": lambda: pa._launch_bwd(q, k, v, d_out, *args, lse=lse),
                 "plain": lambda: pa.proxy_attention_bwd_plain(q, k, v, d_out, s["M"], s["L"], args[-1]),
+                "alone": lambda: pa.proxy_attention_bwd(q, k, v, d_out, *args),
             })
             bwd_timings[dt] = {name: sum(r) / len(r) for name, r in runs.items()}
-            print(f"  proxy attention backward B/32 b=32 {dt}: kernel {runs['kernel']} ms, plain "
-                  f"(proxy_attention_bwd_plain) {runs['plain']} ms (CUDA events, 200 calls each) [{card}]")
+            print(f"  proxy attention backward B/32 b=32 {dt}: kernel on the forward's LSE {runs['kernel']} ms, "
+                  f"alone {runs['alone']} ms, plain (proxy_attention_bwd_plain) {runs['plain']} ms (CUDA events, "
+                  f"200 calls each) [{card}]")
 
             # what a layer pays in training: forward and backward through
             # autograd, the two kernels against the plain forward
@@ -862,13 +903,20 @@ def main() -> None:
                     forward(*leaves).backward(d_out)
                 return run
 
-            both = alternate({
+            fns = {
                 "kernel": through(lambda *t: pa.proxy_attention(*t, *args)),
                 "plain": through(lambda *t: pa.proxy_attention_plain(*t, s["M"], s["L"], args[-1])),
-            })
+            }
+            if dtype == torch.bfloat16:  # the library's forward + backward, on the tensor cores too
+                mask = pa.proxy_bias(q.shape[2], s["M"], s["L"], "cuda").to(dtype)
+                fns["sdpa"] = through(lambda *t: torch.nn.functional.scaled_dot_product_attention(
+                    *t, attn_mask=mask, scale=args[-1]))
+            both = alternate(fns)
             print(f"  proxy attention forward+backward (autograd) B/32 b=32 {dt}: kernels {both['kernel']} ms, "
-                  f"plain forward + autograd {both['plain']} ms (CUDA events, 200 calls each) [{card}]")
-            del q, k, v, d_out
+                  f"plain forward + autograd {both['plain']} ms"
+                  + (f", SDPA forward + autograd {both['sdpa']} ms" if "sdpa" in both else "")
+                  + f" (CUDA events, 200 calls each) [{card}]")
+            del q, k, v, d_out, lse
 
         b = B32_TRAIN["B"]
         _, steps_ms, iters, peak_gib = time_train_step(b)
@@ -962,9 +1010,12 @@ def main() -> None:
         pq, pk, pv, pd = (packed(t) for t in (q, k, v, d_out))
         hv_ = lambda t: head_view(t, D)  # noqa: E731
         same = lambda t: t  # noqa: E731
+        # "kernel" as autograd runs it, on the forward's LSE; "alone" the public entry
+        _, plse = pa._launch_fwd(pq, pk, pv, s["M"], s["N"], s["L"], scale, D, with_lse=True)
         runs = alternate({
-            "kernel": lambda: pa.proxy_attention_packed_bwd(pq, pk, pv, pd, s["M"], s["N"], s["L"], scale, D),
+            "kernel": lambda: pa._launch_bwd(pq, pk, pv, pd, s["M"], s["N"], s["L"], scale, D, lse=plse),
             "plain": lambda: pa.proxy_attention_packed_bwd_plain(pq, pk, pv, pd, s["M"], s["L"], scale, D),
+            "alone": lambda: pa.proxy_attention_packed_bwd(pq, pk, pv, pd, s["M"], s["N"], s["L"], scale, D),
             "library_fwd_bwd": sdpa_fwd_bwd((pq, pk, pv), pd, hv_, mask, scale),
             "library_fwd": lambda: sdpa(hv_(pq), hv_(pk), hv_(pv), mask, scale),
             "bhsd_fwd_bwd": sdpa_fwd_bwd((q, k, v), d_out, same, mask, scale),
@@ -973,11 +1024,12 @@ def main() -> None:
         packed_bwd_timing = {k_: mean(r) for k_, r in runs.items()}
         lib["proxy_attention_packed_bwd"] = packed_bwd_timing["library_fwd_bwd"] - packed_bwd_timing["library_fwd"]
         lib["proxy_attention_bwd"] = packed_bwd_timing["bhsd_fwd_bwd"] - packed_bwd_timing["bhsd_fwd"]
-        print(f"  packed proxy attention backward B/32 b=32 bf16: kernel {runs['kernel']} ms, plain "
-              f"{runs['plain']} ms, SDPA forward+backward on the head views {runs['library_fwd_bwd']} ms, its "
+        print(f"  packed proxy attention backward B/32 b=32 bf16: kernel on the forward's LSE {runs['kernel']} ms, "
+              f"alone {runs['alone']} ms, plain {runs['plain']} ms, SDPA forward+backward on the head views "
+              f"{runs['library_fwd_bwd']} ms, its "
               f"forward {runs['library_fwd']} ms; [B,H,S,D] SDPA forward+backward {runs['bhsd_fwd_bwd']} ms, "
               f"forward {runs['bhsd_fwd']} ms (CUDA events, 200 calls each) [{card}]")
-        del q, k, v, d_out, pq, pk, pv, pd
+        del q, k, v, d_out, pq, pk, pv, pd, plse
 
         # #5: the B/32 serving frames, bf16 out; the library call is one fp32
         # addmm of patches gathered outside the window (TF32 off), the gather
@@ -1068,7 +1120,7 @@ def main() -> None:
         }
         for name, err, timing in (
             ("proxy_attention_fwd", errors[("b32", "bfloat16")], timings["bfloat16"]),
-            ("proxy_attention_bwd", bwd_errors[("b32_train", "bfloat16")], bwd_timings["bfloat16"]),
+            ("proxy_attention_bwd", bwd_errors[("b32_train", "bfloat16", "forward's LSE")], bwd_timings["bfloat16"]),
             ("proxy_attention_packed_fwd", packed_errors[("b32", "bfloat16")], packed_fwd_timing),
             ("proxy_attention_packed_bwd", packed_errors[("b32_train_bwd", "bfloat16")], packed_bwd_timing),
             ("patch_embed_u8", patch_errors[("b32", "bfloat16")], patch_timing),

@@ -18,6 +18,9 @@ KERNELS = {
         "proxy attention backward kernel, dq pass",
     "void (anonymous namespace)::bwd_dkv_kernel<__nv_bfloat16, 16>(...)":
         "proxy attention backward kernel, dk/dv pass",
+    "void xpt_proxy::fwd_mma_kernel<64, true>(...)": "proxy attention forward kernel",
+    "void (anonymous namespace)::dq_mma_kernel<64>(...)": "proxy attention backward kernel, dq pass",
+    "void (anonymous namespace)::dkv_mma_kernel<64>(...)": "proxy attention backward kernel, dk/dv pass",
     "void (anonymous namespace)::window_attention_fwd_kernel<__nv_bfloat16, 8>(...)":
         "window attention forward kernel",
     "nvjet_tst_192x192_64x3_2x1_v_bz_coopB_NNN": "GEMMs",
@@ -98,3 +101,28 @@ def test_ab_tool_reads_the_proxy_kernels_registers(tmp_path):
         "ptxas info    : Used 200 registers, used 1 barriers\n"
     )
     assert ab_proxy_kernels.registers(str(log)) == {"bwd_dq_kernel_fp32": 123, "proxy_attention_fwd_kernel_bf16": 80}
+
+
+def test_ab_tool_reads_the_tensor_core_kernels_registers(tmp_path):
+    """The bf16 tensor-core kernels' entries (the forward, its LSE-only form
+    and the two backward passes, D=64) are read too; other head dims are not."""
+    from xpretrain_tpu_torch.tools import ab_proxy_kernels
+
+    log = tmp_path / "lib.log"
+    log.write_text(
+        "ptxas info    : Compiling entry function "
+        "'_ZN9xpt_proxy14fwd_mma_kernelILi64ELb1EEEvPK13__nv_bfloat16' for 'sm_90a'\n"
+        "ptxas info    : Used 94 registers, used 1 barriers\n"
+        "ptxas info    : Compiling entry function "
+        "'_ZN9xpt_proxy14fwd_mma_kernelILi64ELb0EEEvPK13__nv_bfloat16' for 'sm_90a'\n"
+        "ptxas info    : Used 63 registers, used 1 barriers\n"
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_113dq_mma_kernelILi64EEEvPK13' for 'sm_90a'\n"
+        "ptxas info    : Used 168 registers, used 1 barriers\n"
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_114dkv_mma_kernelILi64EEEvPK13' for 'sm_90a'\n"
+        "ptxas info    : Used 165 registers, used 1 barriers\n"
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_114dkv_mma_kernelILi128EEEvPK13' for 'sm_90a'\n"
+        "ptxas info    : Used 255 registers, used 1 barriers\n"
+    )
+    assert ab_proxy_kernels.registers(str(log)) == {
+        "fwd_mma_kernel": 94, "fwd_mma_kernel_lse_only": 63, "dq_mma_kernel": 168, "dkv_mma_kernel": 165,
+    }

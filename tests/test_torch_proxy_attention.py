@@ -157,10 +157,10 @@ def test_autograd_function_wiring(monkeypatch):
     backward contiguous, and each launch counts once."""
     M, N, L, D = SHAPES[0]
 
-    def fwd(q, k, v, out, M, N, L, scale):
+    def fwd(q, k, v, out, lse, M, N, L, scale):
         out.copy_(proxy_attention_plain(q, k, v, M, L, scale))
 
-    def bwd(q, k, v, d_out, dq, dk, dv, lse, delta, M, N, L, scale):
+    def bwd(q, k, v, d_out, dq, dk, dv, lse, delta, lse_given, M, N, L, scale):
         assert d_out.is_contiguous()
         for dst, src in zip((dq, dk, dv), proxy_attention_bwd_plain(q, k, v, d_out, M, L, scale)):
             dst.copy_(src)
@@ -352,11 +352,13 @@ def _fake_launches(monkeypatch, seen):
     """The two kernel launches replaced by their plain versions, run on the
     [B, H, S, D] views they are handed; records each view's strides."""
 
-    def fwd(q, k, v, out, M, N, L, scale):
+    def fwd(q, k, v, out, lse, M, N, L, scale):
         seen.append(("fwd", tuple(t.stride() for t in (q, k, v, out))))
         out.copy_(proxy_attention_plain(q, k, v, M, L, scale))
+        if lse is not None:
+            lse.copy_(pa.proxy_attention_lse_plain(q, k, M, L, scale))
 
-    def bwd(q, k, v, d_out, dq, dk, dv, lse, delta, M, N, L, scale):
+    def bwd(q, k, v, d_out, dq, dk, dv, lse, delta, lse_given, M, N, L, scale):
         seen.append(("bwd", tuple(t.stride() for t in (q, k, v, d_out, dq, dk, dv))))
         assert lse.is_contiguous() and lse.shape == q.shape[:3] and delta.shape == q.shape[:3]
         for dst, src in zip((dq, dk, dv), proxy_attention_bwd_plain(q, k, v, d_out, M, L, scale)):
@@ -475,3 +477,305 @@ def test_packed_kernels_equal_the_unpacked_kernels_on_card(dtype, M, N, L, D, H)
         assert g.shape == (B, S, E) and torch.equal(g, merge(w))
     want = pa.proxy_attention_packed_plain(*(t.float() for t in (q, k, v)), M, L, D**-0.5, D)
     assert (got.float() - want).abs().max().item() <= (2e-5 if dt == torch.float32 else 2e-2)
+
+
+# -- the LSE the forward saves, and the tensor-core kernels' numerics ---------
+
+
+@pytest.mark.parametrize("M,N,L,D", SHAPES)
+def test_lse_plain_matches_jax_logsumexp(jax_ref, M, N, L, D):
+    """``proxy_attention_lse_plain`` is ``jax.nn.logsumexp`` of the JAX
+    reference's masked scores (``_proxy_bias``), fp32, within 1e-5."""
+    import jax
+    import jax.numpy as jnp
+
+    q, k = _qkv(M, N, L, D, seed=19, n=2)
+    S = q.shape[2]
+    scores = jnp.einsum("bhqd,bhkd->bhqk", q, k) * D**-0.5 + jax_ref._proxy_bias(S, M, L)
+    want = jax.nn.logsumexp(scores, axis=-1)
+    got = pa.proxy_attention_lse_plain(*map(torch.from_numpy, (q, k)), M, L, D**-0.5)
+    assert got.dtype == torch.float32 and got.shape == q.shape[:3]
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0)
+
+
+LOG2E = np.float32(1.4426950408889634)
+B32_GEOMETRY = (4, 12, 49, 64)  # (M, N, L, D) of CLIP-ViP B/32
+
+
+def _split(x):
+    """fp32 x as the two bf16 terms the kernels feed a product: hi = bf16(x),
+    lo = bf16(x - hi), each returned as fp32."""
+    hi = x.to(torch.bfloat16).float()
+    return hi, (x - hi).to(torch.bfloat16).float()
+
+
+def _dot(x, y, split):
+    """x @ y with x entering as bf16 terms: two (split) or one (rounded once)."""
+    if not split:
+        return x.to(torch.bfloat16).float() @ y
+    hi, lo = _split(x)
+    return hi @ y + lo @ y
+
+
+def _emulate_fwd(q, k, v, M, L, scale, split=True):
+    """The bf16 forward kernel's rounding points for one (b, h), q/k/v [S, D]
+    fp32 holding bf16 values: scores in the log2 domain, an online softmax
+    over 16-key chunks in the kernel's order (a frame block walks its keys
+    [M proxies | own L]; each of the proxy block's four warps takes its own
+    chunk of every 64-key tile, and the four are merged in warp order), P
+    entering PV as hi + lo bf16 terms, fp32 sums, one bf16 rounding at the
+    store. Returns the output (bf16 values as fp32) and the fp32 LSE."""
+    S, D = q.shape
+    N = (S - M) // L
+    c = np.float32(scale) * LOG2E
+    out, lse = torch.empty_like(q), torch.empty(S)
+
+    def walk(rows, chunks):
+        m = torch.full((len(rows),), -float("inf"))
+        l, acc = torch.zeros(len(rows)), torch.zeros(len(rows), D)
+        for keys in chunks:
+            s = (q[rows] @ k[keys].T) * c
+            mn = torch.maximum(m, s.max(dim=1).values)
+            base = torch.where(mn == -float("inf"), torch.zeros_like(mn), mn)
+            corr = torch.exp2(m - base)
+            p = torch.exp2(s - base[:, None])
+            l = l * corr + p.sum(dim=1)
+            acc = acc * corr[:, None] + _dot(p, v[keys], split)
+            m = mn
+        return acc, m, l
+
+    for f in range(N):
+        rows = torch.arange(M + f * L, M + (f + 1) * L)
+        keys = torch.cat([torch.arange(M), rows])
+        acc, m, l = walk(rows, keys.split(16))
+        out[rows] = (acc * (1 / l)[:, None]).to(torch.bfloat16).float()
+        lse[rows] = (m + torch.log2(l)) * np.float32(np.log(2))
+    rows = torch.arange(M)
+    parts = [walk(rows, [torch.arange(t0 + 16 * w, min(t0 + 16 * w + 16, S)) for t0 in range(0, S, 64)
+                         if t0 + 16 * w < S]) for w in range(4)]
+    mx = torch.stack([m for _, m, _ in parts]).max(dim=0).values
+    weights = [torch.exp2(m - mx) for _, m, _ in parts]
+    lsum = sum(l * w for (_, _, l), w in zip(parts, weights))
+    acc = sum(a * w[:, None] for (a, _, _), w in zip(parts, weights))
+    out[rows] = (acc * (1 / lsum)[:, None]).to(torch.bfloat16).float()
+    lse[rows] = (mx + torch.log2(lsum)) * np.float32(np.log(2))
+    return out, lse
+
+
+def _emulate_bwd(q, k, v, d_out, lse, M, L, scale):
+    """The bf16 backward kernel's rounding points for one (b, h), given the
+    forward's LSE: pass 1 forms P from the LSE and sums delta = rowsum(P dP),
+    (P dP) K and P K with P dP and P as hi + lo terms, then dQ = s ((P dP) K -
+    delta P K); pass 2 forms dS = P (dP - delta) and sums P^T dO and dS^T Q
+    with P and dS as hi + lo terms; one bf16 rounding per output."""
+    S, D = q.shape
+    N = (S - M) // L
+    c = np.float32(scale) * LOG2E
+    lse2 = lse * LOG2E
+    dq, dk, dv, delta = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v), torch.empty(S)
+    frames = [torch.arange(M + f * L, M + (f + 1) * L) for f in range(N)]
+    # (fixed rows, the stream they meet): the proxy block, then the frames
+    blocks = [(torch.arange(M), torch.arange(S))] + [(r, torch.cat([torch.arange(M), r])) for r in frames]
+    for rows, keys in blocks:
+        p = torch.exp2((q[rows] @ k[keys].T) * c - lse2[rows, None])
+        pdp = p * (d_out[rows] @ v[keys].T)
+        delta[rows] = pdp.sum(dim=1)
+        a1, a2 = _dot(pdp, k[keys], True), _dot(p, k[keys], True)
+        dq[rows] = ((a1 - delta[rows, None] * a2) * scale).to(torch.bfloat16).float()
+    for keys, rows in blocks:
+        pt = torch.exp2((k[keys] @ q[rows].T) * c - lse2[None, rows])
+        dst = pt * ((v[keys] @ d_out[rows].T) - delta[None, rows])
+        dv[keys] = _dot(pt, d_out[rows], True).to(torch.bfloat16).float()
+        dk[keys] = (_dot(dst, q[rows], True) * scale).to(torch.bfloat16).float()
+    return dq, dk, dv
+
+
+def _out_ulps(got, want):
+    """``chip_smoke.bf16_ulps``: largest |got - want| in bf16 ulps of want;
+    |want| below 2^-8 counts as 2^-8."""
+    ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(2.0**-8))) - 7)
+    return ((got - want) / ulp).abs().max().item()
+
+
+def _b32_head(seed):
+    """bf16-exact q, k, v, dO of one (b, h) of the B/32 train shape, as fp32."""
+    M, N, L, D = B32_GEOMETRY
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.normal(size=(M + N * L, D)).astype(np.float32)).to(torch.bfloat16).float()
+            for _ in range(4)]
+
+
+@pytest.mark.parametrize("seed", [20, 21, 22])
+def test_kernel_rounding_points_meet_the_chip_bars(seed):
+    """With the kernels' rounding points at the B/32 shape, a few (b, h)
+    heads: forward <= 1 bf16 ulp (``BF16_MAX_ULP``), gradients <= 2
+    (``BWD_MAX_ULP``) of the fp32 plain version, LSE within 1e-5 of
+    ``proxy_attention_lse_plain``."""
+    M, N, L, D = B32_GEOMETRY
+    q, k, v, d_out = _b32_head(seed)
+    out, lse = _emulate_fwd(q, k, v, M, L, D**-0.5)
+    as4 = lambda t: t[None, None]  # noqa: E731
+    assert _out_ulps(out, proxy_attention_plain(as4(q), as4(k), as4(v), M, L, D**-0.5)[0, 0]) <= 1.0
+    torch.testing.assert_close(lse, pa.proxy_attention_lse_plain(as4(q), as4(k), M, L, D**-0.5)[0, 0],
+                               atol=1e-5, rtol=0)
+    got = _emulate_bwd(q, k, v, d_out, lse, M, L, D**-0.5)
+    want = proxy_attention_bwd_plain(as4(q), as4(k), as4(v), as4(d_out), M, L, D**-0.5)
+    for g, w, name in zip(got, want, "qkv"):
+        assert _bf16_grad_ulps(g, w[0, 0]) <= 2.0, f"d{name}"
+
+
+def test_one_bf16_rounding_of_p_misses_the_forward_bar():
+    """The emulation can fail: P rounded once to bf16 before PV (what
+    ``_cell_fwd`` and SDPA do) lands far beyond 1 ulp of the fp32 plain
+    version at the B/32 shape, which is why the kernels split it."""
+    M, N, L, D = B32_GEOMETRY
+    q, k, v, _ = _b32_head(20)
+    out, _ = _emulate_fwd(q, k, v, M, L, D**-0.5, split=False)
+    as4 = lambda t: t[None, None]  # noqa: E731
+    assert _out_ulps(out, proxy_attention_plain(as4(q), as4(k), as4(v), M, L, D**-0.5)[0, 0]) > 8.0
+
+
+def _lse_launches(monkeypatch, calls):
+    """The two launches replaced by their plain versions; records what each
+    launch was handed: the forward's LSE buffer, the backward's LSE and flag."""
+
+    def fwd(q, k, v, out, lse, M, N, L, scale):
+        calls.append(("fwd", lse))
+        out.copy_(proxy_attention_plain(q, k, v, M, L, scale))
+        if lse is not None:
+            lse.copy_(pa.proxy_attention_lse_plain(q, k, M, L, scale))
+
+    def bwd(q, k, v, d_out, dq, dk, dv, lse, delta, lse_given, M, N, L, scale):
+        calls.append(("bwd", lse, lse_given))
+        for dst, src in zip((dq, dk, dv), proxy_attention_bwd_plain(q, k, v, d_out, M, L, scale)):
+            dst.copy_(src)
+
+    monkeypatch.setattr(pa._kernels, "proxy_attention_fwd", fwd)
+    monkeypatch.setattr(pa._kernels, "proxy_attention_bwd", bwd)
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_autograd_saves_the_forward_lse_for_the_backward(monkeypatch, packed):
+    """The autograd functions on CPU tensors with the launches replaced: the
+    forward gets an LSE buffer only when an input needs a gradient, and the
+    backward gets that very buffer, flagged as given."""
+    M, N, L, D = PACKED
+    calls = []
+    _lse_launches(monkeypatch, calls)
+    if packed:
+        q, k, v = map(torch.from_numpy, _packed(M, N, L, D, seed=23))
+        fn, entry, args = pa._ProxyAttentionPackedFn, pa.proxy_attention_packed, (M, N, L, D**-0.5, D)
+    else:
+        q, k, v = map(torch.from_numpy, _qkv(M, N, L, D, seed=23))
+        fn, entry, args = pa._ProxyAttentionFn, proxy_attention, (M, N, L, D**-0.5)
+    fn.apply(q, k, v, *args)
+    assert calls == [("fwd", None)]
+    calls.clear()
+    leaf = k.clone().requires_grad_()
+    fn.apply(q, leaf, v, *args).sum().backward()
+    (_, saved), (_, handed, given) = calls
+    B, S = q.shape[0], M + N * L
+    assert saved.shape == (B, PACKED_H if packed else H, S) and saved.dtype == torch.float32
+    assert handed is saved and given is True
+    ref = k.clone().requires_grad_()
+    entry(q, ref, v, *args).sum().backward()  # the CPU path: plain, under autograd
+    torch.testing.assert_close(leaf.grad, ref.grad, atol=GRAD_ATOL, rtol=0)
+
+
+def test_standalone_backward_launch_computes_its_own_lse(monkeypatch):
+    """``_launch_bwd`` without an LSE (what ``proxy_attention_bwd`` and
+    ``proxy_attention_packed_bwd`` call, with ``_attention_pallas_bwd``'s
+    signature) hands the kernel a fresh fp32 [B, H, S] buffer flagged as not
+    given; with one it hands that buffer over, flagged as given."""
+    M, N, L, D = PACKED
+    calls = []
+    _lse_launches(monkeypatch, calls)
+    q, k, v, d_out = map(torch.from_numpy, _qkv(M, N, L, D, seed=24, n=4))
+    pa._launch_bwd(q, k, v, d_out, M, N, L, D**-0.5)
+    (_, lse, given), = calls
+    assert given is False and lse.shape == q.shape[:3] and lse.dtype == torch.float32 and lse.is_contiguous()
+    calls.clear()
+    mine = pa.proxy_attention_lse_plain(q, k, M, L, D**-0.5)
+    pa._launch_bwd(q, k, v, d_out, M, N, L, D**-0.5, lse=mine)
+    assert calls[0][1] is mine and calls[0][2] is True
+    pq, pk, pv, pd = map(torch.from_numpy, _packed(M, N, L, D, seed=24, n=4))
+    calls.clear()
+    pa._launch_bwd(pq, pk, pv, pd, M, N, L, D**-0.5, D)
+    assert calls[0][2] is False and calls[0][1].shape == (PACKED_B, PACKED_H, M + N * L)
+
+
+def _misaligned(shape):
+    """A contiguous bf16 tensor whose data starts 2 bytes past a 16-byte boundary."""
+    n = int(np.prod(shape))
+    return torch.zeros(n + 8, dtype=torch.bfloat16)[1:n + 1].view(shape)
+
+
+@pytest.mark.parametrize(
+    "make,match",
+    [
+        (lambda: _misaligned((2, 2, 55, 16)), "16-byte aligned"),
+        # a [B, H, S, D] view whose rows are 20 elements apart
+        (lambda: torch.zeros(2, 2, 55, 20, dtype=torch.bfloat16)[..., :16], "multiples of 8"),
+        (lambda: torch.zeros(2, 2, 55, 20, dtype=torch.bfloat16)[..., 4:], "16-byte aligned|multiples of 8"),
+    ],
+)
+def test_bf16_launches_check_what_cp_async_needs(monkeypatch, make, match):
+    """The bf16 kernels stage tiles with 16-byte ``cp.async``: a launch on a
+    view that is not 16-byte aligned, or whose strides are not multiples of 8
+    elements, raises before it reaches the kernel; fp32 views are not held to
+    it (the CUDA-core kernels load element by element)."""
+    M, N, L, D = PACKED
+    calls = []
+    _lse_launches(monkeypatch, calls)
+    bad = make()
+    good = torch.zeros(2, 2, M + N * L, D, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match=match):
+        pa._launch_fwd(bad, good, good, M, N, L, D**-0.5)
+    with pytest.raises(ValueError, match=match):
+        pa._launch_bwd(good, good, good, bad, M, N, L, D**-0.5)
+    assert calls == []
+    pa._check_cp_async(bad.float(), good.float())  # fp32: nothing to check
+    pa._check_cp_async(good, good)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("M,N,L,D", SHAPES + [(4, 12, 49, 64), (4, 3, 196, 64), (1, 2, 256, 128)])
+def test_forward_lse_matches_plain_on_card(dtype, M, N, L, D):
+    """The LSE the forward saves is ``proxy_attention_lse_plain`` of the same
+    inputs within 1e-5 (fp32 sums in another order), and saving it leaves the
+    output's bits alone."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(x).to("cuda", dt) for x in _qkv(M, N, L, D, seed=25))
+    out, lse = pa._launch_fwd(q, k, v, M, N, L, D**-0.5, with_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out, proxy_attention(q, k, v, M, N, L, D**-0.5))
+    want = pa.proxy_attention_lse_plain(q.float(), k.float(), M, L, D**-0.5)
+    assert lse.dtype == torch.float32 and (lse - want).abs().max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("M,N,L,D", SHAPES + [(4, 12, 49, 64), (1, 2, 256, 128)])
+def test_bwd_on_the_forward_lse_on_card(dtype, M, N, L, D):
+    """The backward on the forward's LSE (as autograd runs it): within the
+    standalone backward's bars, bit-identical over two calls, and for bf16
+    bit-equal to the standalone call, whose LSE pass is the forward's code."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    dt = getattr(torch, dtype)
+    q, k, v, d_out = (torch.from_numpy(x).to("cuda", dt) for x in _qkv(M, N, L, D, seed=26, n=4))
+    _, lse = pa._launch_fwd(q, k, v, M, N, L, D**-0.5, with_lse=True)
+    got = pa._launch_bwd(q, k, v, d_out, M, N, L, D**-0.5, lse=lse)
+    again = pa._launch_bwd(q, k, v, d_out, M, N, L, D**-0.5, lse=lse)
+    alone = proxy_attention_bwd(q, k, v, d_out, M, N, L, D**-0.5)
+    torch.cuda.synchronize()
+    want = proxy_attention_bwd_plain(*(t.float() for t in (q, k, v, d_out)), M, L, D**-0.5)
+    for g, a, s, w, name in zip(got, again, alone, want, "qkv"):
+        assert torch.equal(g, a), f"d{name}"
+        if dt == torch.float32:
+            assert (g - w).abs().max().item() <= 1e-4, f"d{name}"
+        else:
+            assert _bf16_grad_ulps(g, w) <= 2.0 and torch.equal(g, s), f"d{name}"

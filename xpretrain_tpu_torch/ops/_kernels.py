@@ -4,9 +4,10 @@ Each source is compiled with ``nvcc`` for ``sm_90a`` into an object, all of
 them at once in parallel processes, and the objects are linked into one
 shared library with a plain C interface, bound with ``ctypes``. The build runs
 at first use into ``build/xpretrain_tpu_torch/`` beside the package, keyed by
-a hash of the sources and flags, so a fresh checkout builds itself and an
-unchanged one reuses its library. A missing ``nvcc`` or a failed build raises;
-nothing falls back to another path.
+a hash of the sources, the headers they include (``csrc/*.cuh``) and the
+flags, so a fresh checkout builds itself and an unchanged one reuses its
+library. A missing ``nvcc`` or a failed build raises; nothing falls back to
+another path.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -31,24 +33,24 @@ NVCC_FLAGS = (
 )
 
 
-def _nvcc() -> str:
-    nvcc = shutil.which("nvcc")
-    if nvcc is None:
+def _cuda_tool(name: str) -> str:
+    tool = shutil.which(name)
+    if tool is None:
         cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-        candidate = Path(cuda_home) / "bin" / "nvcc"
+        candidate = Path(cuda_home) / "bin" / name
         if not candidate.exists():
             raise RuntimeError(
-                "nvcc not found on PATH or under CUDA_HOME (default /usr/local/cuda): "
-                "the port's CUDA kernels cannot be built"
+                f"{name} not found on PATH or under CUDA_HOME (default /usr/local/cuda): "
+                "the port's CUDA kernels cannot be built or inspected"
             )
-        nvcc = str(candidate)
-    return nvcc
+        tool = str(candidate)
+    return tool
 
 
 def library_path() -> Path:
     """Where the library for the current sources lives (built or not)."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC_DIR.glob("*.cu")):
+    for src in sorted([*CSRC_DIR.glob("*.cu"), *CSRC_DIR.glob("*.cuh")]):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     return BUILD_DIR / f"libxpt_kernels_{digest.hexdigest()[:16]}.so"
@@ -60,7 +62,7 @@ def _build(lib_path: Path) -> None:
     The ``-Xptxas -v`` reports and any errors go to ``<lib>.log``."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tag = f"{lib_path.stem}.{os.getpid()}"
-    nvcc = _nvcc()
+    nvcc = _cuda_tool("nvcc")
     jobs = []
     for src in sorted(CSRC_DIR.glob("*.cu")):
         obj = BUILD_DIR / f"{tag}.{src.stem}.o"
@@ -99,15 +101,17 @@ def load_library() -> ctypes.CDLL:
         _build(lib_path)
     lib = ctypes.CDLL(str(lib_path))
     lib.xpt_proxy_attention_fwd.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     )
     lib.xpt_proxy_attention_fwd.restype = ctypes.c_int
     lib.xpt_proxy_attention_bwd.argtypes = (
-        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+        [ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 7
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     )
     lib.xpt_proxy_attention_bwd.restype = ctypes.c_int
+    lib.xpt_proxy_attention_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.xpt_proxy_attention_smem_bytes.restype = ctypes.c_int
     lib.xpt_window_attention_fwd.argtypes = (
         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
@@ -134,19 +138,23 @@ def _strides(*tensors: torch.Tensor) -> ctypes.Array:
 
 
 def proxy_attention_fwd(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor, lse: Optional[torch.Tensor],
     M: int, N: int, L: int, scale: float,
 ) -> None:
-    """Launch ``csrc/proxy_attention_fwd.cu`` on the current stream.
+    """Launch ``csrc/proxy_attention_fwd.cu`` on the current stream: bf16 on
+    the tensor cores, fp32 on the CUDA cores.
 
     q, k, v and out are [B, H, S, D] views, each with its own strides and a
     unit stride on D (contiguous tensors, or head views of the packed
-    [B, S, H*D] layout). The caller has checked device, dtype and shape."""
+    [B, S, H*D] layout). ``lse`` is None or a contiguous fp32 [B, H, S]
+    buffer that receives each row's log-sum-exp. The caller has checked
+    device, dtype, shape and, for bf16, what 16-byte ``cp.async`` needs."""
     lib = load_library()
     B, H, S, D = q.shape
     with torch.cuda.device(q.device):
         rc = lib.xpt_proxy_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _strides(q, k, v, out),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), _strides(q, k, v, out),
             B, H, S, D, M, N, L, float(scale), int(q.dtype == torch.bfloat16),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
@@ -156,26 +164,83 @@ def proxy_attention_fwd(
 def proxy_attention_bwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, d_out: torch.Tensor,
     dq: torch.Tensor, dk: torch.Tensor, dv: torch.Tensor,
-    lse: torch.Tensor, delta: torch.Tensor,
+    lse: torch.Tensor, delta: torch.Tensor, lse_given: bool,
     M: int, N: int, L: int, scale: float,
 ) -> None:
-    """Launch both passes of ``csrc/proxy_attention_bwd.cu`` on the current
-    stream; ``lse`` and ``delta`` are contiguous fp32 [B, H, S] scratch.
+    """Launch ``csrc/proxy_attention_bwd.cu`` on the current stream: its two
+    passes, after an LSE pass of its own unless ``lse_given``. ``lse`` and
+    ``delta`` are contiguous fp32 [B, H, S]: ``lse`` holds the forward's
+    log-sum-exp when ``lse_given`` and receives it otherwise; ``delta`` is
+    scratch.
 
     The seven tensors are [B, H, S, D] views with their own strides and a
     unit stride on D, as for :func:`proxy_attention_fwd`. The caller has
-    checked device, dtype and shape."""
+    checked device, dtype, shape and, for bf16, what ``cp.async`` needs."""
     lib = load_library()
     B, H, S, D = q.shape
     with torch.cuda.device(q.device):
         rc = lib.xpt_proxy_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), d_out.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            _strides(q, k, v, d_out, dq, dk, dv),
+            int(lse_given), _strides(q, k, v, d_out, dq, dk, dv),
             B, H, S, D, M, N, L, float(scale), int(q.dtype == torch.bfloat16),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     _check(lib, rc, "proxy_attention_bwd")
+
+
+def proxy_kernel_resources(head_dim: int = 64) -> list[dict]:
+    """Registers, spills and shared memory (from the build's ``-Xptxas -v``
+    log) and the count of tensor-core ``HMMA`` instructions (from
+    ``cuobjdump --dump-sass`` of the library) of each proxy-attention kernel
+    built for ``head_dim``, bf16 and fp32. ``dynamic_smem`` is what a launch
+    asks for (the fp32 kernels' depends on D only through their tiles and is
+    not reported)."""
+    lib = load_library()
+    path = library_path()
+    ptxas, entry = {}, None
+    for line in path.with_suffix(".log").read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = m.group(1)
+            ptxas[entry] = {}
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and entry:
+            ptxas[entry].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
+        if m and entry:
+            ptxas[entry].update(registers=int(m.group(1)), static_smem=int(m.group(2) or 0))
+    sass = subprocess.run([_cuda_tool("cuobjdump"), "--dump-sass", str(path)],
+                          capture_output=True, text=True, check=True).stdout
+    hmma, entry = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            entry = m.group(1)
+            hmma[entry] = 0
+        elif entry and "HMMA" in line:
+            hmma[entry] += 1
+    # (label, entry name, its template arguments in the mangled name, dtype,
+    # the kernel argument of ``xpt_proxy_attention_smem_bytes``); the fp32
+    # kernels are instantiated on D/4, the elements each lane holds
+    kinds = [
+        ("fwd_mma_kernel", "fwd_mma_kernel", f"Li{head_dim}ELb1E", "bfloat16", 0),
+        ("fwd_mma_kernel (LSE only)", "fwd_mma_kernel", f"Li{head_dim}ELb0E", "bfloat16", 1),
+        ("dq_mma_kernel", "dq_mma_kernel", f"Li{head_dim}E", "bfloat16", 2),
+        ("dkv_mma_kernel", "dkv_mma_kernel", f"Li{head_dim}E", "bfloat16", 3),
+        *((name, name, f"Li{head_dim // 4}E", "float32", None)
+          for name in ("proxy_attention_fwd_kernel", "bwd_dq_kernel", "bwd_dkv_kernel")),
+    ]
+    rows = []
+    for label, name, args, dtype, smem_kernel in kinds:
+        found = [e for e in ptxas if name in e and args in e]
+        if len(found) != 1:
+            raise RuntimeError(f"{name} {args}: {len(found)} entries in the ptxas log")
+        row = {"kernel": label, "dtype": dtype, "entry": found[0], **ptxas[found[0]], "hmma": hmma.get(found[0], 0)}
+        if smem_kernel is not None:
+            row["dynamic_smem"] = lib.xpt_proxy_attention_smem_bytes(head_dim, smem_kernel)
+        rows.append(row)
+    return rows
 
 
 def window_attention_fwd(

@@ -10,14 +10,20 @@ everything, each frame's patches attend [proxies | own frame]
   to ``v.dtype`` before PV.
 - :func:`proxy_attention_bwd_plain` is ``_cell_bwd``'s math written out over
   the masked full S x S in fp32: the backward kernel's reference.
+  :func:`proxy_attention_lse_plain` is the fp32 log-sum-exp of each row's
+  masked scores: the reference of the LSE the forward kernel saves for the
+  backward.
 - :func:`proxy_attention` is the public entry (``proxy_flash_attention``).
   The tensor's device alone picks the path: a CPU tensor takes the plain
   version under autograd; a CUDA tensor goes through ``_ProxyAttentionFn``
   (the counterpart of the ``jax.custom_vjp`` ``_flash``), whose forward
   launches ``csrc/proxy_attention_fwd.cu`` (replacing ``_attention_pallas``)
-  and whose backward launches ``csrc/proxy_attention_bwd.cu`` through
-  :func:`proxy_attention_bwd` (replacing ``_attention_pallas_bwd``). A CUDA
-  tensor the kernels do not take raises.
+  and saves each row's LSE when a gradient will follow, and whose backward
+  launches ``csrc/proxy_attention_bwd.cu`` on that LSE (replacing
+  ``_attention_pallas_bwd``; :func:`proxy_attention_bwd` is the same kernel
+  called alone, which computes the LSE itself). bf16 runs on the tensor
+  cores, fp32 on the CUDA cores. A CUDA tensor the kernels do not take
+  raises.
 - :func:`proxy_attention_packed` (``proxy_flash_attention_packed``) is the
   same attention on the raw [B, S, H*D] projection layout. The same two
   kernels take it through their stride arguments, the head split happening
@@ -92,6 +98,14 @@ def proxy_attention_bwd_plain(
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
+def proxy_attention_lse_plain(q: torch.Tensor, k: torch.Tensor, M: int, L: int, scale: float) -> torch.Tensor:
+    """fp32 [B, H, S] log-sum-exp of each row's masked scores: the reference
+    of the LSE the forward kernel writes."""
+    S = q.shape[-2]
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale + proxy_bias(S, M, L, q.device)
+    return torch.logsumexp(scores, dim=-1)
+
+
 def _heads(x: torch.Tensor, head_dim: int) -> torch.Tensor:
     """The [B, H, S, D] head view of a packed [B, S, H*D] tensor (no copy)."""
     B, S, E = x.shape
@@ -137,6 +151,19 @@ def _check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> N
         raise ValueError("proxy_attention kernel takes contiguous [B, H, S, D] tensors")
 
 
+def _check_cp_async(*views: torch.Tensor) -> None:
+    """What the bf16 kernels' 16-byte ``cp.async`` loads need of each
+    [B, H, S, D] view: a 16-byte aligned data pointer and (batch, head, row)
+    strides that are multiples of 8 elements."""
+    if views[0].dtype != torch.bfloat16:
+        return
+    for t in views:
+        if t.data_ptr() % 16:
+            raise ValueError(f"proxy_attention bf16 kernels need 16-byte aligned tensors, got address {t.data_ptr():#x}")
+        if any(st % 8 for st in t.stride()[:3]):
+            raise ValueError(f"proxy_attention bf16 kernels need strides that are multiples of 8, got {t.stride()}")
+
+
 def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, M: int, N: int, L: int) -> None:
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q/k/v must share one [B, H, S, D] shape: {q.shape}, {k.shape}, {v.shape}")
@@ -149,19 +176,21 @@ def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, M: int, N: 
 
 
 class _ProxyAttentionFn(torch.autograd.Function):
-    """Kernel forward, kernel backward; q/k/v are saved, P is recomputed."""
+    """Kernel forward, kernel backward; q/k/v and, when a gradient will
+    follow, each row's LSE are saved, P is recomputed."""
 
     @staticmethod
     def forward(ctx, q, k, v, M, N, L, scale):
-        ctx.save_for_backward(q, k, v)
+        out, lse = _launch_fwd(q, k, v, M, N, L, scale, with_lse=any(ctx.needs_input_grad[:3]))
+        ctx.save_for_backward(q, k, v, lse)
         ctx.dims = (M, N, L, scale)
-        return _launch_fwd(q, k, v, M, N, L, scale)
+        return out
 
     @staticmethod
     def backward(ctx, d_out):
-        q, k, v = ctx.saved_tensors
+        q, k, v, lse = ctx.saved_tensors
         # the model's head merge hands the gradient over as a strided view
-        dq, dk, dv = _launch_bwd(q, k, v, d_out.contiguous(), *ctx.dims)
+        dq, dk, dv = _launch_bwd(q, k, v, d_out.contiguous(), *ctx.dims, lse=lse)
         return dq, dk, dv, None, None, None, None
 
 
@@ -172,16 +201,17 @@ class _ProxyAttentionPackedFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, M, N, L, scale, head_dim):
-        ctx.save_for_backward(q, k, v)
+        out, lse = _launch_fwd(q, k, v, M, N, L, scale, head_dim, with_lse=any(ctx.needs_input_grad[:3]))
+        ctx.save_for_backward(q, k, v, lse)
         ctx.dims = (M, N, L, scale, head_dim)
-        return _launch_fwd(q, k, v, M, N, L, scale, head_dim)
+        return out
 
     @staticmethod
     def backward(ctx, d_out):
-        q, k, v = ctx.saved_tensors
+        q, k, v, lse = ctx.saved_tensors
         # autograd may hand the gradient over strided; the kernel reads it as
         # packed [B, S, H*D], like q, k and v
-        dq, dk, dv = _launch_bwd(q, k, v, d_out.contiguous(), *ctx.dims)
+        dq, dk, dv = _launch_bwd(q, k, v, d_out.contiguous(), *ctx.dims, lse=lse)
         return dq, dk, dv, None, None, None, None, None
 
 
@@ -222,7 +252,8 @@ def proxy_attention_bwd(
     scale: float,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of :func:`proxy_attention` for the output gradient
-    ``d_out``, each [B, H, S, D] in q's dtype.
+    ``d_out``, each [B, H, S, D] in q's dtype (``_attention_pallas_bwd``'s
+    signature: on CUDA the kernel first computes each row's LSE itself).
 
     ``proxy_attention_bwd.launches`` counts kernel launches (CUDA calls only)."""
     _check_shapes(q, k, v, M, N, L)
@@ -324,26 +355,35 @@ def proxy_attention_packed_bwd(
 proxy_attention_packed_bwd.launches = 0
 
 
-def _launch_fwd(q, k, v, M, N, L, scale, head_dim=None):
+def _launch_fwd(q, k, v, M, N, L, scale, head_dim=None, with_lse=False):
     """The forward kernel on [B, H, S, D] tensors or, given ``head_dim``, on
-    packed [B, S, H*D] ones through their head views; counts the launch."""
+    packed [B, S, H*D] ones through their head views; counts the launch.
+    Returns the output and, ``with_lse``, each row's fp32 [B, H, S] LSE
+    (else None)."""
     out = torch.empty_like(q)
     views = (q, k, v, out) if head_dim is None else tuple(_heads(t, head_dim) for t in (q, k, v, out))
-    _kernels.proxy_attention_fwd(*views, M, N, L, scale)
+    _check_cp_async(*views)
+    B, H, S, _ = views[0].shape
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device) if with_lse else None
+    _kernels.proxy_attention_fwd(*views, lse, M, N, L, scale)
     (proxy_attention if head_dim is None else proxy_attention_packed).launches += 1
-    return out
+    return out, lse
 
 
-def _launch_bwd(q, k, v, d_out, M, N, L, scale, head_dim=None):
-    """Both backward passes, as :func:`_launch_fwd`; LSE and delta are fp32
-    [B, H, S] scratch."""
+def _launch_bwd(q, k, v, d_out, M, N, L, scale, head_dim=None, lse=None):
+    """The backward kernel, as :func:`_launch_fwd`, on the forward's fp32
+    [B, H, S] ``lse`` or, when it is None, on an LSE the kernel computes
+    first; delta is fp32 [B, H, S] scratch."""
     grads = (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v))
     views = (q, k, v, d_out, *grads)
     if head_dim is not None:
         views = tuple(_heads(t, head_dim) for t in views)
+    _check_cp_async(*views)
     B, H, S, _ = views[0].shape
-    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-    delta = torch.empty_like(lse)
-    _kernels.proxy_attention_bwd(*views, lse, delta, M, N, L, scale)
+    lse_given = lse is not None
+    if not lse_given:
+        lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    _kernels.proxy_attention_bwd(*views, lse, delta, lse_given, M, N, L, scale)
     (proxy_attention_bwd if head_dim is None else proxy_attention_packed_bwd).launches += 1
     return grads

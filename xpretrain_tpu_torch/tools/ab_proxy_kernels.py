@@ -7,8 +7,12 @@ example another commit's, unpacked with
 in a fresh process that imports that tree's package (and so builds that
 tree's kernels into its own ``build/``), times the forward and the backward
 kernel at the CLIP-ViP B/32 shapes (serving b=24, training b=32) in bf16 and
-fp32 with CUDA events, and prints one JSON line. Compare two versions only
-within one run, in turns there and back (the default order is A, B, B, A).
+fp32 with CUDA events, the backward called alone (``proxy_attention_bwd``)
+and, at b=32, forward + backward through autograd (``fwdbwd_*``: the one
+like-for-like line across trees whose autograd hands the backward different
+inputs, such as a saved LSE), and prints one JSON line. Compare two versions
+only within one run, in turns there and back (the default order is A, B, B,
+A).
 
     python -m xpretrain_tpu_torch.tools.ab_proxy_kernels \\
         --tree parent=<dir> --tree change=. --order parent,change,change,parent
@@ -42,9 +46,21 @@ for B in (24, 32):
         out[f"fwd_b{B}_{name}_ms"] = cuda_time_ms(lambda: pa.proxy_attention(q, k, v, M, N, L, scale), 200, 20)
         out[f"bwd_b{B}_{name}_ms"] = cuda_time_ms(
             lambda: pa.proxy_attention_bwd(q, k, v, d_out, M, N, L, scale), 200, 20)
+        if B == 32:
+            def fwd_bwd():
+                leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+                pa.proxy_attention(*leaves, M, N, L, scale).backward(d_out)
+            out[f"fwdbwd_b{B}_{name}_ms"] = cuda_time_ms(fwd_bwd, 200, 20)
 out["ptxas_log"] = str(_kernels.library_path().with_suffix(".log"))
 print("RESULT " + json.dumps(out))
 """
+
+
+# entry names of the D=64 proxy-attention kernels: the CUDA-core ones (both
+# dtypes before the tensor-core kernels, fp32 since; D/4 = 16 lanes' worth),
+# and the bf16 tensor-core ones (forward, its LSE-only form, the two passes)
+_ENTRIES = (r"(proxy_attention_fwd_kernel|bwd_dq_kernel|bwd_dkv_kernel)I(f|13__nv_bfloat16)Li16E",
+            r"(fwd_mma_kernel)ILi64ELb([01])E", r"(dq_mma_kernel|dkv_mma_kernel)ILi64E()")
 
 
 def registers(log_path: str) -> dict[str, int]:
@@ -56,11 +72,14 @@ def registers(log_path: str) -> dict[str, int]:
             if m:
                 entry = m.group(1)
             m = re.search(r"Used (\d+) registers", line)
-            if m and entry and "Li16E" in entry:
-                kind = re.search(r"(proxy_attention_fwd_kernel|bwd_dq_kernel|bwd_dkv_kernel)", entry)
-                dtype = "bf16" if "bfloat16" in entry else "fp32"
+            if not (m and entry):
+                continue
+            for pattern in _ENTRIES:
+                kind = re.search(pattern, entry)
                 if kind:
-                    found[f"{kind.group(1)}_{dtype}"] = int(m.group(1))
+                    name, arg = kind.groups()
+                    suffix = {"f": "_fp32", "13__nv_bfloat16": "_bf16", "0": "_lse_only", "1": "", "": ""}[arg]
+                    found[f"{name}{suffix}"] = int(m.group(1))
     return found
 
 

@@ -1,4 +1,5 @@
-"""Time and profile the CLIP-ViP B/32 train step on one card.
+"""Time and profile the CLIP-ViP B/32 train step (or, with ``--serving``,
+its serving forward) on one card.
 
 Builds CLIP-ViP B/32 (bf16 compute, fp32 parameters, random weights from
 a seed) with the MSR-VTT fine-tune preset's loss and optimizer (NCE with
@@ -13,8 +14,11 @@ card, and prints:
   time by op class (``train/profiling.py``), written with the trace under
   ``--output_dir``.
 
+``--serving`` does the same for the bf16 video + text forward at b=24 under
+``inference_mode`` (windows of 100 calls, 3 profiled calls).
+
 Usage, from the repository root on a machine with a card:
-    python -m xpretrain_tpu_torch.tools.profile_train_step --output_dir output/profile
+    python -m xpretrain_tpu_torch.tools.profile_train_step --output_dir output/profile [--serving]
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import numpy as np
 import torch
 
 BATCH = 32  # the JAX package's train batch (bench.py)
+SERVE_BATCH = 24  # the JAX package's serving batch (bench.py)
 PROFILE_STEPS = 3
 
 
@@ -116,32 +121,59 @@ def time_train_step(batch: int):
     return train, steps_ms, iters, torch.cuda.max_memory_allocated() / 2**30
 
 
+def time_serving(batch: int):
+    """Build the B/32 bf16 model in eval mode and time its video + text
+    forward on a synthetic batch on the card, under ``inference_mode``;
+    returns (serve, per-call ms of each window, calls per window, peak GiB)."""
+    from xpretrain_tpu_torch.models.clip_vip.model import CLIPVipConfig, CLIPViPModel
+
+    model = CLIPViPModel(CLIPVipConfig.base_patch32(dtype=torch.bfloat16), device="cuda")
+    model.init_weights(torch.Generator(device="cuda").manual_seed(0)).eval()
+    inputs = synthetic_batch(batch, "cuda", 1)
+
+    def serve():
+        with torch.inference_mode():
+            model(inputs["video"], inputs["text_input_ids"], inputs["text_input_mask"])
+
+    torch.cuda.reset_peak_memory_stats()
+    iters = 100
+    return serve, window_ms(serve, iters=iters), iters, torch.cuda.max_memory_allocated() / 2**30
+
+
 def main(argv=None) -> dict:
     from xpretrain_tpu_torch.train.profiling import start_profiler, stop_profiler
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--output_dir", type=str, default="output/profile_train_step")
+    parser.add_argument("--serving", action="store_true",
+                        help=f"profile the video + text forward at b={SERVE_BATCH} instead of the train step")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_train_step times the step on a card; torch sees no CUDA device")
 
-    train, steps_ms, iters, peak_gib = time_train_step(BATCH)
-    print(f"B/32 bf16 train step b={BATCH}: {spread(steps_ms)} = "
-          f"{BATCH / median(steps_ms) * 1e3:.1f} clips/s at the median; windows {steps_ms} "
-          f"(CUDA events, {iters} steps per window); peak device memory {peak_gib:.2f} GiB", flush=True)
+    if args.serving:
+        batch, what, unit = SERVE_BATCH, "video+text forward", "call"
+        run, steps_ms, iters, peak_gib = time_serving(batch)
+    else:
+        batch, what, unit = BATCH, "train step", "step"
+        run, steps_ms, iters, peak_gib = time_train_step(batch)
+    print(f"B/32 bf16 {what} b={batch}: {spread(steps_ms)} = "
+          f"{batch / median(steps_ms) * 1e3:.1f} clips/s at the median; windows {steps_ms} "
+          f"(CUDA events, {iters} {unit}s per window); peak device memory {peak_gib:.2f} GiB", flush=True)
 
     prof = start_profiler()
     for _ in range(PROFILE_STEPS):
-        train()
+        run()
     table = stop_profiler(prof, args.output_dir, PROFILE_STEPS)
     busy = sum(r["device_ms_per_step"] for r in table)
-    print(f"profile of {PROFILE_STEPS} steps: device busy {busy:.3f} ms per step, idle share "
-          f"{1 - busy / median(steps_ms):.3f} of the median step; files in {args.output_dir}")
-    print("| op class | device ms / step | share | launches / step |\n| --- | --- | --- | --- |")
+    print(f"profile of {PROFILE_STEPS} {unit}s: device busy {busy:.3f} ms per {unit}, idle share "
+          f"{1 - busy / median(steps_ms):.3f} of the median {unit}; files in {args.output_dir}")
+    print(f"| op class | device ms / {unit} | share | launches / {unit} |\n| --- | --- | --- | --- |")
     for r in table:
         print(f"| {r['class']} | {r['device_ms_per_step']:.3f} | {100 * r['share']:.1f}% "
               f"| {r['launches_per_step']:.0f} |")
-    result = {"batch": BATCH, "step_ms": steps_ms, "peak_gib": peak_gib, "busy_ms": busy, "classes": table}
+    result = {"batch": batch, "what": what, "step_ms": steps_ms, "peak_gib": peak_gib, "busy_ms": busy,
+              "classes": table}
     print(json.dumps(result))
     return result
 

@@ -20,9 +20,10 @@ from xpretrain_tpu_torch.utils.logging import LOGGER
 # (class, substrings of a device kernel's name); the first class that
 # matches takes the kernel, so the specific names come first
 OP_CLASSES = (
-    ("proxy attention forward kernel", ("proxy_attention_fwd_kernel",)),
-    ("proxy attention backward kernel, dq pass", ("bwd_dq_kernel",)),
-    ("proxy attention backward kernel, dk/dv pass", ("bwd_dkv_kernel",)),
+    # the proxy kernels: fp32 on the CUDA cores, bf16 on the tensor cores
+    ("proxy attention forward kernel", ("proxy_attention_fwd_kernel", "fwd_mma_kernel")),
+    ("proxy attention backward kernel, dq pass", ("bwd_dq_kernel", "dq_mma_kernel")),
+    ("proxy attention backward kernel, dk/dv pass", ("bwd_dkv_kernel", "dkv_mma_kernel")),
     ("window attention forward kernel", ("window_attention_fwd_kernel",)),
     ("GEMMs", ("nvjet", "gemm", "cutlass", "splitKreduce", "cublas")),
     ("AdamW and norms (_foreach)", ("multi_tensor_apply", "lpnorm_cleanup")),
