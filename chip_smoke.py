@@ -5,8 +5,9 @@ Phases, in order; any failure exits non-zero and prints no result:
 
 1. require a CUDA card, print its name and power limit, turn TF32 off;
 2. build the port's CUDA kernels from ``xpretrain_tpu_torch/csrc`` and list,
-   per proxy-attention entry point, its registers, spills, shared memory and
-   the tensor-core (``HMMA``) instructions in its SASS;
+   per entry point (proxy attention, window attention, patch embed; bf16 and
+   fp32), its registers, spills, shared memory and the tensor-core (``HMMA``)
+   instructions in its SASS;
 3. check the proxy-attention forward kernel against its plain PyTorch
    version on the card at B/32, B/16 and small shapes, in fp32 and bf16, and
    the LSE it saves for the backward against ``proxy_attention_lse_plain``;
@@ -15,7 +16,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    forward's LSE (as autograd calls it), each twice (bit-identical), plus its
    gradient against autograd of the plain forward;
 3c. the same for the window-attention kernel, at the LF-VILA stage shapes of
-   batch 8 (stages 3-5, and the grouped stages 0-1), a tail and other head dims;
+   batch 8 (stages 3-5, and the grouped stages 0-1), a tail and other head
+   dims, and at stage 3 on q/k/v views of one fused qkv tensor (what the
+   model passes; bit-equal to the contiguous call);
 3d. the packed [B, S, H*D] proxy attention (the two proxy kernels through
    their stride arguments): forward at the phase-3 shapes, backward at the
    B/32 train shape, against the plain version (the phase 3/3b bars) and
@@ -50,12 +53,16 @@ Phases, in order; any failure exits non-zero and prints no result:
 6d. time the packed kernels (the backward as autograd runs it, on the
    forward's LSE, and alone) and the patch-embed kernel against their plain
    versions and one PyTorch call that computes the same function
-   (``library_ms``: ``scaled_dot_product_attention`` with the proxy mask,
-   ``addmm`` of pre-gathered patches), and that call for the kernels of
-   phases 6-6c at their shapes;
-7. print the kernel summary (each kernel's time, plain time, library time
-   and the bound of its work at the card's peak rates) and, as the last
-   line, the status JSON.
+   (``library_ms``: ``scaled_dot_product_attention`` with the proxy mask; a
+   bf16 ``addmm`` of pre-gathered bf16 patches and the bf16-rounded weight,
+   the model's own GEMM), and that call for the kernels of phases 6-6c at
+   their shapes; the window kernel at stages 3, 5 and the grouped 0-1 against
+   its plain version and the model's off-gate path (``dot_attention`` with
+   bias + mask as one additive mask); each kernel's device time alone
+   (``torch.profiler``) over the calls it is timed on;
+7. print the kernel summary (each kernel's time in CUDA events and on the
+   device, plain time, library time and the bound of its work at the card's
+   peak rates) and, as the last line, the status JSON.
 
 Each main-path run (4, 4b, 4c, 4d) sets every launch count to 0 just before it and
 reads the counts just after; the summary reports each path's count and
@@ -63,7 +70,7 @@ their sum. While they run, a call of a plain version on CUDA tensors fails
 the phase.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``
-(about 3 minutes on one H100, the kernels' build included).
+(about 4 minutes on one H100, the kernels' build included).
 """
 
 from __future__ import annotations
@@ -94,11 +101,12 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces): one per pallas_call
                              "xpretrain_tpu/ops/window_attention.py:59"),  # window_attention_pallas
 }
 # H100 SXM data-sheet peaks (dense): the bound of a kernel's work is the larger
-# of its bytes over HBM_BYTES_PER_S and its operations over the peak for the
-# type it computes on (bf16 inputs: the tensor cores' bf16 rate; the patch
-# embed's fp32 weight: the CUDA cores' fp32 rate)
+# of its bytes over HBM_BYTES_PER_S and its operations over the tensor cores'
+# bf16 rate, the least time the card needs for a bf16 output whatever computes
+# it (the patch embed's u8 inputs widen to bf16 exactly; its hi + lo weight
+# split is the kernel's cost, not the function's)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = 989e12
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # max abs; fp32: summation order; bf16: output rounding
 # patch embed, fp32 out, relative to max|out|: K = 3*P*P terms of up to 255*|w|
 # summed in fp32 in another order than cuBLAS's, so the difference grows with
@@ -301,10 +309,10 @@ def mean(xs: list[float]) -> float:
     return sum(xs) / len(xs)
 
 
-def bound_ms(flops: float, nbytes: float, dtype: str) -> tuple[float, str]:
-    """The least time the card could take for work of ``flops`` operations
-    on ``dtype`` and ``nbytes`` moved, and which of the two bounds it."""
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype] * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
+    """The least time the card could take for work of ``flops`` bf16
+    operations and ``nbytes`` moved, and which of the two bounds it."""
+    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -343,6 +351,7 @@ def main() -> None:
         from xpretrain_tpu_torch.cli import run_retrieval_clipvip, run_tasks_lfvila
         from xpretrain_tpu_torch.data.transforms import CLIP_MEAN, CLIP_STD
         from xpretrain_tpu_torch.models.clip_vip.model import CLIPVipConfig, CLIPViPModel
+        from xpretrain_tpu_torch.models.common import dot_attention
         from xpretrain_tpu_torch.ops import _kernels
         from xpretrain_tpu_torch.models.lf_vila.tasks import LfVilaRetrieval
         from xpretrain_tpu_torch.ops import patchify as pp
@@ -351,7 +360,7 @@ def main() -> None:
         from xpretrain_tpu_torch.parallel.train_step import batch_to_device
         from xpretrain_tpu_torch.serving.towers import LfVilaTowers, RetrievalTowers
         from xpretrain_tpu_torch.tools.profile_train_step import (
-            captions, median, spread, synthetic_batch, time_train_step, train_step_parts, window_ms,
+            captions, device_ms, median, spread, synthetic_batch, time_train_step, train_step_parts, window_ms,
         )
     except ImportError as e:
         fail(f"the port is not beside this script ({e})")
@@ -379,15 +388,16 @@ def main() -> None:
         for line in lib.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas: {line.strip()}")
-        # bf16 runs on the tensor cores, fp32 on the CUDA cores
-        resources = _kernels.proxy_kernel_resources(B32["D"])
+        # bf16 runs on the tensor cores, fp32 on the CUDA cores; the attention
+        # kernels at the main paths' head dims
+        resources = _kernels.kernel_resources(B32["D"], WINDOW_SHAPES["s3"][3])
         for row in resources:
             dynamic = f"{row['dynamic_smem']} B dynamic" if "dynamic_smem" in row else "dynamic by tile"
-            print(f"  {row['kernel']:28s} {row['dtype']:8s} D={B32['D']}: {row['registers']} registers, "
+            print(f"  {row['kernel']:44s} {row['dtype']:8s}: {row['registers']} registers, "
                   f"spills {row.get('spill_stores', 0)}/{row.get('spill_loads', 0)} B (stores/loads), "
                   f"shared memory {row['static_smem']} B static + {dynamic}, {row['hmma']} HMMA in its SASS")
-        check(all(row["hmma"] > 0 for row in resources if row["dtype"] == "bfloat16"),
-              "a bf16 proxy-attention kernel has no tensor-core instruction")
+        check(all(row["hmma"] > 0 for row in resources if row["tensor_cores"]),
+              "a bf16 tensor-core kernel has no tensor-core instruction")
 
     with phase("3 kernel vs plain"):
         errors = {}
@@ -510,6 +520,32 @@ def main() -> None:
                     check(ulps <= BF16_MAX_ULP, f"{name} bf16: {ulps} ulp from the fp32 plain version")
                 print(line)
                 del q, k, v, bias, mask, got, want
+        # the model's q/k/v: views of one fused [Bn, N, 3, H, d] projection,
+        # read in place through their strides
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, bias, mask = window_inputs(WINDOW_SHAPES["s3_shifted"], dtype, seed=1)
+            views = torch.stack([q, k, v]).permute(1, 3, 0, 2, 4).contiguous().permute(2, 0, 3, 1, 4)
+            check(not views[0].is_contiguous(), "the qkv views are contiguous")
+            before = wa.window_attention.launches
+            got = wa.window_attention(views[0], views[1], views[2], bias, mask)
+            torch.cuda.synchronize()
+            check(wa.window_attention.launches == before + 1, "strided: launch not counted")
+            same = torch.equal(got, wa.window_attention(q, k, v, bias, mask))
+            exact = wa.window_attention_plain(q.float(), k.float(), v.float(), bias, mask)
+            dt = str(dtype).split(".")[-1]
+            err = (got.float() - exact).abs().max().item()
+            win_errors[("s3_shifted_views", dt)] = err
+            line = (f"  s3_shifted on qkv views (strides {views[0].stride()}) {dt:8s} vs fp32 plain max_abs "
+                    f"{err:.3e}; bit-equal to the contiguous call: {same}")
+            check(same, f"strided {dt}: the views give another result than the contiguous tensors")
+            if dtype == torch.float32:
+                check(err <= TOL[dt], f"strided fp32: max_abs {err} > {TOL[dt]}")
+            else:
+                ulps = bf16_ulps(got, exact)
+                line += f", {ulps:.3f} ulp (tol {BF16_MAX_ULP:.0f})"
+                check(ulps <= BF16_MAX_ULP, f"strided bf16: {ulps} ulp from the fp32 plain version")
+            print(line)
+            del q, k, v, bias, mask, views, got, exact
 
     with phase("3d packed proxy attention (strided kernels) vs plain and vs the [B,H,S,D] kernels"):
         packed_errors = {}
@@ -854,8 +890,10 @@ def main() -> None:
             })
             dt = str(dtype).split(".")[-1]
             timings[dt] = {name: sum(r) / len(r) for name, r in runs.items()}
+            timings[dt]["device"] = device_ms(lambda: pa.proxy_attention(q, k, v, *args), iters=200)
             print(f"  proxy attention B/32 b=24 {dt}: kernel {runs['kernel']} ms, "
-                  f"plain {runs['plain']} ms (CUDA events, 200 calls each) [{card}]")
+                  f"plain {runs['plain']} ms (CUDA events, 200 calls each); kernel device time "
+                  f"{timings[dt]['device']:.4f} ms (torch.profiler, 200 calls) [{card}]")
             del q, k, v
 
         model = CLIPViPModel(CLIPVipConfig.base_patch32(dtype=torch.bfloat16), device="cuda")
@@ -891,9 +929,11 @@ def main() -> None:
                 "alone": lambda: pa.proxy_attention_bwd(q, k, v, d_out, *args),
             })
             bwd_timings[dt] = {name: sum(r) / len(r) for name, r in runs.items()}
+            bwd_timings[dt]["device"] = device_ms(lambda: pa._launch_bwd(q, k, v, d_out, *args, lse=lse), iters=200)
             print(f"  proxy attention backward B/32 b=32 {dt}: kernel on the forward's LSE {runs['kernel']} ms, "
                   f"alone {runs['alone']} ms, plain (proxy_attention_bwd_plain) {runs['plain']} ms (CUDA events, "
-                  f"200 calls each) [{card}]")
+                  f"200 calls each); kernel on the forward's LSE, device time {bwd_timings[dt]['device']:.4f} ms "
+                  f"(torch.profiler, 200 calls) [{card}]")
 
             # what a layer pays in training: forward and backward through
             # autograd, the two kernels against the plain forward
@@ -937,8 +977,11 @@ def main() -> None:
                 })
                 dt = str(dtype).split(".")[-1]
                 win_timings[(name, dt)] = {n: sum(r) / len(r) for n, r in runs.items()}
+                win_timings[(name, dt)]["device"] = device_ms(lambda: wa.window_attention(q, k, v, bias, mask),
+                                                              iters=200)
                 print(f"  window attention {name} {list(WINDOW_SHAPES[name][:4])} {dt}: kernel {runs['kernel']} ms, "
-                      f"plain {runs['plain']} ms (CUDA events, 200 calls each) [{card}]")
+                      f"plain {runs['plain']} ms (CUDA events, 200 calls each); kernel device time "
+                      f"{win_timings[(name, dt)]['device']:.4f} ms (torch.profiler, 200 calls) [{card}]")
                 del q, k, v, bias, mask
 
         model = LfVilaRetrieval(run_tasks_lfvila.lfvila_config_from(lfvila_preset), device="cuda")
@@ -956,9 +999,10 @@ def main() -> None:
             txt = window_ms(lambda: model.forward_text(ids, mask), iters=50)
             # window_ms: 3 warm-up calls, then 5 windows of 10
             check(wa.window_attention.launches - before == WINDOW_BLOCKS * (3 + 5 * 10), "video tower launches")
+            vid_device = device_ms(lambda: model.forward_video(frames), iters=5)
         print(f"  LF-VILA bf16 video tower b={b} (32x192x320 fp32 frames on the card): {spread(vid)} = "
               f"{b / median(vid) * 1e3:.2f} clips/s at the median; windows {vid} (CUDA events, 10 calls "
-              f"per window) [{card}]")
+              f"per window); device time {vid_device:.4f} ms a call (torch.profiler, 5 calls) [{card}]")
         print(f"  LF-VILA bf16 text tower b={b} (4 x 70 tokens): {spread(txt)}; windows {txt} (50 calls per "
               f"window) [{card}]")
         print(f"  towers peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
@@ -994,13 +1038,16 @@ def main() -> None:
             "library_bhsd": lambda: sdpa(q, k, v, mask, scale),
         })
         packed_fwd_timing = {k_: mean(r) for k_, r in runs.items()}
+        packed_fwd_timing["device"] = device_ms(
+            lambda: pa.proxy_attention_packed(pq, pk, pv, s["M"], s["N"], s["L"], scale, D), iters=200)
         lib["proxy_attention_packed_fwd"] = packed_fwd_timing["library"]
         lib["proxy_attention_fwd"] = packed_fwd_timing["library_bhsd"]
         sdpa_checks.append(("proxy fwd", sdpa(q, k, v, mask, scale), pa.proxy_attention(q, k, v, s["M"], s["N"],
                                                                                         s["L"], scale)))
         print(f"  packed proxy attention B/32 b=24 bf16: kernel {runs['kernel']} ms, plain {runs['plain']} ms, "
               f"SDPA on the head views {runs['library']} ms; [B,H,S,D] SDPA {runs['library_bhsd']} ms "
-              f"(CUDA events, 200 calls each) [{card}]")
+              f"(CUDA events, 200 calls each); kernel device time {packed_fwd_timing['device']:.4f} ms "
+              f"(torch.profiler, 200 calls) [{card}]")
         del q, k, v, pq, pk, pv, hq, hk, hv
 
         # #2 and #4: B/32 train, b=32, bf16; the library's backward is its
@@ -1022,39 +1069,51 @@ def main() -> None:
             "bhsd_fwd": lambda: sdpa(q, k, v, mask, scale),
         })
         packed_bwd_timing = {k_: mean(r) for k_, r in runs.items()}
+        packed_bwd_timing["device"] = device_ms(
+            lambda: pa._launch_bwd(pq, pk, pv, pd, s["M"], s["N"], s["L"], scale, D, lse=plse), iters=200)
         lib["proxy_attention_packed_bwd"] = packed_bwd_timing["library_fwd_bwd"] - packed_bwd_timing["library_fwd"]
         lib["proxy_attention_bwd"] = packed_bwd_timing["bhsd_fwd_bwd"] - packed_bwd_timing["bhsd_fwd"]
         print(f"  packed proxy attention backward B/32 b=32 bf16: kernel on the forward's LSE {runs['kernel']} ms, "
               f"alone {runs['alone']} ms, plain {runs['plain']} ms, SDPA forward+backward on the head views "
               f"{runs['library_fwd_bwd']} ms, its "
               f"forward {runs['library_fwd']} ms; [B,H,S,D] SDPA forward+backward {runs['bhsd_fwd_bwd']} ms, "
-              f"forward {runs['bhsd_fwd']} ms (CUDA events, 200 calls each) [{card}]")
+              f"forward {runs['bhsd_fwd']} ms (CUDA events, 200 calls each); kernel on the forward's LSE, device "
+              f"time {packed_bwd_timing['device']:.4f} ms (torch.profiler, 200 calls) [{card}]")
         del q, k, v, d_out, pq, pk, pv, pd, plse
 
-        # #5: the B/32 serving frames, bf16 out; the library call is one fp32
-        # addmm of patches gathered outside the window (TF32 off), the gather
-        # timed apart
+        # #5: the B/32 serving frames, bf16 out; the library call is one bf16
+        # addmm of patches gathered (and cast) outside the window with the
+        # bf16-rounded weight: the model's own patch_embed_u8 GEMM, rounded as
+        # SDPA is for the proxy rows. The fp32 addmm (TF32 off) and the gather
+        # are timed apart.
         N_, H_, W_, P_, D_ = PATCH_SHAPES["b32"]
         frames, kernel = patch_inputs(PATCH_SHAPES["b32"])
         folded_w, bias = pp.fold_normalization(kernel, CLIP_MEAN, CLIP_STD)
         gather = lambda: pp.extract_patches_u8(frames, P_).reshape(-1, 3 * P_ * P_).float()  # noqa: E731
         patches = gather()
+        patches_bf16, folded_bf16, bias_bf16 = patches.bfloat16(), folded_w.bfloat16(), bias.bfloat16()
         runs = alternate({
             "kernel": lambda: pp.fused_patch_embed(frames, kernel, CLIP_MEAN, CLIP_STD, torch.bfloat16,
                                                    use_kernel=True),
             "plain": lambda: pp.fused_patch_embed(frames, kernel, CLIP_MEAN, CLIP_STD, torch.bfloat16),
-            "library": lambda: torch.addmm(bias, patches, folded_w),
+            "library": lambda: torch.addmm(bias_bf16, patches_bf16, folded_bf16),
+            "library_fp32": lambda: torch.addmm(bias, patches, folded_w),
             "gather": gather,
             "kernel_fp32": lambda: pp.fused_patch_embed(frames, kernel, CLIP_MEAN, CLIP_STD, use_kernel=True),
         }, iters=50)
         patch_timing = {k_: mean(r) for k_, r in runs.items()}
+        patch_timing["device"] = device_ms(lambda: pp.fused_patch_embed(frames, kernel, CLIP_MEAN, CLIP_STD,
+                                                                        torch.bfloat16, use_kernel=True), iters=50)
+        launch_device = device_ms(lambda: pp._launch(frames, folded_w, bias, P_, torch.bfloat16), iters=50)
         lib["patch_embed_u8"] = patch_timing["library"]
-        sdpa_checks.append(("patch embed", torch.addmm(bias, patches, folded_w),
+        sdpa_checks.append(("patch embed", torch.addmm(bias_bf16, patches_bf16, folded_bf16),
                             pp.fused_patch_embed(frames, kernel, CLIP_MEAN, CLIP_STD, use_kernel=True).flatten(0, 1)))
         print(f"  patch embed [N,H,W,P,D]={list(PATCH_SHAPES['b32'])} bf16 out: kernel {runs['kernel']} ms "
-              f"(fp32 out {runs['kernel_fp32']} ms), plain {runs['plain']} ms, fp32 addmm of gathered patches "
-              f"{runs['library']} ms, the gather {runs['gather']} ms (CUDA events, 50 calls each) [{card}]")
-        del frames, kernel, folded_w, bias, patches
+              f"(fp32 out {runs['kernel_fp32']} ms), plain {runs['plain']} ms, bf16 addmm of gathered patches "
+              f"{runs['library']} ms, the gather {runs['gather']} ms (CUDA events, 50 calls each); device time "
+              f"{patch_timing['device']:.4f} ms, of which the kernel's launch (weight split and GEMM) "
+              f"{launch_device:.4f} ms and the rest the weight fold (torch.profiler, 50 calls) [{card}]")
+        del frames, kernel, folded_w, bias, patches, patches_bf16, folded_bf16, bias_bf16
 
         # #6: stage 3's shifted block at b=8, bf16; bias + mask as one
         # [nW, H, N, N] mask, broadcast over the batch of windows
@@ -1076,6 +1135,30 @@ def main() -> None:
               f"{runs['plain']} ms, SDPA with the joint mask {runs['library']} ms (CUDA events, 200 calls each) "
               f"[{card}]")
         del q, k, v, bias, wmask, joint
+
+        # #6 at stages 3 and 5 and the grouped stages 0-1 (N=120, below the
+        # model's gate pallas_min_window 240), against the plain version and
+        # the model's off-gate path: WindowAttention3D._attend's
+        # common.dot_attention with bias + mask as one [nW, h, N, N] mask
+        def off_gate(q, k, v, bias, wmask):
+            nW = 1 if wmask is None else wmask.shape[0]
+            add = bias[None] if wmask is None else bias[None] + wmask[:, None]
+            split = lambda t: t.unflatten(0, (-1, nW))  # noqa: E731
+            return dot_attention(split(q), split(k), split(v), q.shape[-1] ** -0.5, add).flatten(0, 1)
+
+        for name in ("s3", "s5", "s0_grouped", "s1_grouped"):
+            q, k, v, bias, wmask = window_inputs(WINDOW_SHAPES[name], torch.bfloat16)
+            runs = alternate({
+                "kernel": lambda: wa.window_attention(q, k, v, bias, wmask),
+                "plain": lambda: wa.window_attention_plain(q, k, v, bias, wmask),
+                "dot_attention": lambda: off_gate(q, k, v, bias, wmask),
+            })
+            sdpa_checks.append((f"window {name} off the gate", off_gate(q, k, v, bias, wmask),
+                                wa.window_attention(q, k, v, bias, wmask)))
+            print(f"  window attention {name} {list(WINDOW_SHAPES[name][:4])} bf16: kernel {runs['kernel']} ms, plain "
+                  f"{runs['plain']} ms, the model's off-gate path (dot_attention, bias + mask as one mask) "
+                  f"{runs['dot_attention']} ms (CUDA events, 200 calls each) [{card}]")
+            del q, k, v, bias, wmask
         # the yardsticks compute the kernels' functions (bf16 rounding apart)
         for name, a, b in sdpa_checks:
             err = (a.float() - b.float()).abs().max().item()
@@ -1088,16 +1171,14 @@ def main() -> None:
         for name, s, backward in (("proxy_attention_fwd", B32, False), ("proxy_attention_bwd", B32_TRAIN, True)):
             flops, nbytes, _ = pa.proxy_attention_cost(s["B"], s["H"], s["M"] + s["N"] * s["L"], s["D"], s["M"],
                                                        s["L"], 2, backward)
-            bounds[name] = bounds[name.replace("attention_", "attention_packed_")] = \
-                bound_ms(flops, nbytes, "bfloat16")
+            bounds[name] = bounds[name.replace("attention_", "attention_packed_")] = bound_ms(flops, nbytes)
         rows, K = N_ * (H_ // P_) * (W_ // P_), 3 * P_ * P_
-        bounds["patch_embed_u8"] = bound_ms(2 * rows * K * D_, N_ * H_ * W_ * 3 + (K + 1) * D_ * 4 + rows * D_ * 2,
-                                            "float32")
+        bounds["patch_embed_u8"] = bound_ms(2 * rows * K * D_, N_ * H_ * W_ * 3 + (K + 1) * D_ * 4 + rows * D_ * 2)
         bounds["window_attention_fwd"] = bound_ms(4 * Bn * Hw * Nw * Nw * dw,
-                                                  4 * Bn * Hw * Nw * dw * 2 + (Hw + nW) * Nw * Nw * 4, "bfloat16")
+                                                  4 * Bn * Hw * Nw * dw * 2 + (Hw + nW) * Nw * Nw * 4)
         for name, (t, by) in bounds.items():
             print(f"  bound {name}: {t:.4f} ms ({by}; {HBM_BYTES_PER_S / 1e12:.2f} TB/s, "
-                  f"{PEAK_FLOPS['bfloat16' if 'patch' not in name else 'float32'] / 1e12:.0f} TFLOP/s)")
+                  f"{PEAK_FLOPS / 1e12:.0f} TFLOP/s bf16)")
 
     paths = {"eval": eval_launches, "train": train_launches, "lfvila_retrieval": lfvila_launches,
              "ops": ops_launches}
@@ -1113,6 +1194,7 @@ def main() -> None:
             "launches_by_path": {path: counts[name] for path, counts in paths.items()},
             "max_abs_err": err,
             "ms": timing["kernel"],
+            "device_ms": timing["device"],
             "plain_ms": timing["plain"],
             "bound_ms": bounds[name][0],
             "bound_by": bounds[name][1],
@@ -1128,6 +1210,8 @@ def main() -> None:
         )
     ]}
     check(all(k_["launches"] > 0 for k_ in summary["kernels"]), "a kernel was launched no time on the main paths")
+    print(f"patch_embed_u8 beside its fp32 yardstick: kernel {patch_timing['kernel']:.4f} ms, fp32 addmm of the "
+          f"gathered patches (TF32 off) {patch_timing['library_fp32']:.4f} ms (CUDA events) [{card}]")
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

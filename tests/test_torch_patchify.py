@@ -169,6 +169,24 @@ def test_kernel_branch_raises_and_counts_nothing(inputs, monkeypatch):
     assert patchify.fused_patch_embed.launches == 0
 
 
+@pytest.mark.cuda
+def test_byte_gather_path_equals_the_cp_async_path_on_card():
+    """Frames that do not start 16-byte aligned take the bf16 kernel's
+    byte-by-byte patch gather; it stages the same bytes as the 16-byte
+    cp.async runs, so the two outputs are bit-equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    rng = np.random.default_rng(7)
+    frames = torch.from_numpy(rng.integers(0, 256, size=(6, 224, 224, 3), dtype=np.uint8)).cuda()
+    kernel = torch.from_numpy(rng.normal(size=(32, 32, 3, 768)).astype(np.float32) * 0.02).cuda()
+    shifted = torch.empty(frames.numel() + 1, dtype=torch.uint8, device="cuda")[1:].view(frames.shape)
+    shifted.copy_(frames)
+    assert shifted.data_ptr() % 16 and shifted.is_contiguous()
+    aligned = patchify.fused_patch_embed(frames, kernel, CLIP_MEAN, CLIP_STD, torch.bfloat16, use_kernel=True)
+    gathered = patchify.fused_patch_embed(shifted, kernel, CLIP_MEAN, CLIP_STD, torch.bfloat16, use_kernel=True)
+    assert torch.equal(aligned, gathered)
+
+
 def _bf16_ulps_of_max(got, want):
     """Largest |got - want| in bf16 ulps of ``want`` (fp32), |want| below
     2^-8 max|want| counted at that floor."""
@@ -206,3 +224,58 @@ def test_kernel_matches_plain_on_card(shape):
             assert (got - want).abs().max().item() <= FP32_REL * want.abs().max().item()
         else:
             assert _bf16_ulps_of_max(got, want) <= 1.0
+
+
+# -- the bf16 tensor-core kernel's numerics -----------------------------------
+
+
+def _split(x):
+    """fp32 x as the two bf16 terms the kernel feeds a product: hi = bf16(x),
+    lo = bf16(x - hi), each returned as fp32."""
+    hi = x.to(torch.bfloat16).float()
+    return hi, (x - hi).to(torch.bfloat16).float()
+
+
+def _emulate_bf16_kernel(frames_u8, folded_w, bias, patch, split=True):
+    """The bf16 kernel's rounding points: uint8 patches widened exactly and
+    centred (b - 128), the fp32 weight as hi + lo bf16 terms (or rounded
+    once, ``split=False``), the products summed in fp32, + the bias shifted
+    by 128 sum_k w, one bf16 rounding at the store. Returns [N, L, D] as
+    fp32."""
+    patches = patchify.extract_patches_u8(frames_u8, patch).float() - 128
+    shifted = bias + 128 * folded_w.sum(dim=0)
+    if split:
+        hi, lo = _split(folded_w)
+        acc = patches @ hi + patches @ lo
+    else:
+        acc = patches @ folded_w.to(torch.bfloat16).float()
+    return (acc + shifted).to(torch.bfloat16).float()
+
+
+def _b32_clip(seed):
+    """The 12 uint8 frames of one B/32 clip (224x224) and a patch kernel of
+    the model's shape [32, 32, 3, 768] (std 0.02), folded with the CLIP
+    normalization."""
+    rng = np.random.default_rng(seed)
+    frames = torch.from_numpy(rng.integers(0, 256, size=(12, 224, 224, 3), dtype=np.uint8))
+    kernel = rng.normal(size=(32, 32, 3, 768)).astype(np.float32) * 0.02
+    return frames, *_fold(kernel)
+
+
+@pytest.mark.parametrize("seed", [40, 41])
+def test_kernel_rounding_points_meet_the_chip_bar(seed):
+    """With the bf16 kernel's rounding points at the B/32 frame shape (one
+    clip of 12 frames, P=32, D=768): <= 1 bf16 ulp (``BF16_MAX_ULP``, |out|
+    below 2^-8 max|out| counted at that floor) of the fp32 plain GEMM."""
+    frames, folded_w, bias = _b32_clip(seed)
+    want = patchify.patch_embed_plain(frames, folded_w, bias, 32, torch.float32)
+    assert _bf16_ulps_of_max(_emulate_bf16_kernel(frames, folded_w, bias, 32), want) <= 1.0
+
+
+def test_one_bf16_rounding_of_the_weight_misses_the_bar():
+    """The emulation can fail: the fp32 folded weight rounded once to bf16
+    (what ``patch_embed_u8``'s bf16 GEMM does) lands beyond 1 ulp of the fp32
+    plain GEMM at the B/32 frame shape, which is why the kernel splits it."""
+    frames, folded_w, bias = _b32_clip(40)
+    want = patchify.patch_embed_plain(frames, folded_w, bias, 32, torch.float32)
+    assert _bf16_ulps_of_max(_emulate_bf16_kernel(frames, folded_w, bias, 32, split=False), want) > 8.0

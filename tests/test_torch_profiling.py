@@ -23,6 +23,14 @@ KERNELS = {
     "void (anonymous namespace)::dkv_mma_kernel<64>(...)": "proxy attention backward kernel, dk/dv pass",
     "void (anonymous namespace)::window_attention_fwd_kernel<__nv_bfloat16, 8>(...)":
         "window attention forward kernel",
+    "void (anonymous namespace)::window_attention_fwd_kernel<8>(float const*, ...)": "window attention forward kernel",
+    "void (anonymous namespace)::window_mma_kernel<32>(__nv_bfloat16 const*, ...)": "window attention forward kernel",
+    "void (anonymous namespace)::patch_embed_mma_kernel<true>(unsigned char const*, ...)": "patch embed kernel",
+    "(anonymous namespace)::patch_weight_split_kernel(float const*, __nv_bfloat16*, int, int, int, int)":
+        "patch embed kernel",
+    "(anonymous namespace)::patch_embed_fp32_kernel(unsigned char const*, float const*, ...)": "patch embed kernel",
+    "(anonymous namespace)::patch_bias_shift_kernel(float const*, float const*, float*, int, int, int)":
+        "patch embed kernel",
     "nvjet_tst_192x192_64x3_2x1_v_bz_coopB_NNN": "GEMMs",
     "sm80_xmma_gemm_f32f32_f32f32_f32_nn_n_tilesize32x32x8_stage3": "GEMMs",
     "void cublasLt::splitKreduce_kernel<32, 16, int, float, __nv_bfloat16>(...)": "GEMMs",
@@ -65,6 +73,19 @@ def test_op_class_table_counts_device_kernels_per_step():
     assert table[0]["launches_per_step"] == 3
     assert table[0]["share"] == pytest.approx(0.75)
     assert table[1]["device_ms_per_step"] == pytest.approx(0.15)
+
+
+def test_device_us_sums_device_rows_once():
+    """A call's device time: its kernels, copies and sets, not the host ops
+    that launched them (``tools/profile_train_step.device_ms``)."""
+    rows = [
+        {"name": "aten::addmm", "device_type": "CPU", "count": 1, "self_device_us": 50.0},
+        {"name": "patch_weight_split_kernel", "device_type": "CUDA", "count": 1, "self_device_us": 9.0},
+        {"name": "patch_embed_mma_kernel<true>", "device_type": "CUDA", "count": 1, "self_device_us": 41.0},
+        {"name": "Memset (Device)", "device_type": "CUDA", "count": 1, "self_device_us": 1.0},
+    ]
+    assert profiling.device_us(rows) == 51.0
+    assert profiling.device_us(rows[:1]) == 0.0
 
 
 def test_runner_profile_steps_writes_the_breakdown(tmp_path):
@@ -125,4 +146,31 @@ def test_ab_tool_reads_the_tensor_core_kernels_registers(tmp_path):
     )
     assert ab_proxy_kernels.registers(str(log)) == {
         "fwd_mma_kernel": 94, "fwd_mma_kernel_lse_only": 63, "dq_mma_kernel": 168, "dkv_mma_kernel": 165,
+    }
+
+
+def test_ab_tool_reads_the_window_and_patch_kernels_registers(tmp_path):
+    """The window-attention (d=32) and patch-embed kernels' entries are read
+    under the names of both designs: the CUDA-core ones of either dtype, and
+    the tensor-core ones with the fp32 CUDA-core kernels beside them."""
+    from xpretrain_tpu_torch.tools import ab_proxy_kernels
+
+    log = tmp_path / "lib.log"
+    entries = {
+        "_ZN12_GLOBAL__N_127window_attention_fwd_kernelI13__nv_bfloat16Li8EEEvPKT_": 56,
+        "_ZN12_GLOBAL__N_121patch_embed_u8_kernelIfEEvPKhPKfS4_PT_": 122,
+        "_ZN12_GLOBAL__N_127window_attention_fwd_kernelILi8EEEvPKfS2_": 59,
+        "_ZN12_GLOBAL__N_117window_mma_kernelILi32EEEvPK13__nv_bfloat16": 64,
+        "_ZN12_GLOBAL__N_117window_mma_kernelILi64EEEvPK13__nv_bfloat16": 90,
+        "_ZN12_GLOBAL__N_122patch_embed_mma_kernelILb1EEEvPKhPK13__nv_bfloat16": 128,
+        "_ZN12_GLOBAL__N_125patch_weight_split_kernelEPKfP13__nv_bfloat16iiii": 26,
+        "_ZN12_GLOBAL__N_123patch_embed_fp32_kernelEPKhPKfS3_Pfiiiiiiii": 123,
+        "_ZN12_GLOBAL__N_123patch_bias_shift_kernelEPKfS1_Pfiii": 18,
+    }
+    log.write_text("".join(f"ptxas info    : Compiling entry function '{e}' for 'sm_90a'\n"
+                           f"ptxas info    : Used {n} registers, used 1 barriers\n" for e, n in entries.items()))
+    assert ab_proxy_kernels.registers(str(log)) == {
+        "window_attention_fwd_kernel_bf16": 56, "patch_embed_u8_kernel_fp32": 122, "window_attention_fwd_kernel": 59,
+        "window_mma_kernel": 64, "patch_embed_mma_kernel": 128, "patch_weight_split_kernel": 26,
+        "patch_embed_fp32_kernel": 123, "patch_bias_shift_kernel": 18,
     }

@@ -83,6 +83,48 @@ def test_resume_equals_an_unbroken_run(tmp_path):
         torch.testing.assert_close(b["optimizer"]["mu"][key], value, rtol=0, atol=0, msg=key)
 
 
+def test_train_mode_trains_on_the_val_split_without_a_train_annotation(tmp_path, monkeypatch):
+    """As the JAX runner (``train_loader or val_loader``,
+    ``xpretrain_tpu/cli/run_retrieval_clipvip.py``): with no train split,
+    ``--mode train`` hands the val loader to the trainer and trains on it."""
+    build = run_retrieval_clipvip.build_loaders
+    seen = {}
+
+    def val_only(cfg):
+        _, val_loader, valid_len = build(cfg)
+        seen["val"] = val_loader
+        return None, val_loader, valid_len
+
+    class Capture(run_retrieval_clipvip.ClipVipTrainer):
+        def __init__(self, cfg, train_loader, *args, **kwargs):
+            seen["train"] = train_loader
+            super().__init__(cfg, train_loader, *args, **kwargs)
+
+    monkeypatch.setattr(run_retrieval_clipvip, "build_loaders", val_only)
+    monkeypatch.setattr(run_retrieval_clipvip, "ClipVipTrainer", Capture)
+    run_retrieval_clipvip.main(TRAIN + ["--num_train_steps", "2", "--validate_at_start", "0",
+                                        "--output_dir", str(tmp_path)])
+    assert seen["train"] is seen["val"]
+    rows = [json.loads(line) for line in open(tmp_path / "log" / "scalars.jsonl")]
+    losses = [r["value"] for r in rows if r["tag"] == "train/loss"]
+    assert len(losses) == 2 and all(np.isfinite(losses))
+
+
+def test_fused_adamw_is_read_and_ignored(tmp_path):
+    """``--fused_adamw`` picks an optimizer-state layout in JAX; the port has
+    one (``ClipVipTrainer``'s docstring): 0 and 1 give bit-identical first
+    steps, parameters and optimizer state."""
+    flags = ["--num_train_steps", "1", "--validate_at_start", "0", "--valid_steps", "100", "--save_steps", "1"]
+    for fused in ("0", "1"):
+        run_retrieval_clipvip.main(TRAIN + flags + ["--fused_adamw", fused, "--output_dir", str(tmp_path / fused)])
+    a, b = (torch.load(tmp_path / fused / "ckpt" / "1.pt", weights_only=True) for fused in ("0", "1"))
+    for key, value in a["model"].items():
+        torch.testing.assert_close(b["model"][key], value, rtol=0, atol=0, msg=key)
+    for moment in ("mu", "nu"):
+        for key, value in a["optimizer"][moment].items():
+            torch.testing.assert_close(b["optimizer"][moment][key], value, rtol=0, atol=0, msg=key)
+
+
 def test_absent_cuda_fails_instead_of_falling_back():
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device")

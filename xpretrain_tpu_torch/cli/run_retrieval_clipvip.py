@@ -2,10 +2,11 @@
 ``xpretrain_tpu/cli/run_retrieval_clipvip.py``).
 
 ``--mode train`` (the default) fine-tunes with the contrastive loss through
-``ClipVipTrainer``, validating at start and every ``--valid_steps``, and
-writes ``final_report.json``; ``--mode eval`` ranks text -> video with the
-model as built and writes ``eval_report.json`` (both through
-``xpretrain_tpu_torch.train.evaluate.evaluate_retrieval``).
+``ClipVipTrainer`` (on the val split when no ``--train_annotation`` is
+given, as the JAX runner does), validating at start and every
+``--valid_steps``, and writes ``final_report.json``; ``--mode eval`` ranks
+text -> video with the model as built and writes ``eval_report.json`` (both
+through ``xpretrain_tpu_torch.train.evaluate.evaluate_retrieval``).
 
 Usage (synthetic ingest, the MSR-VTT B/32 fine-tune preset, on the card):
     python -m xpretrain_tpu_torch.cli.run_retrieval_clipvip --dummy_data 1 \
@@ -154,9 +155,8 @@ def main(argv=None):
         )
         save_json(report, f"{cfg.output_dir}/eval_report.json", pretty=True)
         return report
-    if train_loader is None:
-        raise ValueError("--mode train needs --train_annotation or --dummy_data 1")
-    trainer = ClipVipTrainer(cfg, train_loader, val_loader, valid_len, device=device)
+    # without --train_annotation the val split is the train split, as in JAX
+    trainer = ClipVipTrainer(cfg, train_loader or val_loader, val_loader, valid_len, device=device)
     LOGGER.info("train on %s: %d steps, batch %d", device, trainer.num_train_steps, cfg.train_batch_size)
     trainer.train()
     report = trainer.validate(save_feats_path=feats_path)

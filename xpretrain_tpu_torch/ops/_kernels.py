@@ -113,12 +113,18 @@ def load_library() -> ctypes.CDLL:
     lib.xpt_proxy_attention_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.xpt_proxy_attention_smem_bytes.restype = ctypes.c_int
     lib.xpt_window_attention_fwd.argtypes = (
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     )
     lib.xpt_window_attention_fwd.restype = ctypes.c_int
-    lib.xpt_patch_embed_u8.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    lib.xpt_window_attention_smem_bytes.argtypes = [ctypes.c_int]
+    lib.xpt_window_attention_smem_bytes.restype = ctypes.c_int
+    lib.xpt_patch_embed_u8.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     lib.xpt_patch_embed_u8.restype = ctypes.c_int
+    lib.xpt_patch_embed_scratch_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.xpt_patch_embed_scratch_bytes.restype = ctypes.c_longlong
+    lib.xpt_patch_embed_smem_bytes.argtypes = []
+    lib.xpt_patch_embed_smem_bytes.restype = ctypes.c_int
     lib.xpt_cuda_error_string.argtypes = [ctypes.c_int]
     lib.xpt_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -135,6 +141,21 @@ def _strides(*tensors: torch.Tensor) -> ctypes.Array:
     last dim has stride 1, as the kernels' ``const long long*`` argument."""
     flat = [st for t in tensors for st in t.stride()[:3]]
     return (ctypes.c_longlong * len(flat))(*flat)
+
+
+def check_cp_async(kernels: str, *views: torch.Tensor) -> None:
+    """What 16-byte ``cp.async`` loads need of each bf16 [B, H, S, D] view:
+    a 16-byte aligned data pointer and (batch, head, row) strides that are
+    multiples of 8 elements; ``kernels`` names the caller in the error. fp32
+    views are not held to it (the CUDA-core kernels load element by
+    element)."""
+    if views[0].dtype != torch.bfloat16:
+        return
+    for t in views:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{kernels} need 16-byte aligned tensors, got address {t.data_ptr():#x}")
+        if any(st % 8 for st in t.stride()[:3]):
+            raise ValueError(f"{kernels} need strides that are multiples of 8, got {t.stride()}")
 
 
 def proxy_attention_fwd(
@@ -189,14 +210,10 @@ def proxy_attention_bwd(
     _check(lib, rc, "proxy_attention_bwd")
 
 
-def proxy_kernel_resources(head_dim: int = 64) -> list[dict]:
-    """Registers, spills and shared memory (from the build's ``-Xptxas -v``
-    log) and the count of tensor-core ``HMMA`` instructions (from
-    ``cuobjdump --dump-sass`` of the library) of each proxy-attention kernel
-    built for ``head_dim``, bf16 and fp32. ``dynamic_smem`` is what a launch
-    asks for (the fp32 kernels' depends on D only through their tiles and is
-    not reported)."""
-    lib = load_library()
+def _ptxas_and_hmma() -> tuple[dict, dict]:
+    """Per entry point of the built library: registers, spills and static
+    shared memory from the build's ``-Xptxas -v`` log, and the count of
+    tensor-core ``HMMA`` instructions in ``cuobjdump --dump-sass``."""
     path = library_path()
     ptxas, entry = {}, None
     for line in path.with_suffix(".log").read_text().splitlines():
@@ -220,25 +237,55 @@ def proxy_kernel_resources(head_dim: int = 64) -> list[dict]:
             hmma[entry] = 0
         elif entry and "HMMA" in line:
             hmma[entry] += 1
+    return ptxas, hmma
+
+
+def kernel_resources(proxy_head_dim: int = 64, window_head_dim: int = 32) -> list[dict]:
+    """Registers, spills and shared memory of every kernel entry point of the
+    library, and its count of tensor-core ``HMMA`` instructions: the proxy
+    attention at ``proxy_head_dim``, the window attention at
+    ``window_head_dim`` and the patch embed, each in bf16 and fp32.
+    ``tensor_cores`` says which entry points compute on the tensor cores (and
+    so must hold ``HMMA``); ``dynamic_smem`` is what a launch asks for (the
+    fp32 proxy kernels' depends on D only through their tiles and is not
+    reported)."""
+    lib = load_library()
+    ptxas, hmma = _ptxas_and_hmma()
+    D, d = proxy_head_dim, window_head_dim
     # (label, entry name, its template arguments in the mangled name, dtype,
-    # the kernel argument of ``xpt_proxy_attention_smem_bytes``); the fp32
+    # on the tensor cores, dynamic shared memory or None); the fp32 attention
     # kernels are instantiated on D/4, the elements each lane holds
     kinds = [
-        ("fwd_mma_kernel", "fwd_mma_kernel", f"Li{head_dim}ELb1E", "bfloat16", 0),
-        ("fwd_mma_kernel (LSE only)", "fwd_mma_kernel", f"Li{head_dim}ELb0E", "bfloat16", 1),
-        ("dq_mma_kernel", "dq_mma_kernel", f"Li{head_dim}E", "bfloat16", 2),
-        ("dkv_mma_kernel", "dkv_mma_kernel", f"Li{head_dim}E", "bfloat16", 3),
-        *((name, name, f"Li{head_dim // 4}E", "float32", None)
+        ("proxy fwd_mma_kernel", "fwd_mma_kernel", f"Li{D}ELb1E", "bfloat16", True,
+         lib.xpt_proxy_attention_smem_bytes(D, 0)),
+        ("proxy fwd_mma_kernel (LSE only)", "fwd_mma_kernel", f"Li{D}ELb0E", "bfloat16", True,
+         lib.xpt_proxy_attention_smem_bytes(D, 1)),
+        ("proxy dq_mma_kernel", "dq_mma_kernel", f"Li{D}E", "bfloat16", True,
+         lib.xpt_proxy_attention_smem_bytes(D, 2)),
+        ("proxy dkv_mma_kernel", "dkv_mma_kernel", f"Li{D}E", "bfloat16", True,
+         lib.xpt_proxy_attention_smem_bytes(D, 3)),
+        *((f"proxy {name}", name, f"Li{D // 4}E", "float32", False, None)
           for name in ("proxy_attention_fwd_kernel", "bwd_dq_kernel", "bwd_dkv_kernel")),
+        ("window window_mma_kernel", "window_mma_kernel", f"Li{d}E", "bfloat16", True,
+         lib.xpt_window_attention_smem_bytes(d)),
+        ("window window_attention_fwd_kernel", "window_attention_fwd_kernel", f"Li{d // 4}E", "float32", False, 0),
+        ("patch patch_embed_mma_kernel (cp.async rows)", "patch_embed_mma_kernel", "ILb1E", "bfloat16", True,
+         lib.xpt_patch_embed_smem_bytes()),
+        ("patch patch_embed_mma_kernel (byte gather)", "patch_embed_mma_kernel", "ILb0E", "bfloat16", True,
+         lib.xpt_patch_embed_smem_bytes()),
+        ("patch patch_weight_split_kernel", "patch_weight_split_kernel", "", "bfloat16", False, 0),
+        ("patch patch_bias_shift_kernel", "patch_bias_shift_kernel", "", "float32", False, 0),
+        ("patch patch_embed_fp32_kernel", "patch_embed_fp32_kernel", "", "float32", False, 0),
     ]
     rows = []
-    for label, name, args, dtype, smem_kernel in kinds:
+    for label, name, args, dtype, tensor_cores, smem in kinds:
         found = [e for e in ptxas if name in e and args in e]
         if len(found) != 1:
             raise RuntimeError(f"{name} {args}: {len(found)} entries in the ptxas log")
-        row = {"kernel": label, "dtype": dtype, "entry": found[0], **ptxas[found[0]], "hmma": hmma.get(found[0], 0)}
-        if smem_kernel is not None:
-            row["dynamic_smem"] = lib.xpt_proxy_attention_smem_bytes(head_dim, smem_kernel)
+        row = {"kernel": label, "dtype": dtype, "tensor_cores": tensor_cores, "entry": found[0],
+               **ptxas[found[0]], "hmma": hmma.get(found[0], 0)}
+        if smem is not None:
+            row["dynamic_smem"] = smem
         rows.append(row)
     return rows
 
@@ -247,17 +294,21 @@ def window_attention_fwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     bias: torch.Tensor, mask: Optional[torch.Tensor], out: torch.Tensor,
 ) -> None:
-    """Launch ``csrc/window_attention_fwd.cu`` on the current stream; ``mask``
-    may be None (no shifted-window mask).
+    """Launch ``csrc/window_attention_fwd.cu`` on the current stream: bf16 on
+    the tensor cores, fp32 on the CUDA cores; ``mask`` may be None (no
+    shifted-window mask).
 
-    The caller has checked device, dtype, shape and contiguity."""
+    q, k, v and out are [Bn, H, N, d] views, each with its own strides and a
+    unit stride on d (contiguous tensors, or views of one fused qkv
+    projection). The caller has checked device, dtype, shape, that bias and
+    mask are contiguous fp32 and, for bf16, what 16-byte ``cp.async`` needs."""
     lib = load_library()
     Bn, H, N, D = q.shape
     nW = 1 if mask is None else mask.shape[0]
     with torch.cuda.device(q.device):
         rc = lib.xpt_window_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-            None if mask is None else mask.data_ptr(), out.data_ptr(),
+            None if mask is None else mask.data_ptr(), out.data_ptr(), _strides(q, k, v, out),
             Bn, H, N, D, nW, float(D**-0.5), int(q.dtype == torch.bfloat16),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
@@ -269,17 +320,24 @@ def patch_embed_u8(
 ) -> None:
     """Launch ``csrc/patch_embed_u8.cu`` on the current stream: contiguous
     uint8 frames [N, H, W, 3], fp32 folded weight [P*P*3, D] and bias [D]
-    into ``out`` [N, L, D] (fp32 or bf16).
+    into ``out`` [N, L, D]: bf16 on the tensor cores (after a prologue that
+    splits the weight into hi and lo bf16 terms and shifts the bias for the
+    centred patches, in a scratch allocated here), fp32 on the CUDA cores.
 
-    The caller has checked device, dtype, shape and contiguity; the weight
-    is read as float4, so its rows start 16-byte aligned (D % 4 == 0 and a
-    freshly allocated tensor)."""
+    The caller has checked device, dtype, shape and contiguity; the fp32
+    kernel reads the weight as float4, so its rows start 16-byte aligned
+    (D % 4 == 0 and a freshly allocated tensor)."""
     lib = load_library()
     N, H, W, _ = frames.shape
+    D = folded_w.shape[1]
+    scratch = None
+    if out.dtype == torch.bfloat16:
+        scratch = torch.empty(lib.xpt_patch_embed_scratch_bytes(patch, D), dtype=torch.uint8, device=frames.device)
     with torch.cuda.device(frames.device):
         rc = lib.xpt_patch_embed_u8(
             frames.data_ptr(), folded_w.data_ptr(), bias.data_ptr(), out.data_ptr(),
-            N, H, W, patch, folded_w.shape[1], int(out.dtype == torch.bfloat16),
+            None if scratch is None else scratch.data_ptr(),
+            N, H, W, patch, D, int(out.dtype == torch.bfloat16),
             torch.cuda.current_stream(frames.device).cuda_stream,
         )
     _check(lib, rc, "patch_embed_u8")

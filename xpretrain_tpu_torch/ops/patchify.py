@@ -10,7 +10,9 @@ folds into the weights:
 - :func:`fused_patch_embed` is the public op entry of the same name in JAX.
   With ``use_kernel=True`` a CUDA tensor launches ``csrc/patch_embed_u8.cu``
   (replacing ``_pallas_patch_embed``), which reads the frames directly with
-  the patch gather folded into its load addresses, or raises; a CPU tensor,
+  the patch gather folded into its load addresses (bf16 out on the tensor
+  cores, u8 widened exactly and the fp32 weight split into hi + lo bf16
+  terms; fp32 out on the CUDA cores), or raises; a CPU tensor,
   and ``use_kernel`` None or False, take :func:`patch_embed_plain`
   (``_xla_patch_embed``).
 """

@@ -153,15 +153,8 @@ def _check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> N
 
 def _check_cp_async(*views: torch.Tensor) -> None:
     """What the bf16 kernels' 16-byte ``cp.async`` loads need of each
-    [B, H, S, D] view: a 16-byte aligned data pointer and (batch, head, row)
-    strides that are multiples of 8 elements."""
-    if views[0].dtype != torch.bfloat16:
-        return
-    for t in views:
-        if t.data_ptr() % 16:
-            raise ValueError(f"proxy_attention bf16 kernels need 16-byte aligned tensors, got address {t.data_ptr():#x}")
-        if any(st % 8 for st in t.stride()[:3]):
-            raise ValueError(f"proxy_attention bf16 kernels need strides that are multiples of 8, got {t.stride()}")
+    [B, H, S, D] view (``_kernels.check_cp_async``)."""
+    _kernels.check_cp_async("proxy_attention bf16 kernels", *views)
 
 
 def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, M: int, N: int, L: int) -> None:

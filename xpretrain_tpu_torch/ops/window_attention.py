@@ -11,10 +11,13 @@ an fp32 softmax, and PV.
 - :func:`window_attention` is the public entry. The tensor's device alone
   picks the path: a CPU tensor takes the plain version (with autograd); a
   CUDA tensor launches ``csrc/window_attention_fwd.cu`` (replacing
-  ``window_attention_pallas``), which computes everything in fp32 and rounds
-  once at the store. The kernel has no backward yet, so a CUDA call that
-  needs a gradient raises; so does a CUDA tensor the kernel does not take.
-  Nothing falls back to the plain version on the card.
+  ``window_attention_pallas``): bf16 on the tensor cores (scores, softmax
+  and sums in fp32, P fed to PV as hi + lo bf16 terms), fp32 on the CUDA
+  cores, rounded once at the store. It reads q/k/v through their strides,
+  so views of one fused qkv projection are not copied. The kernel has no
+  backward yet, so a CUDA call that needs a gradient raises; so does a CUDA
+  tensor the kernel does not take. Nothing falls back to the plain version
+  on the card.
 """
 
 from __future__ import annotations
@@ -64,12 +67,16 @@ def _check_inputs(q, k, v, bias, mask) -> None:
         raise ValueError(f"window_attention inputs lie on several devices: {devices}")
 
 
-def _check_kernel_inputs(q: torch.Tensor) -> None:
+def _check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if q.dtype not in _KERNEL_DTYPES:
         raise TypeError(f"window_attention kernel takes float32 or bfloat16, got {q.dtype}")
     d = q.shape[-1]
     if d % 16 or d > 128:
         raise ValueError(f"window_attention kernel takes a head dim that is a multiple of 16 up to 128, got {d}")
+    if any(t.stride(-1) != 1 for t in (q, k, v)):
+        raise ValueError(f"window_attention kernel reads q/k/v with a unit stride on the head dim, got strides "
+                         f"{q.stride()}, {k.stride()}, {v.stride()}")
+    _kernels.check_cp_async("window_attention bf16 kernel", q, k, v)
 
 
 def window_attention(
@@ -82,8 +89,10 @@ def window_attention(
     """Window attention output [Bn, H, N, d] in q's dtype.
 
     ``window_attention.launches`` counts kernel launches (CUDA calls only).
-    On CUDA, q/k/v may be strided views (they are made contiguous here);
-    a call under autograd that would need a gradient raises."""
+    On CUDA, q/k/v may be strided views with a unit stride on d (read in
+    place; bf16 views 16-byte aligned with strides that are multiples of 8,
+    else it raises); a call under autograd that would need a gradient
+    raises."""
     _check_inputs(q, k, v, bias, mask)
     if q.device.type == "cpu":
         return window_attention_plain(q, k, v, bias, mask)
@@ -96,7 +105,7 @@ window_attention.launches = 0
 
 
 def _launch(q, k, v, bias, mask) -> torch.Tensor:
-    """The CUDA branch: check, make contiguous, launch, count."""
+    """The CUDA branch: check, launch on the views as they are, count."""
     if torch.is_grad_enabled() and any(
         t.requires_grad for t in (q, k, v, bias) + (() if mask is None else (mask,))
     ):
@@ -105,11 +114,10 @@ def _launch(q, k, v, bias, mask) -> torch.Tensor:
             "comes with the LF-VILA training slice (ROADMAP Queue 2); run with "
             "video_encoder.use_pallas_attention off to train on the plain path"
         )
-    _check_kernel_inputs(q)
-    q, k, v = (t.contiguous() for t in (q, k, v))
+    _check_kernel_inputs(q, k, v)
     bias = bias.float().contiguous()
     mask = None if mask is None else mask.float().contiguous()
-    out = torch.empty_like(q)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _kernels.window_attention_fwd(q, k, v, bias, mask, out)
     window_attention.launches += 1
     return out

@@ -29,6 +29,8 @@ import json
 import numpy as np
 import torch
 
+from xpretrain_tpu_torch.train.profiling import device_us, key_average_rows
+
 BATCH = 32  # the JAX package's train batch (bench.py)
 SERVE_BATCH = 24  # the JAX package's serving batch (bench.py)
 PROFILE_STEPS = 3
@@ -88,6 +90,20 @@ def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int, warmup: int = 3) -> float:
+    """Device time per call of ``fn`` (ms): every device kernel, copy and set
+    that ``iters`` calls launch, from a ``torch.profiler`` trace, summed and
+    divided by ``iters``. The host's time between launches is not in it."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return device_us(key_average_rows(prof)) / 1e3 / iters
 
 
 def window_ms(fn, iters: int, windows: int = 5) -> list[float]:

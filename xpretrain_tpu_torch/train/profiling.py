@@ -24,7 +24,11 @@ OP_CLASSES = (
     ("proxy attention forward kernel", ("proxy_attention_fwd_kernel", "fwd_mma_kernel")),
     ("proxy attention backward kernel, dq pass", ("bwd_dq_kernel", "dq_mma_kernel")),
     ("proxy attention backward kernel, dk/dv pass", ("bwd_dkv_kernel", "dkv_mma_kernel")),
-    ("window attention forward kernel", ("window_attention_fwd_kernel",)),
+    # the window kernel and the u8 patch embed: fp32 on the CUDA cores, bf16
+    # on the tensor cores (the patch embed after its two prologue kernels)
+    ("window attention forward kernel", ("window_attention_fwd_kernel", "window_mma_kernel")),
+    ("patch embed kernel", ("patch_embed_fp32_kernel", "patch_embed_mma_kernel", "patch_weight_split_kernel",
+                            "patch_bias_shift_kernel")),
     ("GEMMs", ("nvjet", "gemm", "cutlass", "splitKreduce", "cublas")),
     ("AdamW and norms (_foreach)", ("multi_tensor_apply", "lpnorm_cleanup")),
     ("LayerNorm forward and backward", ("layer_norm", "GammaBeta")),
@@ -57,13 +61,19 @@ def op_class_table(rows: list[dict], steps: int) -> list[dict]:
         acc = classes.setdefault(op_class(row["name"]), [0.0, 0])
         acc[0] += row["self_device_us"]
         acc[1] += row["count"]
-    total = sum(us for us, _ in classes.values()) or 1.0
+    total = device_us(rows) or 1.0
     table = [
         {"class": name, "device_ms_per_step": us / 1e3 / steps, "share": us / total,
          "launches_per_step": n / steps}
         for name, (us, n) in classes.items()
     ]
     return sorted(table, key=lambda r: -r["device_ms_per_step"])
+
+
+def device_us(rows: list[dict]) -> float:
+    """Device time (us) of :func:`key_average_rows` entries: their device
+    kernels, copies and sets, each counted once."""
+    return sum(row["self_device_us"] for row in rows if row["device_type"] == "CUDA")
 
 
 def key_average_rows(prof: torch.profiler.profile) -> list[dict]:

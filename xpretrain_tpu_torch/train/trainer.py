@@ -66,7 +66,14 @@ def check_single_device(cfg) -> None:
 
 
 class ClipVipTrainer:
-    """End-to-end CLIP-ViP training on one device."""
+    """End-to-end CLIP-ViP training on one device.
+
+    ``fused_adamw`` is read and ignored, on purpose: JAX picks between two
+    optimizer-state layouts of the same AdamW update with it (and, on
+    resume, follows the layout the checkpoint was written with,
+    ``xpretrain_tpu/train/trainer.py``), while the port has one layout,
+    ``GroupedAdamW``'s; its checkpoints are torch files that JAX cannot
+    read, so there is no other layout to follow on resume."""
 
     def __init__(
         self,
