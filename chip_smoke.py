@@ -38,12 +38,29 @@ Phases, in order; any failure exits non-zero and prints no result:
    forward + backward through autograd (b=32), and ``fused_patch_embed``
    with ``use_kernel=True`` on the 288 frames of a b=24 batch, counting the
    packed and patch-embed launches;
+4e. run LF-VILA stage-1 pretraining (``run_pretrain_lfvila --stage 1`` on the
+   port's JSON copy of the stage-1 preset: full width and depth, batch 16,
+   bf16, synthetic u8 clips, the window kernel off as JAX trains) for 5
+   steps: finite losses and gradient norms, step times in CUDA events, peak
+   memory, and the op classes of the last step's ``torch.profiler`` trace;
+4f. run stage-2 pretraining (the stage-2 preset, Swin3D remat, batch 48)
+   for 4 steps: finite MLM and VTM losses, every
+   frozen parameter bit-identical after the steps and every other one moved;
+4g. run the LF-VILA fine-tunes through ``run_tasks_lfvila``: ``qa_mc``,
+   ``qa_cls`` (ActivityNet-QA) and ``video_cls`` at their default text
+   lengths on the kernel config with
+   no train step (six window launches per video forward, accuracy in
+   [0, 1]), then 2 ``qa_mc`` train steps on the kernel-off config (the
+   fusion and span-loss backward);
 5. serve a few requests through ``RetrievalTowers`` in fp32 and compare the
    card's features with the CPU's (plain path) for the same weights;
 5b. take one fp32 train step of B/32 at batch 2 on the card (kernels) and on
    the CPU (plain) from the same weights and batch, and compare;
 5c. encode one clip and its paragraph through ``LfVilaTowers`` in fp32 on the
    card and on the CPU from the same weights, and compare;
+5d. take one fp32 ``LfVilaPretrain`` train step per stage on the card and on
+   the CPU (full widths, one block per Swin3D stage and one BERT layer per
+   BERT stage, batch 2, explicit MTC clips) and compare, as 5b;
 6. time the forward kernel against the plain version, and the whole forward;
 6b. time the backward kernel (with the forward's LSE, and alone) against its
    plain version, forward and backward through autograd (kernels against the
@@ -64,19 +81,20 @@ Phases, in order; any failure exits non-zero and prints no result:
    device, plain time, library time and the bound of its work at the card's
    peak rates) and, as the last line, the status JSON.
 
-Each main-path run (4, 4b, 4c, 4d) sets every launch count to 0 just before it and
-reads the counts just after; the summary reports each path's count and
-their sum. While they run, a call of a plain version on CUDA tensors fails
-the phase.
+Each main-path run (4, 4b, 4c, 4d, 4e, 4f and each run of 4g) sets every
+launch count to 0 just before it and reads the counts just after; the
+summary reports each path's count and their sum. While they run, a call of a
+plain version on CUDA tensors fails the phase.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``
-(about 4 minutes on one H100, the kernels' build included).
+(about 9 minutes on one H100, the kernels' build included).
 """
 
 from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import json
 import math
 import os
@@ -155,6 +173,22 @@ WINDOW_SHAPES = {
     "d64": (4, 2, 200, 64, ("random", 2)),
 }
 WINDOW_TIMED = ("s3_shifted", "s3", "s5")
+# LF-VILA training: the port's JSON copies of the two pretraining presets
+# (window kernel off, as JAX trains), full width and depth, synthetic data
+STAGE_PRESETS = {1: "xpretrain_tpu_torch/configs/lfvila_pretrain_stage1.json",
+                 2: "xpretrain_tpu_torch/configs/lfvila_pretrain_stage2.json"}
+# steps of each stage's run: the first warms up and is not timed; stage 1's
+# last is the profiled one (its op-class table), so it is not timed either
+PRETRAIN_STEPS = {1: 5, 2: 4}  # the median is over the steps after the warm-up and before the profiled
+PROFILED = {1: 1, 2: 0}  # trailing steps under torch.profiler
+# the fine-tunes' eval paths on the kernel config (no train step), 256 synthetic samples each; qa_mc's
+# 8 text rows (question, answer, 6 subtitles) of 50 tokens fit the 512 sentence positions, of 70 they do not
+TASK_RUNS = {
+    "qa_mc": ["--task", "qa_mc"],
+    "qa_cls": ["--task", "qa_cls", "--qa_dataset", "actnet"],
+    "video_cls": ["--task", "video_cls"],
+}
+QA_TRAIN = dict(steps=2, batch=4, samples=16)  # qa_mc train steps on the kernel-off config (span loss backward)
 
 
 def fail(msg: str) -> None:
@@ -337,6 +371,322 @@ def patch_inputs(shape: tuple, seed: int = 0):
     g = torch.Generator(device="cuda").manual_seed(seed)
     frames = torch.randint(0, 256, (N, H, W, 3), device="cuda", generator=g, dtype=torch.uint8)
     return frames, torch.randn(P, P, 3, D, device="cuda", generator=g) * 0.02
+
+
+@contextlib.contextmanager
+def timed_train_steps():
+    """CUDA-event times of every call, while inside, of the train steps that
+    ``GenericTrainer`` builds (``make_model_train_step``): yields a list that
+    fills with (start, end) event pairs, one per step; read them after a
+    synchronize."""
+    import torch
+    from xpretrain_tpu_torch.train import generic_trainer
+
+    original = generic_trainer.make_model_train_step
+    events = []
+
+    def make(*args, **kwargs):
+        step = original(*args, **kwargs)
+
+        def timed(state, batch, seed):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = step(state, batch, seed)
+            end.record()
+            events.append((start, end))
+            return out
+        return timed
+
+    generic_trainer.make_model_train_step = make
+    try:
+        yield events
+    finally:
+        generic_trainer.make_model_train_step = original
+
+
+@contextlib.contextmanager
+def snapshot_params():
+    """While inside, every ``GenericTrainer`` copies its model's parameters
+    as it is built (before any step): yields the list of those copies."""
+    from xpretrain_tpu_torch.train import generic_trainer
+
+    original = generic_trainer.GenericTrainer.__init__
+    snapshots = []
+
+    def init(self, cfg, model, *args, **kwargs):
+        snapshots.append({name: p.detach().clone() for name, p in model.named_parameters()})
+        original(self, cfg, model, *args, **kwargs)
+
+    generic_trainer.GenericTrainer.__init__ = init
+    try:
+        yield snapshots
+    finally:
+        generic_trainer.GenericTrainer.__init__ = original
+
+
+def scalars(out_dir: str) -> dict[str, list[float]]:
+    """The runner's logged train scalars, by tag, in step order."""
+    tags: dict[str, list[float]] = {}
+    with open(os.path.join(out_dir, "log", "scalars.jsonl")) as f:
+        for row in map(json.loads, f):
+            tags.setdefault(row["tag"], []).append(row["value"])
+    return tags
+
+
+def run_pretrain_stage(stage: int, batch: int, out_dir: str, extra: list[str]):
+    """One ``run_pretrain_lfvila`` run of ``stage`` on its preset: (state,
+    launch counts, plain calls on CUDA, per-step ms, parameter snapshot)."""
+    import torch
+    from xpretrain_tpu_torch.cli import run_pretrain_lfvila
+
+    torch.cuda.reset_peak_memory_stats()
+    steps = PRETRAIN_STEPS[stage]
+    profile = ["--profile_steps", str(PROFILED[stage]), "--profile_start_step", str(steps - PROFILED[stage])]
+    with snapshot_params() as snapshots, timed_train_steps() as events, plain_on_cuda_guard() as plain_cuda_calls:
+        reset_launches()
+        state = run_pretrain_lfvila.main([
+            "--config", os.path.join(REPO, STAGE_PRESETS[stage]), "--stage", str(stage), "--dummy_data", "1",
+            "--device_ingest", "1", "--train_batch_size", str(batch), "--num_train_steps", str(steps),
+            "--log_steps", "1", "--save_steps", "1000", "--device", "cuda", "--output_dir", out_dir,
+            *(profile if PROFILED[stage] else []), *extra,
+        ])
+        torch.cuda.synchronize()
+        launches = launch_counts()
+    ms = [start.elapsed_time(end) for start, end in events]
+    return state, launches, list(plain_cuda_calls), ms, snapshots[0]
+
+
+def report_pretrain_stage(stage: int, batch: int, out_dir: str, launches: dict, plain_cuda_calls: list,
+                          ms: list[float], card: str, keys: tuple[str, ...]) -> dict:
+    """Print and check one stage's run: no kernel launch and no plain call on
+    CUDA (the window kernel is off for training, as in JAX), finite losses
+    and gradient norms, the step times and the peak memory."""
+    import torch
+    from xpretrain_tpu_torch.tools.profile_train_step import median
+
+    print(f"  launches {launches} (expected none: the window kernel is off for training, as in JAX); "
+          f"plain path on CUDA: {len(plain_cuda_calls)} calls")
+    check(launches == expected(), f"stage {stage}: kernel launches on a training path without kernels")
+    check(not plain_cuda_calls, f"the plain version ran on CUDA tensors: {plain_cuda_calls[:4]}")
+    tags = scalars(out_dir)
+    steps = PRETRAIN_STEPS[stage]
+    for key in ("loss", "grad_norm") + keys:
+        values = tags.get(f"train/{key}", [])
+        print(f"  {key} {[round(v, 5) for v in values]}")
+        check(len(values) == steps and all(math.isfinite(v) for v in values), f"stage {stage}: {key} {values}")
+    timed = ms[1:steps - PROFILED[stage]]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  stage-{stage} train step b={batch}: median {median(timed):.4f} ms (min {min(timed):.4f}, max "
+          f"{max(timed):.4f}) over steps 2-{steps - PROFILED[stage]}; every step {[round(x, 2) for x in ms]} ms "
+          f"(CUDA events around each step, first = warm-up{', last = profiled' if PROFILED[stage] else ''}) [{card}]")
+    print(f"  peak device memory {peak:.2f} GiB (torch.cuda.max_memory_allocated) [{card}]")
+    check(all(math.isfinite(x) for x in ms), f"stage {stage}: step times")
+    return {"batch": batch, "step_ms": timed, "peak_gib": peak}
+
+
+def lfvila_5d_config(stage: int):
+    """The stage's pretraining model for phase 5d: full widths (Swin3D embed
+    128, BERT-large), depth cut to one block per Swin3D stage and one BERT
+    layer per BERT stage, dropout and drop-path off (the card's and the
+    CPU's generators draw different masks), fp32."""
+    import torch
+    from xpretrain_tpu_torch.models.bert import BertConfig
+    from xpretrain_tpu_torch.models.lf_vila.pretrain import LfVilaConfig
+    from xpretrain_tpu_torch.models.lf_vila.swin3d import Swin3DConfig
+
+    bert = dataclasses.replace(
+        BertConfig.bert_large(stage_bounds=(1, 2), type_vocab_size=8, hidden_dropout_prob=0.0,
+                              attention_probs_dropout_prob=0.0), num_hidden_layers=3)
+    video = Swin3DConfig(depths=(1,) * 6, drop_path_rate=0.0, local_window=4 if stage == 1 else 8)
+    return LfVilaConfig(video=video, bert=bert, stage=stage, dtype=torch.float32)
+
+
+def lfvila_5d_batch(cfg, seed: int, batch: int = 2, sentence_len: int = 50):
+    """A numpy batch of ``batch`` u8 clips of 32 frames at 192x320 with
+    paragraphs of ``sample_clip`` sentences (and MLM labels in stage 2), and
+    explicit MTC clip indices (key, value, other)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    M, L = cfg.sample_clip, sentence_len
+    out = {"video_frames": rng.integers(0, 256, size=(batch, cfg.sample_frame, 192, 320, 3), dtype=np.uint8),
+           "text_ids": rng.integers(1, cfg.bert.vocab_size, size=(batch, M, L)),
+           "attention_mask": (np.arange(L)[None, None] < rng.integers(5, L + 1, size=(batch, M, 1))).astype(np.int64)}
+    if cfg.stage == 2:
+        out["mlm_labels"] = np.where(rng.random((batch, M * L)) < 0.15,
+                                     rng.integers(1, cfg.bert.vocab_size, size=(batch, M * L)), -100)
+    perms = np.stack([rng.permutation(M) for _ in range(3 * batch)])
+    indices = (perms[:batch, :cfg.num_key], perms[batch:2 * batch, :cfg.num_value], perms[2 * batch:, 0])
+    return out, indices
+
+
+def lfvila_stage1_phase(card: str) -> tuple[dict, dict]:
+    """Phase 4e: ``run_pretrain_lfvila --stage 1`` on the stage-1 preset at its
+    batch (16, no remat: about 40 GiB), 5 steps; returns (launch counts, step
+    times, peak memory and the op-class table of the profiled step)."""
+    import torch
+
+    with tempfile.TemporaryDirectory() as out_dir:
+        with open(os.path.join(REPO, STAGE_PRESETS[1])) as f:
+            batch = json.load(f)["train_batch_size"]
+        state, stage1_launches, plain_calls, ms, _ = run_pretrain_stage(1, batch, out_dir, [])
+        print(f"  preset {STAGE_PRESETS[1]}, batch {batch}, no remat")
+        stage1 = report_pretrain_stage(1, batch, out_dir, stage1_launches, plain_calls, ms, card,
+                                       ("ct_global_loss", "ct_time_loss"))
+        with open(os.path.join(out_dir, "profile", "op_classes.json")) as f:
+            classes = json.load(f)["classes"]
+        stage1["op_classes"] = classes
+        print(f"  op classes of the profiled step (torch.profiler device time; train/profiling.py) [{card}]:")
+        for row in classes:
+            print(f"    {row['class']:48s} {row['device_ms_per_step']:10.3f} ms {100 * row['share']:5.1f}% "
+                  f"{row['launches_per_step']:8.0f} launches")
+        print(f"    device total {sum(r['device_ms_per_step'] for r in classes):.3f} ms of the profiled step")
+    return stage1_launches, stage1
+
+
+def lfvila_stage2_phase(card: str) -> tuple[dict, dict]:
+    """Phase 4f: ``run_pretrain_lfvila --stage 2`` on the stage-2 preset with
+    Swin3D remat at the preset's batch (48: about 50 GiB), 4 steps; checks
+    that the frozen parameters did not move and the others did. Returns
+    (launch counts, step times and peak memory)."""
+    import torch
+    from xpretrain_tpu_torch.models.lf_vila.convert import flax_param_paths
+
+    with tempfile.TemporaryDirectory() as out_dir:
+        with open(os.path.join(REPO, STAGE_PRESETS[2])) as f:
+            stage2_preset = json.load(f)
+        batch = stage2_preset["train_batch_size"]
+        state, stage2_launches, plain_calls, ms, start = run_pretrain_stage(
+            2, batch, out_dir, ["--gradient_checkpointing", "1"])
+        print(f"  preset {STAGE_PRESETS[2]}, batch {batch}, --gradient_checkpointing 1")
+        stage2 = report_pretrain_stage(2, batch, out_dir, stage2_launches, plain_calls, ms, card,
+                                       ("mlm_loss", "vtm_loss", "mlm_acc", "vtm_acc"))
+        # the frozen stage-1 modules did not move, bit for bit; the rest did
+        frozen = [pattern.lower() for pattern in stage2_preset["frozen_patterns"]]
+        paths = flax_param_paths(state.model)
+        moved = {True: [], False: []}
+        for name, p in state.model.named_parameters():
+            is_frozen = any(pattern in paths[name].lower() for pattern in frozen)
+            moved[is_frozen].append((name, not torch.equal(p, start[name])))
+        n_frozen = sum(start[n].numel() for n, _ in moved[True])
+        n_free = sum(start[n].numel() for n, _ in moved[False])
+        print(f"  frozen: {len(moved[True])} tensors ({n_frozen / 1e6:.1f} M values), moved "
+              f"{sum(m for _, m in moved[True])}; trained: {len(moved[False])} tensors ({n_free / 1e6:.1f} M), "
+              f"moved {sum(m for _, m in moved[False])}")
+        check(moved[True] and not any(m for _, m in moved[True]), "a frozen parameter moved")
+        check(moved[False] and all(m for _, m in moved[False]),
+              f"trained parameters that did not move: {[n for n, m in moved[False] if not m][:5]}")
+    return stage2_launches, stage2
+
+
+def lfvila_finetune_phase(card: str) -> dict:
+    """Phase 4g: ``run_tasks_lfvila`` qa_mc, qa_cls (ActivityNet-QA) and
+    video_cls on the kernel config with no train step (the eval paths, six
+    window launches a video forward), then 2 qa_mc train steps on the
+    kernel-off config; returns each run's launch counts."""
+    import torch
+    from xpretrain_tpu_torch.cli import run_tasks_lfvila
+
+    task_launches = {}
+    n_batches = math.ceil(run_tasks_lfvila.DUMMY_SIZE / LFVILA_BATCH)
+    for task, args in TASK_RUNS.items():
+        with tempfile.TemporaryDirectory() as out_dir:
+            t0 = time.perf_counter()
+            with plain_on_cuda_guard() as plain_cuda_calls:
+                reset_launches()
+                report = run_tasks_lfvila.main([
+                    "--config", os.path.join(REPO, LFVILA_PRESET), *args, "--dummy_data", "1",
+                    "--num_train_steps", "0", "--val_batch_size", str(LFVILA_BATCH), "--device", "cuda",
+                    "--output_dir", out_dir,
+                ])
+                torch.cuda.synchronize()
+                task_launches[task] = launch_counts()
+            wall = time.perf_counter() - t0
+            with open(os.path.join(out_dir, "final_report.json")) as f:
+                check(json.load(f)["accuracy"] == report["accuracy"], f"{task}: final_report.json")
+        want = expected(window_attention_fwd=WINDOW_BLOCKS * n_batches)
+        print(f"  {task}: launches {task_launches[task]} (expected {WINDOW_BLOCKS} window blocks x {n_batches} "
+              f"batches, one video forward each); plain path on CUDA: {len(plain_cuda_calls)} calls")
+        check(task_launches[task] == want, f"{task} kernel launch counts")
+        check(not plain_cuda_calls, f"the plain version ran on CUDA tensors: {plain_cuda_calls[:4]}")
+        print(f"  {task}: accuracy {report['accuracy']:.4f} over {report['n']} samples; eval "
+              f"{report['perf']['wall_s']:.2f} s, {report['perf']['clips_per_s']:.2f} clips/s; run wall "
+              f"{wall:.1f} s (host clock; model build, synthetic decode and upload included) [{card}]")
+        check(report["n"] == run_tasks_lfvila.DUMMY_SIZE and math.isfinite(report["accuracy"])
+              and 0.0 <= report["accuracy"] <= 1.0, f"{task}: accuracy {report['accuracy']}")
+    # qa_mc's training: fusion, span loss and their backward on the card,
+    # the kernel off (its forward has no backward), a smaller synthetic set
+    with tempfile.TemporaryDirectory() as out_dir:
+        dummy_size, run_tasks_lfvila.DUMMY_SIZE = run_tasks_lfvila.DUMMY_SIZE, QA_TRAIN["samples"]
+        try:
+            with timed_train_steps() as events, plain_on_cuda_guard() as plain_cuda_calls:
+                reset_launches()
+                report = run_tasks_lfvila.main([
+                    "--config", os.path.join(REPO, STAGE_PRESETS[1]), *TASK_RUNS["qa_mc"], "--dummy_data", "1",
+                    "--num_train_steps", str(QA_TRAIN["steps"]), "--train_batch_size", str(QA_TRAIN["batch"]),
+                    "--val_batch_size", str(QA_TRAIN["batch"]), "--log_steps", "1", "--save_steps", "1000",
+                    "--device", "cuda", "--output_dir", out_dir,
+                ])
+                torch.cuda.synchronize()
+                task_launches["qa_mc_train"] = launch_counts()
+        finally:
+            run_tasks_lfvila.DUMMY_SIZE = dummy_size
+        tags = scalars(out_dir)
+    print(f"  qa_mc training, kernel off, b={QA_TRAIN['batch']}: launches {task_launches['qa_mc_train']} "
+          f"(expected none); plain path on CUDA: {len(plain_cuda_calls)} calls; steps "
+          f"{[round(a.elapsed_time(b), 2) for a, b in events]} ms (CUDA events) [{card}]")
+    for key in ("loss", "span_loss", "acc", "span_acc", "grad_norm"):
+        values = tags.get(f"train/{key}", [])
+        print(f"  qa_mc train {key} {[round(v, 5) for v in values]}")
+        check(len(values) == QA_TRAIN["steps"] and all(math.isfinite(v) for v in values), f"qa_mc train {key}")
+    check(task_launches["qa_mc_train"] == expected() and not plain_cuda_calls, "qa_mc training launches")
+    check(all(tags["train/loss"][i] > tags["train/span_loss"][i] > 0 for i in range(QA_TRAIN["steps"])),
+          "qa_mc: the total holds the span loss")
+    check(math.isfinite(report["accuracy"]) and 0.0 <= report["accuracy"] <= 1.0, "qa_mc train accuracy")
+    return task_launches
+
+
+def lfvila_card_vs_cpu_phase() -> None:
+    """Phase 5d: one fp32 ``LfVilaPretrain`` train step per stage on the card
+    and on the CPU from the same weights and batch (explicit MTC clips), held
+    to phase 5b's bars."""
+    import torch
+    from xpretrain_tpu_torch.models.lf_vila.convert import flax_param_paths
+    from xpretrain_tpu_torch.models.lf_vila.pretrain import LfVilaPretrain
+    from xpretrain_tpu_torch.optim.optimizer import NO_DECAY_LFVILA, build_optimizer
+    from xpretrain_tpu_torch.optim.schedules import get_schedule
+    from xpretrain_tpu_torch.parallel.train_step import TrainState, batch_to_device, make_model_train_step
+
+    lr = 1e-5
+    for stage in (1, 2):
+        cfg = lfvila_5d_config(stage)
+        model_cpu = LfVilaPretrain(cfg).init_weights(torch.Generator().manual_seed(stage))
+        model_gpu = copy.deepcopy(model_cpu).cuda()
+        batch, indices = lfvila_5d_batch(cfg, seed=10 + stage)
+        metrics = {}
+        for device, model in (("cuda", model_gpu), ("cpu", model_cpu)):
+            optimizer, _ = build_optimizer(dict(model.named_parameters()), get_schedule("constant", lr, 10),
+                                           weight_decay=0.05, no_decay_patterns=NO_DECAY_LFVILA,
+                                           paths=flax_param_paths(model))
+            step = make_model_train_step(
+                lambda m, b, g: m(b["video_frames"], b["text_ids"], b["attention_mask"],
+                                  mlm_labels=b.get("mlm_labels"), generator=g, mtc_indices=indices),
+                device, metric_keys=("ct_global_loss", "ct_time_loss", "mlm_loss", "vtm_loss"))
+            t0 = time.perf_counter()
+            _, m = step(TrainState(step=0, model=model, optimizer=optimizer), batch_to_device(device)(batch), 0)
+            metrics[device] = {k: v.item() for k, v in m.items()}
+            print(f"  stage {stage} on {device}: {metrics[device]} ({time.perf_counter() - t0:.1f} s)")
+        loss_err = abs(metrics["cuda"]["loss"] - metrics["cpu"]["loss"])
+        norm_err = abs(metrics["cuda"]["grad_norm"] / metrics["cpu"]["grad_norm"] - 1)
+        cpu_state = model_cpu.state_dict()
+        diffs = torch.cat([(v.cpu() - cpu_state[k]).abs().flatten() for k, v in model_gpu.state_dict().items()])
+        print(f"  stage {stage}: loss diff {loss_err:.3e} (tol 1e-4), grad_norm rel diff {norm_err:.3e} "
+              f"(tol 1e-3); params after the step: max diff {diffs.max().item():.3e} (tol 2 lr = {2 * lr:.0e})")
+        check(all(math.isfinite(v) for v in metrics["cuda"].values()), f"stage {stage}: card metrics not finite")
+        check(loss_err <= 1e-4, f"stage {stage}: train loss card vs cpu {loss_err}")
+        check(norm_err <= 1e-3, f"stage {stage}: grad_norm card vs cpu rel {norm_err}")
+        check(diffs.max().item() <= 2 * lr, f"stage {stage}: params after one step differ by more than 2 lr")
+        del model_cpu, model_gpu, cpu_state, diffs
 
 
 def main() -> None:
@@ -791,6 +1141,15 @@ def main() -> None:
               "ops path outputs against their plain versions")
         del serve, train, leaves, frames, kernel, out, emb, grads
 
+    with phase("4e LF-VILA stage-1 pretraining (main path)"):
+        stage1_launches, _ = lfvila_stage1_phase(card)
+
+    with phase("4f LF-VILA stage-2 pretraining, frozen stage-1 modules (main path)"):
+        stage2_launches, _ = lfvila_stage2_phase(card)
+
+    with phase("4g LF-VILA fine-tunes: QA and video classification (main path)"):
+        task_launches = lfvila_finetune_phase(card)
+
     with phase("5 serve: card vs CPU, fp32"):
         model_cpu = CLIPViPModel(CLIPVipConfig.base_patch32(dtype=torch.float32))
         model_cpu.init_weights(torch.Generator().manual_seed(0))
@@ -877,6 +1236,9 @@ def main() -> None:
         print(f"  scaled text->video score {sims.cpu().numpy().round(3).tolist()}")
         check(bool(torch.isfinite(sims).all()), "similarity not finite")
         del gpu, cpu, model_cpu
+
+    with phase("5d LF-VILA pretraining step: card vs CPU, fp32"):
+        lfvila_card_vs_cpu_phase()
 
     with phase("6 timing"):
         s = B32
@@ -1181,7 +1543,8 @@ def main() -> None:
                   f"{PEAK_FLOPS / 1e12:.0f} TFLOP/s bf16)")
 
     paths = {"eval": eval_launches, "train": train_launches, "lfvila_retrieval": lfvila_launches,
-             "ops": ops_launches}
+             "ops": ops_launches, "lfvila_stage1": stage1_launches, "lfvila_stage2": stage2_launches,
+             **{f"lfvila_{task}": counts for task, counts in task_launches.items()}}
     window_timing = {dt: win_timings[("s3_shifted", dt)] for dt in ("bfloat16", "float32")}
     summary = {"kernels": [
         {

@@ -28,6 +28,7 @@ from xpretrain_tpu import config as jax_config  # noqa: E402
 from xpretrain_tpu.cli import shared_args as jax_shared_args  # noqa: E402
 from xpretrain_tpu.data import datasets as jax_datasets  # noqa: E402
 from xpretrain_tpu.data import datasets_lfvila as jax_datasets_lfvila  # noqa: E402
+from xpretrain_tpu.data import datasets_lfvila_tasks as jax_datasets_lfvila_tasks  # noqa: E402
 from xpretrain_tpu.data import loader as jax_loader  # noqa: E402
 from xpretrain_tpu.data import sample_frames as jax_sample_frames  # noqa: E402
 from xpretrain_tpu.data import tokenization as jax_tokenization  # noqa: E402
@@ -36,10 +37,16 @@ from xpretrain_tpu.data import video_reader as jax_video_reader  # noqa: E402
 from xpretrain_tpu.train import evaluate as jax_evaluate  # noqa: E402
 from xpretrain_tpu.utils import metrics as jax_metrics  # noqa: E402
 from xpretrain_tpu_torch import config  # noqa: E402
-from xpretrain_tpu_torch.cli import run_retrieval_clipvip, run_tasks_lfvila, shared_args  # noqa: E402
+from xpretrain_tpu_torch.cli import (  # noqa: E402
+    run_pretrain_lfvila,
+    run_retrieval_clipvip,
+    run_tasks_lfvila,
+    shared_args,
+)
 from xpretrain_tpu_torch.data import (  # noqa: E402
     datasets,
     datasets_lfvila,
+    datasets_lfvila_tasks,
     loader,
     sample_frames,
     tokenization,
@@ -159,6 +166,38 @@ def test_port_runs_where_the_jax_package_cannot_be_imported(tmp_path):
         assert (tmp_path / run / "final_report.json").exists()
 
 
+def test_training_runners_run_where_the_jax_package_cannot_be_imported(tmp_path):
+    """Both pretraining stages (2 steps) and the three fine-tune tasks (1
+    step, then the accuracy eval of 4 synthetic samples) in a process whose
+    imports of ``xpretrain_tpu``, ``jax`` and ``flax`` raise."""
+    tiny = dict(LFVILA_TINY, final_num_patches=1, video_encoder=dict(LFVILA_TINY["video_encoder"],
+                                                                     use_pallas_attention=False))
+    cfg = tmp_path / "lfvila.json"
+    cfg.write_text(json.dumps(tiny))
+    common = ["--config", str(cfg), "--dummy_data", "1", "--input_hw", "96", "160", "--train_batch_size", "4",
+              "--max_txt_len", "8", "--bf16", "0", "--device", "cpu", "--save_steps", "100"]
+    runs = [("run_pretrain_lfvila", ["--stage", str(st), "--num_train_steps", "2"], f"stage{st}") for st in (1, 2)]
+    runs += [("run_tasks_lfvila", ["--task", task, "--num_train_steps", "1", "--val_batch_size", "4",
+                                   "--max_num_subtitle", "2"], task) for task in ("qa_mc", "qa_cls", "video_cls")]
+    code = _BLOCKER + "from xpretrain_tpu_torch.cli import run_pretrain_lfvila, run_tasks_lfvila\n"
+    code += "run_tasks_lfvila.DUMMY_SIZE = 4\n"
+    for module, args, out in runs:
+        argv = common + args + ["--output_dir", str(tmp_path / out)]
+        code += f"print({out!r}, {module}.main({argv!r}) is not None)\n"
+    code += f"print(sorted(m for m in sys.modules if m.split('.')[0] in {BANNED!r}))\n"
+    env = {**os.environ, "OMP_NUM_THREADS": "1"}  # as above
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    lines = proc.stdout.strip().splitlines()
+    assert lines[-1] == "[]"
+    names = [out for _, _, out in runs]
+    assert [line for line in lines if line.split(" ")[0] in names] == [f"{out} True" for out in names]
+    for task in ("qa_mc", "qa_cls", "video_cls"):
+        with open(tmp_path / task / "final_report.json") as f:
+            assert json.load(f)["n"] == 4
+
+
 # -- 3. the copies hold against the JAX originals ----------------------------
 
 
@@ -231,7 +270,7 @@ def test_lfvila_runner_batches_match_jax():
     from xpretrain_tpu.cli import run_tasks_lfvila as jax_runner
 
     argv = ["--dummy_data", "1", "--seed", "5", "--train_batch_size", "2", "--val_batch_size", "3"]
-    extra = [("--sample_frame", 4), ("--sample_clip", 3), ("--input_hw", [32, 48])]
+    extra = [("--sample_frame", 4), ("--sample_clip", 3), ("--input_hw", [32, 48]), ("--num_options", 4)]
 
     def cfg_of(args_module, cfg_module):
         parser = args_module.build_shared_parser("x")
@@ -392,3 +431,104 @@ def test_evaluate_retrieval_report_matches_jax(tmp_path):
         np.testing.assert_array_equal(a[key], b[key])
     sim = rng.normal(size=(9, 7))
     assert metrics.retrieval_report(sim) == jax_metrics.retrieval_report(sim)
+
+
+def test_span_sampler_matches_jax():
+    for total, n in ((97, 12), (12, 12), (5, 8), (1, 4), (300, 32)):
+        for test_mode in (False, True):
+            np.testing.assert_array_equal(
+                sample_frames.span_jitter_linspace_sample(total, n, np.random.default_rng(total), test_mode),
+                jax_sample_frames.span_jitter_linspace_sample(total, n, np.random.default_rng(total), test_mode))
+
+
+TASK_DATASETS = {  # name -> (dataset, collator kwargs, dataset kwargs, a jsonl row without the clip id)
+    "how2qa": ("How2QA", dict(max_sent_len=10, max_num_subtitle=3), dict(max_num_subtitle=3),
+               {"span": [1.0, 3.5], "text_q": "what is the cat doing", "text_a": ["a", "b c", "d", "e f g"],
+                "text_s": [{"text": f"subtitle {i} words", "start": i, "end": i + 1} for i in range(5)],
+                "answer_idx": 2}),
+    "how2qa_nan_span": ("How2QA", dict(max_sent_len=10, max_num_subtitle=3), dict(max_num_subtitle=3),
+                        {"span": [float("nan"), float("nan")], "text_q": "q", "text_a": ["a", "b", "c", "d"],
+                         "text_s": [], "answer_idx": 0}),
+    "violin": ("Violin", dict(max_sent_len=9, max_num_subtitle=2), dict(max_num_subtitle=2),
+               {"text_q": "the man opens the door", "text_s": [{"text": "hello there"}, {"text": "go"},
+                                                               {"text": "now then"}], "answer": 1}),
+    "actnet": ("ActnetQA", dict(max_sent_len=8), dict(num_labels=11), {"question": "is it raining", "answer": 4}),
+    "video_cls": ("VideoCls", {}, dict(num_labels=9), {"recipe_type": 6}),
+}
+
+
+def _task_batches(mod_ds, mod_tok, name, rows, source, train):
+    ds_name, collate_kw, ds_kw, _ = TASK_DATASETS[name]
+    ds = getattr(mod_ds, f"{ds_name}Dataset")(rows, source, sample_frame=4, input_hw=(32, 48), train=train, seed=3,
+                                              synthetic=source is None, **ds_kw)
+    tok = (mod_tok.HashTokenizer(30522),) if ds_name != "VideoCls" else ()
+    collate = getattr(mod_ds, f"{ds_name}Collator")(*tok, **collate_kw)
+    return [collate([ds[i], ds[i + 1]]) for i in range(0, len(rows), 2)]
+
+
+@pytest.mark.parametrize("train", [False, True])
+@pytest.mark.parametrize("name", sorted(TASK_DATASETS))
+def test_task_datasets_and_collators_match_jax(tmp_path, name, train):
+    """The copies of ``datasets_lfvila_tasks`` give the JAX package's batches:
+    synthetic rows, and jsonl rows over .npy clips (the jittered linspace at
+    train time, subtitles merged down and padded with zero rows)."""
+    rng = np.random.default_rng(7)
+    for i in range(2):
+        np.save(tmp_path / f"v{i}.npy", rng.integers(0, 256, size=(13 + 5 * i, 40, 56, 3), dtype=np.uint8))
+    row = TASK_DATASETS[name][3]
+    id_key = {"actnet": "video_name", "video_cls": "video_id"}.get(name, "clip_id")
+    rows = [dict(row, **{id_key: f"v{i}"}) for i in range(2)]
+    for rows_, root in (([{} for _ in range(4)], None), (rows, str(tmp_path))):
+        got = _task_batches(datasets_lfvila_tasks, tokenization, name, rows_, root and datasets.FrameSource(root),
+                            train)
+        want = _task_batches(jax_datasets_lfvila_tasks, jax_tokenization, name, rows_,
+                             root and jax_datasets.FrameSource(root), train)
+        assert len(got) == len(want) > 0
+        for g, w in zip(got, want):
+            assert sorted(g) == sorted(w)
+            _assert_batches_equal(g, w)
+
+
+@pytest.mark.parametrize("task", ["qa_mc", "qa_cls", "qa_cls_violin", "video_cls"])
+def test_lfvila_task_runner_batches_match_jax(task):
+    """The port runner's task datasets and collators (with the labels the JAX
+    runner's ``collate_with_labels`` adds) give the JAX runner's batches."""
+    from xpretrain_tpu.cli import run_tasks_lfvila as jax_runner
+
+    argv = ["--dummy_data", "1", "--seed", "5", "--task", task.split("_violin")[0], "--max_num_subtitle", "2",
+            "--qa_dataset", "violin" if task.endswith("violin") else "", "--num_labels", "6"]
+    extra = [("--sample_frame", 4), ("--sample_clip", 3), ("--input_hw", [32, 48]), ("--num_options", 4)]
+
+    def cfg_of(args_module, cfg_module):
+        parser = args_module.build_shared_parser("x")
+        for flag, default in extra:
+            parser.add_argument(flag, type=int, nargs=2 if isinstance(default, list) else None, default=default)
+        for flag in ("--task", "--qa_dataset"):
+            parser.add_argument(flag, type=str, default="")
+        for flag in ("--max_num_subtitle", "--num_labels"):
+            parser.add_argument(flag, type=int, default=0)
+        return cfg_module.parse_with_config(parser, argv)
+
+    cfg = cfg_of(shared_args, config)
+    tok = tokenization.build_model_tokenizer("hash", 30522)
+    _, collate, train, val, keys = run_tasks_lfvila.build_task(cfg, run_pretrain_lfvila.lfvila_config_from(
+        {"bert": "tiny", "video_encoder": {"embed_dim": 32, "depths": [1] * 6, "num_heads": [2] * 6}}), tok, "cpu")
+    collate = run_tasks_lfvila.with_labels(collate)
+    jcfg = cfg_of(jax_shared_args, jax_config)
+    jtok = jax_tokenization.build_model_tokenizer("hash", 30522)
+    ds_cls, jcollate = {
+        "qa_mc": (jax_datasets_lfvila_tasks.How2QADataset, jax_datasets_lfvila_tasks.How2QACollator(jtok, 70, 2)),
+        "qa_cls": (jax_datasets_lfvila_tasks.ActnetQADataset, jax_datasets_lfvila_tasks.ActnetQACollator(jtok, 70)),
+        "qa_cls_violin": (jax_datasets_lfvila_tasks.ViolinDataset,
+                          jax_datasets_lfvila_tasks.ViolinCollator(jtok, 70, 2)),
+        "video_cls": (jax_datasets_lfvila_tasks.VideoClsDataset, jax_datasets_lfvila_tasks.VideoClsCollator()),
+    }[task]
+    extra_kw = {"qa_mc": dict(max_num_subtitle=2), "qa_cls_violin": dict(max_num_subtitle=2)}.get(
+        task, dict(num_labels=6))
+    jtrain, jval = jax_runner._task_datasets(jcfg, ds_cls, **extra_kw)
+    assert len(train) == len(jtrain) == len(val) == len(jval) == run_tasks_lfvila.DUMMY_SIZE
+    for i in (0, 7):
+        for got_ds, want_ds in ((train, jtrain), (val, jval)):
+            g, w = collate([got_ds[i], got_ds[i + 1]]), jcollate([want_ds[i], want_ds[i + 1]])
+            assert sorted(g) == sorted(w) and set(keys) <= set(g)
+            _assert_batches_equal(g, w)

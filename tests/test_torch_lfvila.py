@@ -181,13 +181,15 @@ def _load(path):
     return load_config_file(path)
 
 
-@pytest.mark.parametrize("source", ["yaml_preset", "tiny", "base_fp32"])
+@pytest.mark.parametrize("source", ["yaml_preset", "tiny", "base_fp32", "stage2_yaml_preset", "remat_policy"])
 def test_config_builder_matches_jax(source):
     """For a config without the kernel keys the port builds the JAX config;
     the kernel keys are the one difference, and only the port reads them."""
     from xpretrain_tpu.cli.run_pretrain_lfvila import lfvila_config_from as jax_config_from
 
     cfg = {"yaml_preset": lambda: _load(YAML_PRESET),
+           "stage2_yaml_preset": lambda: _load(YAML_PRESET.replace("stage1", "stage2")),
+           "remat_policy": lambda: {"gradient_checkpointing": 1, "remat_policy": "dots_saveable", "cp": 1},
            "tiny": lambda: json.loads(json.dumps(TINY_CONFIG)),
            "base_fp32": lambda: {"bert": "base", "bf16": 0, "attention_window": 16,
                                  "training": {"temp": 0.07}}}[source]()
@@ -249,12 +251,17 @@ def test_runner_writes_a_finite_final_report(tmp_path, monkeypatch, steps):
 
 @pytest.mark.parametrize(
     "extra,match",
-    [(["--task", "qa_mc"], "ROADMAP"), (["--task", "qa_cls"], "ROADMAP"), (["--task", "video_cls"], "ROADMAP"),
-     (["--model_weight", "lfvila.pt"], "ROADMAP"), (["--gradient_checkpointing", "1"], "ROADMAP"),
+    [(["--task", "qa_mc", "--model_weight", "lfvila.pt"], "ROADMAP"),
+     (["--task", "qa_cls", "--model_weight", "lfvila.pt"], "ROADMAP"),
+     (["--task", "video_cls", "--model_weight", "lfvila.pt"], "ROADMAP"),
+     (["--model_weight", "lfvila.pt"], "ROADMAP"), (["--gradient_checkpointing", "1", "--cp", "2"], "ROADMAP"),
      (["--cp", "2"], "ROADMAP")],
     ids=["qa_mc", "qa_cls", "video_cls", "model_weight", "remat", "context_parallel"],
 )
 def test_runner_raises_on_what_is_not_ported(tmp_path, extra, match):
+    """Loading torch checkpoints, for every task, and context parallelism,
+    with or without remat, raise; the tasks and remat themselves run
+    (``tests/test_torch_lfvila_tasks.py``, ``tests/test_torch_lfvila_pretrain.py``)."""
     with pytest.raises(NotImplementedError, match=match):
         run_tasks_lfvila.main(_runner_args(tmp_path, 0, *extra))
 

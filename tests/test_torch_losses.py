@@ -88,3 +88,89 @@ def test_learnable_temp_promotes_bf16_similarity_to_fp32(jax_losses):
 def test_unknown_loss_raises():
     with pytest.raises(KeyError, match="unknown loss"):
         losses.build_loss_fn("NoSuchLoss")
+
+
+# -- masked-modeling and matching losses (LF-VILA) ---------------------------
+
+MASKED_RTOL = 1e-6
+
+
+def _logits_and_labels(seed, rows=12, classes=7, ignored=0.3):
+    rng = np.random.default_rng(seed)
+    logits = (3 * rng.normal(size=(rows, classes))).astype(np.float32)
+    labels = rng.integers(0, classes, size=rows)
+    return logits, np.where(rng.random(rows) < ignored, -100, labels)
+
+
+def _mtc_inputs(seed=0, b=5, m=4, c=16):
+    rng = np.random.default_rng(seed)
+
+    def unit():
+        x = rng.normal(size=(b, m, c)).astype(np.float32)
+        return x / np.linalg.norm(x, axis=-1, keepdims=True)
+
+    # row 0: key 1 between values 0 and 2 (a first-vs-last tie, label -100);
+    # the others random prefixes of permutations
+    perm = np.stack([rng.permutation(m) for _ in range(3 * b)])
+    key, value, other = perm[:b, :2], perm[b:2 * b, :2], perm[2 * b:, 0]
+    key[0], value[0] = [1, 3], [0, 2]
+    return unit(), unit(), (key, value, other)
+
+
+MASKED_CASES = {
+    "mlm_loss": lambda: (lambda x, y: (x.reshape(3, 4, 7), y.reshape(3, 4)))(*_logits_and_labels(0)),
+    "mlm_loss_all_ignored": lambda: (_logits_and_labels(1)[0], np.full(12, -100)),
+    "itm_loss": lambda: (_logits_and_labels(2, classes=2)[0], np.random.default_rng(2).integers(0, 2, 12)),
+    "label_smoothing_xent": lambda: (_logits_and_labels(3)[0], np.random.default_rng(3).integers(0, 7, 12)),
+    "_masked_xent_flat": lambda: _logits_and_labels(4),
+}
+
+
+@pytest.mark.parametrize("name", sorted(MASKED_CASES))
+def test_masked_losses_match_jax(jax_losses, name):
+    """fp32 logits, -100 rows ignored with a max(count, 1) denominator (0
+    when every row is ignored); value to 1e-6 relative, gradients as above."""
+    import jax
+    import jax.numpy as jnp
+
+    logits, labels = MASKED_CASES[name]()
+    fn = name.removesuffix("_all_ignored")
+    want, want_grad = jax.value_and_grad(getattr(jax_losses, fn))(jnp.asarray(logits), jnp.asarray(labels))
+    t = torch.from_numpy(logits).requires_grad_()
+    got = getattr(losses, fn)(t, torch.from_numpy(labels))
+    got.backward()
+    assert got.dtype == torch.float32 and got.dim() == 0
+    np.testing.assert_allclose(got.item(), float(want), rtol=MASKED_RTOL, atol=0 if float(want) else 1e-12)
+    np.testing.assert_allclose(t.grad.numpy(), np.asarray(want_grad), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("num_other_neg", [3, 0])
+def test_mtc_loss_matches_jax_with_explicit_indices(jax_losses, num_other_neg):
+    """The same clips (a first-vs-last tie among them) give JAX's loss and
+    gradients; the rolled negatives include shift 0, the sample itself."""
+    import jax
+    import jax.numpy as jnp
+
+    video, text, (key, value, other) = _mtc_inputs()
+    kw = dict(num_key=2, num_value=2, num_other_neg=num_other_neg, temp=0.05)
+    jax_fn = lambda v, t: jax_losses.mtc_loss(v, t, jax.random.PRNGKey(0),  # noqa: E731
+                                              indices=(jnp.asarray(key), jnp.asarray(value), jnp.asarray(other)), **kw)
+    want, want_grads = jax.value_and_grad(jax_fn, argnums=(0, 1))(jnp.asarray(video), jnp.asarray(text))
+    tensors = [torch.from_numpy(a).requires_grad_() for a in (video, text)]
+    got = losses.mtc_loss(*tensors, indices=(key, value, other), **kw)
+    got.backward()
+    np.testing.assert_allclose(got.item(), float(want), rtol=MASKED_RTOL)
+    for t, w in zip(tensors, want_grads):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w), rtol=RTOL, atol=ATOL)
+
+
+def test_mtc_loss_draws_its_clips_from_the_generator():
+    """Without indices: distinct clips per row (prefixes of permutations),
+    the same seed the same loss, another seed (almost surely) another."""
+    video, text, _ = _mtc_inputs(seed=1, b=8, m=6)
+    perms = losses.mtc_permutations(64, 6, 4, torch.Generator().manual_seed(0))
+    assert perms.shape == (64, 4) and all(len(set(row.tolist())) == 4 for row in perms)
+    assert perms.min() >= 0 and perms.max() < 6
+    run = lambda seed: losses.mtc_loss(torch.from_numpy(video), torch.from_numpy(text),  # noqa: E731
+                                       torch.Generator().manual_seed(seed)).item()
+    assert run(1) == run(1) and np.isfinite(run(1)) and len({run(s) for s in range(5)}) > 1

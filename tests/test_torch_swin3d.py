@@ -160,9 +160,18 @@ def test_kernel_gate_counts_the_unclipped_window(monkeypatch):
 
 
 def test_training_and_multi_device_options_raise():
-    for kw in (dict(remat=True), dict(remat_policy="dots_saveable"), dict(context_parallel_axis="model")):
+    """Context parallelism raises (ROADMAP), with or without remat; remat
+    builds, and with an unknown policy raises, as JAX's ``getattr`` does; a
+    policy without remat is ignored, as in JAX."""
+    tiny = swin3d.Swin3DConfig.tiny
+    for kw in (dict(context_parallel_axis="model"), dict(context_parallel_axis="model", remat=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            swin3d.SwinTransformer3D(swin3d.Swin3DConfig.tiny(**kw))
+            swin3d.SwinTransformer3D(tiny(**kw))
+    assert swin3d.SwinTransformer3D(tiny(remat=True)).remat_context_fn is None
+    assert swin3d.SwinTransformer3D(tiny(remat=True, remat_policy="dots_saveable")).remat_context_fn is not None
+    assert swin3d.SwinTransformer3D(tiny(remat_policy="dots_saveable")).remat_context_fn is None
+    with pytest.raises(ValueError, match="remat_policy"):
+        swin3d.SwinTransformer3D(tiny(remat=True, remat_policy="not_a_policy"))
 
 
 def test_kernel_gated_attention_dropout_raises_off_the_cpu():

@@ -2,10 +2,11 @@
 of the parts of ``xpretrain_tpu/data/sample_frames.py`` it uses).
 
 The uniform sampling-with-jitter path used when ``sample_rate == 0``
-(``CLIP-ViP/src/datasets/dataset_video_retrieval.py:78-95``) and the LF-VILA
-multi-clip splitter (``LF-VILA/src/datasets/pretrain_dataset.py:80-136``).
+(``CLIP-ViP/src/datasets/dataset_video_retrieval.py:78-95``), the LF-VILA
+multi-clip splitter (``LF-VILA/src/datasets/pretrain_dataset.py:80-136``) and
+the LF-VILA downstream tasks' jittered linspace (``how2qa_dataset.py:57-66``).
 
-Both take an explicit ``np.random.Generator`` so data pipelines are
+All take an explicit ``np.random.Generator`` so data pipelines are
 reproducible per (seed, epoch, index).
 """
 
@@ -56,3 +57,27 @@ def multi_clip_sample(
         uniform_sample_with_jitter(max(n, 1), c, rng=rng, test_mode=test_mode)
         for n, c in zip(clip_frame_counts, counts)
     ]
+
+
+def span_jitter_linspace_sample(
+    total_frames: int,
+    num_frames: int,
+    rng: np.random.Generator | None = None,
+    test_mode: bool = False,
+) -> np.ndarray:
+    """Linspace over the full video with jittered endpoints at train time.
+
+    The LF-VILA downstream-task read pattern (``how2qa_dataset.py:57-66``,
+    identical in violin/actnet/video-classification): eval is an exact
+    ``linspace(0, T-1, n)``; train draws a random start in the first
+    inter-frame interval and a random end in the last, then linspaces
+    between them.
+    """
+    total_frames = max(int(total_frames), 1)
+    if test_mode or rng is None or total_frames <= num_frames:
+        return np.linspace(0, total_frames - 1, num_frames).astype(np.int64)
+    interval = int(total_frames / max(num_frames - 1, 1))
+    start = int(rng.integers(0, interval + 1))
+    lo = max(total_frames - 1 - interval, start + 1)
+    end = int(rng.integers(lo, max(total_frames, lo + 1)))
+    return np.linspace(start, end, num_frames).astype(np.int64)

@@ -209,6 +209,23 @@ class BertPooler(nn.Module):
         return torch.tanh(self.dense(hidden[:, 0]))
 
 
+class BertMLMHead(nn.Module):
+    """Transform + decoder to the vocabulary, untied from the word embeddings
+    (the reference clones rather than ties its heads,
+    ``hd-vila/src/modeling/modeling_stage.py:345-360``)."""
+
+    def __init__(self, config: BertConfig, dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        h = config.hidden_size
+        self.transform_dense = Linear(h, h, dtype=dtype, device=device)
+        self.transform_LayerNorm = LayerNorm(h, config.layer_norm_eps, dtype, device)
+        self.decoder = Linear(h, config.vocab_size, dtype=dtype, device=device)
+        self.act = ACT2FN[config.hidden_act]
+
+    def forward(self, hidden: torch.Tensor) -> torch.Tensor:
+        return self.decoder(self.transform_LayerNorm(self.act(self.transform_dense(hidden))))
+
+
 class StagedBertModel(nn.Module):
     """Embeddings + staged encoder; ``stage=None`` runs all layers.
 

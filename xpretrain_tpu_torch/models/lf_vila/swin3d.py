@@ -24,20 +24,29 @@ PatchMerging at stages {0,1,4}, and the local branch.
   ``Swin3DConfig.dtype``; layer norms (eps 1e-5), scores and softmax run in
   fp32; the MLP uses the exact erf gelu. Dropout and drop-path apply in
   training mode only, drawn from the ``torch.Generator`` handed to ``forward``.
-- ``remat``, ``remat_policy`` and ``context_parallel_axis`` raise: they
-  belong to training and to the multi-device layouts (ROADMAP).
+- ``remat`` recomputes each block in the backward
+  (``torch.utils.checkpoint``, non-reentrant), as flax's ``nn.remat`` around
+  each block: with no ``remat_policy`` the block keeps only its input; the
+  policies ``dots_saveable`` and ``dots_with_no_batch_dims_saveable`` keep
+  the matmul outputs (``mm``/``addmm``/``bmm``, or ``mm``/``addmm`` only)
+  through a selective-checkpoint ``context_fn``. A policy without ``remat``
+  is ignored and an unknown one raises, as in JAX. The recompute rewinds the
+  dropout generator, so it draws the forward's masks.
+- ``context_parallel_axis`` raises: it belongs to the multi-device layouts
+  (ROADMAP).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from xpretrain_tpu_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
 from xpretrain_tpu_torch.models.common import LayerNorm, Linear, dot_attention, dropout
@@ -236,9 +245,8 @@ class WindowAttention3D(nn.Module):
                 return window_attention(q, k, v, bias, mask)
             if q.device.type != "cpu":
                 raise NotImplementedError(
-                    "attention dropout in the window-attention kernel comes with its backward in "
-                    "the LF-VILA training slice (ROADMAP Queue 2); train with attn_drop_rate 0 or "
-                    "video_encoder.use_pallas_attention off on the card"
+                    "the window-attention kernel has no attention dropout and no backward (ROADMAP "
+                    "Queue 2): train with video_encoder.use_pallas_attention off on the card"
                 )
         # the mask of window w = bn % nW: the bias and mask add once, [nW, h, N, N]
         nW = 1 if mask is None else mask.shape[0]
@@ -394,6 +402,37 @@ class PatchEmbed3D(nn.Module):
         return x if self.norm is None else self.norm(x)
 
 
+_aten = torch.ops.aten
+# jax.checkpoint_policies name -> the ops whose outputs the recompute keeps
+REMAT_POLICIES = {
+    "dots_saveable": (_aten.mm.default, _aten.addmm.default, _aten.bmm.default),
+    "dots_with_no_batch_dims_saveable": (_aten.mm.default, _aten.addmm.default),
+}
+
+
+def remat_context_fn(policy: Optional[str]) -> Optional[Callable]:
+    """The ``context_fn`` of ``torch.utils.checkpoint`` for a JAX remat policy
+    name (None, full remat, for no policy); an unknown name raises."""
+    if policy is None:
+        return None
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat_policy {policy!r}; known: {sorted(REMAT_POLICIES)}")
+    saved = REMAT_POLICIES[policy]
+
+    def policy_fn(ctx, op, *args, **kwargs):
+        return CheckpointPolicy.MUST_SAVE if op in saved else CheckpointPolicy.PREFER_RECOMPUTE
+
+    return functools.partial(create_selective_checkpoint_contexts, policy_fn)
+
+
+def _replay_block(block, x, generator, generator_state):
+    # rewinds the dropout generator, so the backward's recompute draws the
+    # forward's dropout and drop-path masks
+    if generator is not None:
+        generator.set_state(generator_state)
+    return block(x, generator)
+
+
 class SwinTransformer3D(nn.Module):
     """The full HTWA encoder with the local branch (ref ``:450-620``).
 
@@ -406,11 +445,8 @@ class SwinTransformer3D(nn.Module):
     def __init__(self, config: Swin3DConfig, device=None):
         super().__init__()
         cfg = self.config = config
-        if cfg.remat or cfg.remat_policy:
-            raise NotImplementedError(
-                "Swin3D remat / remat_policy belong to training and come with the LF-VILA training "
-                "slice (ROADMAP Queue 1)"
-            )
+        # as JAX, a policy counts only under remat
+        self.remat_context_fn = remat_context_fn(cfg.remat_policy or None) if cfg.remat else None
         if cfg.context_parallel_axis:
             raise NotImplementedError(
                 "Swin3D context parallelism (--cp) is multi-device work (ROADMAP Queue 1 #8)"
@@ -461,7 +497,13 @@ class SwinTransformer3D(nn.Module):
             if i_layer == self.local_at and self.local_used:
                 local_feat = self.norm_local(self.local_feat_proj(x))
             for b in range(cfg.depths[i_layer]):
-                x = getattr(self, f"layers_{i_layer}_blocks_{b}")(x, generator)
+                block = getattr(self, f"layers_{i_layer}_blocks_{b}")
+                if cfg.remat and torch.is_grad_enabled():
+                    state = generator.get_state() if generator is not None else None
+                    kwargs = {} if self.remat_context_fn is None else {"context_fn": self.remat_context_fn}
+                    x = checkpoint(_replay_block, block, x, generator, state, use_reentrant=False, **kwargs)
+                else:
+                    x = block(x, generator)
             if i_layer in cfg.downsample_stages:
                 x = getattr(self, f"layers_{i_layer}_downsample")(x)
         x = self.norm(x)

@@ -11,22 +11,28 @@ One dtype rule needs care: JAX promotes a bf16 similarity times an fp32
 ``exp(logit_scale)`` array to fp32, where torch would keep bf16 for a 0-d
 tensor. The learnable-temperature losses therefore multiply in fp32.
 
-MLM, ITM, label smoothing and ``mtc_loss`` come with the model families that
-use them.
+Below them, the masked-modeling and matching losses of LF-VILA (and later
+HD-VILA): ``mlm_loss``, ``itm_loss``, ``label_smoothing_xent`` and
+``mtc_loss``, each with JAX's rules (fp32 logits, a ``max(count, 1)``
+denominator, -100 for ignored rows). ``mtc_loss`` draws its clip
+permutations from a ``torch.Generator`` where JAX splits a PRNG key, so the
+two draw other clips from the same seed; ``indices=`` fixes them for both.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
 Tensor = torch.Tensor
 
 
-def _xent(logits: Tensor, labels: Tensor) -> Tensor:
-    """Mean softmax cross-entropy with integer labels, fp32 accumulation."""
+def softmax_xent(logits: Tensor, labels: Tensor) -> Tensor:
+    """Mean softmax cross-entropy with integer labels, fp32 accumulation (also
+    the inline ``logsumexp - gold`` of JAX's VTM, QA and video-classification
+    heads)."""
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[:, None])[:, 0]
@@ -40,7 +46,7 @@ def _diag_labels(sim: Tensor) -> Tensor:
 def _sym_nce(sim: Tensor) -> Tensor:
     """Symmetric InfoNCE over a scaled similarity matrix with diagonal labels."""
     labels = _diag_labels(sim)
-    return _xent(sim, labels) + _xent(sim.T, labels)
+    return softmax_xent(sim, labels) + softmax_xent(sim.T, labels)
 
 
 def _scaled_sim(a: Tensor, b: Tensor, logit_scale: Tensor) -> Tensor:
@@ -86,7 +92,7 @@ def hard_neg_loss(vis_feat: Tensor, text_feat: Tensor, hard_negative_num: int = 
     hard_v2t = torch.topk(masked.T, hard_negative_num, dim=-1).values
     pos = torch.diagonal(sim)[:, None]
     labels = torch.zeros(bsz, dtype=torch.long, device=sim.device)
-    return _xent(torch.cat([pos, hard_t2v], dim=-1), labels) + _xent(
+    return softmax_xent(torch.cat([pos, hard_t2v], dim=-1), labels) + softmax_xent(
         torch.cat([pos, hard_v2t], dim=-1), labels
     )
 
@@ -118,7 +124,7 @@ def nce_learnable_temp_dsl(vis_feat: Tensor, text_feat: Tensor, logit_scale: Ten
     t2v = sim * torch.softmax(sim, dim=0)
     v2t = sim.T * torch.softmax(sim.T, dim=0)
     labels = _diag_labels(sim)
-    return _xent(t2v, labels) + _xent(v2t, labels)
+    return softmax_xent(t2v, labels) + softmax_xent(v2t, labels)
 
 
 def vid_img_nce_learnable_temp(
@@ -169,10 +175,10 @@ def _vsc_terms(vis_feat: Tensor, text_feat: Tensor, cap_feat: Tensor, logit_scal
     pooled_2 = torch.cat([torch.diagonal(v2t_2)[:, None], v2t_neg, v2t_neg_2], dim=1)
     zero_labels = torch.zeros_like(labels)
     return (
-        _xent(v2t.T, labels)
-        + _xent(v2t_2.T, labels)
-        + _xent(pooled, zero_labels)
-        + _xent(pooled_2, zero_labels)
+        softmax_xent(v2t.T, labels)
+        + softmax_xent(v2t_2.T, labels)
+        + softmax_xent(pooled, zero_labels)
+        + softmax_xent(pooled_2, zero_labels)
     )
 
 
@@ -190,6 +196,102 @@ def nce_learnable_temp_vsc_fc(
     return _vsc_terms(vis_feat, text_feat, cap_feat, logit_scale) + nce_learnable_temp(
         img_feat, cap_feat, logit_scale
     )
+
+
+# ---------------------------------------------------------------------------
+# Masked-modeling / matching heads (HD-VILA, LF-VILA)
+# ---------------------------------------------------------------------------
+
+
+def _masked_xent_flat(logits: Tensor, labels: Tensor, ignore_index: int = -100) -> Tensor:
+    """Mean CE over rows whose label != ignore_index (torch CrossEntropyLoss),
+    fp32; 0 when every row is ignored."""
+    logits = logits.float()
+    valid = labels != ignore_index
+    safe = torch.where(valid, labels, torch.zeros_like(labels))
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, safe[:, None])[:, 0]
+    per = torch.where(valid, logz - gold, torch.zeros_like(logz))
+    return per.sum() / valid.sum().clamp_min(1)
+
+
+def mlm_loss(logits: Tensor, labels: Tensor, ignore_index: int = -100) -> Tensor:
+    """Masked-LM cross-entropy averaged over non-ignored positions."""
+    vocab = logits.shape[-1]
+    return _masked_xent_flat(logits.reshape(-1, vocab), labels.reshape(-1), ignore_index)
+
+
+def itm_loss(logits: Tensor, labels: Tensor) -> Tensor:
+    """Image/video-text matching cross-entropy (2-way logits)."""
+    return softmax_xent(logits, labels)
+
+
+def label_smoothing_xent(logits: Tensor, labels: Tensor, smoothing: float = 0.1) -> Tensor:
+    """Label-smoothed cross-entropy (LF-VILA open-ended QA head,
+    ``LF-VILA/src/models/text_encoder.py:311-314``)."""
+    logprobs = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logprobs, -1, labels[:, None])[:, 0]
+    smooth = -logprobs.mean(dim=-1)
+    return torch.mean((1.0 - smoothing) * nll + smoothing * smooth)
+
+
+def mtc_permutations(batch: int, m: int, count: int, generator: Optional[torch.Generator] = None,
+                     device=None) -> Tensor:
+    """The first ``count`` entries of an independent random permutation of
+    range(m) for each of ``batch`` rows: [batch, count] int64."""
+    return torch.rand(batch, m, generator=generator, device=device).argsort(dim=-1)[:, :count]
+
+
+def mtc_loss(
+    video_local_feat: Tensor,  # [B, M, C], L2-normalized clip-level features
+    text_local_feat: Tensor,  # [B, M, C]
+    generator: Optional[torch.Generator] = None,
+    num_key: int = 2,
+    num_value: int = 2,
+    num_other_neg: int = 3,
+    temp: float = 0.05,
+    indices: Optional[tuple] = None,  # (key_idx [B, nk], value_idx [B, nv], other_idx [B])
+) -> Tensor:
+    """Multimodal Temporal Contrastive loss (LF-VILA's ``ct_time_loss``, ref
+    ``LF-VILA/src/models/lfvila_pretrain.py:111-151``).
+
+    Random key clips of one modality are matched against random value clips
+    of the other; the label is the temporally nearest value clip, exact
+    first-vs-last ties are -100 (ignored), and ``num_other_neg`` rolled
+    cross-batch clips extend the negative pool (shift 0, the un-rolled sample
+    itself, included, as the reference does). The clips are ``indices`` when
+    given, else drawn from ``generator``."""
+    b, m, _ = video_local_feat.shape
+    device = video_local_feat.device
+    if indices is not None:
+        key_idx, value_idx, other_idx = (None if t is None else torch.as_tensor(t, device=device).long()
+                                         for t in indices)
+    else:
+        key_idx = mtc_permutations(b, m, num_key, generator, device)
+        value_idx = mtc_permutations(b, m, num_value, generator, device)
+        other_idx = mtc_permutations(b, m, 1, generator, device)[:, 0]
+
+    def gather(feats, idx):
+        return torch.take_along_dim(feats, idx[..., None], dim=1)
+
+    text_key, video_value = gather(text_local_feat, key_idx), gather(video_local_feat, value_idx)
+    video_key, text_value = gather(video_local_feat, key_idx), gather(text_local_feat, value_idx)
+    if num_other_neg > 0:
+        vid_other = gather(video_local_feat, other_idx[:, None])[:, 0]
+        txt_other = gather(text_local_feat, other_idx[:, None])[:, 0]
+        vid_neg = torch.stack([torch.roll(vid_other, x, dims=0) for x in range(num_other_neg)], dim=1)
+        txt_neg = torch.stack([torch.roll(txt_other, x, dims=0) for x in range(num_other_neg)], dim=1)
+        video_value = torch.cat([video_value, vid_neg], dim=1)
+        text_value = torch.cat([text_value, txt_neg], dim=1)
+
+    sim_t2v = torch.einsum("bkc,bvc->bkv", text_key, video_value).reshape(b * num_key, -1) / temp
+    sim_v2t = torch.einsum("bkc,bvc->bkv", video_key, text_value).reshape(b * num_key, -1) / temp
+
+    minus = (value_idx[:, None, :] - key_idx[:, :, None]).abs()  # [B, nk, nv]
+    labels = minus.argmin(dim=-1).reshape(-1)  # the first nearest
+    ties = (minus[:, :, 0] == minus[:, :, -1]).reshape(-1)
+    labels = torch.where(ties, torch.full_like(labels, -100), labels)
+    return _masked_xent_flat(sim_t2v, labels) + _masked_xent_flat(sim_v2t, labels)
 
 
 # ---------------------------------------------------------------------------

@@ -110,9 +110,8 @@ def _launch(q, k, v, bias, mask) -> torch.Tensor:
         t.requires_grad for t in (q, k, v, bias) + (() if mask is None else (mask,))
     ):
         raise NotImplementedError(
-            "the window-attention kernel has no backward yet: training through it on CUDA "
-            "comes with the LF-VILA training slice (ROADMAP Queue 2); run with "
-            "video_encoder.use_pallas_attention off to train on the plain path"
+            "the window-attention kernel has no backward (JAX's has none either; ROADMAP Queue 2 lists "
+            "it beyond the TPU set): train with video_encoder.use_pallas_attention off, as JAX does"
         )
     _check_kernel_inputs(q, k, v)
     bias = bias.float().contiguous()
