@@ -9,7 +9,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    fp32), its registers, spills, shared memory and the tensor-core (``HMMA``)
    instructions in its SASS;
 3. check the proxy-attention forward kernel against its plain PyTorch
-   version on the card at B/32, B/16 and small shapes, in fp32 and bf16, and
+   version on the card at B/32, B/16, the pretraining image branch's one-frame
+   clips (b=32, N=1: S = 53) and small shapes, in fp32 and bf16, and
    the LSE it saves for the backward against ``proxy_attention_lse_plain``;
 3b. the same for the backward kernel, at those shapes and the B/32 train
    shape (b=32), called alone (it computes the LSE itself) and with the
@@ -52,10 +53,24 @@ Phases, in order; any failure exits non-zero and prints no result:
    no train step (six window launches per video forward, accuracy in
    [0, 1]), then 2 ``qa_mc`` train steps on the kernel-off config (the
    fusion and span-loss backward);
+4h. run CLIP-ViP pretraining (``run_pretrain_clipvip`` on the port's JSON
+   copy of the B/32 pretraining preset: b=32, 12 frames at 224, bf16,
+   ``NCELearnableTempLoss_vsc_fc``, synthetic data with the image/caption
+   branch) for 6 steps from a ``--clip_weights`` file it writes (a seeded
+   B/32 under ``clipmodel.``, an 8-row temporal embedding): the loaded
+   parameters against the file, finite losses and gradient norms, 24 forward
+   and 24 backward proxy launches a step (12 video + 12 image layers), step
+   times in CUDA events and peak memory;
+4i. run LF-VILA stage-1 pretraining for 4 steps from a written 2-D Swin-B
+   (``--swin_weight``, inflated to the preset's 3-D windows) and a BERT-large
+   (``--bert_weight``, the 12 layers the stage-1 model holds): the BERT
+   embeddings, the inflated patch embed and the tiled bias tables on the
+   model before its first step, finite losses, step times in CUDA events;
 5. serve a few requests through ``RetrievalTowers`` in fp32 and compare the
    card's features with the CPU's (plain path) for the same weights;
-5b. take one fp32 train step of B/32 at batch 2 on the card (kernels) and on
-   the CPU (plain) from the same weights and batch, and compare;
+5b. take one fp32 pretraining step of B/32 at batch 2 on the card (kernels)
+   and on the CPU (plain) from the same weights and batch (fp32 video, one
+   image and caption a clip, ``vsc_fc``), and compare;
 5c. encode one clip and its paragraph through ``LfVilaTowers`` in fp32 on the
    card and on the CPU from the same weights, and compare;
 5d. take one fp32 ``LfVilaPretrain`` train step per stage on the card and on
@@ -81,13 +96,13 @@ Phases, in order; any failure exits non-zero and prints no result:
    device, plain time, library time and the bound of its work at the card's
    peak rates) and, as the last line, the status JSON.
 
-Each main-path run (4, 4b, 4c, 4d, 4e, 4f and each run of 4g) sets every
+Each main-path run (4, 4b, 4c, 4d, 4e, 4f, each run of 4g, 4h and 4i) sets every
 launch count to 0 just before it and reads the counts just after; the
 summary reports each path's count and their sum. While they run, a call of a
 plain version on CUDA tensors fails the phase.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``
-(about 9 minutes on one H100, the kernels' build included).
+(about 10 minutes on one H100, the kernels' build included).
 """
 
 from __future__ import annotations
@@ -146,8 +161,10 @@ B32 = dict(B=24, H=12, M=4, N=12, L=49, D=64)  # CLIP-ViP B/32 serving, batch 24
 B32_TRAIN = dict(B32, B=32)  # CLIP-ViP B/32 training, batch 32
 PRESET = "xpretrain_tpu_torch/configs/msrvtt_retrieval_vip_base_32.json"  # the port's copy of the MSR-VTT preset
 TRAIN_STEPS, TRAIN_EVERY = 6, 3  # the fine-tune run of phase 4b: steps, validate/save cadence
+B32_IMAGE = dict(B32_TRAIN, N=1)  # pretraining's image branch: b=32 one-frame clips, S = 4 + 49
 CHECK_SHAPES = {
     "b32": B32,
+    "b32_image": B32_IMAGE,
     "b16": dict(B=2, H=12, M=4, N=12, L=196, D=64),
     "tiny": dict(B=2, H=2, M=3, N=4, L=13, D=16),
     "l256_d128": dict(B=2, H=3, M=1, N=3, L=256, D=128),
@@ -189,6 +206,12 @@ TASK_RUNS = {
     "video_cls": ["--task", "video_cls"],
 }
 QA_TRAIN = dict(steps=2, batch=4, samples=16)  # qa_mc train steps on the kernel-off config (span loss backward)
+# CLIP-ViP pretraining: the port's JSON copy of the B/32 preset; the first step warms up and is not timed
+PRETRAIN_PRESET = "xpretrain_tpu_torch/configs/pretrain_vip_base_32.json"
+PRETRAIN_CLIPVIP_STEPS = 6
+PROXY_LAYERS_PER_STEP = 2 * VIDEO_LAYERS  # the video clips' and the images' passes through the 12 layers
+# LF-VILA stage 1 from 2-D ImageNet Swin-B (4x4 patches, 7x7 windows) and BERT-large weights
+CASCADE = dict(batch=8, steps=4, bert_layers=12)
 
 
 def fail(msg: str) -> None:
@@ -374,15 +397,17 @@ def patch_inputs(shape: tuple, seed: int = 0):
 
 
 @contextlib.contextmanager
-def timed_train_steps():
+def timed_train_steps(module=None, name: str = "make_model_train_step"):
     """CUDA-event times of every call, while inside, of the train steps that
-    ``GenericTrainer`` builds (``make_model_train_step``): yields a list that
-    fills with (start, end) event pairs, one per step; read them after a
-    synchronize."""
+    ``module.name`` builds (default: ``GenericTrainer``'s
+    ``make_model_train_step``; ``ClipVipTrainer``'s is ``trainer.
+    make_train_step``): yields a list that fills with (start, end) event
+    pairs, one per step; read them after a synchronize."""
     import torch
     from xpretrain_tpu_torch.train import generic_trainer
 
-    original = generic_trainer.make_model_train_step
+    module = module or generic_trainer
+    original = getattr(module, name)
     events = []
 
     def make(*args, **kwargs):
@@ -397,11 +422,37 @@ def timed_train_steps():
             return out
         return timed
 
-    generic_trainer.make_model_train_step = make
+    setattr(module, name, make)
     try:
         yield events
     finally:
-        generic_trainer.make_model_train_step = original
+        setattr(module, name, original)
+
+
+@contextlib.contextmanager
+def after_call(module, name: str):
+    """While inside, each call of ``module.name(.., model, ..)`` (a loader of
+    pretrained weights) copies the model's parameters right after it: yields
+    the list of (copy: name -> tensor on the model's device, seconds the call
+    took on the host clock)."""
+    import torch
+
+    original = getattr(module, name)
+    copies = []
+
+    def call(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = original(*args, **kwargs)
+        seconds = time.perf_counter() - t0
+        model = next(a for a in args if isinstance(a, torch.nn.Module))
+        copies.append(({n: p.detach().clone() for n, p in model.named_parameters()}, seconds))
+        return out
+
+    setattr(module, name, call)
+    try:
+        yield copies
+    finally:
+        setattr(module, name, original)
 
 
 @contextlib.contextmanager
@@ -689,6 +740,236 @@ def lfvila_card_vs_cpu_phase() -> None:
         del model_cpu, model_gpu, cpu_state, diffs
 
 
+def clip_weights_file(path: str, seed: int = 0) -> dict:
+    """Write a released-style CLIP-ViP B/32 checkpoint of a seeded port model
+    to ``path``: HF keys under ``clipmodel.``, the patch weight as a Conv2d
+    weight [768, 3, 32, 32], an 8-row temporal embedding (the model holds 12).
+    Returns the state dict as written, without the prefix."""
+    import torch
+    from xpretrain_tpu_torch.models.clip_vip.convert import torch_clip_state_dict
+    from xpretrain_tpu_torch.models.clip_vip.model import CLIPVipConfig, CLIPViPModel
+
+    model = CLIPViPModel(CLIPVipConfig.base_patch32())
+    model.init_weights(torch.Generator().manual_seed(seed))
+    sd = torch_clip_state_dict(model)
+    g = torch.Generator().manual_seed(seed + 1)
+    width = model.config.vision.hidden_size
+    sd["vision_model.embeddings.temporal_embedding"] = 0.02 * torch.randn(1, 8, width, generator=g)
+    torch.save({"clipmodel." + k: v for k, v in sd.items()}, path)
+    return sd
+
+
+def clipvip_pretrain_phase(card: str) -> tuple[dict, dict]:
+    """Phase 4h: ``run_pretrain_clipvip`` on the B/32 pretraining preset for
+    ``PRETRAIN_CLIPVIP_STEPS`` steps from a written ``--clip_weights`` file;
+    returns (launch counts, step times and peak memory)."""
+    import numpy as np
+    import torch
+    from xpretrain_tpu_torch.cli import run_pretrain_clipvip
+    from xpretrain_tpu_torch.models.clip_vip.convert import _interp_temporal
+    from xpretrain_tpu_torch.train import trainer as trainer_module
+    from xpretrain_tpu_torch.tools.profile_train_step import median
+
+    steps = PRETRAIN_CLIPVIP_STEPS
+    with tempfile.TemporaryDirectory() as out_dir:
+        path = os.path.join(out_dir, "clipvip_b32.pt")
+        t0 = time.perf_counter()
+        written = clip_weights_file(path)
+        print(f"  wrote {path.split('/')[-1]}: {len(written)} tensors, "
+              f"{sum(v.numel() for v in written.values()) / 1e6:.1f} M values ({time.perf_counter() - t0:.1f} s)")
+        with open(os.path.join(REPO, PRETRAIN_PRESET)) as f:
+            preset = json.load(f)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with after_call(run_pretrain_clipvip, "load_pretrained") as loaded, \
+                timed_train_steps(trainer_module, "make_train_step") as events, \
+                plain_on_cuda_guard() as plain_cuda_calls:
+            reset_launches()
+            state = run_pretrain_clipvip.main([
+                "--config", os.path.join(REPO, PRETRAIN_PRESET), "--dummy_data", "1",
+                "--clip_weights", path, "--num_train_steps", str(steps), "--log_steps", "1",
+                "--save_steps", "1000", "--valid_steps", "1000", "--device", "cuda", "--output_dir", out_dir,
+            ])
+            torch.cuda.synchronize()
+            launches = launch_counts()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        tags = scalars(out_dir)
+    check(state.step == steps and len(loaded) == 1, f"pretraining ran {state.step} steps, loaded {len(loaded)} times")
+    # the loaded model against the file: copies, the patch weight in the
+    # port's layout, the temporal embedding interpolated 8 -> 12 rows
+    got = {k: v.cpu() for k, v in loaded[0][0].items()}
+    print(f"  load_pretrained (read, merge into the model on the card): {loaded[0][1]:.2f} s [{card}]")
+    temporal = _interp_temporal(written["vision_model.embeddings.temporal_embedding"].numpy(),
+                                preset["clip_vision_additional_config"]["temporal_size"])
+    pairs = {
+        "text_model.embeddings.token_embedding.weight": written["text_model.embeddings.token_embedding.weight"],
+        "vision_model.encoder.layers.11.self_attn.q_proj.weight":
+            written["vision_model.encoder.layers.11.self_attn.q_proj.weight"],
+        "logit_scale": written["logit_scale"],
+        "vision_model.embeddings.patch_embedding.weight":
+            written["vision_model.embeddings.patch_embedding.weight"].permute(2, 3, 1, 0),
+        "vision_model.embeddings.temporal_embedding": torch.from_numpy(temporal.astype(np.float32)),
+    }
+    for key, want in pairs.items():
+        same = torch.equal(got[key], want)
+        print(f"  loaded {key} {tuple(got[key].shape)}: equal to the file's: {same}")
+        check(same, f"{key} is not the file's")
+    check(all(torch.equal(got[k], written[k]) for k in written if k not in pairs), "a loaded parameter is not the file's")
+    want = expected(proxy_attention_fwd=PROXY_LAYERS_PER_STEP * steps, proxy_attention_bwd=PROXY_LAYERS_PER_STEP * steps)
+    print(f"  launches {launches} (expected {want}: {PROXY_LAYERS_PER_STEP} layers a step, {VIDEO_LAYERS} for the "
+          f"video clips and {VIDEO_LAYERS} for the images, forward and backward); plain path on CUDA: "
+          f"{len(plain_cuda_calls)} calls")
+    check(launches == want, "pretraining kernel launch counts")
+    check(not plain_cuda_calls, f"the plain version ran on CUDA tensors: {plain_cuda_calls[:4]}")
+    for key in ("loss", "grad_norm"):
+        values = tags.get(f"train/{key}", [])
+        print(f"  {key} {[round(v, 5) for v in values]}")
+        check(len(values) == steps and all(math.isfinite(v) for v in values), f"pretraining {key} {values}")
+    ms = [start.elapsed_time(end) for start, end in events]
+    timed = ms[1:]
+    sps = tags.get("train/steps_per_s", [])
+    print(f"  preset {PRETRAIN_PRESET}: b={preset['train_batch_size']}, {preset['num_frm']} frames at "
+          f"{preset['crop_img_size']}, bf16, {preset['loss_name']}")
+    print(f"  B/32 pretraining step b={preset['train_batch_size']}: median {median(timed):.4f} ms (min "
+          f"{min(timed):.4f}, max {max(timed):.4f}) over steps 2-{steps}; every step {[round(x, 2) for x in ms]} ms "
+          f"(CUDA events around each step, the first a warm-up) [{card}]")
+    print(f"  steps/s on the host clock, synthetic data and its host transform included: "
+          f"{[round(x, 3) for x in sps]}; run wall {wall:.1f} s [{card}]")
+    print(f"  peak device memory {peak:.2f} GiB (torch.cuda.max_memory_allocated) [{card}]")
+    check(all(math.isfinite(x) for x in ms), "pretraining step times")
+    del state, loaded, got, written
+    return launches, {"step_ms": timed, "peak_gib": peak}
+
+
+def swin2d_state_dict(g, embed_dim=128, depths=(2, 2, 18, 2), heads=(4, 8, 16, 32), window=7, patch=4):
+    """An ImageNet Swin-B state dict (torch keys, 4 stages, 4x4 patches, 7x7
+    windows), random from ``g``: what ``--swin_weight`` takes with
+    ``--pretrained_2d 1``."""
+    import torch
+
+    def t(*shape):
+        return torch.randn(*shape, generator=g) * 0.02
+
+    top = embed_dim * 2 ** (len(depths) - 1)
+    sd = {"patch_embed.proj.weight": t(embed_dim, 3, patch, patch), "patch_embed.proj.bias": t(embed_dim),
+          "patch_embed.norm.weight": 1 + t(embed_dim), "patch_embed.norm.bias": t(embed_dim),
+          "norm.weight": 1 + t(top), "norm.bias": t(top)}
+    side = 2 * window - 1
+    for i, (depth, h) in enumerate(zip(depths, heads)):
+        c = embed_dim * 2**i
+        for b in range(depth):
+            p = f"layers.{i}.blocks.{b}."
+            for name, shape in (("norm1.weight", (c,)), ("norm1.bias", (c,)), ("attn.qkv.weight", (3 * c, c)),
+                                ("attn.qkv.bias", (3 * c,)), ("attn.proj.weight", (c, c)), ("attn.proj.bias", (c,)),
+                                ("attn.relative_position_bias_table", (side * side, h)), ("norm2.weight", (c,)),
+                                ("norm2.bias", (c,)), ("mlp.fc1.weight", (4 * c, c)), ("mlp.fc1.bias", (4 * c,)),
+                                ("mlp.fc2.weight", (c, 4 * c)), ("mlp.fc2.bias", (c,))):
+                sd[p + name] = t(*shape) + (1 if name.startswith("norm") and name.endswith("weight") else 0)
+        if i < len(depths) - 1:  # 2-D Swin downsamples after stages 0..2
+            sd[f"layers.{i}.downsample.reduction.weight"] = t(2 * c, 4 * c)
+            sd[f"layers.{i}.downsample.norm.weight"] = 1 + t(4 * c)
+            sd[f"layers.{i}.downsample.norm.bias"] = t(4 * c)
+    return sd
+
+
+def bert_state_dict(g, layers: int, hidden=1024, intermediate=4096, vocab=30522, positions=512, types=2):
+    """An HF BERT-large state dict (``bert.`` keys, ``layers`` encoder layers
+    and the pooler), random from ``g``: what ``--bert_weight`` takes."""
+    import torch
+
+    def t(*shape):
+        return torch.randn(*shape, generator=g) * 0.02
+
+    sd = {"bert.embeddings.word_embeddings.weight": t(vocab, hidden),
+          "bert.embeddings.position_embeddings.weight": t(positions, hidden),
+          "bert.embeddings.token_type_embeddings.weight": t(types, hidden),
+          "bert.embeddings.LayerNorm.weight": 1 + t(hidden), "bert.embeddings.LayerNorm.bias": t(hidden),
+          "bert.pooler.dense.weight": t(hidden, hidden), "bert.pooler.dense.bias": t(hidden)}
+    for i in range(layers):
+        p = f"bert.encoder.layer.{i}."
+        for name in ("attention.self.query", "attention.self.key", "attention.self.value", "attention.output.dense"):
+            sd[p + name + ".weight"], sd[p + name + ".bias"] = t(hidden, hidden), t(hidden)
+        sd[p + "intermediate.dense.weight"], sd[p + "intermediate.dense.bias"] = t(intermediate, hidden), t(intermediate)
+        sd[p + "output.dense.weight"], sd[p + "output.dense.bias"] = t(hidden, intermediate), t(hidden)
+        for name in ("attention.output.LayerNorm", "output.LayerNorm"):
+            sd[p + name + ".weight"], sd[p + name + ".bias"] = 1 + t(hidden), t(hidden)
+    return sd
+
+
+def lfvila_cascade_phase(card: str) -> dict:
+    """Phase 4i: ``run_pretrain_lfvila --stage 1`` on the stage-1 preset from
+    a written 2-D Swin-B (``--swin_weight``, ``--pretrained_2d 1``) and
+    BERT-large (``--bert_weight``), ``CASCADE["steps"]`` steps; returns the
+    launch counts."""
+    import torch
+    from xpretrain_tpu_torch.cli import run_pretrain_lfvila
+
+    with tempfile.TemporaryDirectory() as out_dir:
+        t0 = time.perf_counter()
+        g = torch.Generator().manual_seed(21)
+        swin, bert = swin2d_state_dict(g), bert_state_dict(g, CASCADE["bert_layers"])
+        swin_path, bert_path = os.path.join(out_dir, "swin_base_2d.pth"), os.path.join(out_dir, "bert_large.bin")
+        torch.save({"model": swin}, swin_path)
+        torch.save(bert, bert_path)
+        print(f"  wrote a 2-D Swin-B ({sum(v.numel() for v in swin.values()) / 1e6:.1f} M values) and BERT-large's "
+              f"first {CASCADE['bert_layers']} layers ({sum(v.numel() for v in bert.values()) / 1e6:.1f} M values) "
+              f"({time.perf_counter() - t0:.1f} s)")
+        t0 = time.perf_counter()
+        with after_call(run_pretrain_lfvila, "load_lfvila_cascade") as loaded, \
+                timed_train_steps() as events, plain_on_cuda_guard() as plain_cuda_calls:
+            reset_launches()
+            state = run_pretrain_lfvila.main([
+                "--config", os.path.join(REPO, STAGE_PRESETS[1]), "--stage", "1", "--dummy_data", "1",
+                "--device_ingest", "1", "--train_batch_size", str(CASCADE["batch"]),
+                "--num_train_steps", str(CASCADE["steps"]), "--log_steps", "1", "--save_steps", "1000",
+                "--swin_weight", swin_path, "--bert_weight", bert_path, "--pretrained_2d", "1",
+                "--device", "cuda", "--output_dir", out_dir,
+            ])
+            torch.cuda.synchronize()
+            launches = launch_counts()
+        wall = time.perf_counter() - t0
+        tags = scalars(out_dir)
+    check(state.step == CASCADE["steps"] and len(loaded) == 1, "stage 1 from the cascade: steps or loads")
+    got = {k: v.cpu() for k, v in loaded[0][0].items()}
+    # BERT: copied; the 2-D patch kernel 4x4 tiled to 8x8 (and kd=1), / 4
+    inflated = swin["patch_embed.proj.weight"][:, :, None].repeat(1, 1, 1, 2, 2) / 4
+    table = got["video_encoder.layers_2_blocks_0.attn.relative_position_bias_table"]
+    spatial = 5 * 9  # stage 2's (8, 3, 5) window: (2*3-1) x (2*5-1) offsets, tiled 2*8-1 times over time
+    checks = {
+        "text_encoder.embeddings.word_embeddings.weight = the file's":
+            torch.equal(got["text_encoder.embeddings.word_embeddings.weight"],
+                        bert["bert.embeddings.word_embeddings.weight"]),
+        "text_encoder.encoder.layer_11.output_dense.weight = the file's, transposed twice":
+            torch.equal(got["text_encoder.encoder.layer_11.output_dense.weight"],
+                        bert["bert.encoder.layer.11.output.dense.weight"]),
+        "video_encoder.patch_embed.proj.weight = the 2-D kernel inflated":
+            torch.allclose(got["video_encoder.patch_embed.proj.weight"], inflated, atol=1e-7, rtol=0),
+        "video_encoder.layers_0_blocks_0.attn.qkv.weight = the 2-D block's":
+            torch.equal(got["video_encoder.layers_0_blocks_0.attn.qkv.weight"], swin["layers.0.blocks.0.attn.qkv.weight"]),
+        f"stage-2 bias table {tuple(table.shape)} tiled over time":
+            table.shape[0] == 15 * spatial and all(torch.equal(table[:spatial], table[i * spatial:(i + 1) * spatial])
+                                                   for i in range(15)),
+    }
+    for what, ok in checks.items():
+        print(f"  loaded {what}: {ok}")
+        check(ok, f"4i: {what}")
+    print(f"  launches {launches} (expected none: the window kernel is off for training, as in JAX); plain path "
+          f"on CUDA: {len(plain_cuda_calls)} calls")
+    check(launches == expected() and not plain_cuda_calls, "stage 1 from the cascade: launches")
+    for key in ("loss", "grad_norm", "ct_global_loss", "ct_time_loss"):
+        values = tags.get(f"train/{key}", [])
+        print(f"  {key} {[round(v, 5) for v in values]}")
+        check(len(values) == CASCADE["steps"] and all(math.isfinite(v) for v in values), f"4i {key} {values}")
+    ms = [start.elapsed_time(end) for start, end in events]
+    print(f"  load_lfvila_cascade (read, inflate, convert, merge into the model on the card): {loaded[0][1]:.2f} s; "
+          f"steps {[round(x, 2) for x in ms]} ms (CUDA events, the first a warm-up); run wall {wall:.1f} s at "
+          f"b={CASCADE['batch']} (host clock; model build and synthetic data included) [{card}]")
+    check(len(ms) == CASCADE["steps"] and all(math.isfinite(x) for x in ms), "4i step times")
+    del state, loaded, got, swin, bert
+    return launches
+
+
 def main() -> None:
     try:
         import torch
@@ -699,7 +980,7 @@ def main() -> None:
     sys.path.insert(0, REPO)
     try:
         from xpretrain_tpu_torch.cli import run_retrieval_clipvip, run_tasks_lfvila
-        from xpretrain_tpu_torch.data.transforms import CLIP_MEAN, CLIP_STD
+        from xpretrain_tpu_torch.data.transforms import CLIP_MEAN, CLIP_STD, normalize
         from xpretrain_tpu_torch.models.clip_vip.model import CLIPVipConfig, CLIPViPModel
         from xpretrain_tpu_torch.models.common import dot_attention
         from xpretrain_tpu_torch.ops import _kernels
@@ -1150,6 +1431,12 @@ def main() -> None:
     with phase("4g LF-VILA fine-tunes: QA and video classification (main path)"):
         task_launches = lfvila_finetune_phase(card)
 
+    with phase("4h CLIP-ViP B/32 pretraining from a CLIP-ViP checkpoint, image/caption branch (main path)"):
+        pretrain_launches, _ = clipvip_pretrain_phase(card)
+
+    with phase("4i LF-VILA stage-1 pretraining from 2-D Swin and BERT checkpoints (main path)"):
+        cascade_launches = lfvila_cascade_phase(card)
+
     with phase("5 serve: card vs CPU, fp32"):
         model_cpu = CLIPViPModel(CLIPVipConfig.base_patch32(dtype=torch.float32))
         model_cpu.init_weights(torch.Generator().manual_seed(0))
@@ -1176,24 +1463,31 @@ def main() -> None:
         check(bool(torch.isfinite(sims).all()), "similarity not finite")
         del gpu, cpu, model_cpu
 
-    with phase("5b train step: card vs CPU, fp32"):
+    with phase("5b pretraining step with the image branch: card vs CPU, fp32"):
         lr = 1e-5
         model_cpu = CLIPViPModel(CLIPVipConfig.base_patch32(dtype=torch.float32))
         model_cpu.init_weights(torch.Generator().manual_seed(0))
+        with torch.no_grad():  # a temporal embedding that is not zero, so both branches' lerps count
+            model_cpu.vision_model.embeddings.temporal_embedding.normal_(0.0, 0.02, generator=torch.Generator()
+                                                                          .manual_seed(1))
         model_gpu = copy.deepcopy(model_cpu).cuda()
         rng = np.random.default_rng(2)
         ids, mask = captions(rng, 2)
-        batch = {"video": rng.integers(0, 256, size=(2, 12, 224, 224, 3), dtype=np.uint8),
-                 "text_input_ids": ids, "text_input_mask": mask}
+        cap_ids, cap_mask = captions(rng, 2)
+        frames = rng.integers(0, 256, size=(2, 13, 224, 224, 3), dtype=np.uint8)
+        # as PretrainCollator ships them: fp32 normalized video and one image a clip, one caption a clip
+        batch = {"video": np.stack([normalize(f[:12]) for f in frames]), "text_input_ids": ids,
+                 "text_input_mask": mask, "image": np.stack([normalize(f[12:]) for f in frames]),
+                 "caption_ids": cap_ids[:, None], "caption_masks": cap_mask[:, None]}
         metrics = {}
         for device, model in (("cuda", model_gpu), ("cpu", model_cpu)):
-            step, state = train_step_parts(model, lr)
+            step, state = train_step_parts(model, lr, "NCELearnableTempLoss_vsc_fc")
             before = (pa.proxy_attention.launches, pa.proxy_attention_bwd.launches)
             _, m = step(state, batch_to_device(device)(batch), 0)
             metrics[device] = {k: v.item() for k, v in m.items()}
             if device == "cuda":
                 launched = (pa.proxy_attention.launches - before[0], pa.proxy_attention_bwd.launches - before[1])
-                check(launched == (VIDEO_LAYERS, VIDEO_LAYERS), f"card train step launches {launched}")
+                check(launched == (PROXY_LAYERS_PER_STEP,) * 2, f"card train step launches {launched}")
         print(f"  card {metrics['cuda']}\n  cpu  {metrics['cpu']}")
         loss_err = abs(metrics["cuda"]["loss"] - metrics["cpu"]["loss"])
         norm_err = abs(metrics["cuda"]["grad_norm"] / metrics["cpu"]["grad_norm"] - 1)
@@ -1544,7 +1838,8 @@ def main() -> None:
 
     paths = {"eval": eval_launches, "train": train_launches, "lfvila_retrieval": lfvila_launches,
              "ops": ops_launches, "lfvila_stage1": stage1_launches, "lfvila_stage2": stage2_launches,
-             **{f"lfvila_{task}": counts for task, counts in task_launches.items()}}
+             **{f"lfvila_{task}": counts for task, counts in task_launches.items()},
+             "clipvip_pretrain": pretrain_launches, "lfvila_stage1_from_2d_swin_bert": cascade_launches}
     window_timing = {dt: win_timings[("s3_shifted", dt)] for dt in ("bfloat16", "float32")}
     summary = {"kernels": [
         {

@@ -5,9 +5,14 @@ and parsed configs.
 
 1. A scan of every source of the port and of ``chip_smoke.py``: no import of
    ``xpretrain_tpu``, ``jax`` or ``flax``, and no path under
-   ``xpretrain_tpu/`` that a program could read.
+   ``xpretrain_tpu/`` that a program could read; no import of ``cv2`` or
+   ``safetensors`` (the card's machine has neither) outside the three
+   host-layer copies that read images and videos with cv2 where it exists
+   (``CV2_HOST_LAYER``).
 2. A fresh process in which importing those three raises: it imports every
-   module of the port and runs both CPU runners.
+   module of the port and runs both CPU runners; another, in which cv2 and
+   safetensors cannot be imported either, runs the pretraining runner from a
+   checkpoint.
 3. The copies against the JAX originals, same seeds, fp32 on the CPU.
 """
 
@@ -58,6 +63,11 @@ from xpretrain_tpu_torch.utils import metrics  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BANNED = ("xpretrain_tpu", "jax", "flax")
+NOT_ON_THE_CARD = ("cv2", "safetensors")  # absent on the card's machine
+# the host-layer copies that decode and resize frames with cv2 where it is
+# installed, as their JAX originals do (ROADMAP Queue 3: the resize without it)
+CV2_HOST_LAYER = ("xpretrain_tpu_torch/data/datasets.py", "xpretrain_tpu_torch/data/transforms.py",
+                  "xpretrain_tpu_torch/data/video_reader.py")
 SOURCES = sorted(
     os.path.relpath(p, REPO)
     for p in glob.glob(os.path.join(REPO, "xpretrain_tpu_torch", "**", "*.py"), recursive=True)
@@ -106,6 +116,31 @@ def test_source_imports_and_reads_nothing_of_jax(source):
 
 def test_every_port_module_is_scanned():
     assert len(SOURCES) > 40 and "xpretrain_tpu_torch/train/evaluate.py" in SOURCES
+
+
+def _imported_modules(tree: ast.AST) -> list[str]:
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module or "")
+        elif isinstance(node, ast.Call) and getattr(node.func, "id", getattr(node.func, "attr", "")) in (
+            "import_module", "__import__", "importorskip"
+        ):
+            names += [str(a.value) for a in node.args if isinstance(a, ast.Constant)]
+    return names
+
+
+@pytest.mark.parametrize("source", SOURCES)
+def test_source_imports_nothing_the_card_lacks(source):
+    """No cv2 and no safetensors: the checkpoint readers read safetensors
+    themselves, the Swin inflation resizes with torch."""
+    with open(os.path.join(REPO, source)) as f:
+        found = [m for m in _imported_modules(ast.parse(f.read())) if m.split(".")[0] in NOT_ON_THE_CARD]
+    if source in CV2_HOST_LAYER:
+        found = [m for m in found if m != "cv2"]
+    assert found == [], f"{source}: {found}"
 
 
 # -- 2. a process in which the JAX package cannot be imported ----------------
@@ -198,6 +233,61 @@ def test_training_runners_run_where_the_jax_package_cannot_be_imported(tmp_path)
             assert json.load(f)["n"] == 4
 
 
+def test_pretraining_runner_runs_without_jax_cv2_or_safetensors(tmp_path):
+    """``run_pretrain_clipvip`` trains 2 steps from a ``--clip_weights`` file
+    it wrote with the port, and ``run_pretrain_lfvila`` a step from a 2-D
+    ``--swin_weight`` it inflates, in a process whose imports of
+    ``xpretrain_tpu``, ``jax``, ``flax``, ``cv2`` and ``safetensors`` raise."""
+    rng = np.random.default_rng(0)
+    swin2d = {"patch_embed.proj.weight": rng.normal(size=(32, 3, 4, 4)), "norm.weight": rng.normal(size=256)}
+    for i, (depth, heads) in enumerate(((1, 2), (1, 2), (4, 4), (1, 4))):
+        for b in range(depth):
+            swin2d[f"layers.{i}.blocks.{b}.attn.relative_position_bias_table"] = rng.normal(size=(169, heads))
+            swin2d[f"layers.{i}.blocks.{b}.attn.qkv.weight"] = rng.normal(size=(96 * 2**i, 32 * 2**i))
+    torch.save({"model": {k: torch.from_numpy(v.astype(np.float32)) for k, v in swin2d.items()}},
+               str(tmp_path / "swin.pt"))
+    tiny = dict(LFVILA_TINY, final_num_patches=1, video_encoder=dict(LFVILA_TINY["video_encoder"],
+                                                                     use_pallas_attention=False))
+    cfg = tmp_path / "lfvila.json"
+    cfg.write_text(json.dumps(tiny))
+    clipvip = ["--dummy_data", "1", "--clip_size", "tiny", "--num_frm", "2", "--crop_img_size", "32",
+               "--train_batch_size", "4", "--num_train_steps", "2", "--log_steps", "1", "--bf16", "0",
+               "--device", "cpu", "--clip_weights", str(tmp_path / "clip.pt"), "--output_dir", str(tmp_path / "vip")]
+    lfvila = ["--config", str(cfg), "--dummy_data", "1", "--input_hw", "96", "160", "--train_batch_size", "2",
+              "--max_txt_len", "8", "--bf16", "0", "--device", "cpu", "--save_steps", "100", "--stage", "1",
+              "--num_train_steps", "1", "--swin_weight", str(tmp_path / "swin.pt"),
+              "--output_dir", str(tmp_path / "lfvila")]
+    refused = BANNED + NOT_ON_THE_CARD
+    code = _BLOCKER.replace(repr(BANNED), repr(refused)) + (
+        "import torch\n"
+        "from xpretrain_tpu_torch.cli import run_pretrain_clipvip, run_pretrain_lfvila\n"
+        "from xpretrain_tpu_torch.models.clip_vip.convert import torch_clip_state_dict\n"
+        "from xpretrain_tpu_torch.models.clip_vip.model import CLIPVipConfig, CLIPViPModel\n"
+        "model = CLIPViPModel(CLIPVipConfig.tiny_debug(image_size=32)).init_weights(torch.Generator().manual_seed(1))\n"
+        f"torch.save({{'module.clipmodel.' + k: v for k, v in torch_clip_state_dict(model).items()}}, "
+        f"{str(tmp_path / 'clip.pt')!r})\n"
+        "seen, load = [], run_pretrain_lfvila.load_lfvila_cascade\n"
+        "def record(model, **kw):\n"
+        "    load(model, **kw)\n"
+        "    seen.append(model.video_encoder.layers_2_blocks_1.attn.relative_position_bias_table.detach().clone())\n"
+        "run_pretrain_lfvila.load_lfvila_cascade = record\n"
+        f"a = run_pretrain_clipvip.main({clipvip!r})\n"
+        f"b = run_pretrain_lfvila.main({lfvila!r})\n"
+        "print(a.step, b.step, tuple(seen[0].shape), torch.equal(seen[0][:45], seen[0][45:90]))\n"
+        f"print(sorted(m for m in sys.modules if m.split('.')[0] in {refused!r}))\n"
+    )
+    env = {**os.environ, "OMP_NUM_THREADS": "1"}  # as above
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    lines = proc.stdout.strip().splitlines()
+    # stage 2's (8, 3, 5) window: its 5 x 9 spatial table inflated, tiled 15 times over time
+    assert lines[-2:] == ["2 1 (675, 4) True", "[]"]
+    with open(tmp_path / "vip" / "log" / "scalars.jsonl") as f:
+        losses = [row["value"] for row in map(json.loads, f) if row["tag"] == "train/loss"]
+    assert len(losses) == 2 and all(np.isfinite(losses))
+
+
 # -- 3. the copies hold against the JAX originals ----------------------------
 
 
@@ -234,6 +324,19 @@ def test_port_preset_copy_is_the_jax_preset():
         got = json.load(f)
     with open(os.path.join(REPO, "xpretrain_tpu", "configs", "presets", "msrvtt_retrieval_vip_base_32.json")) as f:
         assert got == json.load(f)
+
+
+def test_pretrain_preset_copy_parses_like_the_jax_preset():
+    """The port's JSON copy of the CLIP-ViP pretraining preset is the JAX
+    preset, and parses to the same config through either package."""
+    mine = os.path.join(REPO, "xpretrain_tpu_torch", "configs", "pretrain_vip_base_32.json")
+    theirs = os.path.join(REPO, "xpretrain_tpu", "configs", "presets", "pretrain_vip_base_32.json")
+    with open(mine) as f, open(theirs) as g:
+        assert json.load(f) == json.load(g)
+    got = _parse(shared_args, config, ["--config", mine, "--seed", "3"])
+    want = _parse(jax_shared_args, jax_config, ["--config", theirs, "--seed", "3"])
+    got.pop("config"), want.pop("config")  # the two files' paths
+    assert got.to_dict() == want.to_dict() and got.loss_name == "NCELearnableTempLoss_vsc_fc"
 
 
 def test_yaml_config_loads_the_same():
@@ -371,6 +474,27 @@ def test_transforms_and_samplers_match_jax():
         for g, w in zip(sample_frames.multi_clip_sample([40, 7, 90], 32, np.random.default_rng(3), test_mode),
                         jax_sample_frames.multi_clip_sample([40, 7, 90], 32, np.random.default_rng(3), test_mode)):
             np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("interpolation", ["bilinear", "bicubic"])
+def test_resize_without_cv2_stays_within_one_of_cv2(monkeypatch, interpolation):
+    """Where cv2 is not installed (the card's machine) the port resizes with
+    ``F.interpolate``: within 1 of cv2's uint8 result (cv2 rounds 11-bit
+    fixed-point weights), down and up; the JAX copy's fallback, nearest
+    neighbour, is further off."""
+    pytest.importorskip("cv2")
+    rng = np.random.default_rng(9)
+    frames = rng.integers(0, 256, size=(2, 50, 70, 3), dtype=np.uint8)
+    for size in ((32, 45), (61, 83), (35, 52)):
+        want = transforms.resize(frames, size, interpolation).astype(np.int32)
+        with monkeypatch.context() as m:
+            m.setattr(transforms, "_HAS_CV2", False)
+            m.setattr(jax_transforms, "_HAS_CV2", False)
+            got = transforms.resize(frames, size, interpolation)
+            nearest = jax_transforms.resize(frames, size, interpolation).astype(np.int32)
+        assert got.dtype == np.uint8 and got.shape == want.shape
+        assert np.abs(got.astype(np.int32) - want).max() <= 1, size
+        assert np.abs(nearest - want).max() > 1, size
 
 
 @pytest.mark.parametrize("num_workers", [0, 2])
@@ -532,3 +656,67 @@ def test_lfvila_task_runner_batches_match_jax(task):
             g, w = collate([got_ds[i], got_ds[i + 1]]), jcollate([want_ds[i], want_ds[i + 1]])
             assert sorted(g) == sorted(w) and set(keys) <= set(g)
             _assert_batches_equal(g, w)
+
+
+def _pretrain_items(n, with_image=True):
+    rng = np.random.default_rng(2)
+    items = []
+    for i in range(n):
+        item = {"video": rng.normal(size=(2, 3, 8, 8)), "text": f"a cat {i} runs " * (i + 1)}
+        if i % 2:
+            item["frames_transformed"] = rng.normal(size=(2, 3, 8, 8)).astype(np.float16)
+        if with_image:
+            item["image"] = rng.normal(size=(1, 3, 8, 8))
+            item["caption"] = "the dog" if i % 2 else ""
+        items.append(item)
+    return items
+
+
+@pytest.mark.parametrize("with_image", [False, True])
+@pytest.mark.parametrize("mlm", [False, True])
+def test_pretrain_collator_copy_matches_jax(with_image, mlm):
+    """``PretrainCollator``: the fp32 cast of video and image (from fp64 and
+    fp16), ``frames_transformed`` over ``video``, the [B, 1, L] captions and
+    the MLM draw of a seeded generator across calls."""
+    def run(ds_mod, tok_mod):
+        collate = ds_mod.PretrainCollator(tok_mod.HashTokenizer(30522), max_txt_len=9, mlm=mlm, mlm_prob=0.4,
+                                          seed=5)
+        items = _pretrain_items(5, with_image)
+        return [collate(items[:3]), collate(items[2:])]
+
+    for g, w in zip(run(datasets, tokenization), run(jax_datasets, jax_tokenization)):
+        assert sorted(g) == sorted(w)
+        _assert_batches_equal(g, w)
+        assert ("caption_ids" in g) == with_image and ("mlm_labels" in g) == mlm
+
+
+def test_meta_loader_copy_matches_jax():
+    """``MetaLoader`` over a plain loader and an ``InfiniteIterator``: the
+    seeded task draws and the batches, across epochs; no loader raises."""
+    def run(mod):
+        meta = mod.MetaLoader({"x": ([np.arange(2), np.arange(3)], 1),
+                               "y": (mod.InfiniteIterator(mod.BatchLoader(list(range(7)), 3, np.asarray, seed=2)), 4)},
+                              seed=6)
+        return [next(meta) for _ in range(30)]
+
+    got, want = run(loader), run(jax_loader)
+    assert [t for t, _ in got] == [t for t, _ in want]
+    for (_, g), (_, w) in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    for mod in (loader, jax_loader):
+        with pytest.raises(ValueError, match="empty"):
+            mod.MetaLoader({})
+
+
+@pytest.mark.parametrize("kind,path", [("hash", "w.pt"), ("hash", ""), ("wordpiece", "w.pt")])
+def test_hash_tokenizer_warning_matches_jax(caplog, kind, path):
+    """``warn_if_hash_with_weights`` warns exactly when the hash tokenizer
+    meets a weights file, with the JAX package's message."""
+    messages = []
+    for mod in (tokenization, jax_tokenization):
+        caplog.clear()
+        with caplog.at_level("WARNING"):
+            mod.warn_if_hash_with_weights(kind, path, vocab_name="CLIP BPE", hint="--tokenizer clip_bpe")
+        messages.append([r.getMessage() for r in caplog.records if r.levelname == "WARNING"])
+    assert messages[0] == messages[1]
+    assert len(messages[0]) == (kind == "hash" and bool(path))

@@ -250,19 +250,22 @@ def test_runner_writes_a_finite_final_report(tmp_path, monkeypatch, steps):
 
 
 @pytest.mark.parametrize(
-    "extra,match",
-    [(["--task", "qa_mc", "--model_weight", "lfvila.pt"], "ROADMAP"),
-     (["--task", "qa_cls", "--model_weight", "lfvila.pt"], "ROADMAP"),
-     (["--task", "video_cls", "--model_weight", "lfvila.pt"], "ROADMAP"),
-     (["--model_weight", "lfvila.pt"], "ROADMAP"), (["--gradient_checkpointing", "1", "--cp", "2"], "ROADMAP"),
-     (["--cp", "2"], "ROADMAP")],
+    "extra,error,match",
+    [(["--task", "qa_mc", "--model_weight", "lfvila.pt"], FileNotFoundError, "lfvila.pt"),
+     (["--task", "qa_cls", "--model_weight", "lfvila.pt"], FileNotFoundError, "lfvila.pt"),
+     (["--task", "video_cls", "--model_weight", "lfvila.pt"], FileNotFoundError, "lfvila.pt"),
+     (["--model_weight", "lfvila.pt"], FileNotFoundError, "lfvila.pt"),
+     (["--gradient_checkpointing", "1", "--cp", "2"], NotImplementedError, "ROADMAP"),
+     (["--cp", "2"], NotImplementedError, "ROADMAP")],
     ids=["qa_mc", "qa_cls", "video_cls", "model_weight", "remat", "context_parallel"],
 )
-def test_runner_raises_on_what_is_not_ported(tmp_path, extra, match):
-    """Loading torch checkpoints, for every task, and context parallelism,
-    with or without remat, raise; the tasks and remat themselves run
-    (``tests/test_torch_lfvila_tasks.py``, ``tests/test_torch_lfvila_pretrain.py``)."""
-    with pytest.raises(NotImplementedError, match=match):
+def test_runner_raises_on_what_is_not_ported(tmp_path, extra, error, match):
+    """Context parallelism, with or without remat, raises; the tasks and remat
+    themselves run (``tests/test_torch_lfvila_tasks.py``,
+    ``tests/test_torch_lfvila_pretrain.py``). ``--model_weight`` loads a torch
+    checkpoint for every task (``tests/test_torch_pretrained_loading.py``):
+    one that is not there raises instead of leaving the random init."""
+    with pytest.raises(error, match=match):
         run_tasks_lfvila.main(_runner_args(tmp_path, 0, *extra))
 
 

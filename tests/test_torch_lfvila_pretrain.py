@@ -391,5 +391,8 @@ def test_runner_feeds_uint8_frames_by_default(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("flag", run_pretrain_lfvila.WEIGHT_FLAGS)
 def test_runner_raises_on_checkpoint_flags(tmp_path, flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """Each weight flag loads its torch checkpoint
+    (``tests/test_torch_pretrained_loading.py``); a file that is not there
+    raises instead of leaving the random init."""
+    with pytest.raises(FileNotFoundError, match="w.pt"):
         run_pretrain_lfvila.main(_runner_args(tmp_path, 1, 0, f"--{flag}", "w.pt"))

@@ -34,8 +34,7 @@ def test_eval_cli_reports_recall(tmp_path, ingest):
 
 def test_train_mode_not_ported(tmp_path):
     """The parts of --mode train not ported yet raise, each naming the ROADMAP."""
-    for extra in (["--clip_weights", "clip.pt"], ["--param_dtype", "bf16"], ["--steps_per_call", "2"],
-                  ["--async_checkpoint", "1"]):
+    for extra in (["--param_dtype", "bf16"], ["--steps_per_call", "2"], ["--async_checkpoint", "1"]):
         with pytest.raises(NotImplementedError):
             run_retrieval_clipvip.main(TRAIN + extra + ["--output_dir", str(tmp_path / extra[0][2:])])
 

@@ -171,10 +171,12 @@ def test_remat_gives_the_same_gradients(jax_run):
 
 
 def test_image_branch_raises(jax_run):
+    """The image branch needs its captions (the branch itself:
+    ``tests/test_torch_clipvip_pretrain.py``)."""
     model = _port_model(jax_run[0])
     b = _torch_batch(_batch(0))
-    with pytest.raises(NotImplementedError, match="pretraining"):
-        model(b["video"], b["text_input_ids"], b["text_input_mask"], image=b["video"])
+    with pytest.raises(ValueError, match="caption_ids"):
+        model(b["video"], b["text_input_ids"], b["text_input_mask"], image=b["video"][:, :1])
 
 
 @pytest.mark.parametrize(

@@ -3,9 +3,16 @@ of ``xpretrain_tpu/cli/run_pretrain_lfvila.py``).
 
 The runner surface of ``LF-VILA/src/run_pretrain.py:21-121`` +
 ``src/tools/trainer_pretrain.py``: a YAML/JSON config, the two-stage model
-(random weights from ``--seed``), global InfoNCE + MTC (stage 1) or MLM +
-VTM over the fusion tower with the stage-1 modules frozen by the config's
-``frozen_patterns`` (stage 2), trained through ``GenericTrainer``.
+(random weights from ``--seed``, then the WEIGHTS cascade below), global
+InfoNCE + MTC (stage 1) or MLM + VTM over the fusion tower with the stage-1
+modules frozen by the config's ``frozen_patterns`` (stage 2), trained
+through ``GenericTrainer``.
+
+- The WEIGHTS cascade (``load_lfvila_cascade``): ``--model_weight`` (a full
+  LF-VILA checkpoint) | ``--stage1_model_weight`` (after ``--bert_weight``)
+  | ``--swin_weight`` (a 2-D ImageNet Swin inflated to the model's 3-D
+  windows with ``--pretrained_2d 1``, the default) and ``--bert_weight``,
+  merged shape-tolerantly over the seeded init before the first step.
 
 - ``device_ingest`` defaults to 1 here: the host ships raw uint8 [N, H, W, 3]
   frames and ``PatchEmbed3D`` normalizes them on the device. (The JAX runner
@@ -14,9 +21,6 @@ VTM over the fusion tower with the stage-1 modules frozen by the config's
 - Stage 2's collator masks tokens for MLM.
 - The window kernel is not on this path: JAX never trains through it, and
   the kernel has no backward (the model raises on a gradient through it).
-- ``--model_weight``, ``--stage1_model_weight``, ``--swin_weight`` and
-  ``--bert_weight`` need the torch-checkpoint converter and raise until it is
-  ported (ROADMAP Queue 1).
 
 Usage (synthetic data, on the card; PyYAML is needed for a .yaml config, the
 port's .json copies work without):
@@ -35,11 +39,12 @@ from xpretrain_tpu_torch.config import parse_with_config
 from xpretrain_tpu_torch.data.datasets import FrameSource
 from xpretrain_tpu_torch.data.datasets_lfvila import LfVilaPretrainCollator, LfVilaPretrainDataset
 from xpretrain_tpu_torch.data.loader import BatchLoader, InfiniteIterator
-from xpretrain_tpu_torch.data.tokenization import build_model_tokenizer
+from xpretrain_tpu_torch.data.tokenization import build_model_tokenizer, warn_if_hash_with_weights
 from xpretrain_tpu_torch.models.bert import BertConfig
 from xpretrain_tpu_torch.models.lf_vila.convert import flax_param_paths
 from xpretrain_tpu_torch.models.lf_vila.pretrain import LfVilaConfig, LfVilaPretrain
 from xpretrain_tpu_torch.models.lf_vila.swin3d import Swin3DConfig
+from xpretrain_tpu_torch.models.pretrained import load_lfvila_cascade
 from xpretrain_tpu_torch.optim.optimizer import NO_DECAY_LFVILA
 from xpretrain_tpu_torch.train.checkpoints import save_training_meta
 from xpretrain_tpu_torch.train.generic_trainer import GenericTrainer
@@ -139,6 +144,24 @@ def build_loader(cfg, tokenizer, stage: int) -> InfiniteIterator:
     return InfiniteIterator(BatchLoader(ds, cfg.train_batch_size, collate, seed=cfg.seed))
 
 
+def load_weights(cfg, model, swin_config: Swin3DConfig) -> None:
+    """The WEIGHTS cascade of the config's weight flags into ``model``, in
+    place (nothing without them)."""
+    paths = [cfg.get(k) for k in WEIGHT_FLAGS if cfg.get(k)]
+    if not paths:
+        return
+    warn_if_hash_with_weights(cfg.get("tokenizer", "hash"), paths[0])
+    load_lfvila_cascade(
+        model,
+        model_weight=cfg.get("model_weight", ""),
+        stage1_model_weight=cfg.get("stage1_model_weight", ""),
+        swin_weight=cfg.get("swin_weight", ""),
+        bert_weight=cfg.get("bert_weight", ""),
+        pretrained_2d=bool(cfg.get("pretrained_2d", 1)),
+        swin_config=swin_config,
+    )
+
+
 def main(argv=None):
     parser = build_shared_parser("LF-VILA pretraining (PyTorch)")
     parser.add_argument("--stage", type=int, default=1, choices=[1, 2])
@@ -149,16 +172,13 @@ def main(argv=None):
     parser.add_argument("--model_weight", type=str, default="",
                         help="full LFVILA torch checkpoint (converted+merged)")
     parser.add_argument("--stage1_model_weight", type=str, default="")
-    parser.add_argument("--swin_weight", type=str, default="", help="Swin torch checkpoint")
+    parser.add_argument("--swin_weight", type=str, default="",
+                        help="Swin torch checkpoint; 2-D inflated when --pretrained_2d")
     parser.add_argument("--bert_weight", type=str, default="")
+    parser.add_argument("--pretrained_2d", type=int, default=1)
     parser.add_argument("--device", type=str, default="cuda", help="torch device: cuda, cuda:N or cpu")
     parser.set_defaults(device_ingest=1)
     cfg = reroot_data_paths(parse_with_config(parser, argv))
-    if any(cfg.get(k) for k in WEIGHT_FLAGS):
-        raise NotImplementedError(
-            "loading LF-VILA torch checkpoints (--model_weight and its cascade) needs the checkpoint "
-            "converter, which is not ported yet (ROADMAP Queue 1)"
-        )
     setup_logging(cfg.output_dir, 0)
     save_training_meta(cfg.output_dir, cfg)
     device = resolve_device(cfg.device)
@@ -168,6 +188,7 @@ def main(argv=None):
     loader = build_loader(cfg, tokenizer, model_cfg.stage)
     model = LfVilaPretrain(model_cfg, device=device)
     model.init_weights(torch.Generator(device=device).manual_seed(int(cfg.seed)))
+    load_weights(cfg, model, model_cfg.video)
 
     def apply_fn(m, batch, generator):
         # stage 1 draws the MTC clips from the step's generator (JAX: its rng)

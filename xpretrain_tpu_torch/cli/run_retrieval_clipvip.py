@@ -7,6 +7,8 @@ given, as the JAX runner does), validating at start and every
 ``--valid_steps``, and writes ``final_report.json``; ``--mode eval`` ranks
 text -> video with the model as built and writes ``eval_report.json`` (both
 through ``xpretrain_tpu_torch.train.evaluate.evaluate_retrieval``).
+``--clip_weights`` / ``--e2e_weights_path`` (a torch CLIP or CLIP-ViP
+checkpoint) load over the seeded init before either mode runs.
 
 Usage (synthetic ingest, the MSR-VTT B/32 fine-tune preset, on the card):
     python -m xpretrain_tpu_torch.cli.run_retrieval_clipvip --dummy_data 1 \
@@ -27,8 +29,9 @@ from xpretrain_tpu_torch.data.datasets import (
     VideoRetrievalDataset,
 )
 from xpretrain_tpu_torch.data.loader import BatchLoader, InfiniteIterator, SequentialEvalLoader
-from xpretrain_tpu_torch.data.tokenization import build_tokenizer
+from xpretrain_tpu_torch.data.tokenization import build_tokenizer, warn_if_hash_with_weights
 from xpretrain_tpu_torch.data.transforms import clip_resize_crop_u8, clip_transform
+from xpretrain_tpu_torch.models.clip_vip.convert import load_torch_checkpoint, merge_pretrained
 from xpretrain_tpu_torch.models.clip_vip.model import CLIPViPModel
 from xpretrain_tpu_torch.parallel.train_step import make_eval_step
 from xpretrain_tpu_torch.train.checkpoints import save_training_meta
@@ -117,19 +120,32 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
-def check_no_weight_files(cfg) -> None:
-    """--clip_weights / --e2e_weights_path raise until the port loads them."""
-    if cfg.get("clip_weights") or cfg.get("e2e_weights_path"):
-        raise NotImplementedError(
-            "loading torch CLIP checkpoints into the port comes later (ROADMAP Queue 1)"
-        )
+def load_pretrained(cfg, model: CLIPViPModel) -> None:
+    """Merge ``--e2e_weights_path`` (or else ``--clip_weights``), a torch CLIP
+    / CLIP-ViP checkpoint, into ``model``'s parameters in place
+    (``merge_pretrained``: shape-tolerant, a temporal embedding of another
+    length interpolated). A trainer's model takes them before the optimizer's
+    first step; a checkpoint that ``train()`` resumes from still wins, as in
+    JAX."""
+    path = cfg.get("e2e_weights_path") or cfg.get("clip_weights")
+    if not path:
+        return
+    warn_if_hash_with_weights(
+        cfg.get("tokenizer", "hash"), path, vocab_name="CLIP BPE",
+        hint="--tokenizer clip_bpe --tokenizer_vocab <vocab.json> --tokenizer_merges <merges.txt>",
+    )
+    merge_pretrained(model, load_torch_checkpoint(path))
+    LOGGER.info("loaded pretrained weights from %s", path)
 
 
 def build_model(cfg, device: torch.device) -> CLIPViPModel:
-    """The CLIP-ViP model on ``device``, random weights from ``--seed``."""
+    """The CLIP-ViP model on ``device``: random weights from ``--seed``, then
+    the pretrained ones of ``load_pretrained``."""
     model = CLIPViPModel(clip_vip_config_from(cfg), device=device)
     generator = torch.Generator(device=device).manual_seed(int(cfg.seed))
-    return model.init_weights(generator).eval()
+    model.init_weights(generator)
+    load_pretrained(cfg, model)
+    return model.eval()
 
 
 def main(argv=None):
@@ -142,7 +158,6 @@ def main(argv=None):
     setup_logging(cfg.output_dir, 0)
     save_training_meta(cfg.output_dir, cfg)
     device = resolve_device(cfg.device)
-    check_no_weight_files(cfg)
     feats_path = cfg.get("save_feats") or None
 
     train_loader, val_loader, valid_len = build_loaders(cfg)
@@ -157,6 +172,7 @@ def main(argv=None):
         return report
     # without --train_annotation the val split is the train split, as in JAX
     trainer = ClipVipTrainer(cfg, train_loader or val_loader, val_loader, valid_len, device=device)
+    load_pretrained(cfg, trainer.model)
     LOGGER.info("train on %s: %d steps, batch %d", device, trainer.num_train_steps, cfg.train_batch_size)
     trainer.train()
     report = trainer.validate(save_feats_path=feats_path)

@@ -15,8 +15,8 @@ true`` in the config routes the window attention of stages whose window
 holds at least ``pallas_min_window`` tokens through the hand-written CUDA
 kernel; it has no backward, so on the card that config evaluates only.
 
-``--model_weight`` needs the torch-checkpoint converter and raises until it
-is ported (ROADMAP Queue 1).
+``--model_weight`` (a reference LF-VILA checkpoint) merges over the seeded
+init shape-tolerantly; the task heads keep their init.
 
 Usage (synthetic data, the stage-1 preset's model, on the card; PyYAML is
 needed for a .yaml config, a .json copy of it works without):
@@ -54,7 +54,7 @@ from xpretrain_tpu_torch.data.datasets_lfvila_tasks import (
     ViolinDataset,
 )
 from xpretrain_tpu_torch.data.loader import BatchLoader, InfiniteIterator, SequentialEvalLoader
-from xpretrain_tpu_torch.data.tokenization import build_model_tokenizer
+from xpretrain_tpu_torch.data.tokenization import build_model_tokenizer, warn_if_hash_with_weights
 from xpretrain_tpu_torch.models.lf_vila.convert import flax_param_paths
 from xpretrain_tpu_torch.models.lf_vila.tasks import (
     LfVilaQAClassification,
@@ -62,6 +62,7 @@ from xpretrain_tpu_torch.models.lf_vila.tasks import (
     LfVilaRetrieval,
     LfVilaVideoClassification,
 )
+from xpretrain_tpu_torch.models.pretrained import load_lfvila_cascade
 from xpretrain_tpu_torch.optim.optimizer import NO_DECAY_LFVILA
 from xpretrain_tpu_torch.parallel.train_step import LFVILA_EVAL_IO, batch_to_device, make_eval_step
 from xpretrain_tpu_torch.train.checkpoints import save_training_meta
@@ -197,7 +198,8 @@ def main(argv=None):
                         help="how2qa temporal span loss (ref how2_qa.yaml:72)")
     parser.add_argument("--span_loss_weight", type=float, default=1.0)
     parser.add_argument("--model_weight", type=str, default="",
-                        help="pretrained LFVILA torch checkpoint to fine-tune from")
+                        help="pretrained LFVILA torch checkpoint to fine-tune from "
+                             "(shape-tolerant; task heads keep their init)")
     parser.add_argument("--device", type=str, default="cuda", help="torch device: cuda, cuda:N or cpu")
     # qa_mc stacks 2 + max_num_subtitle rows of max_txt_len tokens into one
     # paragraph of 512 sentence positions: its default is 50 (the JAX
@@ -206,10 +208,6 @@ def main(argv=None):
     cfg = reroot_data_paths(parse_with_config(parser, argv))
     if cfg.max_txt_len is None:
         cfg.max_txt_len = 50 if cfg.task == "qa_mc" else 70
-    if cfg.get("model_weight"):
-        raise NotImplementedError(
-            "loading LF-VILA torch checkpoints into the port comes later (ROADMAP Queue 1)"
-        )
     setup_logging(cfg.output_dir, 0)
     save_training_meta(cfg.output_dir, cfg)
     device = resolve_device(cfg.device)
@@ -225,6 +223,11 @@ def main(argv=None):
         train_loader = InfiniteIterator(BatchLoader(train_ds, cfg.train_batch_size, collate, seed=cfg.seed))
         val_loader = SequentialEvalLoader(val_ds, cfg.val_batch_size, collate)
     model.init_weights(torch.Generator(device=device).manual_seed(int(cfg.seed)))
+    if cfg.get("model_weight"):
+        # the task models share video_encoder/text_encoder/projection names
+        # with the pretraining model, so the full-checkpoint converter merges
+        warn_if_hash_with_weights(cfg.get("tokenizer", "hash"), cfg["model_weight"])
+        load_lfvila_cascade(model, model_weight=cfg["model_weight"])
 
     def apply_fn(m, batch, generator):
         kwargs = {} if cfg.task == "retrieval" else {"labels": batch["labels"]}

@@ -20,6 +20,7 @@ from typing import Any, Callable, Sequence
 import numpy as np
 
 from xpretrain_tpu_torch.data.sample_frames import uniform_sample_with_jitter
+from xpretrain_tpu_torch.data.tokenization import mask_batch_text_tokens
 from xpretrain_tpu_torch.data.transforms import clip_resize_crop_u8, clip_transform
 from xpretrain_tpu_torch.utils.basic import load_json, load_jsonl
 from xpretrain_tpu_torch.utils.logging import LOGGER
@@ -210,3 +211,50 @@ class RetrievalCollator:
             "text_input_mask": mask,
             "ids": np.asarray([it["id"] for it in items], dtype=np.int64),
         }
+
+
+class PretrainCollator:
+    """Subtitle + caption dual-text collation with optional image branch and
+    MLM labels (ref ``PretrainCollator`` in both CLIP-ViP and hd-vila).
+
+    Video goes out as fp32 [B, T, C, H, W] (pretraining does not take the
+    uint8 device-ingest frames); with an image branch, ``image`` is fp32
+    [B, 1, C, H, W] and ``caption_ids`` / ``caption_masks`` are [B, 1, L]."""
+
+    def __init__(
+        self,
+        tokenizer,
+        max_txt_len: int = 70,
+        mlm: bool = False,
+        mlm_prob: float = 0.15,
+        seed: int = 0,
+    ):
+        self.tokenizer = tokenizer
+        self.max_txt_len = max_txt_len
+        self.mlm = mlm
+        self.mlm_prob = mlm_prob
+        self.rng = np.random.default_rng(seed)
+
+    def __call__(self, items: Sequence[dict]) -> dict[str, np.ndarray]:
+        batch: dict[str, np.ndarray] = {}
+        batch["video"] = np.stack(
+            [it["frames_transformed"] if "frames_transformed" in it else it["video"] for it in items]
+        ).astype(np.float32)
+        ids, mask = self.tokenizer([it["text"] for it in items], self.max_txt_len)
+        batch["text_input_ids"], batch["text_input_mask"] = ids, mask
+        if "image" in items[0]:
+            batch["image"] = np.stack([it["image"] for it in items]).astype(np.float32)
+            cap_ids, cap_mask = self.tokenizer([it["caption"] for it in items], self.max_txt_len)
+            batch["caption_ids"] = cap_ids[:, None]
+            batch["caption_masks"] = cap_mask[:, None]
+        if self.mlm:
+            masked, labels = mask_batch_text_tokens(
+                ids,
+                getattr(self.tokenizer, "mask_id", 1),
+                getattr(self.tokenizer, "vocab_size", 49408),
+                self.rng,
+                self.mlm_prob,
+                special_ids=(0, getattr(self.tokenizer, "cls_id", -1), getattr(self.tokenizer, "sep_id", -1)),
+            )
+            batch["mlm_input_ids"], batch["mlm_labels"] = masked, labels
+        return batch

@@ -10,11 +10,13 @@
   ``run_video_retrieval.py:152-153``).
 - :class:`InfiniteIterator` — epoch-incrementing wrapper
   (ref ``dataloader.py:160-177``).
+- :class:`MetaLoader` — ratio-weighted multi-task draw
+  (ref ``dataloader.py:15-62``).
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Iterator, Sequence
+from typing import Any, Callable, Iterator, Mapping, Sequence
 
 import numpy as np
 
@@ -192,3 +194,29 @@ class InfiniteIterator:
         close = getattr(self._it, "close", None)
         if close is not None:
             close()
+
+
+class MetaLoader:
+    """Ratio-weighted multi-task round-robin (ref ``dataloader.py:15-62``).
+
+    ``loaders`` maps name -> (loader, ratio). The per-step task sequence is
+    drawn from a generator seeded identically on every process, so all ranks
+    train the same task each step with zero communication.
+    """
+
+    def __init__(self, loaders: Mapping[str, tuple[Any, int]], seed: int = 0):
+        if not loaders:
+            raise ValueError("empty loaders")
+        self.names: list[str] = []
+        self.iters: dict[str, InfiniteIterator] = {}
+        for name, (loader, ratio) in loaders.items():
+            self.names.extend([name] * int(ratio))
+            self.iters[name] = loader if isinstance(loader, InfiniteIterator) else InfiniteIterator(loader)
+        self.rng = np.random.default_rng(seed)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self) -> tuple[str, Any]:
+        task = self.names[int(self.rng.integers(0, len(self.names)))]
+        return task, next(self.iters[task])

@@ -21,6 +21,7 @@ import gzip
 import hashlib
 import html
 import json
+import logging
 import os
 import re
 from typing import Iterable, Sequence
@@ -284,6 +285,28 @@ def build_model_tokenizer(kind: str, model_vocab_size: int, **kwargs):
     if kind == "hash":
         kwargs.setdefault("vocab_size", int(model_vocab_size))
     return build_tokenizer(kind, **kwargs)
+
+
+def warn_if_hash_with_weights(
+    kind: str,
+    weights_path: str,
+    vocab_name: str = "WordPiece",
+    hint: str = "--tokenizer wordpiece --tokenizer_vocab <vocab.txt>",
+) -> None:
+    """Loud (not fatal) warning when the synthetic hash tokenizer feeds a
+    model restored from real pretrained weights: hashed ids never match the
+    vocabulary the checkpoint was trained with, so text embeddings are
+    garbage-in and any quality number is meaningless. Synthetic smoke runs
+    legitimately combine the two, hence warn rather than raise. ``hint`` is
+    the family's real-tokenizer flag incantation."""
+    if kind == "hash" and weights_path:
+        logging.getLogger(__name__).warning(
+            "tokenizer=hash combined with pretrained weights (%s): hashed "
+            "token ids do NOT match the %s vocabulary these weights were "
+            "trained with — eval quality will be meaningless. Pass %s "
+            "(tools/fetch_checkpoints.py downloads the assets).",
+            weights_path, vocab_name, hint,
+        )
 
 
 def mask_batch_text_tokens(

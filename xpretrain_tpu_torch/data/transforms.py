@@ -10,6 +10,12 @@ Frames flow as uint8 [T, H, W, C] until the final normalize, which emits
 fp32 [T, C, H, W] ready for device upload. With device ingest, the
 normalization folds into the patch-embedding GEMM on the device
 (``ops/patchify.py``) and the host ships uint8.
+
+Resizing runs ``cv2.resize`` where cv2 is installed, as the JAX copy does.
+Without cv2 (the card's machine) bilinear and bicubic resizes run
+``F.interpolate`` (half-pixel centres, no antialiasing, rounded to uint8),
+within 1 of cv2's uint8 result; the JAX copy falls back to
+nearest-neighbour indexing there.
 """
 
 from __future__ import annotations
@@ -38,6 +44,15 @@ def _resize_frame(frame: np.ndarray, out_hw: tuple[int, int], interpolation: str
             "area": cv2.INTER_AREA,
         }[interpolation]
         return cv2.resize(frame, (out_hw[1], out_hw[0]), interpolation=inter)
+    if interpolation in ("bilinear", "bicubic"):
+        import torch
+        import torch.nn.functional as F
+
+        x = torch.from_numpy(np.ascontiguousarray(frame)).float()
+        x = x[None, None] if x.ndim == 2 else x.permute(2, 0, 1)[None]
+        y = F.interpolate(x, size=tuple(out_hw), mode=interpolation, align_corners=False)
+        y = y.round_().clamp_(0, 255).to(torch.uint8)[0]
+        return (y[0] if frame.ndim == 2 else y.permute(1, 2, 0)).numpy()
     # numpy fallback: nearest-neighbor
     h, w = frame.shape[:2]
     ys = np.clip(((np.arange(out_hw[0]) + 0.5) * h / out_hw[0]).astype(int), 0, h - 1)

@@ -471,8 +471,8 @@ def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Te
 class CLIPViPModel(nn.Module):
     """Dual-tower video CLIP with proxy attention (the ``VidCLIP`` surface,
     ref ``VidCLIP.py:32-81``): normalized ``text_features`` /
-    ``vis_features`` plus ``logit_scale``. The pretraining image/caption
-    branch is not ported yet (ROADMAP Queue 1, pretraining)."""
+    ``vis_features`` plus ``logit_scale``, and with ``image`` the
+    pretraining branch's ``img_features`` / ``cap_features``."""
 
     def __init__(self, config: CLIPVipConfig, device=None):
         super().__init__()
@@ -548,16 +548,29 @@ class CLIPViPModel(nn.Module):
         text_input_ids: torch.Tensor,
         text_input_mask: Optional[torch.Tensor] = None,
         image: Optional[torch.Tensor] = None,
+        caption_ids: Optional[torch.Tensor] = None,
+        caption_masks: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
     ) -> dict[str, torch.Tensor]:
-        """``generator`` feeds attention dropout in training mode."""
-        if image is not None:
-            raise NotImplementedError(
-                "the image/caption branch comes with pretraining (ROADMAP Queue 1)"
-            )
-        vis = self.forward_video(video, generator)  # video first, as the JAX model
+        """``generator`` feeds attention dropout in training mode.
+
+        The pretraining branch (``xpretrain_tpu/models/clip_vip/model.py:680-705``): ``image`` [B, n,
+        C, H, W] fp32 (or [B, n, H, W, 3] uint8) is encoded as B*n one-frame
+        clips, ``caption_ids`` / ``caption_masks`` [B, n, L] by the text
+        tower. The towers run in the JAX model's order: video, text, image,
+        caption (the order dropout draws from ``generator``)."""
+        vis = self.forward_video(video, generator)
         txt = self.forward_text(text_input_ids, text_input_mask, generator)
-        return {"text_features": txt, "vis_features": vis, "logit_scale": self.logit_scale}
+        results = {"text_features": txt, "vis_features": vis, "logit_scale": self.logit_scale}
+        if image is not None:
+            if caption_ids is None:
+                raise ValueError("the image branch needs caption_ids beside the image")
+            B, n = image.shape[:2]
+            L = caption_ids.shape[-1]
+            results["img_features"] = self.forward_video(image.reshape(B * n, 1, *image.shape[2:]), generator)
+            masks = None if caption_masks is None else caption_masks.reshape(-1, L)
+            results["cap_features"] = self.forward_text(caption_ids.reshape(-1, L), masks, generator)
+        return results
 
     def forward_video(
         self, pixel_values: torch.Tensor, generator: Optional[torch.Generator] = None

@@ -60,22 +60,22 @@ def synthetic_batch(batch: int, device: str, seed: int) -> dict:
     }
 
 
-def train_step_parts(model, lr: float):
-    """(step, state) of the port's train step for ``model``: NCE loss,
-    grouped AdamW at a constant ``lr``, clip 2.0, as the fine-tune preset."""
+def train_step_parts(model, lr: float, loss_name: str = "NCELearnableTempLoss"):
+    """(step, state) of the port's train step for ``model``: NCE loss (or
+    ``loss_name``), grouped AdamW at a constant ``lr``, clip 2.0, as the
+    fine-tune preset; the forward is ``ClipVipTrainer``'s, so a batch with
+    ``image`` also runs the pretraining image/caption branch."""
     from xpretrain_tpu_torch.models.clip_vip.convert import flax_param_paths
     from xpretrain_tpu_torch.ops.losses import build_loss_fn
     from xpretrain_tpu_torch.optim.optimizer import build_optimizer
     from xpretrain_tpu_torch.optim.schedules import get_schedule
     from xpretrain_tpu_torch.parallel.train_step import TrainState, make_train_step
+    from xpretrain_tpu_torch.train.trainer import ClipVipTrainer
 
     optimizer, _ = build_optimizer(dict(model.named_parameters()), get_schedule("constant", lr, 10),
                                    paths=flax_param_paths(model.config))
     device = next(model.parameters()).device
-    step = make_train_step(
-        lambda m, b, g: m(b["video"], b["text_input_ids"], b["text_input_mask"], generator=g),
-        build_loss_fn("NCELearnableTempLoss"), device,
-    )
+    step = make_train_step(ClipVipTrainer._apply_train, build_loss_fn(loss_name), device)
     return step, TrainState(step=0, model=model, optimizer=optimizer)
 
 

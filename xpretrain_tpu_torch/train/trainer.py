@@ -5,7 +5,10 @@ Model and optimizer set-up, resume, the train step, validation with
 best-model tracking, periodic checkpoints and scalar logging, as the JAX
 ``ClipVipTrainer``; validation at step 0 is kept as the end-to-end smoke
 test (ref ``run_pretrain.py:321-322``). Parameters come from ``--seed`` or
-from a JAX ``{"params": ...}`` tree (``load_jax_params``).
+from a JAX ``{"params": ...}`` tree (``load_jax_params``); the runners merge a
+torch checkpoint over them before ``train()`` (``load_pretrained``), and a
+checkpoint that ``train()`` resumes from wins over both. A batch with
+``image`` (pretraining) also runs the image/caption branch.
 """
 
 from __future__ import annotations
@@ -153,10 +156,13 @@ class ClipVipTrainer:
 
     @staticmethod
     def _apply_train(model: CLIPViPModel, batch: dict, generator: torch.Generator) -> dict:
-        return model(
-            batch["video"], batch["text_input_ids"], batch["text_input_mask"],
-            image=batch.get("image"), generator=generator,
-        )
+        """The forward of a train step; a pretraining batch (one with
+        ``image``) also runs the image/caption branch."""
+        kwargs = {}
+        if "image" in batch:
+            kwargs = {k: batch[k] for k in ("image", "caption_ids", "caption_masks")}
+        return model(batch["video"], batch["text_input_ids"], batch["text_input_mask"], generator=generator,
+                     **kwargs)
 
     # ---- loops ----------------------------------------------------------
 
