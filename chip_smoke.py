@@ -66,6 +66,20 @@ Phases, in order; any failure exits non-zero and prints no result:
    (``--bert_weight``, the 12 layers the stage-1 model holds): the BERT
    embeddings, the inflated patch embed and the tiled bias tables on the
    model before its first step, finite losses, step times in CUDA events;
+4j. run HD-VILA stage-1 pretraining (``run_pretrain_hdvila`` on the port's
+   JSON copy of the stage-1 preset: ResNet-50 x 2, TimeSformer 4 x 16 heads
+   at hidden 1024, BERT-large, 2 clips of 7 frames, middles at 640x1024 and
+   neighbours at 160x256, b=8, bf16, synthetic uint8 frames) for 4 steps:
+   finite ITC losses, step times in CUDA events, peak memory, host steps/s;
+   the trained model is written as a reference HDVILA checkpoint;
+4k. run stage 2 (the stage-2 preset: b=16, 2 micro-batches an update, MLM
+   under lse, pixel sampling at 160) from that checkpoint through
+   ``--e2e_weights_path``: the frozen stage-1 modules bit-identical to the
+   checkpoint after the steps, the others moved;
+4l. run ``run_retrieval_hdvila``: 3 ITC steps and R@K, then 2 steps of the
+   rerank head (``--loss_type rank``);
+4m. run ``run_video_qa_hdvila``: multiple choice and FrameQA, 2 steps each
+   with a validation, then ``--mode inference`` on the first run;
 5. serve a few requests through ``RetrievalTowers`` in fp32 and compare the
    card's features with the CPU's (plain path) for the same weights;
 5b. take one fp32 pretraining step of B/32 at batch 2 on the card (kernels)
@@ -76,6 +90,9 @@ Phases, in order; any failure exits non-zero and prints no result:
 5d. take one fp32 ``LfVilaPretrain`` train step per stage on the card and on
    the CPU (full widths, one block per Swin3D stage and one BERT layer per
    BERT stage, batch 2, explicit MTC clips) and compare, as 5b;
+5e. take one fp32 HD-VILA pretraining step per stage on the card and on the
+   CPU at the presets' widths and depth (batch 2 of one clip, dropout off):
+   the loss within 1e-5, stage 1's gradient norm within 1e-4 relative;
 6. time the forward kernel against the plain version, and the whole forward;
 6b. time the backward kernel (with the forward's LSE, and alone) against its
    plain version, forward and backward through autograd (kernels against the
@@ -92,14 +109,21 @@ Phases, in order; any failure exits non-zero and prints no result:
    its plain version and the model's off-gate path (``dot_attention`` with
    bias + mask as one additive mask); each kernel's device time alone
    (``torch.profiler``) over the calls it is timed on;
+6e. time the HD-VILA stage-1 bf16 train step at b=8 (windows of CUDA
+   events, device time by op class, its operations from
+   ``torch.utils.flop_counter`` against the bf16 dense peak) and the video
+   tower at b=8;
 7. print the kernel summary (each kernel's time in CUDA events and on the
    device, plain time, library time and the bound of its work at the card's
    peak rates) and, as the last line, the status JSON.
 
-Each main-path run (4, 4b, 4c, 4d, 4e, 4f, each run of 4g, 4h and 4i) sets every
-launch count to 0 just before it and reads the counts just after; the
-summary reports each path's count and their sum. While they run, a call of a
-plain version on CUDA tensors fails the phase.
+Each main-path run (4, 4b, 4c, 4d, 4e, 4f, each run of 4g, 4h, 4i and each
+run of 4j-4m) sets every launch count to 0 just before it and reads the
+counts just after; the summary reports each path's count and their sum.
+While they run, a call of a plain version on CUDA tensors fails the phase.
+HD-VILA runs none of the six kernels (JAX computes its convolutions,
+TimeSformer attention and BERT in XLA): its phases check that they launch
+none and that the encoder's inputs and parameters are on the card.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``
 (about 10 minutes on one H100, the kernels' build included).
@@ -212,6 +236,13 @@ PRETRAIN_CLIPVIP_STEPS = 6
 PROXY_LAYERS_PER_STEP = 2 * VIDEO_LAYERS  # the video clips' and the images' passes through the 12 layers
 # LF-VILA stage 1 from 2-D ImageNet Swin-B (4x4 patches, 7x7 windows) and BERT-large weights
 CASCADE = dict(batch=8, steps=4, bert_layers=12)
+# HD-VILA: the port's JSON copies of the two pretraining presets (ResNet-50 x 2, TimeSformer 4 x 16 heads at
+# hidden 1024, BERT-large, 2 clips of 7 frames: the middle at 640x1024, 6 neighbours at 160x256), bf16, synthetic
+HDVILA_PRESETS = {1: "xpretrain_tpu_torch/configs/hdvila_pretrain_stage1.json",
+                  2: "xpretrain_tpu_torch/configs/hdvila_pretrain_stage2.json"}
+HDVILA_STEPS = {1: 4, 2: 4}  # train-step calls; the first warms up; stage 2's preset accumulates 2 per update
+HDVILA_VAL_ROWS = 16  # synthetic captions / questions of the retrieval and QA evals (the runners' default: 64)
+HDVILA_TIMED_BATCH = 8  # phase 6e: the stage-1 preset's batch
 
 
 def fail(msg: str) -> None:
@@ -970,6 +1001,375 @@ def lfvila_cascade_phase(card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# HD-VILA (phases 4j-4m, 5e, 6e): no kernel of the six, convolutions on cuDNN
+# and GEMMs on cuBLAS
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def devices_seen(cls):
+    """While inside, every call of ``cls.forward`` records the device types of
+    its tensor arguments and of the module's parameters: yields that set."""
+    import torch
+
+    original = cls.forward
+    seen = set()
+
+    def forward(self, *args, **kwargs):
+        seen.update(a.device.type for a in (*args, *kwargs.values()) if isinstance(a, torch.Tensor))
+        seen.update(p.device.type for p in self.parameters())
+        return original(self, *args, **kwargs)
+
+    cls.forward = forward
+    try:
+        yield seen
+    finally:
+        cls.forward = original
+
+
+def hdvila_preset(stage: int) -> dict:
+    with open(os.path.join(REPO, HDVILA_PRESETS[stage])) as f:
+        return json.load(f)
+
+
+def hdvila_run(module, argv: list[str]):
+    """One HD-VILA runner run on the card: (its return value, launch counts,
+    ms of each train step in CUDA events, host seconds). Fails on a launch of
+    any of the six kernels, a call of a plain version on CUDA, or an encoder
+    input or parameter off the card."""
+    import torch
+    from xpretrain_tpu_torch.models.hd_vila.e2e import HdVilaEncoder
+
+    t0 = time.perf_counter()
+    with timed_train_steps() as events, plain_on_cuda_guard() as plain_cuda_calls, devices_seen(HdVilaEncoder) as seen:
+        reset_launches()
+        out = module.main([*argv, "--device", "cuda"])
+        torch.cuda.synchronize()
+        launches = launch_counts()
+    wall = time.perf_counter() - t0
+    check(launches == expected(), f"HD-VILA launched a kernel of the six: {launches}")
+    check(not plain_cuda_calls, f"the plain version ran on CUDA tensors: {plain_cuda_calls[:4]}")
+    check(seen == {"cuda"}, f"HD-VILA encoder inputs or parameters on {sorted(seen)}")
+    return out, launches, [a.elapsed_time(b) for a, b in events], wall
+
+
+def hdvila_train_report(name: str, out_dir: str, keys: tuple[str, ...], steps: int, ms: list[float], wall: float,
+                        batch: int, card: str) -> dict:
+    """Print and check a run's logged losses (finite, one per step), its step
+    times (the first warms up), peak memory and host steps/s."""
+    import torch
+    from xpretrain_tpu_torch.tools.profile_train_step import median
+
+    tags = scalars(out_dir)
+    for key in ("loss", "grad_norm") + keys:
+        values = tags.get(f"train/{key}", [])
+        print(f"  {name} {key} {[round(v, 5) for v in values]}")
+        check(len(values) == steps and all(math.isfinite(v) for v in values), f"{name}: {key} {values}")
+    check(len(ms) == steps and all(math.isfinite(x) for x in ms), f"{name}: step times {ms}")
+    timed = ms[1:]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    sps = tags["train/steps_per_s"]
+    print(f"  {name} train step b={batch}: median {median(timed):.4f} ms (min {min(timed):.4f}, max {max(timed):.4f}) "
+          f"over steps 2-{steps}; every step {[round(x, 2) for x in ms]} ms (CUDA events around each step, first = "
+          f"warm-up) [{card}]")
+    print(f"  {name}: peak device memory {peak:.2f} GiB (torch.cuda.max_memory_allocated); host steps/s "
+          f"{[round(x, 3) for x in sps]} (the trainer's log: synthetic 640x1024 decode on the host included); run "
+          f"wall {wall:.1f} s [{card}]")
+    return {"batch": batch, "step_ms": timed, "peak_gib": peak, "host_steps_per_s": sps}
+
+
+def hdvila_stage1_phase(card: str, ckpt_path: str) -> tuple[dict, dict]:
+    """Phase 4j: ``run_pretrain_hdvila --stage 1`` on the stage-1 preset at its
+    batch (8: 16 middle frames of 640x1024 and 96 neighbours of 160x256 a
+    step), ``HDVILA_STEPS[1]`` steps; writes the trained model as a reference
+    HDVILA checkpoint to ``ckpt_path`` for phase 4k. Returns (launch counts,
+    step times and peak memory)."""
+    import torch
+    from xpretrain_tpu_torch.cli import run_pretrain_hdvila
+    from xpretrain_tpu_torch.models.hd_vila.convert import hdvila_e2e_state_dict
+
+    steps, batch = HDVILA_STEPS[1], hdvila_preset(1)["train_batch_size"]
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as out_dir:
+        state, launches, ms, wall = hdvila_run(run_pretrain_hdvila, [
+            "--config", os.path.join(REPO, HDVILA_PRESETS[1]), "--stage", "1", "--dummy_data", "1",
+            "--num_train_steps", str(steps), "--log_steps", "1", "--save_steps", "1000", "--output_dir", out_dir])
+        print(f"  preset {HDVILA_PRESETS[1]}, batch {batch}; launches {launches} (expected none); every parameter on "
+              f"the card: {all(p.is_cuda for p in state.model.parameters())}")
+        check(all(p.is_cuda for p in state.model.parameters()), "4j: a parameter off the card")
+        report = hdvila_train_report("stage 1", out_dir, ("itc_loss",), steps, ms, wall, batch, card)
+    torch.save(hdvila_e2e_state_dict(state.model), ckpt_path)
+    print(f"  wrote the trained model as a reference HDVILA checkpoint ({os.path.getsize(ckpt_path) / 2**20:.0f} MiB)")
+    return launches, report
+
+
+def hdvila_stage2_phase(card: str, ckpt_path: str) -> tuple[dict, dict]:
+    """Phase 4k: ``run_pretrain_hdvila --stage 2`` on the stage-2 preset (batch
+    16, 2 micro-batches accumulated per update, MLM under lse, pixel sampling
+    at 160) from phase 4j's checkpoint through ``--e2e_weights_path``
+    (``load_hdvila_e2e`` on the card). The frozen stage-1 modules are the
+    checkpoint's, bit for bit, after the steps; the others moved."""
+    import torch
+    from xpretrain_tpu_torch.cli import run_pretrain_hdvila
+    from xpretrain_tpu_torch.models.hd_vila.convert import flax_param_paths, hdvila_e2e_state_dict
+
+    preset = hdvila_preset(2)
+    steps, batch, accum = HDVILA_STEPS[2], preset["train_batch_size"], preset["gradient_accumulation_steps"]
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as out_dir, snapshot_params() as snapshots, \
+            after_call(run_pretrain_hdvila, "load_hdvila_e2e") as loaded:
+        state, launches, ms, wall = hdvila_run(run_pretrain_hdvila, [
+            "--config", os.path.join(REPO, HDVILA_PRESETS[2]), "--stage", "2", "--dummy_data", "1",
+            "--num_train_steps", str(steps // accum), "--e2e_weights_path", ckpt_path, "--log_steps", "1",
+            "--save_steps", "1000", "--output_dir", out_dir])
+        print(f"  preset {HDVILA_PRESETS[2]}: batch {batch}, {accum} micro-batches per update, score_agg_func "
+              f"{preset['score_agg_func']}, pixel_random_sampling_size {preset['pixel_random_sampling_size']} (the "
+              f"640x1024 grid holds 10 x 16 = 160 tokens: all kept, as in JAX); launches {launches} (expected none)")
+        print(f"  load_hdvila_e2e (read, convert, merge into the model on the card): {loaded[0][1]:.2f} s")
+        report = hdvila_train_report("stage 2", out_dir, ("mlm_loss", "mlm_acc"), steps, ms, wall, batch, card)
+    start, paths = snapshots[0], flax_param_paths(state.model)
+    frozen_patterns = [p.lower() for p in preset["frozen_patterns"]]
+    moved = {True: [], False: []}
+    for name, p in state.model.named_parameters():
+        is_frozen = any(pattern in paths[name].lower() for pattern in frozen_patterns)
+        moved[is_frozen].append((name, not torch.equal(p, start[name])))
+    print(f"  frozen: {len(moved[True])} tensors, moved {sum(m for _, m in moved[True])}; trained: "
+          f"{len(moved[False])} tensors, moved {sum(m for _, m in moved[False])}; unmoved: "
+          f"{[n for n, m in moved[False] if not m]}")
+    check(moved[True] and not any(m for _, m in moved[True]), "4k: a frozen parameter moved")
+    # the preset turns ITM off (use_itm 0): pooler2 and seq_relationship feed
+    # only the ITM logits, so their biases have no gradient and no decay
+    itm_only = ("pooler2", "seq_relationship")
+    still = [n for n, m in moved[False] if not m]
+    check(moved[False] and not preset["use_itm"] and all(any(k in n for k in itm_only) for n in still),
+          f"4k: trained parameters that did not move: {still[:5]}")
+    # the frozen part is the stage-1 model of the checkpoint, bit for bit
+    ref = torch.load(ckpt_path, map_location="cpu")
+    now = hdvila_e2e_state_dict(state.model)
+    same = sum(torch.equal(now[key], value) for key, value in ref.items())
+    print(f"  the model after the steps against the stage-1 checkpoint: {same} of its {len(ref)} tensors bit-equal")
+    check(same == len(ref), "4k: the frozen modules are not the stage-1 checkpoint's")
+    return launches, report
+
+
+def hdvila_retrieval_phase(card: str) -> dict:
+    """Phase 4l: ``run_retrieval_hdvila`` on the stage-1 preset's model:
+    ``--mode train`` (ITC, 3 steps at batch 8, then R@K over
+    ``HDVILA_VAL_ROWS`` synthetic captions), then ``--loss_type rank`` (2
+    steps of the fusion rerank head at batch 4, 3 rolled negatives).
+    Returns each run's launch counts."""
+    from xpretrain_tpu_torch.cli import run_retrieval_hdvila
+
+    launches = {}
+    preset = os.path.join(REPO, HDVILA_PRESETS[1])
+    rows, run_retrieval_hdvila.DUMMY_VAL_ROWS = run_retrieval_hdvila.DUMMY_VAL_ROWS, HDVILA_VAL_ROWS
+    try:
+        for name, args, steps in (("itc", ["--num_train_steps", "3"], 3),
+                                  ("rank", ["--loss_type", "rank", "--train_batch_size", "4", "--num_train_steps",
+                                            "2"], 2)):
+            with tempfile.TemporaryDirectory() as out_dir:
+                report, launches[name], ms, wall = hdvila_run(run_retrieval_hdvila, [
+                    "--config", preset, "--dummy_data", "1", *args, "--val_batch_size", "8", "--valid_steps", "1000",
+                    "--log_steps", "1", "--save_steps", "1000", "--output_dir", out_dir])
+                tags = scalars(out_dir)
+            keys = ("rank_loss",) if name == "rank" else ()
+            for key in ("loss", "grad_norm") + keys:
+                values = tags.get(f"train/{key}", [])
+                check(len(values) == steps and all(math.isfinite(v) for v in values), f"4l {name}: {key} {values}")
+            recalls = {k: report["t2v"][k] for k in ("R1", "R5", "R10")}
+            print(f"  {name}: losses {[round(v, 5) for v in tags['train/loss']]}; steps {[round(x, 2) for x in ms]} "
+                  f"ms (CUDA events); t2v {recalls} over {HDVILA_VAL_ROWS} clips, eval {report['perf']['wall_s']:.2f} "
+                  f"s; run wall {wall:.1f} s [{card}]")
+            check(all(math.isfinite(v) and 0.0 <= v <= 100.0 for v in recalls.values()), f"4l {name}: R@K {recalls}")
+    finally:
+        run_retrieval_hdvila.DUMMY_VAL_ROWS = rows
+    return launches
+
+
+def hdvila_qa_phase(card: str) -> dict:
+    """Phase 4m: ``run_video_qa_hdvila`` on the stage-1 preset's model: a
+    multiple-choice task (5 options) and TGIF FrameQA classification (1540
+    answers), 2 steps each at batch 4 with a validation at step 2, then
+    ``--mode inference`` on the multiple-choice run (its args and best
+    checkpoint restored). Returns each run's launch counts."""
+    from xpretrain_tpu_torch.cli import run_video_qa_hdvila
+
+    launches = {}
+    preset = os.path.join(REPO, HDVILA_PRESETS[1])
+    rows, run_video_qa_hdvila.DUMMY_VAL_ROWS = run_video_qa_hdvila.DUMMY_VAL_ROWS, HDVILA_VAL_ROWS
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            for task, extra in (("mc", ["--num_options", "5"]), ("frameqa", ["--num_labels", "1540"])):
+                out_dir = os.path.join(root, task)
+                report, launches[task], ms, wall = hdvila_run(run_video_qa_hdvila, [
+                    "--config", preset, "--dummy_data", "1", "--task_type", task, *extra, "--train_batch_size", "4",
+                    "--val_batch_size", "4", "--num_train_steps", "2", "--valid_steps", "2", "--log_steps", "1",
+                    "--save_steps", "1000", "--output_dir", out_dir])
+                losses = scalars(out_dir).get("train/loss", [])
+                print(f"  {task}: losses {[round(v, 5) for v in losses]}; steps {[round(x, 2) for x in ms]} ms (CUDA "
+                      f"events); accuracy {report['accuracy']:.4f} over {report['n']} questions; run wall {wall:.1f} s "
+                      f"[{card}]")
+                check(len(losses) == 2 and all(math.isfinite(v) for v in losses), f"4m {task}: losses {losses}")
+                check(report["n"] == HDVILA_VAL_ROWS and 0.0 <= report["accuracy"] <= 1.0, f"4m {task}: {report}")
+            again, launches["mc_inference"], _, wall = hdvila_run(run_video_qa_hdvila, [
+                "--mode", "inference", "--output_dir", os.path.join(root, "mc")])
+            print(f"  mc --mode inference: accuracy {again['accuracy']:.4f} over {again['n']} questions from the run's "
+                  f"best checkpoint; run wall {wall:.1f} s [{card}]")
+            check(again["n"] == HDVILA_VAL_ROWS and 0.0 <= again["accuracy"] <= 1.0, f"4m inference: {again}")
+            check(os.path.exists(os.path.join(root, "mc", "inference_report.json")), "4m: inference_report.json")
+    finally:
+        run_video_qa_hdvila.DUMMY_VAL_ROWS = rows
+    return launches
+
+
+def hdvila_full_width(stage: int, bf16: bool, device: str, seed: int = 0):
+    """The stage's ``HdVilaPretrainModel`` at the preset's widths and depth on
+    ``device``, seeded; fp32 models have dropout off (the card's and the
+    CPU's generators draw different masks)."""
+    import torch
+    from xpretrain_tpu_torch.cli.run_pretrain_hdvila import HdVilaPretrainModel, hdvila_configs_from
+
+    enc, model_cfg = hdvila_configs_from({**hdvila_preset(stage), "bf16": int(bf16)})
+    if not bf16:
+        model_cfg = dataclasses.replace(model_cfg, bert=dataclasses.replace(
+            model_cfg.bert, hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0))
+    model = HdVilaPretrainModel(enc, model_cfg, temp=model_cfg.temp, device=device)
+    return model.init_weights(torch.Generator(device=device).manual_seed(seed))
+
+
+def hdvila_batch(stage: int, batch: int, clips: int, device: str, seed: int = 0) -> dict:
+    """A synthetic batch at the preset's shapes on ``device``: uint8 middles
+    [batch, clips, 3, 640, 1024] and neighbours [batch, clips, 6, 3, 160,
+    256], 50-token texts (and MLM labels in stage 2)."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    p = hdvila_preset(stage)
+    h, w = p["crop_size"]
+    L = p["max_txt_len"]
+    out = {"img_middle": torch.randint(0, 256, (batch, clips, 3, h, w), generator=g, device=device, dtype=torch.uint8),
+           "img_other": torch.randint(0, 256, (batch, clips, p["num_frm"] - 1, 3, h // 4, w // 4), generator=g,
+                                      device=device, dtype=torch.uint8),
+           "text_input_ids": torch.randint(1, 30522, (batch, L), generator=g, device=device),
+           "text_input_mask": (torch.arange(L, device=device)[None] < torch.randint(
+               8, L + 1, (batch, 1), generator=g, device=device)).long()}
+    if stage == 2:
+        masked = torch.rand(batch, L, generator=g, device=device) < 0.15
+        out["mlm_labels"] = torch.where(masked, out["text_input_ids"], torch.full_like(out["text_input_ids"], -100))
+    return out
+
+
+def hdvila_apply(model, batch, generator):
+    return model(batch["img_middle"], batch["img_other"], batch["text_input_ids"], batch["text_input_mask"],
+                 mlm_labels=batch.get("mlm_labels"), generator=generator)
+
+
+def hdvila_card_vs_cpu_phase() -> None:
+    """Phase 5e: one fp32 train step of the stage-1 and the stage-2
+    pretraining model at the presets' widths and depth, on the card and on
+    the CPU, from the same weights and batch (2 samples of one clip: the ITC
+    loss of a single pair is 0 whatever the weights). The loss within 1e-5;
+    stage 1's gradient norm within 1e-4 relative."""
+    import torch
+    from xpretrain_tpu_torch.models.hd_vila.convert import flax_param_paths
+    from xpretrain_tpu_torch.optim.optimizer import build_optimizer
+    from xpretrain_tpu_torch.optim.schedules import get_schedule
+    from xpretrain_tpu_torch.parallel.train_step import TrainState, make_model_train_step
+
+    for stage in (1, 2):
+        model_cpu = hdvila_full_width(stage, bf16=False, device="cpu", seed=stage)
+        model_gpu = copy.deepcopy(model_cpu).cuda()
+        batch = hdvila_batch(stage, 2, 1, "cpu", seed=20 + stage)
+        metrics = {}
+        for device, model in (("cuda", model_gpu), ("cpu", model_cpu)):
+            optimizer, _ = build_optimizer(dict(model.named_parameters()), get_schedule("constant", 1e-5, 10),
+                                           weight_decay=0.01, paths=flax_param_paths(model))
+            step = make_model_train_step(hdvila_apply, device, metric_keys=("itc_loss", "mlm_loss"))
+            t0 = time.perf_counter()
+            _, m = step(TrainState(step=0, model=model, optimizer=optimizer),
+                        {k: v.to(device) for k, v in batch.items()}, 0)
+            metrics[device] = {k: v.item() for k, v in m.items()}
+            print(f"  stage {stage} on {device}: {metrics[device]} ({time.perf_counter() - t0:.1f} s)")
+        loss_err = abs(metrics["cuda"]["loss"] - metrics["cpu"]["loss"])
+        norm_err = abs(metrics["cuda"]["grad_norm"] / metrics["cpu"]["grad_norm"] - 1)
+        print(f"  stage {stage}: loss diff {loss_err:.3e} (tol 1e-5), grad_norm rel diff {norm_err:.3e}"
+              f"{' (tol 1e-4)' if stage == 1 else ''}")
+        check(all(math.isfinite(v) for v in metrics["cuda"].values()), f"5e stage {stage}: card metrics not finite")
+        check(metrics["cpu"]["loss"] > 0, f"5e stage {stage}: a zero loss checks nothing")
+        check(loss_err <= 1e-5, f"5e stage {stage}: loss card vs cpu {loss_err}")
+        check(stage == 2 or norm_err <= 1e-4, f"5e stage 1: grad_norm card vs cpu rel {norm_err}")
+        del model_cpu, model_gpu, batch
+
+
+def hdvila_timing_phase(card: str) -> dict:
+    """Phase 6e: the stage-1 bf16 train step at batch 8 (the preset's) in
+    windows of CUDA events, its device time by op class (``torch.profiler``)
+    and its operations (``torch.utils.flop_counter`` over one step: the
+    convolutions, GEMMs and attention that the code runs, forward and
+    backward) against the card's bf16 dense peak; and the video tower
+    (``forward_video``) at batch 8."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from xpretrain_tpu_torch.models.hd_vila.convert import flax_param_paths
+    from xpretrain_tpu_torch.optim.optimizer import build_optimizer
+    from xpretrain_tpu_torch.optim.schedules import get_schedule
+    from xpretrain_tpu_torch.parallel.train_step import TrainState, make_model_train_step
+    from xpretrain_tpu_torch.tools.profile_train_step import median, spread, window_ms
+    from xpretrain_tpu_torch.train.profiling import start_profiler, stop_profiler
+
+    batch = HDVILA_TIMED_BATCH
+    model = hdvila_full_width(1, bf16=True, device="cuda")
+    data = hdvila_batch(1, batch, hdvila_preset(1)["train_n_clips"], "cuda", seed=3)
+    optimizer, _ = build_optimizer(dict(model.named_parameters()), get_schedule("constant", 5e-5, 100),
+                                   weight_decay=0.01, paths=flax_param_paths(model))
+    step = make_model_train_step(hdvila_apply, "cuda", metric_keys=("itc_loss",))
+    state = TrainState(step=0, model=model, optimizer=optimizer)
+
+    def train():
+        return step(state, data, 0)
+
+    train()
+    with FlopCounterMode(display=False) as counter:
+        train()
+    flops = counter.get_total_flops()
+    torch.cuda.reset_peak_memory_stats()
+    windows = window_ms(train, iters=4, windows=6)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    with tempfile.TemporaryDirectory() as out_dir:
+        prof = start_profiler()
+        for _ in range(2):
+            train()
+        classes = stop_profiler(prof, out_dir, 2)
+    device_total = sum(r["device_ms_per_step"] for r in classes)
+    bound = flops / PEAK_FLOPS * 1e3
+    step_ms = median(windows)
+    print(f"  stage-1 bf16 train step b={batch} (2 clips, 640x1024 middles, 160x256 neighbours): {spread(windows)}; "
+          f"windows {windows} (CUDA events, 4 steps per window, batch on the card) [{card}]")
+    print(f"  operations of one step (torch.utils.flop_counter: convolutions, GEMMs, attention; forward + backward): "
+          f"{flops / 1e12:.3f} TFLOP; bound at the bf16 dense peak ({PEAK_FLOPS / 1e12:.0f} TFLOP/s) {bound:.3f} ms; "
+          f"share of the peak at the median step {bound / step_ms:.4f} [{card}]")
+    print(f"  peak device memory of the timed windows {peak:.2f} GiB; device time of a step {device_total:.3f} ms "
+          f"(torch.profiler, 2 steps) [{card}]; its three heaviest op classes:")
+    for row in classes[:3]:
+        print(f"    {row['class']:40s} {row['device_ms_per_step']:10.3f} ms {100 * row['share']:5.1f}% "
+              f"{row['launches_per_step']:8.0f} launches")
+    check(all(math.isfinite(x) for x in windows) and flops > 0 and device_total > 0, "6e: step timing")
+    model.eval()
+    with torch.inference_mode():
+        video = window_ms(lambda: model.forward_video(data["img_middle"], data["img_other"]), iters=5, windows=5)
+        video_flops_mode = FlopCounterMode(display=False)
+        with video_flops_mode:
+            model.forward_video(data["img_middle"], data["img_other"])
+    video_flops = video_flops_mode.get_total_flops()
+    print(f"  video tower (forward_video) b={batch} bf16: {spread(video)}; windows {video} (CUDA events, 5 calls per "
+          f"window); {video_flops / 1e12:.3f} TFLOP, share of the bf16 peak at the median "
+          f"{video_flops / PEAK_FLOPS * 1e3 / median(video):.4f} [{card}]")
+    del model, optimizer, state, data
+    return {"step_ms": windows, "tflop": flops / 1e12, "peak_share": bound / step_ms, "peak_gib": peak,
+            "video_ms": video, "op_classes": classes[:3]}
+
+
 def main() -> None:
     try:
         import torch
@@ -1437,6 +1837,20 @@ def main() -> None:
     with phase("4i LF-VILA stage-1 pretraining from 2-D Swin and BERT checkpoints (main path)"):
         cascade_launches = lfvila_cascade_phase(card)
 
+    hdvila_ckpt = os.path.join(tempfile.mkdtemp(prefix="hdvila_"), "stage1_e2e.pt")
+    with phase("4j HD-VILA stage-1 pretraining (main path)"):
+        hdvila_stage1_launches, _ = hdvila_stage1_phase(card, hdvila_ckpt)
+
+    with phase("4k HD-VILA stage-2 pretraining from 4j's checkpoint, frozen stage-1 modules (main path)"):
+        hdvila_stage2_launches, _ = hdvila_stage2_phase(card, hdvila_ckpt)
+        os.remove(hdvila_ckpt)
+
+    with phase("4l HD-VILA retrieval: ITC fine-tune and R@K, then the rerank head (main path)"):
+        hdvila_retrieval_launches = hdvila_retrieval_phase(card)
+
+    with phase("4m HD-VILA video QA: multiple choice and FrameQA, then inference (main path)"):
+        hdvila_qa_launches = hdvila_qa_phase(card)
+
     with phase("5 serve: card vs CPU, fp32"):
         model_cpu = CLIPViPModel(CLIPVipConfig.base_patch32(dtype=torch.float32))
         model_cpu.init_weights(torch.Generator().manual_seed(0))
@@ -1533,6 +1947,9 @@ def main() -> None:
 
     with phase("5d LF-VILA pretraining step: card vs CPU, fp32"):
         lfvila_card_vs_cpu_phase()
+
+    with phase("5e HD-VILA pretraining steps at full width: card vs CPU, fp32"):
+        hdvila_card_vs_cpu_phase()
 
     with phase("6 timing"):
         s = B32
@@ -1836,10 +2253,16 @@ def main() -> None:
             print(f"  bound {name}: {t:.4f} ms ({by}; {HBM_BYTES_PER_S / 1e12:.2f} TB/s, "
                   f"{PEAK_FLOPS / 1e12:.0f} TFLOP/s bf16)")
 
+    with phase("6e timing: HD-VILA stage-1 train step and video tower at batch 8"):
+        hdvila_timing_phase(card)
+
     paths = {"eval": eval_launches, "train": train_launches, "lfvila_retrieval": lfvila_launches,
              "ops": ops_launches, "lfvila_stage1": stage1_launches, "lfvila_stage2": stage2_launches,
              **{f"lfvila_{task}": counts for task, counts in task_launches.items()},
-             "clipvip_pretrain": pretrain_launches, "lfvila_stage1_from_2d_swin_bert": cascade_launches}
+             "clipvip_pretrain": pretrain_launches, "lfvila_stage1_from_2d_swin_bert": cascade_launches,
+             "hdvila_stage1": hdvila_stage1_launches, "hdvila_stage2": hdvila_stage2_launches,
+             **{f"hdvila_retrieval_{k}": v for k, v in hdvila_retrieval_launches.items()},
+             **{f"hdvila_qa_{k}": v for k, v in hdvila_qa_launches.items()}}
     window_timing = {dt: win_timings[("s3_shifted", dt)] for dt in ("bfloat16", "float32")}
     summary = {"kernels": [
         {

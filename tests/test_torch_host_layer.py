@@ -32,6 +32,8 @@ torch = pytest.importorskip("torch")
 from xpretrain_tpu import config as jax_config  # noqa: E402
 from xpretrain_tpu.cli import shared_args as jax_shared_args  # noqa: E402
 from xpretrain_tpu.data import datasets as jax_datasets  # noqa: E402
+from xpretrain_tpu.data import datasets_hdvila as jax_datasets_hdvila  # noqa: E402
+from xpretrain_tpu.data import datasets_hdvila_tasks as jax_datasets_hdvila_tasks  # noqa: E402
 from xpretrain_tpu.data import datasets_lfvila as jax_datasets_lfvila  # noqa: E402
 from xpretrain_tpu.data import datasets_lfvila_tasks as jax_datasets_lfvila_tasks  # noqa: E402
 from xpretrain_tpu.data import loader as jax_loader  # noqa: E402
@@ -43,9 +45,12 @@ from xpretrain_tpu.train import evaluate as jax_evaluate  # noqa: E402
 from xpretrain_tpu.utils import metrics as jax_metrics  # noqa: E402
 from xpretrain_tpu_torch import config  # noqa: E402
 from xpretrain_tpu_torch.cli import (  # noqa: E402
+    run_pretrain_hdvila,
     run_pretrain_lfvila,
     run_retrieval_clipvip,
+    run_retrieval_hdvila,
     run_tasks_lfvila,
+    run_video_qa_hdvila,
     shared_args,
 )
 from xpretrain_tpu_torch.data import (  # noqa: E402
@@ -116,6 +121,9 @@ def test_source_imports_and_reads_nothing_of_jax(source):
 
 def test_every_port_module_is_scanned():
     assert len(SOURCES) > 40 and "xpretrain_tpu_torch/train/evaluate.py" in SOURCES
+    hdvila = ["data/datasets_hdvila.py", "data/datasets_hdvila_tasks.py", "data/transforms.py",
+              "data/sample_frames.py", "models/hd_vila/resnet.py", "cli/run_video_qa_hdvila.py"]
+    assert all(f"xpretrain_tpu_torch/{name}" in SOURCES for name in hdvila)
 
 
 def _imported_modules(tree: ast.AST) -> list[str]:
@@ -231,6 +239,45 @@ def test_training_runners_run_where_the_jax_package_cannot_be_imported(tmp_path)
     for task in ("qa_mc", "qa_cls", "video_cls"):
         with open(tmp_path / task / "final_report.json") as f:
             assert json.load(f)["n"] == 4
+
+
+HDVILA_TINY = {"resnet_depth": 18, "hidden_size": 64, "timesformer_depth": 1, "timesformer_heads": 4, "bert": "tiny",
+               "crop_size": [64, 128], "timesformer_hw": [1, 2], "pixel_random_sampling_size": 0}
+
+
+def test_hdvila_runners_run_where_the_jax_package_cannot_be_imported(tmp_path):
+    """HD-VILA stage-1 pretraining (2 steps), retrieval (a step, then R@K
+    over 8 synthetic captions) and video QA (a multiple-choice step, then
+    ``--mode inference``) in a process whose imports of ``xpretrain_tpu``,
+    ``jax`` and ``flax`` raise."""
+    cfg = tmp_path / "hdvila.json"
+    cfg.write_text(json.dumps(HDVILA_TINY))
+    common = ["--config", str(cfg), "--dummy_data", "1", "--num_frm", "3", "--max_txt_len", "8", "--bf16", "0",
+              "--device", "cpu", "--save_steps", "100", "--train_n_clips", "1", "--train_batch_size", "4",
+              "--val_batch_size", "4"]
+    runs = [("run_pretrain_hdvila", ["--num_train_steps", "2"], "pretrain"),
+            ("run_retrieval_hdvila", ["--num_train_steps", "1"], "retrieval"),
+            ("run_video_qa_hdvila", ["--task_type", "mc", "--num_options", "3", "--num_train_steps", "1"], "qa")]
+    code = _BLOCKER + ("from xpretrain_tpu_torch.cli import run_pretrain_hdvila, run_retrieval_hdvila, "
+                       "run_video_qa_hdvila\n")
+    code += "run_retrieval_hdvila.DUMMY_VAL_ROWS = run_video_qa_hdvila.DUMMY_VAL_ROWS = 8\n"
+    for module, args, out in runs:
+        argv = common + args + ["--output_dir", str(tmp_path / out)]
+        code += f"print({out!r}, {module}.main({argv!r}) is not None)\n"
+    inference = ["--mode", "inference", "--device", "cpu", "--output_dir", str(tmp_path / "qa")]
+    code += f"print('inference', run_video_qa_hdvila.main({inference!r})['n'])\n"
+    code += f"print(sorted(m for m in sys.modules if m.split('.')[0] in {BANNED!r}))\n"
+    env = {**os.environ, "OMP_NUM_THREADS": "1"}  # as above
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    lines = proc.stdout.strip().splitlines()
+    assert lines[-1] == "[]" and lines[-2] == "inference 8"
+    assert [line for line in lines if line.split(" ")[0] in ("pretrain", "retrieval", "qa")] == [
+        "pretrain True", "retrieval True", "qa True"]
+    for out, report in (("retrieval", "final_report.json"), ("qa", "final_report.json"),
+                        ("qa", "inference_report.json")):
+        assert (tmp_path / out / report).exists()
 
 
 def test_pretraining_runner_runs_without_jax_cv2_or_safetensors(tmp_path):
@@ -395,6 +442,75 @@ def test_lfvila_runner_batches_match_jax():
         _assert_batches_equal(next(train), next(jtrain), keys)
     assert val.valid_len == jval.valid_len == run_tasks_lfvila.DUMMY_SIZE
     _assert_batches_equal(next(iter(val)), next(iter(jval)), keys)
+
+
+def _hdvila_cfg():
+    argv = ["--dummy_data", "1", "--seed", "5", "--num_frm", "3", "--train_batch_size", "2", "--val_batch_size", "3",
+            "--max_txt_len", "8"]
+    cfg = config.parse_with_config(shared_args.build_shared_parser("x"), argv)
+    cfg.update({"crop_size": [64, 128], "train_n_clips": 2, "task_type": "mc", "num_options": 3,
+                "inference_n_clips": 2})
+    return cfg
+
+
+def _assert_hdvila_batches_equal(got, want):
+    """Token ids, masks and labels bit-equal; the port's uint8 frames,
+    normalized once on the device, equal JAX's host-normalized fp32 (ROADMAP
+    Queue 3: JAX normalizes them a second time in its encoder)."""
+    from xpretrain_tpu_torch.models.hd_vila.e2e import HdVilaEncoder
+
+    assert set(got) == set(want)
+    for key in got:
+        if key.startswith("img_"):
+            frames = torch.from_numpy(got[key])
+            once = HdVilaEncoder.normalize(frames.reshape(-1, *frames.shape[-3:])).reshape(frames.shape)
+            assert got[key].dtype == np.uint8
+            np.testing.assert_allclose(once.numpy(), want[key], atol=1e-6, rtol=0, err_msg=key)
+        else:
+            _assert_batches_equal(got, want, [key])
+
+
+def test_hdvila_runner_batches_match_jax():
+    """The three HD-VILA runners' loaders (pretraining with MLM + ITM,
+    retrieval, multiple-choice QA) give the JAX runners' batches, built as
+    those runners build them for process 0 of 1."""
+    cfg = _hdvila_cfg()
+    tok = tokenization.build_model_tokenizer("hash", 1000)
+    jtok = jax_tokenization.build_model_tokenizer("hash", 1000)
+    clip_args = dict(num_frm=3, sample_rate=12, crop_hw=(64, 128))
+    # pretraining: run_pretrain_hdvila.py:191-209
+    got = run_pretrain_hdvila.build_loader(cfg, tok, True, True)
+    jds = jax_datasets_hdvila.HdVilaPretrainDataset(None, None, train_n_clips=2, num_frm=3, sample_rate=12,
+                                                    crop_hw=(64, 128), seed=5, synthetic_size=1024)
+    jcollate = jax_datasets_hdvila.HdVilaPretrainCollator(jtok, max_txt_len=8, mlm=True, itm=True, seed=5)
+    want = jax_loader.InfiniteIterator(jax_loader.BatchLoader(jds, 2, jcollate, seed=5))
+    for _ in range(2):
+        _assert_hdvila_batches_equal(next(got), next(want))
+    # retrieval: run_retrieval_hdvila.py:396-418
+    train, val = run_retrieval_hdvila.build_data(cfg, tok)
+    clips = jax_datasets_hdvila_tasks.HdVilaClipLoader(None, n_clips=2, synthetic_seed=5, **clip_args)
+    rows = [{"clip_id": f"c{i}", "text": f"video about topic {i}"} for i in range(128)]
+    jcollate = jax_datasets_hdvila.HdVilaPretrainCollator(jtok, max_txt_len=8, mlm=False, itm=False)
+    jtrain = jax_loader.InfiniteIterator(jax_loader.BatchLoader(
+        jax_datasets_hdvila_tasks.HdVilaRetrievalDataset(None, clips, rows=rows, train=True, seed=5), 2, jcollate,
+        seed=5))
+    jval = jax_loader.SequentialEvalLoader(
+        jax_datasets_hdvila_tasks.HdVilaRetrievalDataset(None, clips, rows=rows[:64]), 3, jcollate)
+    _assert_hdvila_batches_equal(next(train), next(jtrain))
+    assert val.valid_len == jval.valid_len == 64
+    _assert_hdvila_batches_equal(next(iter(val)), next(iter(jval)))
+    # video QA, multiple choice: run_video_qa_hdvila.py:79-130
+    from xpretrain_tpu.cli.run_video_qa_hdvila import build_qa_data as jax_build_qa_data
+
+    jcfg = jax_config.parse_with_config(jax_shared_args.build_shared_parser("x"), [
+        "--dummy_data", "1", "--seed", "5", "--num_frm", "3", "--train_batch_size", "2", "--val_batch_size", "3",
+        "--max_txt_len", "8"])
+    jcfg.update({"crop_size": [64, 128], "train_n_clips": 2, "task_type": "mc", "num_options": 3,
+                 "inference_n_clips": 2})
+    train, val, _ = run_video_qa_hdvila.build_qa_data(cfg, tok)
+    jtrain, jval, _ = jax_build_qa_data(jcfg, jtok)
+    _assert_hdvila_batches_equal(next(train), next(jtrain))
+    _assert_hdvila_batches_equal(next(iter(val)), next(iter(jval)))
 
 
 @pytest.mark.parametrize("device_ingest", [False, True])

@@ -2,9 +2,11 @@
 of the parts of ``xpretrain_tpu/data/sample_frames.py`` it uses).
 
 The uniform sampling-with-jitter path used when ``sample_rate == 0``
-(``CLIP-ViP/src/datasets/dataset_video_retrieval.py:78-95``), the LF-VILA
-multi-clip splitter (``LF-VILA/src/datasets/pretrain_dataset.py:80-136``) and
-the LF-VILA downstream tasks' jittered linspace (``how2qa_dataset.py:57-66``).
+(``CLIP-ViP/src/datasets/dataset_video_retrieval.py:78-95``), the HD-VILA
+center-frame neighborhood samplers (``hd-vila/src/datasets/dataset_pretrain.py:66-80``,
+``dataset_video_qa.py:79-100``), the LF-VILA multi-clip splitter
+(``LF-VILA/src/datasets/pretrain_dataset.py:80-136``) and the LF-VILA
+downstream tasks' jittered linspace (``how2qa_dataset.py:57-66``).
 
 All take an explicit ``np.random.Generator`` so data pipelines are
 reproducible per (seed, epoch, index).
@@ -35,6 +37,30 @@ def uniform_sample_with_jitter(
         hi = np.maximum(bounds[1:], lo + 1.0)
         idx = rng.uniform(lo, hi)
     return np.clip(idx.astype(np.int64), 0, total_frames - 1)
+
+
+def center_neighbor_sample(
+    total_frames: int,
+    num_frames: int,
+    sample_rate: int,
+    rng: np.random.Generator | None = None,
+    test_mode: bool = False,
+) -> tuple[np.ndarray, int]:
+    """HD-VILA-style sampling: a middle frame plus neighbors at fixed spacing.
+
+    Returns (indices[num_frames], middle_position). The middle frame sits at
+    position num_frames // 2; neighbors are ``sample_rate`` apart. Train mode
+    randomizes the middle frame within the valid span; test centers it.
+    """
+    half_span = (num_frames // 2) * sample_rate
+    lo, hi = half_span, max(total_frames - half_span, half_span + 1)
+    if test_mode or rng is None:
+        middle = (lo + hi) // 2
+    else:
+        middle = int(rng.integers(lo, hi))
+    offsets = (np.arange(num_frames) - num_frames // 2) * sample_rate
+    inds = np.clip(middle + offsets, 0, total_frames - 1)
+    return inds.astype(np.int64), num_frames // 2
 
 
 def multi_clip_sample(
@@ -81,3 +107,42 @@ def span_jitter_linspace_sample(
     lo = max(total_frames - 1 - interval, start + 1)
     end = int(rng.integers(lo, max(total_frames, lo + 1)))
     return np.linspace(start, end, num_frames).astype(np.int64)
+
+
+def spread_center_neighbor_sample(
+    total_frames: int,
+    n_clips: int,
+    num_frames: int,
+    sample_rate: int,
+    rng: np.random.Generator | None = None,
+    test_mode: bool = False,
+) -> list[np.ndarray]:
+    """n_clips center+neighbor windows over ONE video.
+
+    The HD-VILA QA/retrieval eval pattern (``dataset_video_qa.py:79-100``):
+    middle frames are drawn without replacement from the valid span at train
+    time, and spread at an even stride across it at inference, so
+    ``inference_n_clips`` clips cover the whole video instead of re-sampling
+    the same center. The sample rate shrinks when the video is too short.
+    Returns one [num_frames] index array per clip (middle at num_frames//2).
+    """
+    total_frames = max(int(total_frames), 1)
+    neighbor = (num_frames - 1) // 2
+    sr = sample_rate
+    if neighbor and total_frames < 2 * neighbor * sr + n_clips:
+        sr = max((total_frames - n_clips) // (2 * neighbor), 0)
+    lo, hi = neighbor * sr, total_frames - neighbor * sr
+    valid = np.arange(lo, max(hi, lo + 1))
+    if test_mode or rng is None:
+        stride = max(len(valid) // n_clips, 1)
+        middles = valid[::stride][:n_clips]
+    else:
+        k = min(n_clips, len(valid))
+        middles = np.sort(rng.choice(valid, size=k, replace=False))
+    middles = list(middles)
+    while len(middles) < n_clips:
+        middles.append(middles[-1])
+    offsets = (np.arange(num_frames) - num_frames // 2) * sr
+    return [
+        np.clip(int(m) + offsets, 0, total_frames - 1).astype(np.int64) for m in middles
+    ]

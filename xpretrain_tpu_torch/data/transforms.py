@@ -4,7 +4,8 @@ copy of the parts of ``xpretrain_tpu/data/transforms.py`` it uses).
 Capability parity with the reference's torchvision pipelines
 (``CLIP-ViP/src/datasets/dataloader.py:180-260``: CLIP constants, resize +
 center-crop "simple" pipeline; ImageNet constants for hd-vila/LF-VILA
-``hd-vila/src/modeling/e2e_model.py:26-27``).
+``hd-vila/src/modeling/e2e_model.py:26-27``) and hd-vila's cubic x4
+downsampling (``hd-vila/src/datasets/dataset_pretrain.py:97-108``).
 
 Frames flow as uint8 [T, H, W, C] until the final normalize, which emits
 fp32 [T, C, H, W] ready for device upload. With device ingest, the
@@ -88,6 +89,12 @@ def random_crop(frames: np.ndarray, crop_hw, rng: np.random.Generator) -> np.nda
     return frames[:, top : top + ch, left : left + cw]
 
 
+def random_horizontal_flip(frames: np.ndarray, rng: np.random.Generator, p: float = 0.5):
+    if rng.random() < p:
+        return frames[:, :, ::-1]
+    return frames
+
+
 def normalize(frames: np.ndarray, mean: np.ndarray = CLIP_MEAN, std: np.ndarray = CLIP_STD):
     """uint8 [T,H,W,C] -> fp32 [T,C,H,W], scaled /255 then standardized."""
     x = frames.astype(np.float32) / 255.0
@@ -122,3 +129,33 @@ def clip_resize_crop_u8(
     else:
         frames = center_crop(frames, image_size)
     return np.ascontiguousarray(frames)
+
+
+def hybrid_res_transform(
+    frames: np.ndarray,
+    middle_index: int,
+    crop_hw: tuple[int, int] = (640, 1024),
+    low_factor: int = 4,
+    train: bool = False,
+    rng: np.random.Generator | None = None,
+) -> tuple[np.ndarray, np.ndarray]:
+    """HD-VILA hybrid crop: full-res middle frame + x``low_factor``-downsampled
+    neighbors (ref ``dataset_pretrain.py:110-144``), geometry only. Returns
+    (middle uint8 [1, C, H, W], others uint8 [T-1, C, H/4, W/4]).
+
+    The crop, the bicubic resize and the rng draws are the JAX copy's; its
+    ImageNet normalization is not done here: ``HdVilaEncoder.normalize``
+    normalizes on the device, once (the JAX copy normalizes here and the
+    encoder normalizes again, ROADMAP Queue 3)."""
+    if train and rng is not None:
+        frames = random_crop(frames, crop_hw, rng)
+    else:
+        frames = center_crop(frames, crop_hw)
+    middle = frames[middle_index : middle_index + 1]
+    others = np.concatenate([frames[:middle_index], frames[middle_index + 1 :]])
+    low_hw = (crop_hw[0] // low_factor, crop_hw[1] // low_factor)
+    others = resize(others, low_hw, "bicubic") if others.size else others.reshape(0, *low_hw, 3)
+    return (
+        np.ascontiguousarray(middle.transpose(0, 3, 1, 2)),
+        np.ascontiguousarray(others.transpose(0, 3, 1, 2)),
+    )

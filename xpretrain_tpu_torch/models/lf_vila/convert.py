@@ -8,6 +8,8 @@ kind, and each kind says how the value changes:
 
 - Linear (flax Dense): kernel [in, out] -> weight [out, in]; bias as is;
 - Conv3d (flax Conv): kernel [pd, ph, pw, C, D] -> weight [D, C, pd, ph, pw];
+- Conv2d (flax Conv, HD-VILA's ResNets): kernel [kh, kw, C, D] (HWIO) ->
+  weight [D, C, kh, kw] (OIHW);
 - Embedding (flax Embed): ``embedding`` as is;
 - LayerNorm: ``scale`` -> weight, ``bias`` as is;
 - any other parameter (``relative_position_bias_table``) as is, by its name.
@@ -43,11 +45,13 @@ from xpretrain_tpu_torch.utils.logging import LOGGER
 
 LINEAR = "linear"  # flax Dense kernel [in, out] -> torch Linear weight [out, in]
 CONV3D = "conv3d"  # flax Conv kernel [pd, ph, pw, C, D] -> torch Conv3d weight [D, C, pd, ph, pw]
+CONV2D = "conv2d"  # flax Conv kernel [kh, kw, C, D] -> torch Conv2d weight [D, C, kh, kw]
 DIRECT = "direct"  # copied as is
 
 _LEAVES = {  # module kind -> torch parameter name -> (flax leaf, transform)
     nn.Linear: {"weight": ("kernel", LINEAR), "bias": ("bias", DIRECT)},
     nn.Conv3d: {"weight": ("kernel", CONV3D), "bias": ("bias", DIRECT)},
+    nn.Conv2d: {"weight": ("kernel", CONV2D), "bias": ("bias", DIRECT)},
     nn.Embedding: {"weight": ("embedding", DIRECT)},
     nn.LayerNorm: {"weight": ("scale", DIRECT), "bias": ("bias", DIRECT)},
 }
@@ -81,13 +85,15 @@ def _to_port(value: np.ndarray, kind: str) -> torch.Tensor:
         value = value.T
     elif kind == CONV3D:
         value = value.transpose(4, 3, 0, 1, 2)
+    elif kind == CONV2D:
+        value = value.transpose(3, 2, 0, 1)
     return torch.from_numpy(np.array(value, dtype=np.float32))
 
 
 def load_jax_params(model: nn.Module, flax_params: Mapping[str, Any]) -> nn.Module:
     """Load a JAX ``{"params": ...}`` tree (numpy or jax arrays) of the module
     the port's ``model`` mirrors (``LfVilaRetrieval``, ``SwinTransformer3D``,
-    ``StagedBertModel``, ...) into ``model``.
+    ``StagedBertModel``, HD-VILA's ``HdVilaPretrainModel``, ...) into ``model``.
 
     Raises on a flax leaf that no parameter maps, on a parameter that no leaf
     fills, and on any shape mismatch."""

@@ -1,7 +1,10 @@
-"""CLI-facing pretrained-weight loading for the LF-VILA family (the port's
-copy of ``xpretrain_tpu/models/pretrained.py``, its LF-VILA half).
+"""CLI-facing pretrained-weight loading for the HD-VILA and LF-VILA families
+(the port's copy of ``xpretrain_tpu/models/pretrained.py``).
 
-LF-VILA's WEIGHTS cascade of ``LF-VILA/src/run_pretrain.py:52-77``:
+HD-VILA: ``--e2e_weights_path`` loads a full reference ``HDVILA`` torch
+checkpoint (the stage-2 recipe restores stage-1 e2e weights this way, ref
+``run_pretrain_stage2_group.py:138-144``; the fine-tunes restore e2e or task
+checkpoints, ``hd-vila/src/utils/load.py``). LF-VILA's WEIGHTS cascade of ``LF-VILA/src/run_pretrain.py:52-77``:
 ``model_weight`` (full) | ``stage1_model_weight`` (+``bert_weight``) |
 ``swin_weight`` (2-D inflated when ``pretrained_2d``) + ``bert_weight``.
 Each load converts the reference's torch checkpoint to the flax-path tree
@@ -18,6 +21,7 @@ from torch import nn
 
 from xpretrain_tpu_torch.models.bert_convert import bert_torch_to_flax
 from xpretrain_tpu_torch.models.clip_vip.convert import load_torch_checkpoint
+from xpretrain_tpu_torch.models.hd_vila.convert import hdvila_e2e_torch_to_flax
 from xpretrain_tpu_torch.models.lf_vila.convert import (
     inflate_swin2d_to_3d,
     lfvila_torch_to_flax,
@@ -32,6 +36,30 @@ def merge_into(model: nn.Module, converted: Mapping, scope: str = "") -> None:
     """Shape-tolerant merge of a converted flax-path tree into ``model``, at
     the top or under the module ``scope`` (``merge_flax_tree``)."""
     merge_flax_tree(model, converted, tuple(scope.split("/")) if scope else ())
+
+
+def load_hdvila_e2e(model: nn.Module, path: str) -> nn.Module:
+    """Merge a reference HDVILA e2e torch checkpoint into ``model`` in place.
+
+    The converted tree is ``{"encoder": ..., "transformer": ...}``, the
+    submodule names of ``HdVilaPretrainModel``. A task model (QA, multiple
+    choice, regression, rerank) holds the staged BERT in its ``head``: the
+    pretraining transformer's submodules that the head also has
+    (``bert_model``, and the rerank head's ``t_proj``/``v_proj``) go there,
+    and the head's own classifier keeps its init. The merge is
+    shape-tolerant, as ``merge_into``."""
+    converted = dict(hdvila_e2e_torch_to_flax(load_torch_checkpoint(path)))
+    children = dict(model.named_children())
+    if "transformer" in converted and "transformer" not in children and "head" in children:
+        trans = converted.pop("transformer")
+        head = {name for name, _ in children["head"].named_children()}
+        head |= {name for name, _ in children["head"].named_parameters(recurse=False)}
+        routed = {k: v for k, v in trans.items() if k in head}
+        if routed:
+            converted["head"] = routed
+    LOGGER.info("loaded HD-VILA e2e weights from %s", path)
+    merge_into(model, converted)
+    return model
 
 
 def _load_bert(model: nn.Module, path: str) -> None:

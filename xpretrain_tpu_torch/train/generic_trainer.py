@@ -1,7 +1,7 @@
 """Generic trainer for models that compute their own loss, on one device
 (``xpretrain_tpu/train/generic_trainer.py``).
 
-The LF-VILA (and later HD-VILA) counterpart of ``ClipVipTrainer``: the step
+The LF-VILA and HD-VILA counterpart of ``ClipVipTrainer``: the step
 loop with :func:`make_model_train_step`, the LR schedule, grouped AdamW,
 periodic checkpoints and resume, scalar logging, and an optional eval
 callback with best-model tracking. As in JAX there is no validation at

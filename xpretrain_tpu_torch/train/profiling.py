@@ -29,6 +29,11 @@ OP_CLASSES = (
     ("window attention forward kernel", ("window_attention_fwd_kernel", "window_mma_kernel")),
     ("patch embed kernel", ("patch_embed_fp32_kernel", "patch_embed_mma_kernel", "patch_weight_split_kernel",
                             "patch_bias_shift_kernel")),
+    # cuDNN's convolutions (HD-VILA's ResNets) before the GEMMs: their
+    # implicit-GEMM kernels carry "gemm" in their names too
+    ("convolutions (cuDNN)", ("fprop", "dgrad", "wgrad", "implicit_convolve", "cudnn", "nchwToNhwc",
+                              "nhwcToNchw")),
+    ("attention (SDPA)", ("flash", "fmha")),
     ("GEMMs", ("nvjet", "gemm", "cutlass", "splitKreduce", "cublas")),
     ("AdamW and norms (_foreach)", ("multi_tensor_apply", "lpnorm_cleanup")),
     ("LayerNorm forward and backward", ("layer_norm", "GammaBeta")),
