@@ -33,7 +33,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    (``--mode train``), counting forward and backward launches;
 4c. run LF-VILA paragraph-to-video retrieval (the stage-1 preset's model at
    full width and depth, the window kernel on, bf16, synthetic data) through
-   its CLI with no train step, counting window-kernel launches;
+   its CLI with no train step, counting window-kernel launches (96 synthetic
+   samples, as 4g's evals, cut from the runner's 256 to keep the script's
+   time);
 4d. the ops path: the public op entries that no model calls, at the full
    B/32 widths in bf16: ``proxy_attention_packed`` forward (b=24) and
    forward + backward through autograd (b=32), and ``fused_patch_embed``
@@ -51,8 +53,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    ``qa_cls`` (ActivityNet-QA) and ``video_cls`` at their default text
    lengths on the kernel config with
    no train step (six window launches per video forward, accuracy in
-   [0, 1]), then 2 ``qa_mc`` train steps on the kernel-off config (the
-   fusion and span-loss backward);
+   [0, 1]; 96 synthetic samples each, cut from the runner's 256 to keep the
+   script's time), then 2 ``qa_mc`` train steps on the kernel-off config
+   (the fusion and span-loss backward);
 4h. run CLIP-ViP pretraining (``run_pretrain_clipvip`` on the port's JSON
    copy of the B/32 pretraining preset: b=32, 12 frames at 224, bf16,
    ``NCELearnableTempLoss_vsc_fc``, synthetic data with the image/caption
@@ -80,6 +83,32 @@ Phases, in order; any failure exits non-zero and prints no result:
    rerank head (``--loss_type rank``);
 4m. run ``run_video_qa_hdvila``: multiple choice and FrameQA, 2 steps each
    with a validation, then ``--mode inference`` on the first run;
+4n. run the MSR-VTT B/32 preset through ``--mode train`` with the
+   production switches, ``--steps_per_call 4 --param_dtype bf16
+   --async_checkpoint 1``, 8 steps at b=16 with saves and validations every
+   4: 12 + 12 proxy launches a step counted at the graph's replays, no plain
+   call on CUDA, finite losses, every stored parameter of >= 2 dims bf16 and
+   equal to bf16 of its fp32 master, both checkpoints loaded and the last
+   equal to the final state bit for bit, and both files equal bit for bit to
+   those of the same run with ``--async_checkpoint 0``;
+4o. run LF-VILA stage-1 pretraining (the preset at b=16, kernel off) at
+   ``--steps_per_call 2`` for 4 steps and eagerly on the same seed and data:
+   the per-step losses and gradient norms within phase 5b's bars (the MTC
+   clips follow the step's seed, not the capture);
+4p. serve B/32 (b=24) in the ``factorized`` proxy mode: no proxy launch and
+   no guarded plain call, features within 1e-4 of the masked_full kernel
+   path in fp32 (bf16 printed), and a training step with attention dropout;
+4q. move 16 synthetic B/32 batches onto the card through
+   ``PrefetchLoader(depth=2)`` and ``batch_to_device``: each bit-equal to its
+   host batch;
+4r. (inside 4f, 4g, 4h and 4j-4m, after each eager training run) run the
+   same runner again at ``--steps_per_call 2``: LF-VILA stage 2 under remat,
+   the qa_mc fine-tune, CLIP-ViP pretraining, HD-VILA stages 1 and 2 (2
+   micro-batches an update: two graphs on one memory pool), HD-VILA
+   retrieval (ITC and rank) and video QA (mc and FrameQA). Each captures a
+   graph; its losses and gradient norms are held to the eager run's within
+   phase 5b's bars and its launch counts equal the eager run's; its peak
+   memory is printed;
 5. serve a few requests through ``RetrievalTowers`` in fp32 and compare the
    card's features with the CPU's (plain path) for the same weights;
 5b. take one fp32 pretraining step of B/32 at batch 2 on the card (kernels)
@@ -93,6 +122,14 @@ Phases, in order; any failure exits non-zero and prints no result:
 5e. take one fp32 HD-VILA pretraining step per stage on the card and on the
    CPU at the presets' widths and depth (batch 2 of one clip, dropout off):
    the loss within 1e-5, stage 1's gradient norm within 1e-4 relative;
+5f. the graphed train step against the eager one: the B/32 bf16 step at
+   b=32, 4 steps as replays of a captured CUDA graph (K = 4) and 4 eager
+   steps on the same batches and seeds, plain and with gradient accumulation
+   2 (one graph per micro-step index): parameters, moments and losses bit
+   for bit, else their largest differences within phase 5b's bars; then 4
+   more steps, every one a replay, under ``torch.profiler``: the launch
+   counters equal the proxy kernels the device ran, by kernel name, and the
+   peak memory of the graphed steps is printed;
 6. time the forward kernel against the plain version, and the whole forward;
 6b. time the backward kernel (with the forward's LSE, and alone) against its
    plain version, forward and backward through autograd (kernels against the
@@ -113,13 +150,18 @@ Phases, in order; any failure exits non-zero and prints no result:
    events, device time by op class, its operations from
    ``torch.utils.flop_counter`` against the bf16 dense peak) and the video
    tower at b=8;
+6f. time the B/32 bf16 train step at b=32 eager and graphed (K = 4), with
+   fp32 and with bf16 parameter storage, and LF-VILA stage 1 at b=16 eager
+   and at K = 2: ms a step (5 windows), device busy time and idle share,
+   device kernels and host launch calls a step, peak memory;
 7. print the kernel summary (each kernel's time in CUDA events and on the
    device, plain time, library time and the bound of its work at the card's
    peak rates) and, as the last line, the status JSON.
 
-Each main-path run (4, 4b, 4c, 4d, 4e, 4f, each run of 4g, 4h, 4i and each
-run of 4j-4m) sets every launch count to 0 just before it and reads the
-counts just after; the summary reports each path's count and their sum.
+Each main-path run (4, 4b, 4c, 4d, 4e, 4f, each run of 4g, 4h, 4i, each
+run of 4j-4m, 4n, 4o and 4p) sets every launch count to 0 just before it and
+reads the counts just after (a graphed step adds, at each replay, the
+launches its capture recorded); the summary reports each path's count and their sum.
 While they run, a call of a plain version on CUDA tensors fails the phase.
 HD-VILA runs none of the six kernels (JAX computes its convolutions,
 TimeSformer attention and BERT in XLA): its phases check that they launch
@@ -222,7 +264,7 @@ STAGE_PRESETS = {1: "xpretrain_tpu_torch/configs/lfvila_pretrain_stage1.json",
 # last is the profiled one (its op-class table), so it is not timed either
 PRETRAIN_STEPS = {1: 5, 2: 4}  # the median is over the steps after the warm-up and before the profiled
 PROFILED = {1: 1, 2: 0}  # trailing steps under torch.profiler
-# the fine-tunes' eval paths on the kernel config (no train step), 256 synthetic samples each; qa_mc's
+# the fine-tunes' eval paths on the kernel config (no train step), TASK_EVAL_SAMPLES synthetic samples each; qa_mc's
 # 8 text rows (question, answer, 6 subtitles) of 50 tokens fit the 512 sentence positions, of 70 they do not
 TASK_RUNS = {
     "qa_mc": ["--task", "qa_mc"],
@@ -230,6 +272,9 @@ TASK_RUNS = {
     "video_cls": ["--task", "video_cls"],
 }
 QA_TRAIN = dict(steps=2, batch=4, samples=16)  # qa_mc train steps on the kernel-off config (span loss backward)
+# synthetic samples each 4c and 4g eval decodes (the runner's default: 256): the host
+# decodes at ~7-8 clips/s, so this is the phase's time
+TASK_EVAL_SAMPLES = 96
 # CLIP-ViP pretraining: the port's JSON copy of the B/32 preset; the first step warms up and is not timed
 PRETRAIN_PRESET = "xpretrain_tpu_torch/configs/pretrain_vip_base_32.json"
 PRETRAIN_CLIPVIP_STEPS = 6
@@ -506,6 +551,17 @@ def snapshot_params():
         generic_trainer.GenericTrainer.__init__ = original
 
 
+def flatten(tree: dict, prefix: str = "") -> dict:
+    """A nested dict's leaves by their "/"-joined keys."""
+    out = {}
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            out.update(flatten(value, f"{prefix}{key}/"))
+        else:
+            out[f"{prefix}{key}"] = value
+    return out
+
+
 def scalars(out_dir: str) -> dict[str, list[float]]:
     """The runner's logged train scalars, by tag, in step order."""
     tags: dict[str, list[float]] = {}
@@ -522,20 +578,23 @@ def run_pretrain_stage(stage: int, batch: int, out_dir: str, extra: list[str]):
     from xpretrain_tpu_torch.cli import run_pretrain_lfvila
 
     torch.cuda.reset_peak_memory_stats()
-    steps = PRETRAIN_STEPS[stage]
-    profile = ["--profile_steps", str(PROFILED[stage]), "--profile_start_step", str(steps - PROFILED[stage])]
     with snapshot_params() as snapshots, timed_train_steps() as events, plain_on_cuda_guard() as plain_cuda_calls:
         reset_launches()
-        state = run_pretrain_lfvila.main([
-            "--config", os.path.join(REPO, STAGE_PRESETS[stage]), "--stage", str(stage), "--dummy_data", "1",
-            "--device_ingest", "1", "--train_batch_size", str(batch), "--num_train_steps", str(steps),
-            "--log_steps", "1", "--save_steps", "1000", "--device", "cuda", "--output_dir", out_dir,
-            *(profile if PROFILED[stage] else []), *extra,
-        ])
+        state = run_pretrain_lfvila.main(pretrain_stage_argv(stage, batch, out_dir, extra))
         torch.cuda.synchronize()
         launches = launch_counts()
     ms = [start.elapsed_time(end) for start, end in events]
     return state, launches, list(plain_cuda_calls), ms, snapshots[0]
+
+
+def pretrain_stage_argv(stage: int, batch: int, out_dir: str, extra: list[str]) -> list[str]:
+    """``run_pretrain_lfvila``'s arguments for :func:`run_pretrain_stage`."""
+    steps = PRETRAIN_STEPS[stage]
+    profile = ["--profile_steps", str(PROFILED[stage]), "--profile_start_step", str(steps - PROFILED[stage])]
+    return ["--config", os.path.join(REPO, STAGE_PRESETS[stage]), "--stage", str(stage), "--dummy_data", "1",
+            "--device_ingest", "1", "--train_batch_size", str(batch), "--num_train_steps", str(steps),
+            "--log_steps", "1", "--save_steps", "1000", "--device", "cuda", "--output_dir", out_dir,
+            *(profile if PROFILED[stage] else []), *extra]
 
 
 def report_pretrain_stage(stage: int, batch: int, out_dir: str, launches: dict, plain_cuda_calls: list,
@@ -632,6 +691,7 @@ def lfvila_stage2_phase(card: str) -> tuple[dict, dict]:
     that the frozen parameters did not move and the others did. Returns
     (launch counts, step times and peak memory)."""
     import torch
+    from xpretrain_tpu_torch.cli import run_pretrain_lfvila
     from xpretrain_tpu_torch.models.lf_vila.convert import flax_param_paths
 
     with tempfile.TemporaryDirectory() as out_dir:
@@ -658,31 +718,41 @@ def lfvila_stage2_phase(card: str) -> tuple[dict, dict]:
         check(moved[True] and not any(m for _, m in moved[True]), "a frozen parameter moved")
         check(moved[False] and all(m for _, m in moved[False]),
               f"trained parameters that did not move: {[n for n, m in moved[False] if not m][:5]}")
+        del state, start
+        stage2["graphed"] = graphed_rerun(
+            "4r LF-VILA stage 2 (remat)", run_pretrain_lfvila, "GenericTrainer",
+            pretrain_stage_argv(2, batch, out_dir, ["--gradient_checkpointing", "1"]), scalars(out_dir),
+            stage2_launches, card)
     return stage2_launches, stage2
 
 
 def lfvila_finetune_phase(card: str) -> dict:
     """Phase 4g: ``run_tasks_lfvila`` qa_mc, qa_cls (ActivityNet-QA) and
     video_cls on the kernel config with no train step (the eval paths, six
-    window launches a video forward), then 2 qa_mc train steps on the
-    kernel-off config; returns each run's launch counts."""
+    window launches a video forward, ``TASK_EVAL_SAMPLES`` synthetic samples
+    each), then 2 qa_mc train steps on the kernel-off config; returns each
+    run's launch counts."""
     import torch
     from xpretrain_tpu_torch.cli import run_tasks_lfvila
 
     task_launches = {}
-    n_batches = math.ceil(run_tasks_lfvila.DUMMY_SIZE / LFVILA_BATCH)
+    n_batches = math.ceil(TASK_EVAL_SAMPLES / LFVILA_BATCH)
     for task, args in TASK_RUNS.items():
         with tempfile.TemporaryDirectory() as out_dir:
             t0 = time.perf_counter()
-            with plain_on_cuda_guard() as plain_cuda_calls:
-                reset_launches()
-                report = run_tasks_lfvila.main([
-                    "--config", os.path.join(REPO, LFVILA_PRESET), *args, "--dummy_data", "1",
-                    "--num_train_steps", "0", "--val_batch_size", str(LFVILA_BATCH), "--device", "cuda",
-                    "--output_dir", out_dir,
-                ])
-                torch.cuda.synchronize()
-                task_launches[task] = launch_counts()
+            dummy_size, run_tasks_lfvila.DUMMY_SIZE = run_tasks_lfvila.DUMMY_SIZE, TASK_EVAL_SAMPLES
+            try:
+                with plain_on_cuda_guard() as plain_cuda_calls:
+                    reset_launches()
+                    report = run_tasks_lfvila.main([
+                        "--config", os.path.join(REPO, LFVILA_PRESET), *args, "--dummy_data", "1",
+                        "--num_train_steps", "0", "--val_batch_size", str(LFVILA_BATCH), "--device", "cuda",
+                        "--output_dir", out_dir,
+                    ])
+                    torch.cuda.synchronize()
+                    task_launches[task] = launch_counts()
+            finally:
+                run_tasks_lfvila.DUMMY_SIZE = dummy_size
             wall = time.perf_counter() - t0
             with open(os.path.join(out_dir, "final_report.json")) as f:
                 check(json.load(f)["accuracy"] == report["accuracy"], f"{task}: final_report.json")
@@ -694,26 +764,27 @@ def lfvila_finetune_phase(card: str) -> dict:
         print(f"  {task}: accuracy {report['accuracy']:.4f} over {report['n']} samples; eval "
               f"{report['perf']['wall_s']:.2f} s, {report['perf']['clips_per_s']:.2f} clips/s; run wall "
               f"{wall:.1f} s (host clock; model build, synthetic decode and upload included) [{card}]")
-        check(report["n"] == run_tasks_lfvila.DUMMY_SIZE and math.isfinite(report["accuracy"])
+        check(report["n"] == TASK_EVAL_SAMPLES and math.isfinite(report["accuracy"])
               and 0.0 <= report["accuracy"] <= 1.0, f"{task}: accuracy {report['accuracy']}")
     # qa_mc's training: fusion, span loss and their backward on the card,
     # the kernel off (its forward has no backward), a smaller synthetic set
     with tempfile.TemporaryDirectory() as out_dir:
         dummy_size, run_tasks_lfvila.DUMMY_SIZE = run_tasks_lfvila.DUMMY_SIZE, QA_TRAIN["samples"]
         try:
-            with timed_train_steps() as events, plain_on_cuda_guard() as plain_cuda_calls:
-                reset_launches()
-                report = run_tasks_lfvila.main([
-                    "--config", os.path.join(REPO, STAGE_PRESETS[1]), *TASK_RUNS["qa_mc"], "--dummy_data", "1",
+            argv = ["--config", os.path.join(REPO, STAGE_PRESETS[1]), *TASK_RUNS["qa_mc"], "--dummy_data", "1",
                     "--num_train_steps", str(QA_TRAIN["steps"]), "--train_batch_size", str(QA_TRAIN["batch"]),
                     "--val_batch_size", str(QA_TRAIN["batch"]), "--log_steps", "1", "--save_steps", "1000",
-                    "--device", "cuda", "--output_dir", out_dir,
-                ])
+                    "--device", "cuda", "--output_dir", out_dir]
+            with timed_train_steps() as events, plain_on_cuda_guard() as plain_cuda_calls:
+                reset_launches()
+                report = run_tasks_lfvila.main(argv)
                 torch.cuda.synchronize()
                 task_launches["qa_mc_train"] = launch_counts()
+            tags = scalars(out_dir)
+            graphed_rerun("4r LF-VILA qa_mc fine-tune", run_tasks_lfvila, "GenericTrainer", argv, tags,
+                          task_launches["qa_mc_train"], card)
         finally:
             run_tasks_lfvila.DUMMY_SIZE = dummy_size
-        tags = scalars(out_dir)
     print(f"  qa_mc training, kernel off, b={QA_TRAIN['batch']}: launches {task_launches['qa_mc_train']} "
           f"(expected none); plain path on CUDA: {len(plain_cuda_calls)} calls; steps "
           f"{[round(a.elapsed_time(b), 2) for a, b in events]} ms (CUDA events) [{card}]")
@@ -816,16 +887,17 @@ def clipvip_pretrain_phase(card: str) -> tuple[dict, dict]:
                 timed_train_steps(trainer_module, "make_train_step") as events, \
                 plain_on_cuda_guard() as plain_cuda_calls:
             reset_launches()
-            state = run_pretrain_clipvip.main([
-                "--config", os.path.join(REPO, PRETRAIN_PRESET), "--dummy_data", "1",
-                "--clip_weights", path, "--num_train_steps", str(steps), "--log_steps", "1",
-                "--save_steps", "1000", "--valid_steps", "1000", "--device", "cuda", "--output_dir", out_dir,
-            ])
+            argv = ["--config", os.path.join(REPO, PRETRAIN_PRESET), "--dummy_data", "1",
+                    "--clip_weights", path, "--num_train_steps", str(steps), "--log_steps", "1",
+                    "--save_steps", "1000", "--valid_steps", "1000", "--device", "cuda", "--output_dir", out_dir]
+            state = run_pretrain_clipvip.main(argv)
             torch.cuda.synchronize()
             launches = launch_counts()
         wall = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated() / 2**30
         tags = scalars(out_dir)
+        graphed = graphed_rerun("4r CLIP-ViP B/32 pretraining", run_pretrain_clipvip, "ClipVipTrainer", argv, tags,
+                                launches, card)
     check(state.step == steps and len(loaded) == 1, f"pretraining ran {state.step} steps, loaded {len(loaded)} times")
     # the loaded model against the file: copies, the patch weight in the
     # port's layout, the temporal embedding interpolated 8 -> 12 rows
@@ -870,7 +942,7 @@ def clipvip_pretrain_phase(card: str) -> tuple[dict, dict]:
     print(f"  peak device memory {peak:.2f} GiB (torch.cuda.max_memory_allocated) [{card}]")
     check(all(math.isfinite(x) for x in ms), "pretraining step times")
     del state, loaded, got, written
-    return launches, {"step_ms": timed, "peak_gib": peak}
+    return launches, {"step_ms": timed, "peak_gib": peak, "graphed": graphed}
 
 
 def swin2d_state_dict(g, embed_dim=128, depths=(2, 2, 18, 2), heads=(4, 8, 16, 32), window=7, patch=4):
@@ -1092,15 +1164,19 @@ def hdvila_stage1_phase(card: str, ckpt_path: str) -> tuple[dict, dict]:
     steps, batch = HDVILA_STEPS[1], hdvila_preset(1)["train_batch_size"]
     torch.cuda.reset_peak_memory_stats()
     with tempfile.TemporaryDirectory() as out_dir:
-        state, launches, ms, wall = hdvila_run(run_pretrain_hdvila, [
-            "--config", os.path.join(REPO, HDVILA_PRESETS[1]), "--stage", "1", "--dummy_data", "1",
-            "--num_train_steps", str(steps), "--log_steps", "1", "--save_steps", "1000", "--output_dir", out_dir])
+        argv = ["--config", os.path.join(REPO, HDVILA_PRESETS[1]), "--stage", "1", "--dummy_data", "1",
+                "--num_train_steps", str(steps), "--log_steps", "1", "--save_steps", "1000", "--output_dir", out_dir]
+        state, launches, ms, wall = hdvila_run(run_pretrain_hdvila, argv)
         print(f"  preset {HDVILA_PRESETS[1]}, batch {batch}; launches {launches} (expected none); every parameter on "
               f"the card: {all(p.is_cuda for p in state.model.parameters())}")
         check(all(p.is_cuda for p in state.model.parameters()), "4j: a parameter off the card")
         report = hdvila_train_report("stage 1", out_dir, ("itc_loss",), steps, ms, wall, batch, card)
-    torch.save(hdvila_e2e_state_dict(state.model), ckpt_path)
-    print(f"  wrote the trained model as a reference HDVILA checkpoint ({os.path.getsize(ckpt_path) / 2**20:.0f} MiB)")
+        torch.save(hdvila_e2e_state_dict(state.model), ckpt_path)
+        print(f"  wrote the trained model as a reference HDVILA checkpoint ({os.path.getsize(ckpt_path) / 2**20:.0f} "
+              f"MiB)")
+        del state
+        report["graphed"] = graphed_rerun("4r HD-VILA stage 1", run_pretrain_hdvila, "GenericTrainer",
+                                          [*argv, "--device", "cuda"], scalars(out_dir), launches, card)
     return launches, report
 
 
@@ -1119,15 +1195,16 @@ def hdvila_stage2_phase(card: str, ckpt_path: str) -> tuple[dict, dict]:
     torch.cuda.reset_peak_memory_stats()
     with tempfile.TemporaryDirectory() as out_dir, snapshot_params() as snapshots, \
             after_call(run_pretrain_hdvila, "load_hdvila_e2e") as loaded:
-        state, launches, ms, wall = hdvila_run(run_pretrain_hdvila, [
-            "--config", os.path.join(REPO, HDVILA_PRESETS[2]), "--stage", "2", "--dummy_data", "1",
-            "--num_train_steps", str(steps // accum), "--e2e_weights_path", ckpt_path, "--log_steps", "1",
-            "--save_steps", "1000", "--output_dir", out_dir])
+        argv = ["--config", os.path.join(REPO, HDVILA_PRESETS[2]), "--stage", "2", "--dummy_data", "1",
+                "--num_train_steps", str(steps // accum), "--e2e_weights_path", ckpt_path, "--log_steps", "1",
+                "--save_steps", "1000", "--output_dir", out_dir]
+        state, launches, ms, wall = hdvila_run(run_pretrain_hdvila, argv)
         print(f"  preset {HDVILA_PRESETS[2]}: batch {batch}, {accum} micro-batches per update, score_agg_func "
               f"{preset['score_agg_func']}, pixel_random_sampling_size {preset['pixel_random_sampling_size']} (the "
               f"640x1024 grid holds 10 x 16 = 160 tokens: all kept, as in JAX); launches {launches} (expected none)")
         print(f"  load_hdvila_e2e (read, convert, merge into the model on the card): {loaded[0][1]:.2f} s")
         report = hdvila_train_report("stage 2", out_dir, ("mlm_loss", "mlm_acc"), steps, ms, wall, batch, card)
+        eager_tags = scalars(out_dir)
     start, paths = snapshots[0], flax_param_paths(state.model)
     frozen_patterns = [p.lower() for p in preset["frozen_patterns"]]
     moved = {True: [], False: []}
@@ -1150,6 +1227,13 @@ def hdvila_stage2_phase(card: str, ckpt_path: str) -> tuple[dict, dict]:
     same = sum(torch.equal(now[key], value) for key, value in ref.items())
     print(f"  the model after the steps against the stage-1 checkpoint: {same} of its {len(ref)} tensors bit-equal")
     check(same == len(ref), "4k: the frozen modules are not the stage-1 checkpoint's")
+    del state, start, snapshots, loaded, ref, now
+    # accumulation at a real size: one graph per micro-step index, one memory pool
+    with tempfile.TemporaryDirectory() as out_dir:
+        argv[argv.index("--output_dir") + 1] = out_dir
+        report["graphed"] = graphed_rerun("4r HD-VILA stage 2 (2 micro-batches an update)", run_pretrain_hdvila,
+                                          "GenericTrainer", [*argv, "--device", "cuda"], eager_tags, launches, card)
+    check(report["graphed"]["graphs"] == accum, f"4r HD-VILA stage 2: {report['graphed']['graphs']} graphs")
     return launches, report
 
 
@@ -1169,10 +1253,12 @@ def hdvila_retrieval_phase(card: str) -> dict:
                                   ("rank", ["--loss_type", "rank", "--train_batch_size", "4", "--num_train_steps",
                                             "2"], 2)):
             with tempfile.TemporaryDirectory() as out_dir:
-                report, launches[name], ms, wall = hdvila_run(run_retrieval_hdvila, [
-                    "--config", preset, "--dummy_data", "1", *args, "--val_batch_size", "8", "--valid_steps", "1000",
-                    "--log_steps", "1", "--save_steps", "1000", "--output_dir", out_dir])
+                argv = ["--config", preset, "--dummy_data", "1", *args, "--val_batch_size", "8", "--valid_steps",
+                        "1000", "--log_steps", "1", "--save_steps", "1000", "--output_dir", out_dir]
+                report, launches[name], ms, wall = hdvila_run(run_retrieval_hdvila, argv)
                 tags = scalars(out_dir)
+                graphed_rerun(f"4r HD-VILA retrieval {name}", run_retrieval_hdvila, "GenericTrainer",
+                              [*argv, "--device", "cuda"], tags, launches[name], card)
             keys = ("rank_loss",) if name == "rank" else ()
             for key in ("loss", "grad_norm") + keys:
                 values = tags.get(f"train/{key}", [])
@@ -1202,16 +1288,18 @@ def hdvila_qa_phase(card: str) -> dict:
         with tempfile.TemporaryDirectory() as root:
             for task, extra in (("mc", ["--num_options", "5"]), ("frameqa", ["--num_labels", "1540"])):
                 out_dir = os.path.join(root, task)
-                report, launches[task], ms, wall = hdvila_run(run_video_qa_hdvila, [
-                    "--config", preset, "--dummy_data", "1", "--task_type", task, *extra, "--train_batch_size", "4",
-                    "--val_batch_size", "4", "--num_train_steps", "2", "--valid_steps", "2", "--log_steps", "1",
-                    "--save_steps", "1000", "--output_dir", out_dir])
+                argv = ["--config", preset, "--dummy_data", "1", "--task_type", task, *extra, "--train_batch_size",
+                        "4", "--val_batch_size", "4", "--num_train_steps", "2", "--valid_steps", "2", "--log_steps",
+                        "1", "--save_steps", "1000", "--output_dir", out_dir]
+                report, launches[task], ms, wall = hdvila_run(run_video_qa_hdvila, argv)
                 losses = scalars(out_dir).get("train/loss", [])
                 print(f"  {task}: losses {[round(v, 5) for v in losses]}; steps {[round(x, 2) for x in ms]} ms (CUDA "
                       f"events); accuracy {report['accuracy']:.4f} over {report['n']} questions; run wall {wall:.1f} s "
                       f"[{card}]")
                 check(len(losses) == 2 and all(math.isfinite(v) for v in losses), f"4m {task}: losses {losses}")
                 check(report["n"] == HDVILA_VAL_ROWS and 0.0 <= report["accuracy"] <= 1.0, f"4m {task}: {report}")
+                graphed_rerun(f"4r HD-VILA video QA {task}", run_video_qa_hdvila, "GenericTrainer",
+                              [*argv, "--device", "cuda"], scalars(out_dir), launches[task], card)
             again, launches["mc_inference"], _, wall = hdvila_run(run_video_qa_hdvila, [
                 "--mode", "inference", "--output_dir", os.path.join(root, "mc")])
             print(f"  mc --mode inference: accuracy {again['accuracy']:.4f} over {again['n']} questions from the run's "
@@ -1368,6 +1456,593 @@ def hdvila_timing_phase(card: str) -> dict:
     del model, optimizer, state, data
     return {"step_ms": windows, "tflop": flops / 1e12, "peak_share": bound / step_ms, "peak_gib": peak,
             "video_ms": video, "op_classes": classes[:3]}
+
+
+# ---------------------------------------------------------------------------
+# The trainers' production switches (phases 4n-4q, 5f, 6f): --steps_per_call
+# as a captured CUDA graph of the step, --param_dtype bf16 with fp32 masters,
+# async checkpoints, the factorized proxy mode, the prefetch loader
+# ---------------------------------------------------------------------------
+
+GRAPHED_FINETUNE = dict(steps=8, every=4, k=4)  # phase 4n: the MSR-VTT preset at its batch (16)
+GRAPHED_LFVILA = dict(steps=4, k=2)  # phase 4o: the stage-1 preset at its batch (16), kernel off
+GRAPH_K = 4  # phases 5f and 6f: the B/32 bf16 train step at b=32, K steps a call
+PREFETCH = dict(batches=16, batch=16, depth=2)  # phase 4q: B/32 u8 clips
+# the host calls that put work on the card, counted per step from torch.profiler's CPU rows
+HOST_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
+                 "cudaGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync")
+
+
+@contextlib.contextmanager
+def built_trainers(module, name: str):
+    """While inside, every trainer that ``module`` builds through its
+    ``name`` (``ClipVipTrainer``, ``GenericTrainer``) is recorded. Yields
+    {"built": [the trainers], "skip": False}; set ``skip`` and their
+    ``train()`` returns at once."""
+    original = getattr(module, name)
+    record = {"built": [], "skip": False}
+
+    class Recorded(original):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            record["built"].append(self)
+
+        def train(self):
+            return None if record["skip"] else super().train()
+
+    setattr(module, name, Recorded)
+    try:
+        yield record
+    finally:
+        setattr(module, name, original)
+
+
+def graphed_rerun(tag: str, module, trainer_name: str, argv: list[str], eager_tags: dict, eager_launches: dict,
+                  card: str, k: int = 2) -> dict:
+    """Phase 4r's check of one training runner: ``module.main(argv)`` again,
+    at ``--steps_per_call k``, in a fresh output directory on the card. Its
+    logged losses (1e-4) and gradient norms (1e-3 relative) against the
+    eager run's ``eager_tags`` (phase 5b's bars), its kernel launches equal
+    to the eager run's (counted at replay), no plain call on CUDA, and at
+    least one graph captured. Returns {"launches", "peak_gib", "graphs"}."""
+    import torch
+
+    with tempfile.TemporaryDirectory() as out_dir, built_trainers(module, trainer_name) as rec:
+        args = list(argv)
+        args[args.index("--output_dir") + 1] = out_dir
+        release_memory()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with plain_on_cuda_guard() as plain_cuda_calls:
+            reset_launches()
+            module.main([*args, "--steps_per_call", str(k)])
+            torch.cuda.synchronize()
+            launches = launch_counts()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        reserved = torch.cuda.max_memory_reserved() / 2**30
+        graphs = capture_launches(rec["built"][0].train_step)
+        tags = scalars(out_dir)
+        del rec["built"][:]
+    release_memory()
+    compared = sorted(t for t in eager_tags if t.startswith("train/") and ("loss" in t or t == "train/grad_norm"))
+    check(bool(compared), f"{tag}: no eager losses to compare")
+    worst = {}
+    for name in compared:
+        a, b = eager_tags[name], tags.get(name, [])
+        check(len(a) == len(b) and all(math.isfinite(x) for x in b), f"{tag} {name}: eager {a}, K = {k} {b}")
+        if name == "train/grad_norm":
+            worst[name] = max(abs(y / x - 1) for x, y in zip(a, b))
+            check(worst[name] <= 1e-3, f"{tag} {name}: K = {k} vs eager rel {worst[name]} (phase 5b's bar 1e-3)")
+        else:
+            worst[name] = max(abs(x - y) for x, y in zip(a, b))
+            check(worst[name] <= 1e-4, f"{tag} {name}: K = {k} vs eager {worst[name]} (phase 5b's bar 1e-4)")
+    same = all(eager_tags[n] == tags[n] for n in compared)
+    diffs = {n.split("/")[1]: f"{v:.3e}" for n, v in worst.items()}
+    print(f"  {tag} at --steps_per_call {k}: {len(eager_tags['train/loss'])} steps, {len(graphs)} graph(s) captured "
+          f"(launches recorded {graphs}); against the eager run: largest differences {diffs}, bit-identical "
+          f"{same}; launches "
+          f"{launches} (eager {eager_launches}); peak {peak:.2f} GiB allocated, {reserved:.2f} GiB reserved; run wall "
+          f"{wall:.1f} s [{card}]")
+    check(launches == eager_launches, f"{tag}: K = {k} launches {launches}, eager {eager_launches}")
+    check(not plain_cuda_calls, f"{tag}: the plain version ran on CUDA tensors: {plain_cuda_calls[:4]}")
+    return {"launches": launches, "peak_gib": peak, "graphs": len(graphs)}
+
+
+def release_memory() -> None:
+    """Free what an earlier run left behind (models, graphs) before a large one."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def b32_train_state(bf16_storage: bool, accum: int = 1, lr: float = 1e-5):
+    """A B/32 bf16-compute model (seed 0) and its grouped AdamW (cosine with
+    warmup, so the lr moves every update), with ``--param_dtype bf16``'s
+    storage and masters when asked."""
+    import torch
+    from xpretrain_tpu_torch.models.clip_vip.convert import flax_param_paths
+    from xpretrain_tpu_torch.models.clip_vip.model import CLIPVipConfig, CLIPViPModel
+    from xpretrain_tpu_torch.optim.optimizer import build_optimizer, cast_params_for_storage, master_weights
+    from xpretrain_tpu_torch.optim.schedules import get_schedule
+    from xpretrain_tpu_torch.parallel.train_step import TrainState
+
+    model = CLIPViPModel(CLIPVipConfig.base_patch32(dtype=torch.bfloat16), device="cuda")
+    model.init_weights(torch.Generator(device="cuda").manual_seed(0))
+    optimizer, _ = build_optimizer(dict(model.named_parameters()), get_schedule("cosine", lr, 16, warmup_ratio=0.25),
+                                   grad_accum_steps=accum, paths=flax_param_paths(model.config))
+    if bf16_storage:
+        cast_params_for_storage(model, torch.bfloat16)
+        optimizer = master_weights(optimizer)
+    return TrainState(step=0, model=model, optimizer=optimizer)
+
+
+def b32_train_batches(k: int, batch: int = 32) -> tuple[list, dict]:
+    """``k`` synthetic B/32 train batches on the card and their stack."""
+    import torch
+    from xpretrain_tpu_torch.tools.profile_train_step import synthetic_batch
+
+    batches = [synthetic_batch(batch, "cuda", seed=3 + i) for i in range(k)]
+    return batches, {key: torch.stack([b[key] for b in batches]) for key in batches[0]}
+
+
+def b32_steps(k: int):
+    """(eager one-step function, the K-step function) of the fine-tune step."""
+    from xpretrain_tpu_torch.ops.losses import build_loss_fn
+    from xpretrain_tpu_torch.parallel.train_step import make_train_step
+    from xpretrain_tpu_torch.train.trainer import ClipVipTrainer
+
+    loss = build_loss_fn("NCELearnableTempLoss")
+    return (make_train_step(ClipVipTrainer._apply_train, loss, "cuda"),
+            make_train_step(ClipVipTrainer._apply_train, loss, "cuda", steps_per_call=k))
+
+
+def capture_launches(step) -> list[dict]:
+    """The kernel launches each capture of a K-step function recorded, one
+    {wrapper name: count} per graph; fails if it captured none."""
+    captures = [c for c in step.graphed.captures.values() if c is not None]
+    check(bool(captures), "the K-step function captured no graph")
+    return [{fn.__name__: n for fn, n in c.launches if n} for c in captures]
+
+
+def graphed_finetune_phase(card: str) -> dict:
+    """Phase 4n: the MSR-VTT B/32 preset through ``run_retrieval_clipvip
+    --mode train`` with ``--steps_per_call 4 --param_dtype bf16
+    --async_checkpoint 1``: 8 steps at the preset's b=16, validation and saves
+    every 4. The proxy launches counted at replay, no plain call on CUDA,
+    finite losses; every stored parameter of >= 2 dims bf16 and equal to
+    bf16(master); both checkpoints load, the last equal to the final state
+    bit for bit; and both equal, bit for bit, the files of the same run with
+    synchronous saves (the step-4 file is the one that the update after it
+    would corrupt if the snapshot did not come first)."""
+    import torch
+    from xpretrain_tpu_torch.cli import run_retrieval_clipvip
+
+    steps, every, k = GRAPHED_FINETUNE["steps"], GRAPHED_FINETUNE["every"], GRAPHED_FINETUNE["k"]
+    with open(os.path.join(REPO, PRESET)) as f:
+        preset = json.load(f)
+
+    def argv(out_dir: str, async_checkpoint: int) -> list[str]:
+        return ["--config", os.path.join(REPO, PRESET), "--dummy_data", "1", "--device_ingest", "1",
+                "--mode", "train", "--num_train_steps", str(steps), "--valid_steps", str(every),
+                "--save_steps", str(every), "--log_steps", "1", "--steps_per_call", str(k),
+                "--param_dtype", "bf16", "--async_checkpoint", str(async_checkpoint), "--device", "cuda",
+                "--output_dir", out_dir]
+
+    with tempfile.TemporaryDirectory() as sync_dir:
+        run_retrieval_clipvip.main(argv(sync_dir, 0))
+        synchronous = {step: torch.load(os.path.join(sync_dir, "ckpt", f"{step}.pt"), map_location="cpu",
+                                        weights_only=True) for step in (every, steps)}
+    release_memory()
+    with tempfile.TemporaryDirectory() as out_dir, built_trainers(run_retrieval_clipvip, "ClipVipTrainer") as rec:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with plain_on_cuda_guard() as plain_cuda_calls:
+            reset_launches()
+            report = run_retrieval_clipvip.main(argv(out_dir, 1))
+            torch.cuda.synchronize()
+            launches = launch_counts()
+        wall = time.perf_counter() - t0
+        trainer = rec["built"][0]
+        n_val = math.ceil(run_retrieval_clipvip.DUMMY_VAL_SIZE / preset["val_batch_size"])
+        validations = 1 + steps // every + 1  # at start, at each boundary, the final report's
+        want = expected(proxy_attention_fwd=VIDEO_LAYERS * (steps + validations * n_val),
+                        proxy_attention_bwd=VIDEO_LAYERS * steps)
+        recorded = capture_launches(trainer.train_step)
+        print(f"  launches {launches} (expected {want}: {VIDEO_LAYERS} + {VIDEO_LAYERS} a step x {steps} steps, one "
+              f"eager warm-up and the rest replays, + {validations} validations x {n_val} batches forward); "
+              f"recorded by the capture and added at each replay: {recorded}; plain path on CUDA: "
+              f"{len(plain_cuda_calls)} calls")
+        check(launches == want, "graphed fine-tune kernel launch counts")
+        check(recorded == [{"proxy_attention": VIDEO_LAYERS, "proxy_attention_bwd": VIDEO_LAYERS}],
+              f"the capture recorded {recorded}")
+        check(not plain_cuda_calls, f"the plain version ran on CUDA tensors: {plain_cuda_calls[:4]}")
+        tags = scalars(out_dir)
+        losses, norms = tags["train/loss"], tags["train/grad_norm"]
+        print(f"  batch {preset['train_batch_size']}, K = {k}: losses {[round(x, 4) for x in losses]}, "
+              f"grad norms {[round(x, 4) for x in norms]}")
+        check(len(losses) == steps and all(math.isfinite(x) for x in losses + norms), "graphed losses not finite")
+        check(all(math.isfinite(report[d][m]) for d in ("t2v", "v2t") for m in ("R1", "R5", "R10")), "R@K")
+        opt = trainer.optimizer
+        masters = {opt.names[i]: opt.targets[i] for i in opt.masters}
+        stored = 0
+        for name, p in trainer.model.named_parameters():
+            if p.dim() >= 2:
+                check(p.dtype == torch.bfloat16 and masters[name].dtype == torch.float32, f"{name}: storage dtypes")
+                check(torch.equal(p, masters[name].to(torch.bfloat16)), f"{name}: param != bf16(master)")
+                stored += 1
+            else:
+                check(p.dtype == torch.float32 and name not in masters, f"{name}: a 1-D leaf is fp32, its own master")
+        ckpts = sorted(os.listdir(os.path.join(out_dir, "ckpt")), key=lambda n: int(n.split(".")[0]))
+        check(ckpts == [f"{every}.pt", f"{steps}.pt"], f"checkpoints {ckpts}")
+        first, last = trainer.ckpt.restore(every), trainer.ckpt.restore(steps)
+        check(first["step"] == every and first["optimizer"]["count"] == every, "the first checkpoint's step")
+        final = {"model": trainer.model.state_dict(), **{f"optimizer.{key}": opt.state_dict()[key]
+                                                          for key in ("mu", "nu", "master")}}
+        for part, tensors in final.items():
+            saved = last["model"] if part == "model" else last["optimizer"][part.split(".")[1]]
+            check(set(saved) == set(tensors), f"{part}: checkpoint keys")
+            for key, value in tensors.items():
+                check(saved[key].dtype == value.dtype and torch.equal(saved[key], value.cpu()),
+                      f"{part}[{key}]: the last checkpoint differs from the final state")
+        check(last["step"] == steps and last["optimizer"]["count"] == opt.count == steps, "the last checkpoint's step")
+        for step, saved in ((every, first), (steps, last)):
+            want, got = flatten(synchronous[step]), flatten(saved)
+            check(set(got) == set(want), f"step {step}: the async file's keys differ from the synchronous one's")
+            for key, value in want.items():
+                if torch.is_tensor(value):
+                    same = value.dtype == got[key].dtype and torch.equal(value, got[key])
+                else:
+                    same = value == got[key]
+                check(same, f"step {step} {key}: the async file differs from the synchronous one")
+            print(f"  the async file of step {step} equals the synchronous run's bit for bit: {len(want)} entries "
+                  f"({sum(torch.is_tensor(v) for v in want.values())} tensors)")
+        print(f"  {stored} stored parameters of >= 2 dims in bf16, each equal to bf16(master); checkpoints {ckpts} "
+              f"load, the last equal to the final state bit for bit (model, mu, nu, masters)")
+        print(f"  run wall {wall:.1f} s (host clock, synthetic data and {validations} validations included); peak "
+              f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+        del trainer, rec["built"][:]
+    release_memory()
+    return launches
+
+
+def graphed_lfvila_phase(card: str) -> dict:
+    """Phase 4o: LF-VILA stage-1 pretraining (the stage-1 preset at its
+    batch 16, kernel off) at ``--steps_per_call 2`` for 4 steps against the
+    eager run on the same seed and synthetic data: the per-step losses and
+    gradient norms within phase 5b's bars (MTC clips that followed the
+    capture instead of the seed would move them)."""
+    import torch
+    from xpretrain_tpu_torch.cli import run_pretrain_lfvila
+
+    steps, k = GRAPHED_LFVILA["steps"], GRAPHED_LFVILA["k"]
+    with open(os.path.join(REPO, STAGE_PRESETS[1])) as f:
+        batch = json.load(f)["train_batch_size"]
+    runs = {}
+    for calls in (1, k):
+        with tempfile.TemporaryDirectory() as out_dir, built_trainers(run_pretrain_lfvila, "GenericTrainer") as rec:
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            with plain_on_cuda_guard() as plain_cuda_calls:
+                reset_launches()
+                run_pretrain_lfvila.main([
+                    "--config", os.path.join(REPO, STAGE_PRESETS[1]), "--stage", "1", "--dummy_data", "1",
+                    "--device_ingest", "1", "--train_batch_size", str(batch), "--num_train_steps", str(steps),
+                    "--log_steps", "1", "--save_steps", "1000", "--steps_per_call", str(calls), "--device", "cuda",
+                    "--output_dir", out_dir,
+                ])
+                torch.cuda.synchronize()
+                launches = launch_counts()
+            runs[calls] = dict(tags=scalars(out_dir), launches=launches, wall=time.perf_counter() - t0,
+                               peak=torch.cuda.max_memory_allocated() / 2**30)
+            if calls > 1:
+                runs[calls]["captured"] = capture_launches(rec["built"][0].train_step)
+            check(launches == expected(), f"K = {calls}: kernel launches {launches} (the kernel is off)")
+            check(not plain_cuda_calls, f"the plain version ran on CUDA tensors: {plain_cuda_calls[:4]}")
+            del rec["built"][:]
+        release_memory()
+    eager, graphed = runs[1]["tags"], runs[k]["tags"]
+    for tag in ("train/loss", "train/ct_time_loss", "train/ct_global_loss", "train/grad_norm"):
+        a, b = eager[tag], graphed[tag]
+        check(len(a) == len(b) == steps and all(math.isfinite(x) for x in a + b), f"{tag}: {a} {b}")
+        diff = max(abs(x - y) for x, y in zip(a, b))
+        print(f"  {tag:22s} eager {[round(x, 5) for x in a]}\n  {'':22s} K = {k}  {[round(x, 5) for x in b]}; "
+              f"max diff {diff:.3e}, bit-identical: {a == b}")
+        if tag == "train/grad_norm":
+            rel = max(abs(x / y - 1) for x, y in zip(b, a))
+            check(rel <= 1e-3, f"{tag}: graphed vs eager rel {rel} (phase 5b's bar 1e-3)")
+        else:
+            check(diff <= 1e-4, f"{tag}: graphed vs eager {diff} (phase 5b's bar 1e-4)")
+    check(len(set(graphed["train/ct_time_loss"])) == steps, "the MTC loss repeats across steps")
+    print(f"  runner wall {runs[1]['wall']:.1f} s eager, {runs[k]['wall']:.1f} s at K = {k} (host clock, the model's "
+          f"build and synthetic data included); peak {runs[1]['peak']:.2f} / {runs[k]['peak']:.2f} GiB; launches "
+          f"none (the kernel is off, as JAX trains) [{card}]")
+    return runs[k]["launches"]
+
+
+def factorized_phase(card: str) -> dict:
+    """Phase 4p: ``attention_mode="factorized"`` at B/32 serving (b=24): no
+    proxy launch and no guarded plain call, features within phase 5's 1e-4 of
+    the masked_full kernel path in fp32 (the bf16 difference printed), the
+    guard still catching the model module's masked ``dot_attention`` on CUDA,
+    and a training forward + backward with attention dropout on the card."""
+    import torch
+    from xpretrain_tpu_torch.models.clip_vip import model as clip_vip_model
+    from xpretrain_tpu_torch.models.clip_vip.model import CLIPVipConfig, CLIPViPModel, VipConfig
+    from xpretrain_tpu_torch.ops import proxy_attention as pa
+    from xpretrain_tpu_torch.tools.profile_train_step import synthetic_batch
+
+    batch = synthetic_batch(EVAL_BATCH, "cuda", seed=5)
+    inputs = (batch["video"], batch["text_input_ids"], batch["text_input_mask"])
+    feats, fact_launches = {}, None
+    for dtype in (torch.float32, torch.bfloat16):
+        full = CLIPViPModel(CLIPVipConfig.base_patch32(dtype=dtype), device="cuda")
+        full.init_weights(torch.Generator(device="cuda").manual_seed(0)).eval()
+        fact = CLIPViPModel(CLIPVipConfig.base_patch32(dtype=dtype, vip=VipConfig(attention_mode="factorized")),
+                            device="cuda")
+        fact.load_state_dict(full.state_dict())
+        fact.eval()
+        with plain_on_cuda_guard() as plain_cuda_calls, torch.inference_mode():
+            reset_launches()
+            got = fact(*inputs)
+            torch.cuda.synchronize()
+            launches = launch_counts()
+        check(launches == expected(), f"factorized {dtype}: kernel launches {launches}")
+        check(not plain_cuda_calls, f"factorized {dtype}: guarded plain calls {plain_cuda_calls[:4]}")
+        fact_launches = fact_launches or launches
+        before = pa.proxy_attention.launches
+        with torch.inference_mode():
+            want = full(*inputs)
+        torch.cuda.synchronize()
+        check(pa.proxy_attention.launches == before + VIDEO_LAYERS, "the masked_full path did not use the kernel")
+        dt = str(dtype).split(".")[-1]
+        feats[dt] = {key: (got[key].float() - want[key].float()).abs().max().item()
+                     for key in ("vis_features", "text_features")}
+        check(all(math.isfinite(x) for x in feats[dt].values()), f"factorized {dt}: features not finite")
+        del full, fact, got, want
+    print(f"  B/32 serving b={EVAL_BATCH}, factorized vs masked_full (the kernel), same weights: fp32 max_abs "
+          f"{feats['float32']} (tol 1e-4), bf16 max_abs {feats['bfloat16']}; factorized launches {fact_launches}")
+    check(feats["float32"]["vis_features"] <= 1e-4, f"factorized vs masked_full fp32: {feats['float32']}")
+    # the guard lets the factorized path's common.dot_attention through, and
+    # still records the model module's masked dot_attention on CUDA
+    q = torch.randn(1, 2, 8, 16, device="cuda")
+    with plain_on_cuda_guard() as plain_cuda_calls:
+        clip_vip_model.dot_attention(q, q, q, 0.25)
+    check(len(plain_cuda_calls) == 1, f"the guard missed the masked dot_attention: {plain_cuda_calls}")
+    # training with attention dropout on the card (no kernel, so no raise)
+    train = CLIPViPModel(CLIPVipConfig.base_patch32(dtype=torch.bfloat16, vip=VipConfig(attention_mode="factorized")),
+                         device="cuda")
+    train.init_weights(torch.Generator(device="cuda").manual_seed(0)).train()
+    for module in train.modules():
+        if hasattr(module, "dropout_rate"):
+            module.dropout_rate = 0.1
+    small = {key: value[:4] for key, value in batch.items()}
+    out = train(small["video"], small["text_input_ids"], small["text_input_mask"],
+                generator=torch.Generator(device="cuda").manual_seed(1))
+    (out["vis_features"].float() @ out["text_features"].float().T).sum().backward()
+    grads = [p.grad for p in train.parameters() if p.grad is not None]
+    check(bool(grads) and all(bool(torch.isfinite(g).all()) for g in grads), "factorized dropout backward")
+    print(f"  guard: the masked dot_attention on CUDA recorded, the factorized one let through; a bf16 training "
+          f"forward + backward at b=4 with attention dropout 0.1: {len(grads)} finite gradients [{card}]")
+    del train, out, grads
+    release_memory()
+    return fact_launches
+
+
+def prefetch_phase(card: str) -> None:
+    """Phase 4q: ``PrefetchLoader(depth=2)`` with ``batch_to_device("cuda")``
+    over 16 synthetic B/32 batches (b=16 u8 clips and captions): each batch
+    on the card equals its host batch bit for bit."""
+    import numpy as np
+    import torch
+    from xpretrain_tpu_torch.data.loader import PrefetchLoader
+    from xpretrain_tpu_torch.parallel.train_step import batch_to_device
+    from xpretrain_tpu_torch.tools.profile_train_step import captions
+
+    rng = np.random.default_rng(7)
+    host = []
+    for _ in range(PREFETCH["batches"]):
+        ids, mask = captions(rng, PREFETCH["batch"])
+        host.append({"video": rng.integers(0, 256, size=(PREFETCH["batch"], 12, 224, 224, 3), dtype=np.uint8),
+                     "text_input_ids": ids, "text_input_mask": mask})
+    nbytes = sum(v.nbytes for b in host for v in b.values())
+    t0 = time.perf_counter()
+    sums = []
+    placed = []
+    for item in PrefetchLoader(host, batch_to_device("cuda"), depth=PREFETCH["depth"]):
+        check(all(v.is_cuda for v in item.values()), "a prefetched batch is not on the card")
+        sums.append(item["video"].sum(dtype=torch.int64))  # consume on this stream, as a step would
+        placed.append(item)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for i, (item, want) in enumerate(zip(placed, host)):
+        for key, value in want.items():
+            check(torch.equal(item[key].cpu(), torch.from_numpy(value)), f"batch {i} {key}: differs from the host's")
+        check(sums[i].item() == int(want["video"].sum(dtype=np.int64)), f"batch {i}: the consumer read another batch")
+    print(f"  {len(placed)} batches of {PREFETCH['batch']} B/32 u8 clips, depth {PREFETCH['depth']}, each bit-equal "
+          f"to its host batch; {nbytes / 2**20:.0f} MiB in {wall:.2f} s ({nbytes / wall / 1e9:.2f} GB/s, host clock, "
+          f"pinning included) [{card}]")
+    del placed, host
+    release_memory()
+
+
+def graph_equals_eager_phase(card: str) -> None:
+    """Phase 5f: the B/32 bf16 train step at b=32, 4 steps graphed (K = 4)
+    against 4 eager steps on the same batches and seeds, once plain and once
+    with gradient accumulation 2: parameters, moments and per-step losses
+    compared bit for bit (if they differ: the largest difference, held to
+    phase 5b's bars). Then K more steps, all replays, under torch.profiler:
+    the launch counters against the proxy kernels the device ran, by name,
+    and the peak memory of the graphed steps."""
+    import torch
+
+    k, lr = GRAPH_K, 1e-5
+    batches, stacked = b32_train_batches(k)
+    for accum in (1, 2):
+        eager_state, graphed_state = b32_train_state(False, accum, lr), b32_train_state(False, accum, lr)
+        eager, graphed = b32_steps(k)
+        eager_losses = [eager(eager_state, b, 11 + i)[1]["loss"] for i, b in enumerate(batches)]
+        release_memory()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        _, metrics = graphed(graphed_state, stacked, 11)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        check(launches == expected(proxy_attention_fwd=VIDEO_LAYERS * k, proxy_attention_bwd=VIDEO_LAYERS * k),
+              f"accum {accum}: graphed launches {launches}")
+        captures = capture_launches(graphed)
+        check(len(captures) == accum, f"accum {accum}: {len(captures)} graphs (one per micro-step index)")
+        pairs = {"params": list(zip(eager_state.model.parameters(), graphed_state.model.parameters())),
+                 "mu": list(zip(eager_state.optimizer.mu, graphed_state.optimizer.mu)),
+                 "nu": list(zip(eager_state.optimizer.nu, graphed_state.optimizer.nu))}
+        same = {name: all(torch.equal(a, b) for a, b in group) for name, group in pairs.items()}
+        loss_diff = (metrics["loss"] - torch.stack(eager_losses)).abs().max().item()
+        param_diff = max((a.float() - b.float()).abs().max().item() for a, b in pairs["params"])
+        print(f"  accumulation {accum}: {k} steps graphed ({len(captures)} graph(s), launches {launches}) vs eager: "
+              f"bit-identical {same}, losses max diff {loss_diff:.3e}, params max diff {param_diff:.3e} [{card}]")
+        if not all(same.values()):
+            check(loss_diff <= 1e-4, f"graphed vs eager loss {loss_diff} (phase 5b's bar 1e-4)")
+            check(param_diff <= 2 * lr * (k // accum), f"graphed vs eager params {param_diff} (2 lr an update)")
+        check(graphed_state.optimizer.count == eager_state.optimizer.count == k // accum, "update counts")
+        replayed = replays_against_device(lambda: graphed(graphed_state, stacked, 11 + k))
+        print(f"  accumulation {accum}: {k} more steps, every one a replay: counted {replayed['counted']}, the "
+              f"device ran {replayed['device']} (torch.profiler kernel names); peak {peak:.2f} GiB allocated over the "
+              f"first {k} graphed steps (warm-up and capture included) [{card}]")
+        del eager_state, graphed_state, eager, graphed, pairs
+        release_memory()
+    del batches, stacked
+    release_memory()
+
+
+# device kernel names (substrings) of the proxy-attention wrappers' launches:
+# one forward kernel a forward launch, a dq and a dkv kernel a backward launch
+PROXY_DEVICE_KERNELS = {"forward": ("fwd_mma_kernel", "proxy_attention_fwd_kernel"),
+                        "backward dq": ("dq_mma_kernel", "bwd_dq_kernel"),
+                        "backward dkv": ("dkv_mma_kernel", "bwd_dkv_kernel")}
+
+
+def replays_against_device(call) -> dict:
+    """``call()`` under ``torch.profiler``: the proxy-attention launches the
+    wrappers counted against the proxy kernels the device ran, by name (a
+    graph's replay adds what its capture recorded, so this holds the added
+    counts to what ran). Fails on a mismatch or on no launch."""
+    import torch
+    from xpretrain_tpu_torch.train.profiling import key_average_rows
+
+    torch.cuda.synchronize()
+    reset_launches()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    counted = launch_counts()
+    rows = [r for r in key_average_rows(prof) if r["device_type"] == "CUDA"]
+    device = {part: sum(r["count"] for r in rows if any(n in r["name"] for n in names))
+              for part, names in PROXY_DEVICE_KERNELS.items()}
+    check(counted["proxy_attention_fwd"] > 0, f"no proxy launch counted: {counted}")
+    check(device == {"forward": counted["proxy_attention_fwd"], "backward dq": counted["proxy_attention_bwd"],
+                     "backward dkv": counted["proxy_attention_bwd"]},
+          f"counted {counted} against the device's proxy kernels {device}")
+    return {"counted": {key: n for key, n in counted.items() if n}, "device": device}
+
+
+def profile_per_step(fn, steps: int) -> dict:
+    """One call of ``fn`` (``steps`` train steps) under ``torch.profiler``:
+    device busy ms, device kernels and host launch calls, each per step."""
+    import torch
+    from xpretrain_tpu_torch.train.profiling import device_us, key_average_rows
+
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = key_average_rows(prof)
+    kernels = sum(r["count"] for r in rows if r["device_type"] == "CUDA")
+    host = sum(r["count"] for r in rows if r["device_type"] == "CPU" and r["name"] in HOST_LAUNCHES)
+    return {"busy_ms": device_us(rows) / 1e3 / steps, "kernels": kernels / steps, "host_launches": host / steps}
+
+
+def time_steps(fns: dict, steps: int, card: str, what: str, window_s: float = 1.0) -> dict:
+    """For each of ``fns`` (name -> a call of ``steps`` train steps): ms a
+    step over 5 windows of about ``window_s`` (CUDA events), device busy
+    time, idle share, kernels and host launches a step, and peak GiB
+    allocated from the first call on (a graph's capture included)."""
+    import torch
+    from xpretrain_tpu_torch.tools.profile_train_step import cuda_time_ms, median, spread, window_ms
+
+    out = {}
+    for name, fn in fns.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()  # the peak holds the capture's private pool
+        fn()
+        fn()  # warm-up (a K-step function's first call warms up and captures)
+        torch.cuda.synchronize()
+        iters = max(1, round(window_s * 1e3 / cuda_time_ms(fn, iters=1, warmup=0)))
+        windows = [ms / steps for ms in window_ms(fn, iters=iters)]
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        prof = profile_per_step(fn, steps)
+        idle = 1 - prof["busy_ms"] / median(windows)
+        out[name] = {"step_ms": windows, "peak_gib": peak, "idle": idle, **prof}
+        print(f"  {what} {name}: {spread(windows)} a step; windows {windows} (CUDA events, {iters} calls of "
+              f"{steps} steps each); device busy {prof['busy_ms']:.3f} ms a step, idle share {idle:.3f}; "
+              f"{prof['kernels']:.0f} device kernels and {prof['host_launches']:.1f} host launch calls a step "
+              f"(torch.profiler, one call); peak {peak:.2f} GiB [{card}]")
+        check(all(math.isfinite(x) for x in windows) and prof["busy_ms"] > 0, f"{what} {name}: timing")
+    return out
+
+
+def graph_timing_phase(card: str) -> dict:
+    """Phase 6f: the B/32 bf16 train step at b=32, eager and graphed (K = 4),
+    each with fp32 and with bf16 parameter storage; then LF-VILA stage 1 (the
+    preset at b=16, kernel off) eager and at K = 2, through the trainer the
+    runner builds."""
+    import torch
+    from xpretrain_tpu_torch.cli import run_pretrain_lfvila
+    from xpretrain_tpu_torch.parallel.train_step import TrainState, make_model_train_step
+
+    k = GRAPH_K
+    batches, stacked = b32_train_batches(k)
+    results = {}
+    for storage in ("fp32", "bf16"):
+        state = b32_train_state(storage == "bf16", lr=1e-6)
+        eager, graphed = b32_steps(k)
+        results.update({f"b32 {storage} storage {mode}": row for mode, row in time_steps({
+            "eager": lambda: [eager(state, b, 0) for b in batches],
+            f"graphed K={k}": lambda: graphed(state, stacked, 0),
+        }, k, card, f"B/32 bf16 train step b=32, {storage} storage,").items()})
+        del state, eager, graphed
+        release_memory()
+    del batches, stacked
+    release_memory()
+
+    with open(os.path.join(REPO, STAGE_PRESETS[1])) as f:
+        batch = json.load(f)["train_batch_size"]
+    with tempfile.TemporaryDirectory() as out_dir, built_trainers(run_pretrain_lfvila, "GenericTrainer") as rec:
+        rec["skip"] = True
+        run_pretrain_lfvila.main([
+            "--config", os.path.join(REPO, STAGE_PRESETS[1]), "--stage", "1", "--dummy_data", "1",
+            "--device_ingest", "1", "--train_batch_size", str(batch), "--num_train_steps", "1000",
+            "--device", "cuda", "--output_dir", out_dir,
+        ])
+        trainer = rec["built"][0]
+        lk = GRAPHED_LFVILA["k"]
+        data = [trainer.place_batch(next(trainer.train_loader)) for _ in range(lk)]
+        lf_stacked = {key: torch.stack([b[key] for b in data]) for key in data[0]}
+        state = TrainState(step=0, model=trainer.model, optimizer=trainer.optimizer)
+        graphed = make_model_train_step(trainer.apply_fn, "cuda", metric_keys=trainer.metric_keys, steps_per_call=lk)
+        results.update({f"lfvila stage 1 {mode}": row for mode, row in time_steps({
+            "eager": lambda: [trainer.train_step(state, b, 0) for b in data],
+            f"graphed K={lk}": lambda: graphed(state, lf_stacked, 0),
+        }, lk, card, f"LF-VILA stage-1 bf16 train step b={batch},", window_s=1.2).items()})
+        del trainer, rec["built"][:], state, graphed, data, lf_stacked
+    release_memory()
+    return results
 
 
 def main() -> None:
@@ -1761,17 +2436,21 @@ def main() -> None:
     with phase("4c LF-VILA retrieval, window kernel on (main path)"), tempfile.TemporaryDirectory() as out_dir:
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        with plain_on_cuda_guard() as plain_cuda_calls:
-            reset_launches()
-            report = run_tasks_lfvila.main([
-                "--config", os.path.join(REPO, LFVILA_PRESET), "--task", "retrieval", "--dummy_data", "1",
-                "--num_train_steps", "0", "--val_batch_size", str(LFVILA_BATCH), "--device", "cuda",
-                "--output_dir", out_dir,
-            ])
-            torch.cuda.synchronize()
-            lfvila_launches = launch_counts()
+        dummy_size, run_tasks_lfvila.DUMMY_SIZE = run_tasks_lfvila.DUMMY_SIZE, TASK_EVAL_SAMPLES
+        try:
+            with plain_on_cuda_guard() as plain_cuda_calls:
+                reset_launches()
+                report = run_tasks_lfvila.main([
+                    "--config", os.path.join(REPO, LFVILA_PRESET), "--task", "retrieval", "--dummy_data", "1",
+                    "--num_train_steps", "0", "--val_batch_size", str(LFVILA_BATCH), "--device", "cuda",
+                    "--output_dir", out_dir,
+                ])
+                torch.cuda.synchronize()
+                lfvila_launches = launch_counts()
+        finally:
+            run_tasks_lfvila.DUMMY_SIZE = dummy_size
         wall = time.perf_counter() - t0
-        n_batches = math.ceil(run_tasks_lfvila.DUMMY_SIZE / LFVILA_BATCH)
+        n_batches = math.ceil(TASK_EVAL_SAMPLES / LFVILA_BATCH)
         want = expected(window_attention_fwd=WINDOW_BLOCKS * n_batches)
         print(f"  launches {lfvila_launches} (expected {WINDOW_BLOCKS} window blocks x {n_batches} batches); "
               f"plain path on CUDA: {len(plain_cuda_calls)} calls")
@@ -1850,6 +2529,18 @@ def main() -> None:
 
     with phase("4m HD-VILA video QA: multiple choice and FrameQA, then inference (main path)"):
         hdvila_qa_launches = hdvila_qa_phase(card)
+
+    with phase("4n B/32 fine-tune at --steps_per_call 4, --param_dtype bf16, --async_checkpoint 1 (main path)"):
+        graphed_launches = graphed_finetune_phase(card)
+
+    with phase("4o LF-VILA stage-1 pretraining at --steps_per_call 2 against eager (main path)"):
+        lfvila_graphed_launches = graphed_lfvila_phase(card)
+
+    with phase("4p B/32 serving in the factorized proxy mode (main path)"):
+        factorized_launches = factorized_phase(card)
+
+    with phase("4q PrefetchLoader onto the card"):
+        prefetch_phase(card)
 
     with phase("5 serve: card vs CPU, fp32"):
         model_cpu = CLIPViPModel(CLIPVipConfig.base_patch32(dtype=torch.float32))
@@ -1950,6 +2641,9 @@ def main() -> None:
 
     with phase("5e HD-VILA pretraining steps at full width: card vs CPU, fp32"):
         hdvila_card_vs_cpu_phase()
+
+    with phase("5f the graphed train step against the eager one, plain and with accumulation"):
+        graph_equals_eager_phase(card)
 
     with phase("6 timing"):
         s = B32
@@ -2256,13 +2950,18 @@ def main() -> None:
     with phase("6e timing: HD-VILA stage-1 train step and video tower at batch 8"):
         hdvila_timing_phase(card)
 
+    with phase("6f timing: eager and graphed train steps, fp32 and bf16 storage"):
+        graph_timing_phase(card)
+
     paths = {"eval": eval_launches, "train": train_launches, "lfvila_retrieval": lfvila_launches,
              "ops": ops_launches, "lfvila_stage1": stage1_launches, "lfvila_stage2": stage2_launches,
              **{f"lfvila_{task}": counts for task, counts in task_launches.items()},
              "clipvip_pretrain": pretrain_launches, "lfvila_stage1_from_2d_swin_bert": cascade_launches,
              "hdvila_stage1": hdvila_stage1_launches, "hdvila_stage2": hdvila_stage2_launches,
              **{f"hdvila_retrieval_{k}": v for k, v in hdvila_retrieval_launches.items()},
-             **{f"hdvila_qa_{k}": v for k, v in hdvila_qa_launches.items()}}
+             **{f"hdvila_qa_{k}": v for k, v in hdvila_qa_launches.items()},
+             "train_graphed_bf16_async": graphed_launches, "lfvila_stage1_graphed": lfvila_graphed_launches,
+             "clipvip_factorized": factorized_launches}
     window_timing = {dt: win_timings[("s3_shifted", dt)] for dt in ("bfloat16", "float32")}
     summary = {"kernels": [
         {

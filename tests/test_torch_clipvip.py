@@ -43,10 +43,10 @@ def _tokens(rng, b):
     return ids, (ids > 0).astype(np.int64)
 
 
-def _pair(vision_type="ViP"):
+def _pair(vision_type="ViP", attention_mode="masked_full"):
     """A flax model with randomized params (every leaf, so zero-init biases
     and the temporal embedding count too) and the port loaded from them."""
-    vip = dict(type=vision_type, temporal_size=TEMPORAL)
+    vip = dict(type=vision_type, temporal_size=TEMPORAL, attention_mode=attention_mode)
     jax_model = JaxModel(JaxConfig.tiny_debug(image_size=IMAGE, vip=JaxVip(**vip)))
     video = jnp.zeros((1, TEMPORAL, IMAGE, IMAGE, 3), jnp.uint8)
     ids = jnp.zeros((1, SEQ), jnp.int32).at[:, 3].set(49407)
@@ -119,9 +119,87 @@ def test_load_rejects_missing_and_unexpected_keys(vip_pair):
         load_jax_params(model, {"params": extra})
 
 
-def test_factorized_mode_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        CLIPViPModel(CLIPVipConfig.tiny_debug(vip=VipConfig(attention_mode="factorized")))
+@pytest.fixture(scope="module")
+def factorized_pair():
+    return _pair(attention_mode="factorized")
+
+
+def test_factorized_mode_matches_jax(factorized_pair):
+    """``attention_mode="factorized"``: JAX's ``_factorized`` (two
+    ``dot_attention`` calls) against the port's, same params, dropout 0."""
+    rng = np.random.default_rng(8)
+    video = rng.integers(0, 256, size=(2, TEMPORAL, IMAGE, IMAGE, 3), dtype=np.uint8)
+    _compare(factorized_pair, video, 2, seed=8)
+
+
+def test_factorized_mode_matches_masked_full(vip_pair, factorized_pair):
+    """The two modes compute one function: the factorized model's features
+    against the masked_full model's (the proxy kernel's plain path on the
+    CPU), loaded from the same params."""
+    _, params, factorized = factorized_pair
+    _, params_full, full = vip_pair
+    for key, value in params.items():  # one draw of the same init: the same params
+        jax.tree_util.tree_map(np.testing.assert_array_equal, value, params_full[key])
+    rng = np.random.default_rng(9)
+    video = torch.from_numpy(rng.integers(0, 256, size=(3, TEMPORAL, IMAGE, IMAGE, 3), dtype=np.uint8))
+    ids, mask = (torch.from_numpy(t) for t in _tokens(rng, 3))
+    with torch.inference_mode():
+        got, want = factorized(video, ids, mask), full(video, ids, mask)
+    torch.testing.assert_close(got["vis_features"], want["vis_features"], atol=ATOL, rtol=0)
+
+
+def test_factorized_attention_equals_the_masked_full_attention():
+    """``factorized_proxy_attention`` against ``proxy_attention_plain`` on
+    random [B, H, M+N*L, D] inputs (M=4, N=3, L=5), and its dropout: drawn in
+    training from the generator (the same seed, the same output), so that it
+    differs from the deterministic call, with gradients to q, k and v."""
+    from xpretrain_tpu_torch.models.clip_vip.model import factorized_proxy_attention
+    from xpretrain_tpu_torch.ops.proxy_attention import proxy_attention_plain
+
+    M, N, L, D = 4, 3, 5, 8
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(2, 3, M + N * L, D, generator=g) for _ in range(3))
+    got = factorized_proxy_attention(q, k, v, M, N, L, D**-0.5)
+    torch.testing.assert_close(got, proxy_attention_plain(q, k, v, M, L, D**-0.5), atol=ATOL, rtol=0)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    drop = lambda seed: factorized_proxy_attention(*leaves, M, N, L, D**-0.5, 0.3,  # noqa: E731
+                                                   torch.Generator().manual_seed(seed))
+    first = drop(5)
+    assert torch.equal(first, drop(5)) and not torch.allclose(first, got)
+    first.sum().backward()
+    assert all(t.grad is not None and torch.isfinite(t.grad).all() for t in leaves)
+
+
+def _train_grads(remat: bool, rate: float, attention_mode: str) -> dict:
+    """The gradients of a seeded tiny model (attention dropout ``rate`` in
+    both towers) for one batch, from one dropout seed."""
+    cfg = CLIPVipConfig.tiny_debug(image_size=IMAGE, remat=remat,
+                                   vip=VipConfig(temporal_size=TEMPORAL, attention_mode=attention_mode))
+    cfg = dataclasses.replace(cfg, vision=dataclasses.replace(cfg.vision, attention_dropout=rate),
+                              text=dataclasses.replace(cfg.text, attention_dropout=rate))
+    model = CLIPViPModel(cfg)
+    model.init_weights(torch.Generator().manual_seed(0)).train()
+    rng = np.random.default_rng(3)
+    video = torch.from_numpy(rng.integers(0, 256, size=(2, TEMPORAL, IMAGE, IMAGE, 3), dtype=np.uint8))
+    ids, mask = (torch.from_numpy(t) for t in _tokens(rng, 2))
+    out = model(video, ids, mask, generator=torch.Generator().manual_seed(1))
+    (out["vis_features"] @ out["text_features"].T).sum().backward()
+    return {name: p.grad for name, p in model.named_parameters() if p.grad is not None}
+
+
+@pytest.mark.parametrize("attention_mode", ["masked_full", "factorized"])
+def test_remat_recomputes_with_the_forwards_dropout_masks(attention_mode):
+    """``remat`` under attention dropout: the backward's recompute takes the
+    forward's keep masks (``common.recomputed``), so the gradients are those
+    without remat, bit for bit; the masks were drawn (the gradients differ
+    from those at rate 0)."""
+    want = _train_grads(False, 0.2, attention_mode)
+    got = _train_grads(True, 0.2, attention_mode)
+    assert set(got) == set(want)
+    for name, grad in want.items():
+        assert torch.equal(got[name], grad), name
+    plain = _train_grads(False, 0.0, attention_mode)
+    assert any(not torch.equal(plain[name], grad) for name, grad in want.items())
 
 
 def test_towers_match_model(vip_pair):

@@ -37,7 +37,9 @@ from xpretrain_tpu.data import datasets_hdvila_tasks as jax_datasets_hdvila_task
 from xpretrain_tpu.data import datasets_lfvila as jax_datasets_lfvila  # noqa: E402
 from xpretrain_tpu.data import datasets_lfvila_tasks as jax_datasets_lfvila_tasks  # noqa: E402
 from xpretrain_tpu.data import loader as jax_loader  # noqa: E402
+from xpretrain_tpu.data import metadata as jax_metadata  # noqa: E402
 from xpretrain_tpu.data import sample_frames as jax_sample_frames  # noqa: E402
+from xpretrain_tpu.data import text_clean as jax_text_clean  # noqa: E402
 from xpretrain_tpu.data import tokenization as jax_tokenization  # noqa: E402
 from xpretrain_tpu.data import transforms as jax_transforms  # noqa: E402
 from xpretrain_tpu.data import video_reader as jax_video_reader  # noqa: E402
@@ -58,7 +60,9 @@ from xpretrain_tpu_torch.data import (  # noqa: E402
     datasets_lfvila,
     datasets_lfvila_tasks,
     loader,
+    metadata,
     sample_frames,
+    text_clean,
     tokenization,
     transforms,
     video_reader,
@@ -629,6 +633,101 @@ def test_loaders_match_jax(num_workers):
 
     for g, w in zip(run(loader), run(jax_loader)):
         np.testing.assert_array_equal(g, w)
+
+
+def test_packed_record_store_copy_matches_jax(tmp_path):
+    """The port's ``PackedRecordStore`` writes the JAX one's files byte for
+    byte and reads either's by index, by key and as a dataset."""
+    rows = [{"clip": f"v{i}", "text": "caption " * (i % 4)} for i in range(9)]
+    records = rows[:5] + ["plain text", b"\x00raw bytes"] + rows[5:]
+    keys = [f"key{i}" for i in range(len(records))]
+    stores = {}
+    for name, mod in (("port", metadata), ("jax", jax_metadata)):
+        stores[name] = mod.PackedRecordStore.build(str(tmp_path / name), records, keys)
+    for ext in (".bin", ".idx", ".keys"):
+        assert (tmp_path / f"port{ext}").read_bytes() == (tmp_path / f"jax{ext}").read_bytes(), ext
+    port, jax_store = stores["port"], jax_metadata.PackedRecordStore(str(tmp_path / "port"))
+    assert len(port) == len(jax_store) == len(records)
+    for i, key in enumerate(keys):
+        assert port.get(i) == jax_store.get(i) and port.get_by_key(key) == jax_store.get_by_key(key)
+    view, jax_view = metadata.PackedStoreDataset(port), jax_metadata.PackedStoreDataset(jax_store)
+    assert [view[i] for i in range(5)] == [jax_view[i] for i in range(5)] == rows[:5]
+    for key in ("a", "clip_17", "ünï"):
+        assert metadata.stable_hash(key, 7) == jax_metadata.stable_hash(key, 7)
+    for store in (port, jax_store, stores["jax"]):
+        store.close()
+
+
+def _write_shards(tmp_path, n_shards=3, rows=10):
+    for s in range(n_shards):
+        with open(tmp_path / f"part{s}.jsonl", "w") as f:
+            for r in range(rows + s):
+                f.write(json.dumps({"shard": s, "row": r}) + "\n")
+    return str(tmp_path / "part{}.jsonl")
+
+
+def test_sharded_annotations_and_reload_loader_match_jax(tmp_path):
+    """``ShardedAnnotations`` and ``ShardedReloadLoader``: the same shard
+    cycle and the same batches, across reloads and the wrap."""
+    pattern = _write_shards(tmp_path)
+
+    def collate(items):
+        return np.asarray([[it["shard"], it["row"]] for it in items])
+
+    def run(meta_mod, loader_mod):
+        shards = meta_mod.ShardedAnnotations(pattern, 3, start_shard=1)
+        it = loader_mod.ShardedReloadLoader(shards, list, 4, collate, reload_steps=3, seed=5)
+        return [next(it) for _ in range(11)], shards.shard
+
+    got, want = run(metadata, loader), run(jax_metadata, jax_loader)
+    assert got[1] == want[1]
+    for g, w in zip(got[0], want[0]):
+        np.testing.assert_array_equal(g, w)
+    assert {int(b[0, 0]) for b in got[0]} == {0, 1, 2}
+
+
+def test_prefetch_loader_matches_jax_on_the_cpu():
+    """``PrefetchLoader`` yields what the JAX one does, in order, with the
+    placement applied and a producer error raised to the consumer."""
+    source = [{"x": np.full((2, 3), i, np.float32)} for i in range(7)]
+    place = lambda b: {k: v * 2 for k, v in b.items()}  # noqa: E731
+    got = list(loader.PrefetchLoader(source, place, depth=2))
+    want = list(jax_loader.PrefetchLoader(source, place, depth=2))
+    assert len(got) == len(want) == 7
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g["x"], w["x"])
+
+    def broken():
+        yield source[0]
+        raise RuntimeError("decode failed")
+
+    it = iter(loader.PrefetchLoader(broken(), place, depth=1))
+    np.testing.assert_array_equal(next(it)["x"], source[0]["x"] * 2)
+    with pytest.raises(RuntimeError, match="decode failed"):
+        next(it)
+
+
+def test_prefetch_loader_places_batches_with_batch_to_device():
+    """On the CPU, ``batch_to_device`` as the ``place_fn`` gives each host
+    batch back as tensors, bit for bit."""
+    from xpretrain_tpu_torch.parallel.train_step import batch_to_device
+
+    rng = np.random.default_rng(3)
+    source = [{"video": rng.integers(0, 256, size=(2, 3, 8, 8, 3), dtype=np.uint8),
+               "ids": rng.integers(0, 100, size=(2, 5))} for _ in range(5)]
+    got = list(loader.PrefetchLoader(source, batch_to_device("cpu"), depth=2))
+    for g, w in zip(got, source):
+        for key in w:
+            assert isinstance(g[key], torch.Tensor)
+            np.testing.assert_array_equal(g[key].numpy(), w[key])
+
+
+def test_text_clean_copy_matches_jax():
+    text = "  The  quick [Music] brown fox, and a dog! &gt; 2 &amp; some  >> words   THAT are here "
+    assert text_clean.ENGLISH_STOP_WORDS == jax_text_clean.ENGLISH_STOP_WORDS
+    for fn in ("remove_stop_words", "clean_subtitle"):
+        for t in (text, "", "a an the", "Hello World"):
+            assert getattr(text_clean, fn)(t) == getattr(jax_text_clean, fn)(t), (fn, t)
 
 
 def test_video_reader_finds_the_same_native_library():

@@ -396,3 +396,24 @@ def test_runner_raises_on_checkpoint_flags(tmp_path, flag):
     raises instead of leaving the random init."""
     with pytest.raises(FileNotFoundError, match="w.pt"):
         run_pretrain_lfvila.main(_runner_args(tmp_path, 1, 0, f"--{flag}", "w.pt"))
+
+
+@pytest.mark.parametrize("stage_no", [1, 2])
+def test_runner_steps_per_call_2_equals_steps_per_call_1(tmp_path, stage_no):
+    """``GenericTrainer`` at ``--steps_per_call 2`` against 1, 4 steps of the
+    tiny model: step s draws its MTC clips and dropout from seed + s in both,
+    so parameters, moments and logged losses are bit-identical."""
+    runs = {}
+    for k in (1, 2):
+        out = tmp_path / f"k{k}"
+        out.mkdir()
+        runs[k] = run_pretrain_lfvila.main(_runner_args(out, stage_no, 4, "--steps_per_call", str(k)))
+    a, b = runs[1], runs[2]
+    assert a.step == b.step == 4 and a.optimizer.count == b.optimizer.count == 4
+    for (name, p), q in zip(a.model.named_parameters(), b.model.parameters()):
+        assert torch.equal(p, q), name
+    for moment in ("mu", "nu"):
+        for m, n in zip(getattr(a.optimizer, moment), getattr(b.optimizer, moment)):
+            assert torch.equal(m, n)
+    losses = [[r["value"] for r in _scalars(tmp_path / f"k{k}" / "out") if r["tag"] == "train/loss"] for k in (1, 2)]
+    assert losses[0] == losses[1] and len(losses[0]) == 4 and len(set(losses[0])) == 4

@@ -180,10 +180,110 @@ def test_clamp_logit_scale():
     assert named["x.logit_scale"].item() == 0.0
 
 
-def test_param_dtype_bf16_is_not_ported():
-    opt.check_param_dtype({"param_dtype": "fp32"})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        opt.check_param_dtype({"param_dtype": "bf16"})
+def test_param_dtype_from_cfg():
+    assert opt.param_dtype_from_cfg({"param_dtype": "fp32"}) is None
+    assert opt.param_dtype_from_cfg({}) is None
+    assert opt.param_dtype_from_cfg({"param_dtype": "bf16"}) == torch.bfloat16
+    with pytest.raises(ValueError, match="param_dtype"):
+        opt.param_dtype_from_cfg({"param_dtype": "fp16"})
+
+
+def _bf16_ulps(got: torch.Tensor, want: np.ndarray) -> float:
+    """Largest |got - want| in bf16 ulps of ``want`` (both bf16 values)."""
+    w = torch.from_numpy(np.asarray(want, np.float32))
+    ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(2.0**-100))) - 7)
+    return ((got.float() - w).abs() / ulp).max().item()
+
+
+MASTER_CASES = {
+    "clip_wd": dict(max_grad_norm=1.0, weight_decay=0.1),
+    "accum_2_frozen": dict(max_grad_norm=None, weight_decay=0.0, grad_accum_steps=2, frozen_patterns=("cnn",)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MASTER_CASES))
+def test_master_weights_match_jax_over_three_steps(jax_optim, case):
+    """bf16 storage with fp32 masters against JAX's ``master_weights`` on the
+    same bf16 gradients, for 3 updates: masters within 1e-6 relative, the
+    stored bf16 parameters within 1 bf16 ulp, and ``param == bf16(master)``
+    exact on the port after every call (a frozen leaf and accumulation
+    included)."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+    from xpretrain_tpu.optim import cast_params_for_storage, master_weights
+
+    kwargs = MASTER_CASES[case]
+    accum = kwargs.get("grad_accum_steps", 1)
+    tree = _tree()
+    sched_j = jax_optim.get_schedule("cosine", 1e-2, 20, warmup_ratio=0.1)
+    tx, _ = jax_optim.build_optimizer(jax.tree_util.tree_map(jnp.asarray, tree), sched_j, fused=True, **kwargs)
+    tx = master_weights(tx)
+    params_j = cast_params_for_storage(jax.tree_util.tree_map(jnp.asarray, tree), jnp.bfloat16)
+    state_j = tx.init(params_j)
+
+    named = {k: torch.from_numpy(v.copy()) for k, v in _flat(tree).items()}
+    port, _ = opt.build_optimizer(named, schedules.get_schedule("cosine", 1e-2, 20, warmup_ratio=0.1), **kwargs)
+    opt.cast_params_for_storage(named, torch.bfloat16)
+    opt.master_weights(port)
+    masters = {port.names[i]: port.targets[i] for i in port.masters}
+    assert set(masters) == {"vision.kernel", "cnn.conv.kernel", "pos_embed"}
+    assert all(named[n].dtype == torch.bfloat16 and m.dtype == torch.float32 for n, m in masters.items())
+    assert named["logit_scale"].dtype == named["vision.bias"].dtype == torch.float32
+
+    rng = np.random.default_rng(1)
+    for call in range(3 * accum):
+        scale = 100.0 if call == 1 else 0.05  # trips the norm clip once
+        grads = jax.tree_util.tree_map(
+            lambda p: jnp.asarray(rng.normal(size=np.shape(p)) * scale, p.dtype), params_j)
+        upd, state_j = tx.update(grads, state_j, params_j)
+        params_j = optax.apply_updates(params_j, upd)
+        flat_grads = _flat(jax.tree_util.tree_map(lambda g: np.asarray(g.astype(jnp.float32)), grads))
+        port.step([torch.from_numpy(flat_grads[n]).to(named[n].dtype) for n in port.names])
+        want = _flat(jax.tree_util.tree_map(lambda p: np.asarray(p.astype(jnp.float32)), params_j))
+        want_masters = _flat(jax.tree_util.tree_map(np.asarray, state_j.master))
+        for name, p in named.items():
+            assert p.dtype == (torch.bfloat16 if name in masters else torch.float32), name
+            if name in masters:
+                assert torch.equal(p, masters[name].to(torch.bfloat16)), f"{name}: param != bf16(master)"
+                np.testing.assert_allclose(masters[name].numpy(), want_masters[name], rtol=1e-6, atol=1e-7,
+                                           err_msg=f"master {name} after call {call}")
+                assert _bf16_ulps(p, want[name]) <= 1.0, f"{name} after call {call}"
+            else:
+                np.testing.assert_allclose(p.numpy(), want[name], rtol=1e-6, atol=1e-7, err_msg=name)
+    assert port.count == 3
+    if "frozen_patterns" in kwargs:
+        np.testing.assert_array_equal(named["cnn.conv.kernel"].float().numpy(),
+                                      _flat(tree)["cnn.conv.kernel"].astype(np.float32).astype(
+                                          jnp.bfloat16).astype(np.float32))
+
+
+def test_master_weights_state_dict_round_trip():
+    """The masters travel in the optimizer's state; loading them sets each
+    stored parameter to bf16(master), so a run resumes from its masters."""
+    named = {k: torch.from_numpy(v.copy()) for k, v in _flat(_tree()).items()}
+    port, _ = opt.build_optimizer(named, schedules.get_schedule("constant", 1e-2, 20))
+    opt.cast_params_for_storage(named, torch.bfloat16)
+    opt.master_weights(port)
+    rng = np.random.default_rng(4)
+    for _ in range(2):
+        port.step([torch.from_numpy(rng.normal(size=p.shape).astype(np.float32)).to(p.dtype)
+                   for p in port.params])
+    state = {k: (dict(v) if isinstance(v, dict) else v) for k, v in port.state_dict().items()}
+    assert set(state["master"]) == {"vision.kernel", "cnn.conv.kernel", "pos_embed"}
+    state = {k: ({n: t.clone() for n, t in v.items()} if isinstance(v, dict) else v) for k, v in state.items()}
+
+    fresh = {k: torch.zeros_like(v) for k, v in named.items()}
+    other, _ = opt.build_optimizer(fresh, schedules.get_schedule("constant", 1e-2, 20))
+    opt.master_weights(other)
+    other.load_state_dict(state)
+    assert other.count == 2
+    for name, p in named.items():  # the fp32 leaves are their own master: the model's state carries them
+        assert torch.equal(fresh[name], p if name in state["master"] else torch.zeros_like(p)), name
+    with pytest.raises(KeyError, match="master"):
+        plain, _ = opt.build_optimizer({k: torch.zeros_like(v) for k, v in named.items()},
+                                       schedules.get_schedule("constant", 1e-2, 20))
+        plain.load_state_dict(state)
 
 
 def test_global_norm_on_the_cpu_is_exact_for_large_tensors():

@@ -32,11 +32,48 @@ def test_eval_cli_reports_recall(tmp_path, ingest):
         assert json.load(f)["t2v"] == report["t2v"]
 
 
-def test_train_mode_not_ported(tmp_path):
-    """The parts of --mode train not ported yet raise, each naming the ROADMAP."""
-    for extra in (["--param_dtype", "bf16"], ["--steps_per_call", "2"], ["--async_checkpoint", "1"]):
-        with pytest.raises(NotImplementedError):
-            run_retrieval_clipvip.main(TRAIN + extra + ["--output_dir", str(tmp_path / extra[0][2:])])
+SWITCHES = ["--steps_per_call", "2", "--param_dtype", "bf16", "--async_checkpoint", "1"]
+
+
+def test_train_mode_takes_the_production_switches(tmp_path):
+    """``--steps_per_call 2 --param_dtype bf16 --async_checkpoint 1``: 4 steps
+    in 2 chunks, a loss logged per step, both async checkpoints written, and
+    in each the parameters of >= 2 dims stored in bf16 equal to bf16 of the
+    fp32 masters the optimizer state carries."""
+    report = run_retrieval_clipvip.main(TRAIN + SWITCHES + ["--valid_steps", "2", "--save_steps", "2",
+                                                            "--output_dir", str(tmp_path)])
+    assert all(np.isfinite(report["t2v"][k]) for k in ("R1", "R5", "R10"))
+    rows = [json.loads(line) for line in open(tmp_path / "log" / "scalars.jsonl")]
+    losses = [r["value"] for r in rows if r["tag"] == "train/loss"]
+    assert [r["step"] for r in rows if r["tag"] == "train/loss"] == [1, 2, 3, 4] and all(np.isfinite(losses))
+    assert sorted(os.listdir(tmp_path / "ckpt")) == ["2.pt", "4.pt"]
+    for name in ("2.pt", "4.pt"):
+        ckpt = torch.load(tmp_path / "ckpt" / name, weights_only=True)
+        masters = ckpt["optimizer"]["master"]
+        for key, value in ckpt["model"].items():
+            if value.dim() >= 2:
+                assert value.dtype == torch.bfloat16 and torch.equal(value, masters[key].to(torch.bfloat16)), key
+            else:
+                assert value.dtype == torch.float32 and key not in masters, key
+
+
+def test_bf16_resume_equals_an_unbroken_run(tmp_path):
+    """A bf16-stored run at K = 2 with async saves, broken at step 2 and
+    resumed from its checkpoint's masters in a fresh run, ends where an
+    unbroken one does, bit for bit."""
+    flags = SWITCHES + ["--validate_at_start", "0", "--valid_steps", "100", "--save_steps", "2"]
+    run_retrieval_clipvip.main(TRAIN + flags + ["--output_dir", str(tmp_path / "a")])
+    broken = [a if a != "4" else "2" for a in TRAIN] + flags + ["--output_dir", str(tmp_path / "b")]
+    run_retrieval_clipvip.main(broken)
+    run_retrieval_clipvip.main(TRAIN + flags + ["--output_dir", str(tmp_path / "b")])
+    a = torch.load(tmp_path / "a" / "ckpt" / "4.pt", weights_only=True)
+    b = torch.load(tmp_path / "b" / "ckpt" / "4.pt", weights_only=True)
+    assert a["step"] == b["step"] == 4 and a["optimizer"]["count"] == b["optimizer"]["count"] == 4
+    for part in ("model", ("optimizer", "master"), ("optimizer", "mu"), ("optimizer", "nu")):
+        want, got = (c[part] if isinstance(part, str) else c[part[0]][part[1]] for c in (a, b))
+        assert set(got) == set(want)
+        for key, value in want.items():
+            assert got[key].dtype == value.dtype and torch.equal(got[key], value), (part, key)
 
 
 def test_train_cli_writes_final_report(tmp_path):

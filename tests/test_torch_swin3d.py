@@ -66,8 +66,8 @@ def test_window_group_clip_partition_match():
 
 
 def test_static_tensors_are_built_once_per_device():
-    a = swin3d._on_device(swin3d.shifted_window_mask, ((4, 6, 10), (2, 3, 5), (0, 1, 2)), torch.device("cpu"))
-    b = swin3d._on_device(swin3d.shifted_window_mask, ((4, 6, 10), (2, 3, 5), (0, 1, 2)), torch.device("cpu"))
+    a = swin3d.device_constant(swin3d.shifted_window_mask, ((4, 6, 10), (2, 3, 5), (0, 1, 2)), torch.device("cpu"))
+    b = swin3d.device_constant(swin3d.shifted_window_mask, ((4, 6, 10), (2, 3, 5), (0, 1, 2)), torch.device("cpu"))
     assert a is b
     with pytest.raises(ValueError):  # the shared numpy arrays are read-only
         swin3d.shifted_window_mask((4, 6, 10), (2, 3, 5), (0, 1, 2))[0, 0, 0] = 1.0

@@ -182,9 +182,6 @@ def test_image_branch_raises(jax_run):
 @pytest.mark.parametrize(
     "flag,error",
     [
-        ({"steps_per_call": 2}, "steps_per_call"),
-        ({"param_dtype": "bf16"}, "param_dtype"),
-        ({"async_checkpoint": 1}, "async"),
         ({"tp": 2}, "tp"),
         ({"zero3": 1}, "zero3"),
     ],
@@ -220,3 +217,126 @@ def test_checkpoint_manager_rotates_and_restores_latest(tmp_path):
     state = mgr.restore()
     assert state["step"] == 6 and torch.equal(state["w"], torch.full((3,), 6.0))
     assert mgr.restore(4)["step"] == 4
+
+
+# -- the production switches: steps_per_call, param_dtype, async_checkpoint --
+
+TRAINER_BATCH, TRAINER_STEPS = 8, 4  # 8: JAX's trainer shards the batch over 8 CPU devices
+
+
+def _trainer_batches():
+    rng = np.random.default_rng(11)
+    out = []
+    for _ in range(TRAINER_STEPS):
+        ids = np.zeros((TRAINER_BATCH, SEQ), np.int64)
+        ids[:, 0] = 49406
+        for i, n in enumerate(rng.integers(3, SEQ - 1, size=TRAINER_BATCH)):
+            ids[i, 1:n] = rng.integers(10, 400, size=n - 1)
+            ids[i, n] = 49407
+        video = rng.integers(0, 256, size=(TRAINER_BATCH, TEMPORAL, IMAGE, IMAGE, 3), dtype=np.uint8)
+        out.append({"video": video, "text_input_ids": ids, "text_input_mask": (ids > 0).astype(np.int64)})
+    return out
+
+
+def _trainer_cfg(tmp_path, name, **extra):
+    from xpretrain_tpu.config import ConfigDict
+
+    return ConfigDict(**{
+        "clip_size": "tiny", "crop_img_size": IMAGE, "bf16": 0, "output_dir": str(tmp_path / name),
+        "clip_vision_additional_config": {"temporal_size": TEMPORAL}, "num_train_steps": TRAINER_STEPS,
+        "learning_rate": LR, "decay": "constant", "warmup_ratio": 0.0, "log_steps": 1, "valid_steps": 100,
+        "save_steps": 100, "validate_at_start": False, "seed": 3, **extra,
+    })
+
+
+def _port_trainer_run(tmp_path, name, params, **extra):
+    trainer = ClipVipTrainer(_trainer_cfg(tmp_path, name, **extra), train_loader=iter(_trainer_batches()),
+                             init_params={"params": params}, device="cpu")
+    trainer.train()
+    return trainer
+
+
+def _logged(out_dir, tag):
+    import json
+
+    with open(out_dir / "log" / "scalars.jsonl") as f:
+        return [row["value"] for row in map(json.loads, f) if row["tag"] == tag]
+
+
+@pytest.fixture(scope="module")
+def jax_k2_run(jax_run, tmp_path_factory):
+    """JAX's ClipVipTrainer, 4 steps at steps_per_call 2 (two scanned
+    chunks), from the jax_run params: (final params, logged losses)."""
+    import jax
+
+    from xpretrain_tpu.train.trainer import ClipVipTrainer as JaxTrainer
+
+    tmp = tmp_path_factory.mktemp("jax_k2")
+    trainer = JaxTrainer(_trainer_cfg(tmp, "jax", steps_per_call=2), train_loader=iter(_trainer_batches()),
+                         init_params=jax_run[0])
+    state = trainer.train()
+    return jax.tree_util.tree_map(np.asarray, state.params), _logged(tmp / "jax", "train/loss")
+
+
+def test_trainer_steps_per_call_2_matches_jax_and_equals_steps_per_call_1(jax_run, jax_k2_run, tmp_path):
+    """4 steps at K = 2: within the trainer bars of JAX's K = 2 run (dropout
+    0), and bit for bit the port's K = 1 run (step s seeds with seed + s)."""
+    params = jax_run[0]
+    k2 = _port_trainer_run(tmp_path, "k2", params, steps_per_call=2)
+    k1 = _port_trainer_run(tmp_path, "k1", params)
+    assert k2.optimizer.count == k1.optimizer.count == TRAINER_STEPS
+    for key, value in k1.model.state_dict().items():
+        torch.testing.assert_close(k2.model.state_dict()[key], value, rtol=0, atol=0, msg=key)
+    for moment in ("mu", "nu"):
+        for a, b in zip(getattr(k2.optimizer, moment), getattr(k1.optimizer, moment)):
+            assert torch.equal(a, b)
+    losses = _logged(tmp_path / "k2", "train/loss")
+    assert losses == _logged(tmp_path / "k1", "train/loss") and len(losses) == TRAINER_STEPS
+    jax_params, jax_losses = jax_k2_run
+    np.testing.assert_allclose(losses, jax_losses, rtol=1e-5)
+    diffs = np.concatenate([np.abs(k2.model.state_dict()[k].numpy() - w.numpy()).ravel()
+                            for k, w in _port_model(jax_params).state_dict().items()])
+    assert diffs.max() <= 2 * TRAINER_STEPS * LR, diffs.max()
+    assert np.mean(diffs > 1e-6) <= 1e-4, np.mean(diffs > 1e-6)
+
+
+def test_trainer_param_dtype_bf16_stores_bf16_with_fp32_masters(jax_run, tmp_path):
+    """--param_dtype bf16: every parameter of >= 2 dims is stored in bf16 and
+    equals bf16(master) after the steps; the rest stay fp32 without a master."""
+    trainer = _port_trainer_run(tmp_path, "bf16", jax_run[0], param_dtype="bf16")
+    opt = trainer.optimizer
+    masters = {opt.names[i]: opt.targets[i] for i in opt.masters}
+    named = dict(trainer.model.named_parameters())
+    assert set(masters) == {n for n, p in named.items() if p.dim() >= 2}
+    for name, p in named.items():
+        if p.dim() >= 2:
+            assert p.dtype == torch.bfloat16 and masters[name].dtype == torch.float32
+            assert torch.equal(p, masters[name].to(torch.bfloat16)), name
+        else:
+            assert p.dtype == torch.float32, name
+    assert all(np.isfinite(_logged(tmp_path / "bf16", "train/loss")))
+
+
+def test_trainer_async_checkpoint_equals_the_synchronous_one(jax_run, tmp_path):
+    """--async_checkpoint 1: the checkpoints at steps 2 and 4 equal the
+    synchronous run's bit for bit, and the trainer drains its last write."""
+    params = jax_run[0]
+    files = {}
+    for name, flag in (("sync", 0), ("async", 1)):
+        trainer = _port_trainer_run(tmp_path, name, params, async_checkpoint=flag, save_steps=2)
+        assert trainer.ckpt._last_async is None and trainer.ckpt._thread is None
+        files[name] = {step: trainer.ckpt.restore(step) for step in trainer.ckpt.steps()}
+    assert sorted(files["async"]) == sorted(files["sync"]) == [2, 4]
+    for step, want in files["sync"].items():
+        _assert_nested_equal(files["async"][step], want)
+
+
+def _assert_nested_equal(got, want, where=""):
+    if isinstance(want, dict):
+        assert set(got) == set(want), where
+        for key in want:
+            _assert_nested_equal(got[key], want[key], f"{where}/{key}")
+    elif isinstance(want, torch.Tensor):
+        assert got.dtype == want.dtype and torch.equal(got, want), where
+    else:
+        assert got == want, where

@@ -53,9 +53,9 @@ def build_shared_parser(desc: str = "xpretrain_tpu_torch runner") -> argparse.Ar
     p.add_argument("--moment_dtype", type=str, default="fp32", choices=["fp32", "bf16"],
                    help="Adam moment storage dtype; accumulation runs in fp32")
     p.add_argument("--param_dtype", type=str, default="fp32", choices=["fp32", "bf16"],
-                   help="parameter storage dtype (bf16 is not ported and raises)")
+                   help="parameter storage dtype; bf16 keeps fp32 masters in the optimizer")
     p.add_argument("--steps_per_call", type=int, default=1,
-                   help="optimizer steps per dispatch (> 1 is not ported and raises)")
+                   help="optimizer steps per dispatch (on a card: replays of one captured CUDA graph)")
     p.add_argument("--lr_mul", type=float, default=1.0)
     p.add_argument("--lr_mul_prefix", type=str, default="")
     p.add_argument("--loss_name", type=str, default="NCELearnableTempLoss")
@@ -73,7 +73,7 @@ def build_shared_parser(desc: str = "xpretrain_tpu_torch runner") -> argparse.Ar
                    help="selective-remat policy of the LF-VILA Swin3D blocks; '' = full remat")
     p.add_argument("--zero2", type=int, default=1, help="shard optimizer state (one device: no effect)")
     p.add_argument("--zero3", type=int, default=0, help="FSDP (not ported; raises)")
-    p.add_argument("--async_checkpoint", type=int, default=0, help="non-blocking saves (not ported; raises)")
+    p.add_argument("--async_checkpoint", type=int, default=0, help="non-blocking saves")
     p.add_argument("--tp", type=int, default=1, help="tensor-parallel degree (> 1 is not ported; raises)")
     p.add_argument("--cp", type=int, default=1, help="LF-VILA context-parallel degree (> 1 is not ported; raises)")
 

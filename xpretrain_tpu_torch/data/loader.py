@@ -12,11 +12,20 @@
   (ref ``dataloader.py:160-177``).
 - :class:`MetaLoader` — ratio-weighted multi-task draw
   (ref ``dataloader.py:15-62``).
+- :class:`ShardedReloadLoader` — an infinite loader that swaps annotation
+  shards every ``reload_steps`` (``data/metadata.py:ShardedAnnotations``).
+- :class:`PrefetchLoader` — device placement from a background thread, with
+  a bounded queue (ref ``dataloader.py:65-157``, the reference's CUDA-stream
+  ``PrefetchLoader``): on a card the copy runs on a stream of the producer's
+  own and the consumer's stream waits on its event. Torch is imported only
+  there.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Iterator, Mapping, Sequence
+import queue
+import threading
+from typing import Any, Callable, Iterable, Iterator, Mapping, Sequence
 
 import numpy as np
 
@@ -220,3 +229,133 @@ class MetaLoader:
     def __next__(self) -> tuple[str, Any]:
         task = self.names[int(self.rng.integers(0, len(self.names)))]
         return task, next(self.iters[task])
+
+
+class ShardedReloadLoader:
+    """Infinite loader that swaps annotation shards every ``reload_steps``.
+
+    The hd-vila sharded-annotation pattern
+    (``run_pretrain_stage1_group.py:265-277, 344-347, 482-488``): a 100M-row
+    corpus is split into epoch-sized jsonl shards; the train loader is rebuilt
+    on the next shard every RELOAD_STEPS so at most one shard is resident.
+
+    ``dataset_factory(rows) -> dataset``; ``shards`` is a
+    :class:`~xpretrain_tpu_torch.data.metadata.ShardedAnnotations`.
+    """
+
+    def __init__(
+        self,
+        shards,
+        dataset_factory: Callable[[list], Sequence],
+        batch_size: int,
+        collate_fn: Callable[[list], Any],
+        reload_steps: int = 1000,
+        seed: int = 0,
+        process_index: int = 0,
+        process_count: int = 1,
+    ):
+        self.shards = shards
+        self.dataset_factory = dataset_factory
+        self.batch_size = batch_size
+        self.collate_fn = collate_fn
+        self.reload_steps = reload_steps
+        self.seed = seed
+        self.process_index = process_index
+        self.process_count = process_count
+        self._steps_on_shard = 0
+        self._reloads = 0
+        self._it: Iterator | None = None
+
+    def _build(self):
+        loader = BatchLoader(
+            self.dataset_factory(self.shards.current()),
+            self.batch_size,
+            self.collate_fn,
+            seed=self.seed + 104729 * self._reloads,  # distinct stream per shard
+            process_index=self.process_index,
+            process_count=self.process_count,
+        )
+        return InfiniteIterator(loader)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        if self._it is None:
+            self._it = self._build()
+        if self._steps_on_shard >= self.reload_steps:
+            self.shards.advance()
+            self._reloads += 1
+            self._steps_on_shard = 0
+            self._it = self._build()
+        self._steps_on_shard += 1
+        return next(self._it)
+
+
+def _tensors(item) -> list:
+    """The torch tensors in a batch: a dict's values, or a (task, batch) pair's."""
+    if isinstance(item, dict):
+        return [v for v in item.values() if hasattr(v, "record_stream")]
+    if isinstance(item, (tuple, list)):
+        return [t for sub in item for t in _tensors(sub)]
+    return [item] if hasattr(item, "record_stream") else []
+
+
+class PrefetchLoader:
+    """Stage batches onto the device from a background thread.
+
+    ``place_fn`` does the host->device transfer (on a card,
+    ``parallel/train_step.py:batch_to_device``: pinned memory, ``non_blocking``
+    copies); a bounded queue of ``depth`` in-flight batches overlaps the
+    upload with the previous step's compute. With a card present the producer
+    runs ``place_fn`` on a CUDA stream of its own and records an event; the
+    consumer's current stream waits on that event, and each CUDA tensor of
+    the batch is recorded on the consumer's stream, before the batch is
+    yielded."""
+
+    def __init__(self, source: Iterable, place_fn: Callable[[Any], Any], depth: int = 2):
+        self.source = source
+        self.place_fn = place_fn
+        self.depth = depth
+
+    def __iter__(self):
+        import torch
+
+        cuda = torch.cuda.is_available()
+        stream = torch.cuda.Stream() if cuda else None
+        q: queue.Queue = queue.Queue(maxsize=self.depth)
+        sentinel = object()
+        error: list[BaseException] = []
+
+        def producer():
+            try:
+                for item in self.source:
+                    if stream is None:
+                        q.put((self.place_fn(item), None))
+                        continue
+                    with torch.cuda.stream(stream):
+                        placed = self.place_fn(item)
+                        event = torch.cuda.Event()
+                        event.record(stream)
+                    q.put((placed, event))
+            except BaseException as e:  # noqa: BLE001 - surfaced to consumer
+                error.append(e)
+            finally:
+                q.put(sentinel)
+
+        thread = threading.Thread(target=producer, daemon=True)
+        thread.start()
+        while True:
+            entry = q.get()
+            if entry is sentinel:
+                if error:
+                    raise error[0]
+                return
+            item, event = entry
+            if event is not None:
+                current = torch.cuda.current_stream()
+                current.wait_event(event)
+                for t in _tensors(item):
+                    if t.is_cuda:
+                        t.record_stream(current)
+            yield item

@@ -36,6 +36,7 @@ from xpretrain_tpu_torch.models.common import (
     Embedding,
     LayerNorm,
     Linear,
+    device_constant,
     dot_attention,
     dropout,
     expand_padding_mask,
@@ -118,7 +119,7 @@ def _block_local_mask_np(seq_len: int, window: int) -> np.ndarray:
 def _block_local_mask(seq_len: int, window: int, device=None) -> torch.Tensor:
     """Additive [1, 1, S, S] fp32 mask restricting attention to same/adjacent
     blocks of size ``window``, with block 0 (the CLS block) global."""
-    return torch.from_numpy(_block_local_mask_np(seq_len, window)).to(device)
+    return device_constant(_block_local_mask_np, (seq_len, window), device)
 
 
 class BertSelfAttention(nn.Module):

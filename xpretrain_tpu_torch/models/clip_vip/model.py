@@ -6,7 +6,10 @@ Counterpart of ``xpretrain_tpu/models/clip_vip/model.py``:
   proxy tokens (ref ``CLIP-ViP/src/modeling/CLIP_ViP.py:142-197``).
 - Proxy attention through :func:`xpretrain_tpu_torch.ops.proxy_attention.
   proxy_attention`: the hand-written CUDA kernel on the card, its plain
-  version on the CPU.
+  version on the CPU (``attention_mode="masked_full"``); or, with
+  ``"factorized"``, the reference's two attentions written out with
+  ``common.dot_attention`` (:func:`factorized_proxy_attention`), as JAX
+  computes them outside Pallas.
 - CLIP text tower with causal masking and EOT-argmax pooling.
 - Bias-free projections, L2 normalization, learnable ``logit_scale``.
 - ``vision_type="mean"`` is the frame-mean baseline (ref ``VidCLIP.py:55-65``).
@@ -28,9 +31,9 @@ from typing import Optional
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from xpretrain_tpu_torch.data.transforms import CLIP_MEAN, CLIP_STD
+from xpretrain_tpu_torch.models import common
 from xpretrain_tpu_torch.models.common import (
     LayerNorm,
     Linear,
@@ -39,6 +42,7 @@ from xpretrain_tpu_torch.models.common import (
     dot_attention,
     expand_padding_mask,
     make_causal_mask,
+    recomputed,
 )
 from xpretrain_tpu_torch.ops.patchify import extract_patches_u8, patch_embed_u8
 from xpretrain_tpu_torch.ops.proxy_attention import proxy_attention, proxy_bias
@@ -83,8 +87,9 @@ class VipConfig:
     add_cls_num: int = 3
     logit_scale_init_value: float = 4.60
     # "masked_full": one attention over the M+N*L sequence, proxy mask
-    # implicit in the kernel. "factorized" (the reference's two-attention
-    # decomposition) is not ported yet.
+    # implicit in the kernel. "factorized": the reference's two-attention
+    # decomposition (in-frame over [proxies | own frame], then the proxies
+    # over everything), the same function through common.dot_attention
     attention_mode: str = "masked_full"
 
 
@@ -138,23 +143,44 @@ class CLIPVipConfig:
 # ---------------------------------------------------------------------------
 
 
+def factorized_proxy_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, M: int, N: int, L: int, scale: float,
+    dropout_rate: float = 0.0, generator: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """Proxy attention over [B, H, M+N*L, D] as the reference's two attentions
+    (JAX ``ProxyAttention._factorized``): each frame's patches attend the M
+    proxies and their own frame, with one softmax over the joint M+L keys;
+    the proxies attend all M+N*L tokens. Equal to the masked full attention
+    (dropout apart); linear in N. Dropout, when given a rate, draws from
+    ``generator`` in both attentions."""
+    B, H, _, D = q.shape
+    frames = lambda t: t[:, :, M:].reshape(B, H, N, L, D)  # noqa: E731
+    proxies = lambda t: t[:, :, None, :M].expand(B, H, N, M, D)  # noqa: E731
+    k_cat = torch.cat([proxies(k), frames(k)], dim=3)  # [B, H, N, M+L, D]
+    v_cat = torch.cat([proxies(v), frames(v)], dim=3)
+    in_frame = common.dot_attention(frames(q), k_cat, v_cat, scale, None, dropout_rate, generator)
+    cls = common.dot_attention(q[:, :, :M], k, v, scale, None, dropout_rate, generator)  # [B, H, M, D]
+    return torch.cat([cls, in_frame.reshape(B, H, N * L, D)], dim=2)
+
+
 class ProxyAttention(nn.Module):
     """The ViP proxy video attention (ref ``CLIP_ViP.py:332-381``).
 
     Sequence layout [M proxy tokens | N frames x L patches]: patch tokens
-    attend [proxies | own frame], proxies attend everything. The kernel path
-    runs unless attention dropout is on in training; then CPU tensors take
-    the masked ``dot_attention``, as the JAX model does, and any other device
-    raises: the kernels apply no dropout, and the card runs no plain path."""
+    attend [proxies | own frame], proxies attend everything. In
+    ``masked_full`` mode the kernel path runs unless attention dropout is on
+    in training; then CPU tensors take the masked ``dot_attention``, as the
+    JAX model does, and any other device raises: the kernels apply no
+    dropout, and the card runs no plain path. ``factorized`` mode computes
+    :func:`factorized_proxy_attention` on every device, with dropout in
+    training, as JAX does (no kernel)."""
 
     def __init__(self, embed_dim: int, num_heads: int, dtype: torch.dtype = torch.float32,
                  mode: str = "masked_full", device=None, dropout_rate: float = 0.0):
         super().__init__()
-        if mode != "masked_full":
-            raise NotImplementedError(
-                f"proxy attention mode {mode!r} is not ported; only 'masked_full' "
-                "(ROADMAP Queue 1: CLIP-ViP factorized proxy attention)"
-            )
+        if mode not in ("masked_full", "factorized"):
+            raise ValueError(f"proxy attention mode {mode!r}: use 'masked_full' or 'factorized'")
+        self.mode = mode
         self.embed_dim = embed_dim
         self.num_heads = num_heads
         self.dropout_rate = dropout_rate
@@ -179,7 +205,12 @@ class ProxyAttention(nn.Module):
         q = split(self.q_proj(hidden_states))
         k = split(self.k_proj(hidden_states))
         v = split(self.v_proj(hidden_states))
-        if self.training and self.dropout_rate > 0.0:
+        rate = self.dropout_rate if self.training else 0.0
+        if self.mode == "factorized":
+            if keep is not None:
+                raise ValueError("explicit keep masks are taken by the masked_full mode only")
+            out = factorized_proxy_attention(q, k, v, M, N, L, D**-0.5, rate, generator)
+        elif rate > 0.0:
             if q.device.type != "cpu":
                 raise NotImplementedError(
                     "attention dropout in the proxy attention has no kernel yet (ROADMAP "
@@ -353,14 +384,6 @@ class EncoderLayer(nn.Module):
         return hidden_states + self.mlp(self.layer_norm2(hidden_states))
 
 
-def _replay_layer(layer, hidden_states, mask, inputs_size, generator, generator_state):
-    # rewinds the dropout generator, so the backward's recompute draws the
-    # forward's keep masks
-    if generator is not None:
-        generator.set_state(generator_state)
-    return layer(hidden_states, mask, inputs_size, generator)
-
-
 class Encoder(nn.Module):
     """A stack of ``EncoderLayer``; with ``remat`` each layer keeps only its
     input for the backward and recomputes the rest (``torch.utils.checkpoint``)."""
@@ -387,11 +410,8 @@ class Encoder(nn.Module):
     ) -> torch.Tensor:
         for layer in self.layers:
             if self.remat and torch.is_grad_enabled():
-                state = generator.get_state() if generator is not None else None
-                hidden_states = checkpoint(
-                    _replay_layer, layer, hidden_states, mask, inputs_size, generator, state,
-                    use_reentrant=False,
-                )
+                # the recompute takes the forward's dropout masks
+                hidden_states = recomputed(layer, generator, hidden_states, mask, inputs_size)
             else:
                 hidden_states = layer(hidden_states, mask, inputs_size, generator)
         return hidden_states

@@ -10,13 +10,28 @@ bits cannot match ``jax.random``'s.
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 NEG_INF = -1e9  # additive-mask fill; large but finite so bf16 stays well-behaved
+
+
+@functools.lru_cache(maxsize=128)
+def device_constant(builder: Callable, args: tuple, device: torch.device) -> torch.Tensor:
+    """``builder(*args)`` (numpy) as a tensor on ``device``, made once per
+    (builder, args, device) and shared: callers must not write to it. A
+    forward that copied a host constant to the card at every call could not
+    be captured in a CUDA graph. Made outside inference mode even when first
+    asked for inside it, so that a process that serves and then trains can
+    use it under autograd."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(np.array(builder(*args))).to(device)
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -60,10 +75,53 @@ class Embedding(nn.Embedding):
         return F.embedding(ids, self.weight).to(self.compute_dtype)
 
 
+class RecordedDraws:
+    """The dropout generator of a recomputed (remat) block, in place of its
+    ``torch.Generator``: the block's first run (the forward) draws each keep
+    mask from ``generator`` and keeps it, and a later run (the backward's
+    recompute) takes the masks back in order, so both see the same masks.
+    Rewinding the generator would redraw them too, but its state lives on the
+    host, where a captured CUDA graph cannot rewind it; kept masks are device
+    tensors that it can hold."""
+
+    def __init__(self, generator: torch.Generator):
+        self.generator = generator
+        self.masks: list[torch.Tensor] = []
+        self.runs = 0
+        self.taken = 0
+
+    def begin(self) -> None:
+        """Mark the start of a run of the block."""
+        self.runs += 1
+        self.taken = 0
+
+    def keep(self, shape: tuple[int, ...], rate: float, device: torch.device) -> torch.Tensor:
+        if self.runs > 1:
+            self.taken += 1
+            return self.masks[self.taken - 1]
+        mask = torch.rand(shape, generator=self.generator, device=device) < 1.0 - rate
+        self.masks.append(mask)
+        return mask
+
+
+def recomputed(fn: Callable, generator: Optional[torch.Generator], *args, **kwargs):
+    """``fn(*args, draws)`` under ``torch.utils.checkpoint`` (non-reentrant):
+    its activations are recomputed in the backward, with the forward's
+    dropout masks (:class:`RecordedDraws`); ``kwargs`` go to ``checkpoint``."""
+    draws = None if generator is None else RecordedDraws(generator)
+
+    def run(*inputs):
+        if draws is not None:
+            draws.begin()
+        return fn(*inputs, draws)
+
+    return checkpoint(run, *args, use_reentrant=False, **kwargs)
+
+
 def dropout(
     x: torch.Tensor,
     rate: float,
-    generator: Optional[torch.Generator] = None,
+    generator: Optional[torch.Generator | RecordedDraws] = None,
     keep: Optional[torch.Tensor] = None,
     shape: Optional[tuple[int, ...]] = None,
 ) -> torch.Tensor:
@@ -74,7 +132,9 @@ def dropout(
     drops whole samples). The caller passes a rate only in training."""
     if rate <= 0.0:
         return x
-    if keep is None:
+    if keep is None and isinstance(generator, RecordedDraws):
+        keep = generator.keep(shape or x.shape, rate, x.device)
+    elif keep is None:
         keep = torch.rand(shape or x.shape, generator=generator, device=x.device) < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 

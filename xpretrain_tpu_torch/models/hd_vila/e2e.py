@@ -20,15 +20,22 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from xpretrain_tpu_torch.models.common import device_constant
 from xpretrain_tpu_torch.models.hd_vila.resnet import Conv2d, ResNet
 from xpretrain_tpu_torch.models.hd_vila.timesformer import TimeSformer, TimeSformerConfig
 
 IMAGENET_MEAN_255 = (123.675, 116.28, 103.53)
 IMAGENET_STD_255 = (58.395, 57.12, 57.375)
+
+
+def _imagenet_255() -> np.ndarray:
+    """fp32 [2, 1, 3, 1, 1]: the 0-255 ImageNet mean, then its std."""
+    return np.array([IMAGENET_MEAN_255, IMAGENET_STD_255], np.float32).reshape(2, 1, 3, 1, 1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,8 +98,7 @@ class HdVilaEncoder(nn.Module):
     @staticmethod
     def normalize(images: torch.Tensor) -> torch.Tensor:
         """uint8 or 0-255 float [N, 3, H, W] -> fp32 (x - mean) / std."""
-        mean = torch.tensor(IMAGENET_MEAN_255, device=images.device).reshape(1, 3, 1, 1)
-        std = torch.tensor(IMAGENET_STD_255, device=images.device).reshape(1, 3, 1, 1)
+        mean, std = device_constant(_imagenet_255, (), images.device)
         return (images.float() - mean) / std
 
     def _grid_encoder(self, x: torch.Tensor) -> torch.Tensor:

@@ -10,7 +10,7 @@ PatchMerging at stages {0,1,4}, and the local branch.
   ``torch.roll``.
 - The static index and masks (``relative_position_index``,
   ``shifted_window_mask``, ``grouped_window_mask``) are numpy, built once per
-  (dims, window, shift, G) and kept once per device (:func:`_on_device`).
+  (dims, window, shift, G) and kept once per device (``common.device_constant``).
 - Window grouping (``group_windows``, the default) merges G consecutive
   windows into one [G*N, G*N] attention under a block-diagonal mask (-100
   off-block), exactly as the JAX module. ``attn_fold`` is a TPU relayout of
@@ -30,8 +30,8 @@ PatchMerging at stages {0,1,4}, and the local branch.
   policies ``dots_saveable`` and ``dots_with_no_batch_dims_saveable`` keep
   the matmul outputs (``mm``/``addmm``/``bmm``, or ``mm``/``addmm`` only)
   through a selective-checkpoint ``context_fn``. A policy without ``remat``
-  is ignored and an unknown one raises, as in JAX. The recompute rewinds the
-  dropout generator, so it draws the forward's masks.
+  is ignored and an unknown one raises, as in JAX. The recompute takes the
+  forward's dropout masks (``common.recomputed``).
 - ``context_parallel_axis`` raises: it belongs to the multi-device layouts
   (ROADMAP).
 """
@@ -46,10 +46,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
+from torch.utils.checkpoint import CheckpointPolicy, create_selective_checkpoint_contexts
 
 from xpretrain_tpu_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
-from xpretrain_tpu_torch.models.common import LayerNorm, Linear, dot_attention, dropout
+from xpretrain_tpu_torch.models.common import LayerNorm, Linear, device_constant, dot_attention, dropout, recomputed
 from xpretrain_tpu_torch.ops.window_attention import window_attention
 
 
@@ -198,16 +198,6 @@ def grouped_window_mask(dims: tuple[int, int, int], window: tuple[int, int, int]
     return _frozen(out)
 
 
-@functools.lru_cache(maxsize=128)
-def _on_device(builder, args: tuple, device: torch.device) -> torch.Tensor:
-    """``builder(*args)`` as a tensor on ``device``, made once per (builder,
-    args, device) and shared: callers must not write to it. Made outside
-    inference mode even when first asked for inside it, so that a process
-    that serves and then trains can use it under autograd."""
-    with torch.inference_mode(False):
-        return torch.from_numpy(np.array(builder(*args))).to(device)
-
-
 def _bias_index(window: tuple[int, int, int], N: int) -> np.ndarray:
     # a clipped window truncates the FULL window's index (ref ``:147``)
     return relative_position_index(window)[:N, :N].reshape(-1).astype(np.int64)
@@ -233,7 +223,7 @@ class WindowAttention3D(nn.Module):
         self.relative_position_bias_table = nn.Parameter(torch.zeros(table, num_heads, device=device))
 
     def _bias(self, N: int) -> torch.Tensor:
-        idx = _on_device(_bias_index, (self.window, N), self.relative_position_bias_table.device)
+        idx = device_constant(_bias_index, (self.window, N), self.relative_position_bias_table.device)
         table = self.relative_position_bias_table
         return table[idx].view(N, N, self.num_heads).permute(2, 0, 1)  # [h, N, N] fp32
 
@@ -324,9 +314,9 @@ class SwinBlock3D(nn.Module):
         N = window[0] * window[1] * window[2]
         G = pick_window_group(Wp // window[2], N) if self.group_windows else 1
         if G > 1:
-            mask = _on_device(grouped_window_mask, ((Dp, Hp, Wp), window, shift, G), x.device)
+            mask = device_constant(grouped_window_mask, ((Dp, Hp, Wp), window, shift, G), x.device)
         elif shifted:
-            mask = _on_device(shifted_window_mask, ((Dp, Hp, Wp), window, shift), x.device)
+            mask = device_constant(shifted_window_mask, ((Dp, Hp, Wp), window, shift), x.device)
         else:
             mask = None
 
@@ -425,14 +415,6 @@ def remat_context_fn(policy: Optional[str]) -> Optional[Callable]:
     return functools.partial(create_selective_checkpoint_contexts, policy_fn)
 
 
-def _replay_block(block, x, generator, generator_state):
-    # rewinds the dropout generator, so the backward's recompute draws the
-    # forward's dropout and drop-path masks
-    if generator is not None:
-        generator.set_state(generator_state)
-    return block(x, generator)
-
-
 class SwinTransformer3D(nn.Module):
     """The full HTWA encoder with the local branch (ref ``:450-620``).
 
@@ -499,9 +481,8 @@ class SwinTransformer3D(nn.Module):
             for b in range(cfg.depths[i_layer]):
                 block = getattr(self, f"layers_{i_layer}_blocks_{b}")
                 if cfg.remat and torch.is_grad_enabled():
-                    state = generator.get_state() if generator is not None else None
                     kwargs = {} if self.remat_context_fn is None else {"context_fn": self.remat_context_fn}
-                    x = checkpoint(_replay_block, block, x, generator, state, use_reentrant=False, **kwargs)
+                    x = recomputed(block, generator, x, **kwargs)
                 else:
                     x = block(x, generator)
             if i_layer in cfg.downsample_stages:

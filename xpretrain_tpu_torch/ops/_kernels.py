@@ -20,17 +20,29 @@ import re
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "xpretrain_tpu_torch"
+# the wrappers that count their kernel launches (:func:`counted`)
+COUNTED: list[Callable] = []
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers / shared memory / spills go to the build log
 )
+
+
+def counted(fn: Callable) -> Callable:
+    """Register the kernel wrapper ``fn``: ``fn.launches`` counts the kernel
+    launches it makes (the wrapper adds one where it launches, and nowhere
+    else), and a captured CUDA graph adds the launches its capture recorded
+    at each replay (``parallel/train_step.py:GraphedStep``)."""
+    fn.launches = 0
+    COUNTED.append(fn)
+    return fn
 
 
 def _cuda_tool(name: str) -> str:

@@ -55,10 +55,15 @@ def _scaled_sim(a: Tensor, b: Tensor, logit_scale: Tensor) -> Tensor:
 
 
 def _off_diagonal(x: Tensor) -> Tensor:
-    """Rows of a square [b, b, ...] without their diagonal entry: [b, b-1, ...]."""
+    """Rows of a square [b, b, ...] without their diagonal entry: [b, b-1, ...].
+
+    A gather of the columns j + (j >= i), not a boolean mask: a mask's
+    output size is read back by the host, which a CUDA graph cannot hold."""
     b = x.shape[0]
-    keep = ~torch.eye(b, dtype=torch.bool, device=x.device)
-    return x[keep].reshape(b, b - 1, *x.shape[2:])
+    j = torch.arange(b - 1, device=x.device)
+    cols = j[None, :] + (j[None, :] >= torch.arange(b, device=x.device)[:, None]).long()
+    cols = cols.reshape(b, b - 1, *([1] * (x.dim() - 2))).expand(b, b - 1, *x.shape[2:])
+    return torch.gather(x, 1, cols)
 
 
 # ---------------------------------------------------------------------------

@@ -19,6 +19,8 @@ folds into the weights:
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -37,13 +39,28 @@ def fold_normalization(
     """
     P, D = patch_kernel.shape[0], patch_kernel.shape[-1]
     w = patch_kernel.float()
-    std = torch.as_tensor(np.asarray(std, np.float32), device=w.device)
-    mean = torch.as_tensor(np.asarray(mean, np.float32), device=w.device)
+    mean, std = _on_device(_values(mean), _values(std), w.device)
     scale = (1.0 / (255.0 * std)).reshape(1, 1, 3, 1)
     offset = (mean / std).reshape(1, 1, 3, 1)
     folded = (w * scale).reshape(P * P * 3, D)
     bias = -(w * offset).sum(dim=(0, 1, 2))
     return folded, bias
+
+
+def _values(x) -> tuple[float, ...]:
+    return tuple(np.asarray(x, np.float32).reshape(-1).tolist())
+
+
+@functools.lru_cache(maxsize=16)
+def _on_device(mean: tuple[float, ...], std: tuple[float, ...], device: torch.device
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """fp32 (mean, std) on ``device``, made once per device and shared
+    (callers must not write to them): a fresh host-to-device copy at every
+    call is what a captured CUDA graph cannot hold. Made outside inference
+    mode, so that a process that serves and then trains can use them."""
+    with torch.inference_mode(False):
+        return (torch.tensor(mean, dtype=torch.float32, device=device),
+                torch.tensor(std, dtype=torch.float32, device=device))
 
 
 def extract_patches_u8(frames: torch.Tensor, patch: int) -> torch.Tensor:
@@ -83,6 +100,7 @@ def patch_embed_plain(
 _KERNEL_OUT_DTYPES = (torch.float32, torch.bfloat16)
 
 
+@_kernels.counted
 def fused_patch_embed(
     frames_u8: torch.Tensor,  # [N, H, W, 3] uint8
     patch_kernel: torch.Tensor,  # [P, P, 3, D]
@@ -129,5 +147,3 @@ def _launch(frames_u8, folded_w, bias, patch, out_dtype) -> torch.Tensor:
     fused_patch_embed.launches += 1
     return out
 
-
-fused_patch_embed.launches = 0

@@ -208,6 +208,7 @@ class _ProxyAttentionPackedFn(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None, None
 
 
+@_kernels.counted
 def proxy_attention(
     q: torch.Tensor,  # [B, H, S, D], S = M + N*L
     k: torch.Tensor,
@@ -231,9 +232,8 @@ def proxy_attention(
     return _ProxyAttentionFn.apply(q, k, v, M, N, L, scale)
 
 
-proxy_attention.launches = 0
 
-
+@_kernels.counted
 def proxy_attention_bwd(
     q: torch.Tensor,  # [B, H, S, D], S = M + N*L
     k: torch.Tensor,
@@ -265,8 +265,6 @@ def proxy_attention_bwd(
     return _launch_bwd(q, k, v, d_out, M, N, L, scale)
 
 
-proxy_attention_bwd.launches = 0
-
 
 def _check_packed_shapes(q, k, v, M: int, N: int, L: int, head_dim: int) -> None:
     if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
@@ -287,6 +285,7 @@ def _check_packed_kernel_inputs(head_dim: int, *tensors: torch.Tensor) -> None:
         raise ValueError("proxy_attention_packed kernel takes contiguous [B, S, H*D] tensors")
 
 
+@_kernels.counted
 def proxy_attention_packed(
     q: torch.Tensor,  # [B, S, H*D] raw projection output, S = M + N*L
     k: torch.Tensor,
@@ -312,9 +311,8 @@ def proxy_attention_packed(
     return _ProxyAttentionPackedFn.apply(q, k, v, M, N, L, scale, head_dim)
 
 
-proxy_attention_packed.launches = 0
 
-
+@_kernels.counted
 def proxy_attention_packed_bwd(
     q: torch.Tensor,  # [B, S, H*D], S = M + N*L
     k: torch.Tensor,
@@ -344,8 +342,6 @@ def proxy_attention_packed_bwd(
     _check_packed_kernel_inputs(head_dim, q, k, v, d_out)
     return _launch_bwd(q, k, v, d_out, M, N, L, scale, head_dim)
 
-
-proxy_attention_packed_bwd.launches = 0
 
 
 def _launch_fwd(q, k, v, M, N, L, scale, head_dim=None, with_lse=False):

@@ -79,6 +79,7 @@ def _check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> N
     _kernels.check_cp_async("window_attention bf16 kernel", q, k, v)
 
 
+@_kernels.counted
 def window_attention(
     q: torch.Tensor,  # [Bn, H, N, d]
     k: torch.Tensor,
@@ -100,8 +101,6 @@ def window_attention(
         raise ValueError(f"window_attention runs on cpu or cuda tensors, got {q.device}")
     return _launch(q, k, v, bias, mask)
 
-
-window_attention.launches = 0
 
 
 def _launch(q, k, v, bias, mask) -> torch.Tensor:

@@ -18,6 +18,21 @@ same leaves as in JAX. :class:`GroupedAdamW` is ``fused_grouped_adamw``, and
 
 The update runs in place on the parameters, with ``torch._foreach_*`` ops per
 group so that a step costs a few launches per group, not per tensor.
+
+A step splits into a host part and a device part, so that the device part
+can be captured in a CUDA graph and replayed: :meth:`GroupedAdamW.prepare`
+evaluates the schedule and Adam's bias corrections for the next call on the
+host and writes them into 0-d fp32 tensors beside the parameters;
+:meth:`GroupedAdamW.apply` reads them there and touches no host state;
+:meth:`GroupedAdamW.advance` moves the host counters. :meth:`step` is the
+three in turn. The eager and the graphed steps read the same tensors, so
+they run the same arithmetic.
+
+``param_dtype`` bf16 (:func:`cast_params_for_storage` and
+:func:`master_weights`, JAX ``optim/optimizer.py:170-271``) stores the
+parameters of two or more dims in bf16 and keeps their fp32 masters in the
+optimizer: the update runs on the masters, in fp32, from upcast gradients,
+and lands each stored parameter on ``bf16(master)`` exactly.
 """
 
 from __future__ import annotations
@@ -105,18 +120,11 @@ class GroupedAdamW:
         self.k = max(1, int(grad_accum_steps))
         self.count = 0  # inner Adam steps taken
         self.mini_step = 0  # gradients accumulated towards the next step
-
-        def moment(p: torch.Tensor, label: str) -> torch.Tensor:
-            dt = moment_dtype or p.dtype
-            # frozen leaves carry scalar placeholder moments, as in JAX
-            if label == "frozen":
-                return torch.zeros((), dtype=dt, device=p.device)
-            return torch.zeros_like(p, dtype=dt, memory_format=torch.contiguous_format)
-
-        with torch.no_grad():
-            self.mu = [moment(p, lb) for p, lb in zip(self.params, self.labels)]
-            self.nu = [moment(p, lb) for p, lb in zip(self.params, self.labels)]
-            self.acc = [torch.zeros_like(p) for p in self.params] if self.k > 1 else []
+        # what the update writes: the parameter itself, or its fp32 master
+        # (``master_weights``); ``masters`` lists the indices that have one
+        self.targets = list(self.params)
+        self.masters: list[int] = []
+        self._init_state()
         # (lr multiplier, weight decay) -> indices of the parameters that use it
         self.groups: dict[tuple[float, float], list[int]] = {}
         for i, label in enumerate(self.labels):
@@ -125,6 +133,39 @@ class GroupedAdamW:
             mul = lr_mul if label.startswith("top_") else 1.0
             wd = weight_decay if label.endswith("_decay") and not label.endswith("no_decay") else 0.0
             self.groups.setdefault((mul, wd), []).append(i)
+        # what the next update reads, filled by prepare(): Adam's bias
+        # corrections c1 and c2, then -lr * mul for each group
+        device = self.params[0].device if self.params else torch.device("cpu")
+        self.scalars = torch.zeros(2 + len(self.groups), dtype=torch.float32, device=device)
+
+    def _init_state(self) -> None:
+        """Zero moments (and accumulators) shaped and typed as the targets."""
+
+        def moment(p: torch.Tensor, label: str) -> torch.Tensor:
+            dt = self.moment_dtype or p.dtype
+            # frozen leaves carry scalar placeholder moments, as in JAX
+            if label == "frozen":
+                return torch.zeros((), dtype=dt, device=p.device)
+            return torch.zeros_like(p, dtype=dt, memory_format=torch.contiguous_format)
+
+        with torch.no_grad():
+            self.mu = [moment(p, lb) for p, lb in zip(self.targets, self.labels)]
+            self.nu = [moment(p, lb) for p, lb in zip(self.targets, self.labels)]
+            self.acc = [torch.zeros_like(p) for p in self.targets] if self.k > 1 else []
+
+    @torch.no_grad()
+    def sync_masters(self) -> None:
+        """Set each master to its stored parameter (after weights were loaded
+        into the stored copies)."""
+        for i in self.masters:
+            self.targets[i].copy_(self.params[i])
+
+    @torch.no_grad()
+    def _store(self) -> None:
+        """Land every trained parameter that has a master on ``bf16(master)``."""
+        idx = [i for i in self.masters if self.labels[i] != "frozen"]
+        if idx:
+            torch._foreach_copy_([self.params[i] for i in idx], [self.targets[i] for i in idx])
 
     @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor], grad_norm: Optional[torch.Tensor] = None) -> None:
@@ -134,22 +175,67 @@ class GroupedAdamW:
         ``grad_norm`` is :func:`global_norm` of ``grads`` when the caller
         already has it; clipping reuses it when ``grads`` are what is applied
         (no accumulation)."""
+        self.prepare()
+        self.apply(grads, grad_norm)
+        self.advance()
+
+    def _updates_now(self) -> bool:
+        """Whether the next call updates the parameters (its k-th gradient)."""
+        return self.mini_step + 1 == self.k
+
+    @torch.no_grad()
+    def prepare(self) -> None:
+        """The host part of the next call: when it updates, evaluate the lr
+        (before the increment, as optax) and the fp32 bias corrections, and
+        copy them into :attr:`scalars` (from pinned memory, without waiting,
+        on a card)."""
+        if not self._updates_now():
+            return
+        count = self.count + 1
+        lr = self.schedule(self.count)
+        # bias corrections in fp32, as JAX computes them
+        c1 = float(1 - np.float32(self.b1) ** np.float32(count))
+        c2 = float(1 - np.float32(self.b2) ** np.float32(count))
+        values = torch.tensor([c1, c2] + [-lr * mul for mul, _ in self.groups], dtype=torch.float32)
+        cuda = self.scalars.is_cuda
+        self.scalars.copy_(values.pin_memory() if cuda else values, non_blocking=cuda)
+
+    def advance(self) -> None:
+        """Move the host counters past the call that :meth:`prepare` set up."""
+        if self._updates_now():
+            self.count += 1
+            self.mini_step = 0
+        else:
+            self.mini_step += 1
+
+    @torch.no_grad()
+    def apply(self, grads: Sequence[torch.Tensor], grad_norm: Optional[torch.Tensor] = None) -> None:
+        """The device part of the call: accumulate ``grads`` and, on the
+        k-th, update. Reads the host counters and writes none, so that a
+        CUDA graph can hold it; the micro-step index is part of what it
+        runs, so accumulation takes one graph per index."""
+        grads = self.upcast(grads)
         if self.k == 1:
-            self._update(list(grads), grad_norm)
+            self._update(grads, grad_norm)
             return
         n = self.mini_step
         # acc + (g - acc) / (n + 1), as MultiSteps' running mean
-        diff = torch._foreach_sub(list(grads), self.acc)
+        diff = torch._foreach_sub(grads, self.acc)
         torch._foreach_div_(diff, float(n + 1))
         torch._foreach_add_(self.acc, diff)
         if n + 1 < self.k:
-            self.mini_step = n + 1
             return
         grads = [a.clone() for a in self.acc]
         for a in self.acc:
             a.zero_()
-        self.mini_step = 0
         self._update(grads, None)
+
+    def upcast(self, grads: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+        """``grads`` in the dtype of what the update writes: a bf16 gradient
+        of a parameter with a master comes back fp32 (a no-op otherwise). A
+        step that upcasts before its gradient norm saves :meth:`apply` a
+        second pass."""
+        return [g if g.dtype == t.dtype else g.to(t.dtype) for g, t in zip(grads, self.targets)]
 
     def _update(self, grads: list[torch.Tensor], gnorm: Optional[torch.Tensor]) -> None:
         if self.max_grad_norm is not None:
@@ -161,13 +247,9 @@ class GroupedAdamW:
             one = torch.ones_like(gnorm)
             grads = torch._foreach_div(grads, torch.where(keep, one, gnorm))
             torch._foreach_mul_(grads, torch.where(keep, one, torch.full_like(gnorm, self.max_grad_norm)))
-        lr = self.schedule(self.count)  # evaluated before the increment, as optax
-        self.count += 1
-        # bias corrections in fp32, as JAX computes them
-        c1 = float(1 - np.float32(self.b1) ** np.float32(self.count))
-        c2 = float(1 - np.float32(self.b2) ** np.float32(self.count))
-        for (mul, wd), idx in self.groups.items():
-            p = [self.params[i] for i in idx]
+        c1, c2 = self.scalars[0], self.scalars[1]
+        for group, ((_, wd), idx) in enumerate(self.groups.items()):
+            p = [self.targets[i] for i in idx]
             g = [grads[i] for i in idx]
             if self.moment_dtype is not None:  # stored reduced, accumulated in fp32
                 g = [t.float() for t in g]
@@ -187,36 +269,56 @@ class GroupedAdamW:
             torch._foreach_div_(u, denom)
             if wd:
                 torch._foreach_add_(u, torch._foreach_mul([t.float() for t in p], wd))
-            torch._foreach_mul_(u, -lr * mul)
+            torch._foreach_mul_(u, self.scalars[2 + group])
             if self.moment_dtype is not None:
                 for j, i in enumerate(idx):
                     self.mu[i].copy_(m[j])
                     self.nu[i].copy_(v[j])
                 u = [t.to(q.dtype) for t, q in zip(u, p)]
             torch._foreach_add_(p, u)
+        self._store()
 
     def state_dict(self) -> dict:
-        return {
+        """Counters, moments, accumulators and, with ``master_weights``, the
+        fp32 masters by parameter name (JAX's ``MasterWeightsState.master``;
+        the leaves that are their own master have none)."""
+        state = {
             "count": self.count,
             "mini_step": self.mini_step,
             "mu": dict(zip(self.names, self.mu)),
             "nu": dict(zip(self.names, self.nu)),
             "acc": dict(zip(self.names, self.acc)),
         }
+        if self.masters:
+            state["master"] = {self.names[i]: self.targets[i] for i in self.masters}
+        return state
 
     def load_state_dict(self, state: Mapping) -> None:
+        """Restore :meth:`state_dict`'s output; with masters, the stored
+        parameters are set to ``bf16(master)``, so a run resumes from its
+        masters."""
+        if bool(self.masters) != ("master" in state):
+            raise KeyError("optimizer state: the checkpoint and this run disagree on master weights "
+                           "(param_dtype)")
         self.count = int(state["count"])
         self.mini_step = int(state["mini_step"])
         with torch.no_grad():
-            for key, tensors in (("mu", self.mu), ("nu", self.nu), ("acc", self.acc)):
+            masters = [self.targets[i] for i in self.masters]
+            master_names = [self.names[i] for i in self.masters]
+            for key, tensors, names in (("mu", self.mu, self.names), ("nu", self.nu, self.names),
+                                        ("acc", self.acc, self.names), ("master", masters, master_names)):
+                if key == "master" and not masters:
+                    continue
                 saved = state[key]
-                if set(saved) != (set(self.names) if tensors else set()):
+                if set(saved) != (set(names) if tensors else set()):
                     raise KeyError(f"optimizer state {key!r} does not match the parameters")
-                for name, t in zip(self.names, tensors):
+                for name, t in zip(names, tensors):
                     if tuple(saved[name].shape) != tuple(t.shape):
                         raise ValueError(f"optimizer state {key}[{name}]: shape "
                                          f"{tuple(saved[name].shape)} != {tuple(t.shape)}")
                     t.copy_(saved[name])
+            for i in self.masters:
+                self.params[i].copy_(self.targets[i])
 
 
 def moment_dtype_from_cfg(cfg: Mapping) -> Optional[torch.dtype]:
@@ -229,18 +331,49 @@ def moment_dtype_from_cfg(cfg: Mapping) -> Optional[torch.dtype]:
     raise ValueError(f"unsupported moment_dtype {name!r} (use fp32 or bf16)")
 
 
-def check_param_dtype(cfg: Mapping) -> None:
-    """``param_dtype`` bf16 (``master_weights`` / ``cast_params_for_storage``
-    in JAX) is not ported; fp32 passes."""
+def param_dtype_from_cfg(cfg: Mapping) -> Optional[torch.dtype]:
+    """``param_dtype`` config key ("fp32"/"bf16") -> None (keep fp32) or the
+    storage dtype for :func:`cast_params_for_storage`."""
     name = str(cfg.get("param_dtype", "fp32") or "fp32").lower()
     if name in ("fp32", "float32", "none", ""):
-        return
+        return None
     if name in ("bf16", "bfloat16"):
-        raise NotImplementedError(
-            "param_dtype bf16 (fp32 master weights in the optimizer) is not ported yet "
-            "(ROADMAP Queue 1)"
-        )
+        return torch.bfloat16
     raise ValueError(f"unsupported param_dtype {name!r} (use fp32 or bf16)")
+
+
+@torch.no_grad()
+def cast_params_for_storage(params, dtype: torch.dtype, min_ndim: int = 2):
+    """Store the floating parameters of ``params`` (a module, or a mapping of
+    names to tensors) with ``min_ndim`` or more dims in ``dtype``, in place
+    (the same tensor objects, so an optimizer built on them keeps them);
+    1-D and 0-D leaves (biases, norm scales, ``logit_scale``) stay fp32, as
+    in JAX. Returns ``params``."""
+    tensors = params.parameters() if isinstance(params, torch.nn.Module) else params.values()
+    for p in tensors:
+        if p.is_floating_point() and p.dim() >= min_ndim:
+            p.data = p.data.to(dtype)
+    return params
+
+
+def master_weights(optimizer: GroupedAdamW, master_dtype: torch.dtype = torch.float32) -> GroupedAdamW:
+    """Reduced-precision parameter storage with fp32 masters (JAX
+    ``master_weights``): call it after :func:`cast_params_for_storage` and
+    before the first step. The optimizer keeps a ``master_dtype`` copy of
+    every parameter stored in another dtype, upcasts those gradients, runs
+    clipping, the moments and weight decay on the masters, and copies each
+    master into its stored parameter after the update, so ``param ==
+    master.to(param.dtype)`` holds after every step. Leaves already in
+    ``master_dtype`` are their own master."""
+    if optimizer.count or optimizer.mini_step:
+        raise ValueError("master weights are attached before the first step")
+    with torch.no_grad():
+        for i, p in enumerate(optimizer.params):
+            if p.is_floating_point() and p.dtype != master_dtype:
+                optimizer.targets[i] = p.detach().to(master_dtype)
+                optimizer.masters.append(i)
+        optimizer._init_state()  # the moments in the masters' dtype
+    return optimizer
 
 
 def build_optimizer(

@@ -4,21 +4,31 @@ The JAX step is one jitted SPMD program over a mesh; here one card runs it
 eagerly, so the global contrastive batch is the local batch. The train step
 updates the model's parameters and the optimizer's state in place (JAX
 returns new arrays; in place saves a copy of every parameter and moment).
-``steps_per_call > 1`` (K steps chained in one ``lax.scan`` dispatch) and the
-mesh layouts (tensor parallel, FSDP) are not ported; ``zero2`` shards the
+The mesh layouts (tensor parallel, FSDP) are not ported; ``zero2`` shards the
 optimizer state over the data axis, which on one device holds everything, so
 it is accepted and changes nothing.
+
+``steps_per_call = K > 1`` (JAX's ``_scan_steps``: K steps chained in one
+``lax.scan`` dispatch) takes batches stacked on a leading axis and returns
+the metrics with a leading axis. On the CPU it is a loop of eager steps. On
+a card it is a CUDA graph of one step (:class:`GraphedStep`), replayed once
+per batch after that batch is copied into the graph's input buffers: the
+first call of each micro-step index (accumulation takes one graph each) runs
+eagerly on a side stream as the warm-up, the second captures. Step ``s`` of
+a chunk seeds its generator with ``seed + s`` in every path, so a run at
+K = 4 equals a run at K = 1, bit for bit.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 from torch import nn
 
+from xpretrain_tpu_torch.ops import _kernels
 from xpretrain_tpu_torch.optim.optimizer import LOGIT_SCALE_MAX, GroupedAdamW, clamp_logit_scale, global_norm
 from xpretrain_tpu_torch.utils.logging import LOGGER
 
@@ -83,17 +93,13 @@ def make_train_step(
     tensors on ``device``; ``seed`` seeds the step's dropout generator. In
     order: clamp logit_scale to [0, ln 200], forward, loss, backward,
     update, clamp. The metrics (``loss``, ``grad_norm`` of the raw
-    gradients, ``logit_scale`` of the forward) stay 0-d device tensors, so
-    the step does not wait for the card."""
-    if steps_per_call > 1:
-        raise NotImplementedError(
-            "steps_per_call > 1 (K steps in one dispatch) is not ported; run with 1"
-        )
+    gradients, ``logit_scale`` of the forward) stay device tensors, so the
+    step does not wait for the card. With ``steps_per_call > 1`` the batch
+    is stacked on a leading axis (see the module's docstring)."""
     if zero2:
         LOGGER.info("zero2: one device holds the whole optimizer state; nothing to shard")
-    device = torch.device(device)
 
-    def step_fn(state: TrainState, batch: dict, seed: int) -> tuple[TrainState, dict]:
+    def run(state: TrainState, batch: dict, generator: torch.Generator) -> dict:
         model = state.model
         named = dict(model.named_parameters())
         # clamp before the forward, as the reference does each iteration
@@ -101,25 +107,24 @@ def make_train_step(
         model.train()
         for p in named.values():
             p.grad = None
-        generator = torch.Generator(device=device).manual_seed(int(seed))
         outputs = apply_fn(model, batch, generator)
         loss = contrastive_loss_from_outputs(outputs, loss_fn)
         loss.backward()
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in named.values()]
+        grads = state.optimizer.upcast([p.grad if p.grad is not None else torch.zeros_like(p)
+                                        for p in named.values()])
         metrics = {
             "loss": loss.detach(),
             "grad_norm": global_norm(grads),
             "logit_scale": outputs["logit_scale"].detach().clone(),
         }
         # the metric's norm is the one clipping needs: one pass, not two
-        state.optimizer.step(grads, metrics["grad_norm"])
+        state.optimizer.apply(grads, metrics["grad_norm"])
         for p in named.values():
             p.grad = None
         clamp_logit_scale(named, LOGIT_SCALE_MAX)
-        state.step += 1
-        return state, metrics
+        return metrics
 
-    return step_fn
+    return _stepper(run, device, steps_per_call)
 
 
 def make_model_train_step(
@@ -135,35 +140,164 @@ def make_model_train_step(
     ``apply_fn(model, batch, generator)`` returns a dict holding ``loss_key``;
     the ``metric_keys`` it also holds are copied (detached) into the metrics,
     beside ``loss`` (fp32) and ``grad_norm`` of the raw gradients. In order:
-    forward, backward, update."""
-    if steps_per_call > 1:
-        raise NotImplementedError(
-            "steps_per_call > 1 (K steps in one dispatch) is not ported; run with 1"
-        )
-    device = torch.device(device)
+    forward, backward, update. ``steps_per_call`` as :func:`make_train_step`."""
 
-    def step_fn(state: TrainState, batch: dict, seed: int) -> tuple[TrainState, dict]:
+    def run(state: TrainState, batch: dict, generator: torch.Generator) -> dict:
         model = state.model
         params = list(model.parameters())
         model.train()
         for p in params:
             p.grad = None
-        generator = torch.Generator(device=device).manual_seed(int(seed))
         outputs = apply_fn(model, batch, generator)
         loss = outputs[loss_key].float()
         loss.backward()
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+        grads = state.optimizer.upcast([p.grad if p.grad is not None else torch.zeros_like(p) for p in params])
         metrics = {"loss": loss.detach(), "grad_norm": global_norm(grads)}
         for key in metric_keys:
             if key in outputs:
                 metrics[key] = outputs[key].detach()
-        state.optimizer.step(grads, metrics["grad_norm"])
+        state.optimizer.apply(grads, metrics["grad_norm"])
         for p in params:
             p.grad = None
-        state.step += 1
-        return state, metrics
+        return metrics
 
-    return step_fn
+    return _stepper(run, device, steps_per_call)
+
+
+def _stepper(run: Callable[[TrainState, dict, torch.Generator], dict], device: torch.device | str,
+             steps_per_call: int) -> Callable[[TrainState, dict, int], tuple[TrainState, dict]]:
+    """The public step around ``run``, the device part of one step: the
+    optimizer's host part before and after it, and, for ``steps_per_call >
+    1``, the loop over a stacked batch (graphed on a card)."""
+    device = torch.device(device)
+    if steps_per_call < 1:
+        raise ValueError(f"steps_per_call must be >= 1, got {steps_per_call}")
+
+    def eager(state: TrainState, batch: dict, seed: int) -> dict:
+        state.optimizer.prepare()
+        metrics = run(state, batch, torch.Generator(device=device).manual_seed(int(seed)))
+        state.optimizer.advance()
+        state.step += 1
+        return metrics
+
+    if steps_per_call == 1:
+        def step_fn(state: TrainState, batch: dict, seed: int) -> tuple[TrainState, dict]:
+            return state, eager(state, batch, seed)
+
+        return step_fn
+
+    one = GraphedStep(run, device) if device.type == "cuda" else eager
+
+    def multi(state: TrainState, batches: dict, seed: int) -> tuple[TrainState, dict]:
+        lengths = {int(v.shape[0]) for v in batches.values()}
+        if len(lengths) != 1:
+            raise ValueError(f"stacked batch leaves differ in their leading (step) axis: {sorted(lengths)}")
+        rows = [one(state, {k: v[i] for k, v in batches.items()}, seed + i) for i in range(lengths.pop())]
+        return state, {key: torch.stack([row[key] for row in rows]) for key in rows[0]}
+
+    multi.graphed = one if isinstance(one, GraphedStep) else None
+    return multi
+
+
+def _schema(batch: dict) -> tuple:
+    return tuple((k, tuple(v.shape), v.dtype) for k, v in sorted(batch.items()))
+
+
+@dataclasses.dataclass
+class _Capture:
+    graph: "torch.cuda.CUDAGraph"
+    inputs: dict  # the static batch the graph reads
+    generator: torch.Generator  # registered with the graph, reseeded per replay
+    metrics: dict  # the static metrics the graph writes
+    launches: tuple  # (wrapper, kernel launches recorded during the capture)
+
+
+class GraphedStep:
+    """One train step on a card as a captured CUDA graph.
+
+    ``step(state, batch, seed) -> metrics`` runs the optimizer's host part,
+    then the device part ``run``: the first time for a (batch schema,
+    micro-step index) eagerly, on a side stream (the warm-up: the kernel
+    library, cuBLAS and the autograd threads come up outside the capture);
+    the second time it captures ``run`` into a graph; from then on it copies
+    ``batch`` into the graph's input buffers, reseeds the graph's generator
+    with ``seed`` and replays. The Python launch counters count once, at
+    capture; each replay adds the launches the capture recorded, so they
+    count kernels run (every wrapper in ``ops._kernels.COUNTED``). Metrics
+    come back as copies, since the next replay overwrites the graph's own. A
+    new schema (the eval batch never comes here) captures anew.
+
+    All the graphs allocate from one memory pool, so accumulation's graphs
+    hold one step's activations, not one each. That is safe because they
+    replay one after another on one stream and nothing reads a graph's
+    output after another graph has replayed: the metrics are copied at once,
+    and what carries over between replays (parameters, moments, accumulated
+    gradients, the input buffers) is allocated outside the pool."""
+
+    def __init__(self, run: Callable[[TrainState, dict, torch.Generator], dict], device: torch.device):
+        self.run = run
+        self.device = device
+        self.captures: dict[tuple, Optional[_Capture]] = {}
+        self.side: Optional[torch.cuda.Stream] = None  # the warm-ups' stream
+        self.pool = None  # the memory pool the captures share
+
+    def __call__(self, state: TrainState, batch: dict, seed: int) -> dict:
+        state.optimizer.prepare()
+        key = (_schema(batch), state.optimizer.mini_step)
+        if key not in self.captures:
+            metrics = self._warm_up(state, batch, seed)
+            self.captures[key] = None
+        else:
+            capture = self.captures[key]
+            if capture is None:
+                capture = self.captures[key] = self._capture(state, batch)
+            metrics = self._replay(capture, batch, seed)
+        state.optimizer.advance()
+        state.step += 1
+        return metrics
+
+    def _warm_up(self, state: TrainState, batch: dict, seed: int) -> dict:
+        main = torch.cuda.current_stream(self.device)
+        # one stream for every warm-up, so each reuses the blocks the last cached
+        side = self.side = self.side or torch.cuda.Stream(self.device)
+        side.wait_stream(main)
+        for t in batch.values():
+            t.record_stream(side)
+        with torch.cuda.stream(side):
+            metrics = self.run(state, batch, torch.Generator(device=self.device).manual_seed(int(seed)))
+        main.wait_stream(side)
+        for t in metrics.values():
+            t.record_stream(main)
+        return metrics
+
+    def _capture(self, state: TrainState, batch: dict) -> _Capture:
+        inputs = {k: v.clone() for k, v in batch.items()}
+        generator = torch.Generator(device=self.device)
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(generator)
+        wrappers = tuple(_kernels.COUNTED)
+        before = [fn.launches for fn in wrappers]
+        # thread-local: an async checkpoint's writer or a prefetch thread may
+        # call into CUDA while this thread captures
+        with torch.cuda.graph(graph, pool=self.pool, capture_error_mode="thread_local"):
+            metrics = self.run(state, inputs, generator)
+        if self.pool is None:
+            self.pool = graph.pool()
+        launches = []
+        for fn, count in zip(wrappers, before):
+            launches.append((fn, fn.launches - count))
+            fn.launches = count  # a capture launches nothing
+        return _Capture(graph, inputs, generator, metrics, tuple(launches))
+
+    @staticmethod
+    def _replay(capture: _Capture, batch: dict, seed: int) -> dict:
+        for key, buf in capture.inputs.items():
+            buf.copy_(batch[key], non_blocking=True)
+        capture.generator.manual_seed(int(seed))
+        capture.graph.replay()
+        for fn, n in capture.launches:
+            fn.launches += n
+        return {key: value.clone() for key, value in capture.metrics.items()}
 
 
 CLIPVIP_EVAL_IO = (("video", "text_input_ids", "text_input_mask"),

@@ -19,8 +19,10 @@ from torch import nn
 from xpretrain_tpu_torch.optim.optimizer import (
     NO_DECAY_DEFAULT,
     build_optimizer,
-    check_param_dtype,
+    cast_params_for_storage,
+    master_weights,
     moment_dtype_from_cfg,
+    param_dtype_from_cfg,
 )
 from xpretrain_tpu_torch.optim.schedules import get_schedule
 from xpretrain_tpu_torch.parallel.train_step import TrainState, batch_to_device, make_model_train_step
@@ -50,10 +52,11 @@ class GenericTrainer:
         device: torch.device | str = "cuda",
     ):
         check_single_device(cfg)
-        check_param_dtype(cfg)
         self.cfg = cfg
         self.device = torch.device(device)
         self.model = model
+        self.apply_fn = apply_fn
+        self.metric_keys = metric_keys
         self.train_loader = train_loader
         self.eval_fn = eval_fn
 
@@ -87,10 +90,16 @@ class GenericTrainer:
             moment_dtype=moment_dtype_from_cfg(cfg),
             paths=param_paths,
         )
+        pd = param_dtype_from_cfg(cfg)
+        if pd is not None:
+            # --param_dtype bf16: store the parameters reduced, with fp32
+            # masters in the optimizer (optim.master_weights)
+            cast_params_for_storage(model, pd)
+            self.optimizer = master_weights(self.optimizer)
         self.num_train_steps = num_steps * accum
+        self.steps_per_call = max(1, int(cfg.get("steps_per_call", 1)))
         self.train_step = make_model_train_step(
-            apply_fn, self.device, metric_keys=metric_keys,
-            steps_per_call=int(cfg.get("steps_per_call", 1)),
+            apply_fn, self.device, metric_keys=metric_keys, steps_per_call=self.steps_per_call,
         )
         self.place_batch = batch_to_device(self.device)
 
@@ -102,6 +111,8 @@ class GenericTrainer:
             self.model.load_state_dict(restored["model"])
             self.optimizer.load_state_dict(restored["optimizer"])
             state.step = int(restored["step"])
+        else:  # weights loaded into the stored copies since __init__
+            self.optimizer.sync_masters()
         batches = iter(self.train_loader)
         if state.step:
             # as ClipVipTrainer: skip the batches an unbroken run took
@@ -141,15 +152,18 @@ class GenericTrainer:
             place_batch=self.place_batch,
             seed=int(cfg.get("seed", 0)) + 1,
             num_train_steps=self.num_train_steps,
+            steps_per_call=self.steps_per_call,
             log_every=int(cfg.get("log_steps", 20)),
             valid_every=int(cfg.get("valid_steps", 500)),
             save_every=int(cfg.get("save_steps", 500)),
             on_log=on_log,
             on_validate=on_validate,
             on_save=on_save,
+            on_step=(lambda step: self.ckpt.poll()) if self.ckpt.async_save else None,
             profile_dir=f"{cfg.get('output_dir', 'output')}/profile",
             profile_start_step=int(cfg.get("profile_start_step", 3)),
             profile_num_steps=int(cfg.get("profile_steps", 0)),
         )
         self.writer.flush()
+        self.ckpt.wait()  # drain an in-flight async checkpoint
         return state

@@ -20,7 +20,13 @@ import torch
 from xpretrain_tpu_torch.models.clip_vip.convert import flax_param_paths, load_jax_params
 from xpretrain_tpu_torch.models.clip_vip.model import CLIPVipConfig, CLIPViPModel, VipConfig
 from xpretrain_tpu_torch.ops.losses import build_loss_fn
-from xpretrain_tpu_torch.optim.optimizer import build_optimizer, check_param_dtype, moment_dtype_from_cfg
+from xpretrain_tpu_torch.optim.optimizer import (
+    build_optimizer,
+    cast_params_for_storage,
+    master_weights,
+    moment_dtype_from_cfg,
+    param_dtype_from_cfg,
+)
 from xpretrain_tpu_torch.optim.schedules import get_schedule
 from xpretrain_tpu_torch.parallel.train_step import (
     TrainState,
@@ -89,7 +95,6 @@ class ClipVipTrainer:
         device: torch.device | str = "cuda",
     ):
         check_single_device(cfg)
-        check_param_dtype(cfg)
         self.cfg = cfg
         self.device = torch.device(device)
         self.train_loader = train_loader
@@ -141,12 +146,19 @@ class ClipVipTrainer:
             moment_dtype=moment_dtype_from_cfg(cfg),
             paths=flax_param_paths(self.model.config),
         )
+        pd = param_dtype_from_cfg(cfg)
+        if pd is not None:
+            # --param_dtype bf16: store the parameters reduced, with fp32
+            # masters in the optimizer (optim.master_weights)
+            cast_params_for_storage(self.model, pd)
+            self.optimizer = master_weights(self.optimizer)
         self.num_train_steps = num_steps * accum
+        self.steps_per_call = max(1, int(cfg.get("steps_per_call", 1)))
 
         loss_fn = build_loss_fn(cfg.get("loss_name", "NCELearnableTempLoss"))
         self.train_step = make_train_step(
             self._apply_train, loss_fn, self.device,
-            steps_per_call=int(cfg.get("steps_per_call", 1)),
+            steps_per_call=self.steps_per_call,
             zero2=bool(cfg.get("zero2", False)),
         )
         self.eval_step = make_eval_step(self.device)
@@ -187,6 +199,8 @@ class ClipVipTrainer:
             self.model.load_state_dict(restored["model"])
             self.optimizer.load_state_dict(restored["optimizer"])
             state.step = int(restored["step"])
+        else:  # weights loaded into the stored copies since __init__
+            self.optimizer.sync_masters()
         start_step = state.step
         batches = iter(self.train_loader)
         if start_step:
@@ -234,15 +248,18 @@ class ClipVipTrainer:
             place_batch=self.place_batch,
             seed=int(self.cfg.get("seed", 0)) + 1,
             num_train_steps=self.num_train_steps,
+            steps_per_call=self.steps_per_call,
             log_every=int(self.cfg.get("log_steps", 20)),
             valid_every=int(self.cfg.get("valid_steps", 500)),
             save_every=int(self.cfg.get("save_steps", 500)),
             on_log=on_log,
             on_validate=on_validate,
             on_save=on_save,
+            on_step=(lambda step: self.ckpt.poll()) if self.ckpt.async_save else None,
             profile_dir=f"{self.cfg.get('output_dir', 'output')}/profile",
             profile_start_step=int(self.cfg.get("profile_start_step", 3)),
             profile_num_steps=int(self.cfg.get("profile_steps", 0)),
         )
         self.writer.flush()
+        self.ckpt.wait()  # drain an in-flight async checkpoint
         return state
