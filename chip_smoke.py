@@ -154,14 +154,38 @@ Phases, in order; any failure exits non-zero and prints no result:
    fp32 and with bf16 parameter storage, and LF-VILA stage 1 at b=16 eager
    and at K = 2: ms a step (5 windows), device busy time and idle share,
    device kernels and host launch calls a step, peak memory;
-7. print the kernel summary (each kernel's time in CUDA events and on the
+7a. export B/32 (bf16, kernel attention, u8 [b, 12, 224, 224, 3], 70
+   tokens) through ``export_serving_clipvip`` to a file, load it with
+   ``load_artifact`` and call it at b = 1, 7 and 24: features within 1e-4
+   of the live ``RetrievalTowers`` on the same weights, 12 proxy-forward
+   launches per video call counted inside the loaded program and no other;
+   a ``plain`` artifact beside it (no launch, within the forward kernel's
+   bf16 bar of the kernel artifact's); video + text at b=24 through the
+   artifact and the live towers timed (5 windows), with the export, save and
+   load times and the file size;
+7b. the same for LF-VILA at the stage-1 preset's width in fp32 with the
+   window kernel on (fp32 frames [2, 3, 32, 192, 320], 4 x 50 tokens):
+   within 1e-4 of ``LfVilaTowers``, 6 window launches per video call inside
+   the program;
+7c. HD-VILA at the stage-1 preset's width in fp32, uint8 middles and
+   neighbours, b=1, the exported programs called without a file: within
+   1e-4 of ``HdVilaTowers``, no launch;
+7d. a module calling ``fused_patch_embed(use_kernel=True)`` at the B/32
+   frames through ``torch.export``, saved and loaded: bit-equal to the eager
+   kernel, one launch a call;
+7e. B/32 under ``int8_serving`` (w8a8, ``torch._int_mm``) at b=24: embedding
+   cosine (JAX's: of the batch's flattened features) >= 0.9994 against the
+   bf16 path, the lowest row's printed, both timed (a record);
+8. print the kernel summary (each kernel's time in CUDA events and on the
    device, plain time, library time and the bound of its work at the card's
    peak rates) and, as the last line, the status JSON.
 
 Each main-path run (4, 4b, 4c, 4d, 4e, 4f, each run of 4g, 4h, 4i, each
-run of 4j-4m, 4n, 4o and 4p) sets every launch count to 0 just before it and
-reads the counts just after (a graphed step adds, at each replay, the
-launches its capture recorded); the summary reports each path's count and their sum.
+run of 4j-4m, 4n, 4o, 4p, and the artifact calls of 7a, 7b and 7d) sets
+every launch count to 0 just before it and reads the counts just after (a
+graphed step adds, at each replay, the launches its capture recorded; an
+exported program counts in the kernels' ``xpt::`` ops, which it calls); the
+summary reports each path's count and their sum.
 While they run, a call of a plain version on CUDA tensors fails the phase.
 HD-VILA runs none of the six kernels (JAX computes its convolutions,
 TimeSformer attention and BERT in XLA): its phases check that they launch
@@ -288,6 +312,10 @@ HDVILA_PRESETS = {1: "xpretrain_tpu_torch/configs/hdvila_pretrain_stage1.json",
 HDVILA_STEPS = {1: 4, 2: 4}  # train-step calls; the first warms up; stage 2's preset accumulates 2 per update
 HDVILA_VAL_ROWS = 16  # synthetic captions / questions of the retrieval and QA evals (the runners' default: 64)
 HDVILA_TIMED_BATCH = 8  # phase 6e: the stage-1 preset's batch
+ARTIFACT_BATCHES = (1, 7, 24)  # 7a: the B/32 kernel artifact called at these batch sizes
+ARTIFACT_TOL = 1e-4  # artifact vs live towers, max abs on the features (phase 5's bar)
+INT8_COS = 0.9994  # 7e: w8a8 against bf16 embedding cosine (JAX's bar at B/32, xpretrain_tpu/ops/quant.py)
+ARTIFACT_TIMED_ITERS = 20  # 7a/7e: calls per timing window (5 windows, as phase 6)
 
 
 def fail(msg: str) -> None:
@@ -2045,6 +2073,258 @@ def graph_timing_phase(card: str) -> dict:
     return results
 
 
+
+def _max_abs(a, b) -> float:
+    return (a.float() - b.float()).abs().max().item()
+
+
+def clipvip_artifact_phase(card: str, folder: str) -> tuple[dict, dict]:
+    """Phase 7a: export B/32 (bf16, kernel attention) through the CLI's code
+    path, load it, call it at ``ARTIFACT_BATCHES`` against the live towers on
+    the same weights; a plain artifact beside it; both towers timed at b=24.
+    Returns (the launches of the kernel artifact's calls, the live model and
+    its b=24 batch for 7e)."""
+    import torch
+    from xpretrain_tpu_torch.cli import export_serving_clipvip
+    from xpretrain_tpu_torch.serving import export_retrieval_towers, load_artifact
+    from xpretrain_tpu_torch.serving.towers import RetrievalTowers
+    from xpretrain_tpu_torch.tools.profile_train_step import spread, synthetic_batch, window_ms
+
+    built, build = [], export_serving_clipvip.build_model
+    export_serving_clipvip.build_model = lambda cfg, device: built.append(build(cfg, device)) or built[-1]
+    path = os.path.join(folder, "clipvip_b32.xpsa")
+    try:
+        t0 = time.perf_counter()
+        with plain_on_cuda_guard() as plain_cuda_calls:
+            meta = export_serving_clipvip.main([
+                "--clip_size", "base_32", "--num_frm", "12", "--crop_img_size", "224", "--max_txt_len", "70",
+                "--bf16", "1", "--device", "cuda", "--output", path, "--output_dir", os.path.join(folder, "cli"),
+            ])
+        export_s = time.perf_counter() - t0
+    finally:
+        export_serving_clipvip.build_model = build
+    check(not plain_cuda_calls, f"the export traced a plain version on CUDA: {plain_cuda_calls[:4]}")
+    check((meta["device"], meta["attention"]) == ("cuda", "kernel"), f"artifact meta {meta}")
+    size = os.path.getsize(path) / 2**20
+    t0 = time.perf_counter()
+    art = load_artifact(path)
+    load_s = time.perf_counter() - t0
+    os.remove(path)
+    print(f"  exported B/32 (bf16, kernel attention) through export_serving_clipvip in {export_s:.1f} s (model "
+          f"build, both traces and the save), {size:.1f} MiB, loaded in {load_s:.1f} s (host clock) [{card}]")
+    model = built[0]
+    batches = {b: synthetic_batch(b, "cuda", seed=b) for b in ARTIFACT_BATCHES}
+    got = {}
+    with plain_on_cuda_guard() as plain_cuda_calls:
+        reset_launches()
+        for b, batch in batches.items():
+            before = launch_counts()
+            got[b] = (art.encode_video(batch["video"]),
+                      art.encode_text(batch["text_input_ids"], batch["text_input_mask"]))
+            torch.cuda.synchronize()
+            after = launch_counts()
+            check({k: after[k] - before[k] for k in after} == expected(proxy_attention_fwd=VIDEO_LAYERS),
+                  f"b={b}: the loaded program's launches {after} (before {before})")
+        launches = launch_counts()
+    check(not plain_cuda_calls, f"the artifact ran a plain version on CUDA: {plain_cuda_calls[:4]}")
+    towers = RetrievalTowers(model, "cuda")
+    for b, batch in batches.items():
+        want = (towers.encode_video(batch["video"]),
+                towers.encode_text(batch["text_input_ids"], batch["text_input_mask"]))
+        errs = [_max_abs(g, w) for g, w in zip(got[b], want)]
+        print(f"  b={b:2d}: video {tuple(got[b][0].shape)} text {tuple(got[b][1].shape)}, artifact vs live towers "
+              f"max_abs video {errs[0]:.3e} text {errs[1]:.3e} (tol {ARTIFACT_TOL:.0e}); {VIDEO_LAYERS} proxy "
+              f"launches inside the loaded program")
+        check(all(math.isfinite(e) and e <= ARTIFACT_TOL for e in errs), f"b={b}: artifact vs live {errs}")
+    print(f"  launches of the artifact's calls {launches}")
+
+    t0 = time.perf_counter()
+    plain = export_retrieval_towers(model, frames=12, image_size=224, seq_len=70, attention="plain")
+    plain_s = time.perf_counter() - t0
+    b24 = batches[EVAL_BATCH]
+    reset_launches()
+    plain_v = plain.encode_video(b24["video"])
+    torch.cuda.synchronize()
+    check(launch_counts() == expected(), f"the plain artifact launched {launch_counts()}")
+    err = _max_abs(plain_v, got[EVAL_BATCH][0])
+    print(f"  plain artifact (exported in {plain_s:.1f} s): no launch, b=24 video features vs the kernel "
+          f"artifact's max_abs {err:.3e} (tol {TOL['bfloat16']:.0e}, the forward kernel's bf16 bar)")
+    check(math.isfinite(err) and err <= TOL["bfloat16"], f"plain vs kernel artifact {err}")
+    del plain, plain_v
+
+    video, ids, mask = b24["video"], b24["text_input_ids"], b24["text_input_mask"]
+    runs = {"live": window_ms(lambda: (towers.encode_video(video), towers.encode_text(ids, mask)),
+                              iters=ARTIFACT_TIMED_ITERS),
+            "artifact": window_ms(lambda: (art.encode_video(video), art.encode_text(ids, mask)),
+                                  iters=ARTIFACT_TIMED_ITERS)}
+    for name, ms in runs.items():
+        print(f"  B/32 bf16 video+text b=24 through the {name} towers: {spread(ms)}; windows {ms} (CUDA events, "
+              f"{ARTIFACT_TIMED_ITERS} calls per window, inputs on the card) [{card}]")
+    del art, towers, got
+    return launches, (model, b24)
+
+
+def lfvila_artifact_phase(card: str, preset: dict, folder: str) -> dict:
+    """Phase 7b: LF-VILA at the stage-1 preset's widths and depth, fp32, the
+    window kernel on: the artifact against the live towers on fp32 frames
+    [2, 3, 32, 192, 320] and 4 sentences of 50 tokens, 6 window launches a
+    video call inside the loaded program."""
+    import torch
+    from xpretrain_tpu_torch.cli import run_tasks_lfvila
+    from xpretrain_tpu_torch.models.lf_vila.tasks import LfVilaRetrieval
+    from xpretrain_tpu_torch.serving import export_lfvila_retrieval_towers, load_artifact, save_artifact
+    from xpretrain_tpu_torch.serving.towers import LfVilaTowers
+
+    model = LfVilaRetrieval(run_tasks_lfvila.lfvila_config_from({**preset, "bf16": 0}), device="cuda")
+    model.init_weights(torch.Generator(device="cuda").manual_seed(0)).eval()
+    t0 = time.perf_counter()
+    with plain_on_cuda_guard() as plain_cuda_calls:
+        art = export_lfvila_retrieval_towers(model, frames=32, image_size=(192, 320), n_sent=4, sent_len=50)
+    export_s = time.perf_counter() - t0
+    check(not plain_cuda_calls, f"the export traced a plain version on CUDA: {plain_cuda_calls[:4]}")
+    check(art.meta["attention"] == "kernel", f"artifact meta {art.meta}")
+    path = os.path.join(folder, "lfvila.xpsa")
+    t0 = time.perf_counter()
+    save_artifact(path, art)
+    t1 = time.perf_counter()
+    art = load_artifact(path)
+    save_s, load_s, size = t1 - t0, time.perf_counter() - t1, os.path.getsize(path) / 2**20
+    os.remove(path)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    frames = torch.randn(2, 3, 32, 192, 320, device="cuda", generator=g)
+    ids = torch.randint(1, 30522, (2, 4, 50), device="cuda", generator=g)
+    mask = (torch.arange(50, device="cuda")[None, None] < torch.randint(5, 51, (2, 4, 1), device="cuda",
+                                                                          generator=g)).long()
+    with plain_on_cuda_guard() as plain_cuda_calls:
+        reset_launches()
+        got = (art.encode_video(frames), art.encode_text(ids, mask))
+        torch.cuda.synchronize()
+        launches = launch_counts()
+    check(not plain_cuda_calls, f"the artifact ran a plain version on CUDA: {plain_cuda_calls[:4]}")
+    check(launches == expected(window_attention_fwd=WINDOW_BLOCKS), f"LF-VILA artifact launches {launches}")
+    towers = LfVilaTowers(model, "cuda")
+    errs = [_max_abs(a, w) for a, w in zip(got, (towers.encode_video(frames), towers.encode_text(ids, mask)))]
+    print(f"  LF-VILA stage-1 preset fp32, window kernel on: exported in {export_s:.1f} s, saved in {save_s:.1f} s "
+          f"({size:.1f} MiB), loaded in {load_s:.1f} s (host clock); b=2 artifact vs live towers max_abs video "
+          f"{errs[0]:.3e} text {errs[1]:.3e} (tol {ARTIFACT_TOL:.0e}); launches {launches} [{card}]")
+    check(all(math.isfinite(e) and e <= ARTIFACT_TOL for e in errs), f"LF-VILA artifact vs live {errs}")
+    del model, art, towers
+    release_memory()
+    return launches
+
+
+def hdvila_artifact_phase(card: str) -> None:
+    """Phase 7c: HD-VILA at the stage-1 preset's widths and depth, fp32: the
+    exported towers on uint8 middles and neighbours (b=1) against the live
+    towers; no kernel launch. The programs are called as exported, not
+    through a file (the CPU tests round-trip every family's file; this
+    saves ~30 s of writing and reading 1.1 GB)."""
+    import torch
+    from xpretrain_tpu_torch.serving import export_hdvila_retrieval_towers
+    from xpretrain_tpu_torch.serving.towers import HdVilaTowers
+
+    p = hdvila_preset(1)
+    h, w = p["crop_size"]
+    model = hdvila_full_width(1, bf16=False, device="cuda").eval()
+    t0 = time.perf_counter()
+    art = export_hdvila_retrieval_towers(model, n_clips=2, n_lo_frames=p["num_frm"] - 1, hi_size=(h, w),
+                                         lo_size=(h // 4, w // 4), seq_len=p["max_txt_len"])
+    export_s = time.perf_counter() - t0
+    size = sum(t.numel() * t.element_size() for program in (art.video, art.text)
+               for t in (*program.state_dict.values(), *program.constants.values())) / 2**20
+    batch = hdvila_batch(1, batch=1, clips=2, device="cuda", seed=8)
+    reset_launches()
+    got = (art.encode_video(batch["img_middle"], batch["img_other"]),
+           art.encode_text(batch["text_input_ids"], batch["text_input_mask"]))
+    torch.cuda.synchronize()
+    check(launch_counts() == expected(), f"the HD-VILA artifact launched {launch_counts()}")
+    towers = HdVilaTowers(model, "cuda")
+    want = (towers.encode_video(batch["img_middle"], batch["img_other"]),
+            towers.encode_text(batch["text_input_ids"], batch["text_input_mask"]))
+    errs = [_max_abs(a, b) for a, b in zip(got, want)]
+    print(f"  HD-VILA stage-1 preset fp32 (uint8 frames): exported in {export_s:.1f} s (host clock), {size:.1f} MiB "
+          f"of weights and constants in the two programs; b=1 artifact vs live towers max_abs video "
+          f"{errs[0]:.3e} text {errs[1]:.3e} (tol {ARTIFACT_TOL:.0e}); no kernel launch [{card}]")
+    check(all(math.isfinite(e) and e <= ARTIFACT_TOL for e in errs), f"HD-VILA artifact vs live {errs}")
+    del model, art, towers
+    release_memory()
+
+
+def patch_embed_export_phase(card: str, folder: str) -> dict:
+    """Phase 7d: ``xpt::patch_embed_u8`` through ``torch.export``: a module
+    calling ``fused_patch_embed(use_kernel=True)`` at the B/32 serving
+    frames, exported, saved, loaded, against the eager kernel bit for bit,
+    one launch a call."""
+    import torch
+    from xpretrain_tpu_torch.data.transforms import CLIP_MEAN, CLIP_STD
+    from xpretrain_tpu_torch.ops import patchify as pp
+
+    class PatchEmbed(torch.nn.Module):
+        def __init__(self, kernel):
+            super().__init__()
+            self.kernel = torch.nn.Parameter(kernel, requires_grad=False)
+
+        def forward(self, frames):
+            return pp.fused_patch_embed(frames, self.kernel, CLIP_MEAN, CLIP_STD, torch.bfloat16, use_kernel=True)
+
+    frames, kernel = patch_inputs(PATCH_SHAPES["b32"], seed=9)
+    module = PatchEmbed(kernel)
+    with torch.no_grad():
+        program = torch.export.export(module, (frames,))
+    ops = sum(1 for n in program.graph.nodes if "xpt.patch_embed_u8" in str(n.target))
+    check(ops == 1, f"{ops} xpt::patch_embed_u8 nodes in the exported program")
+    path = os.path.join(folder, "patch_embed.pt2")
+    torch.export.save(program, path)
+    loaded = torch.export.load(path).module()
+    os.remove(path)
+    reset_launches()
+    with torch.no_grad():
+        got = loaded(frames)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    check(launches == expected(patch_embed_u8=1), f"patch-embed program launches {launches}")
+    want = pp.fused_patch_embed(frames, kernel, CLIP_MEAN, CLIP_STD, torch.bfloat16, use_kernel=True)
+    same = torch.equal(got, want)
+    print(f"  fused_patch_embed(use_kernel=True) exported and loaded: one xpt::patch_embed_u8 node, "
+          f"{tuple(got.shape)} {got.dtype} bit-equal to the eager kernel: {same}; launches {launches}")
+    check(same, "the exported patch embed differs from the eager kernel")
+    return launches
+
+
+def int8_phase(card: str, model, batch: dict) -> None:
+    """Phase 7e: B/32 (bf16) under ``int8_serving`` at b=24: the embedding
+    cosine against the bf16 path (``INT8_COS``, on the batch's flattened
+    features as JAX's ``tests/test_quant.py:_cos`` takes it), and both
+    forwards timed."""
+    import torch
+    from xpretrain_tpu_torch.ops.quant import int8_serving
+    from xpretrain_tpu_torch.tools.profile_train_step import spread, window_ms
+
+    video, ids, mask = batch["video"], batch["text_input_ids"], batch["text_input_mask"]
+
+    def forward():
+        return model.forward_video(video), model.forward_text(ids, mask)
+
+    with torch.inference_mode():
+        ref = forward()
+        bf16 = window_ms(forward, iters=ARTIFACT_TIMED_ITERS)
+        with int8_serving():
+            out = forward()
+            int8 = window_ms(forward, iters=ARTIFACT_TIMED_ITERS)
+    # the embedding cosine as JAX's tests/test_quant.py computes it (the flattened features of the batch,
+    # which for unit rows is the mean row cosine); each tower's lowest row cosine printed beside it
+    cos = [torch.nn.functional.cosine_similarity(a.double().flatten(), b.double().flatten(), dim=0).item()
+           for a, b in zip(out, ref)]
+    low = [torch.nn.functional.cosine_similarity(a.double(), b.double(), dim=-1).min().item()
+           for a, b in zip(out, ref)]
+    print(f"  w8a8 B/32 b=24: embedding cosine vs bf16 video {cos[0]:.6f} text {cos[1]:.6f} (bar {INT8_COS}); "
+          f"lowest row video {low[0]:.6f} text {low[1]:.6f}")
+    print(f"  B/32 video+text b=24 bf16: {spread(bf16)}; windows {bf16} [{card}]")
+    print(f"  B/32 video+text b=24 w8a8 (int8_serving, torch._int_mm): {spread(int8)}; windows {int8} (CUDA events, "
+          f"{ARTIFACT_TIMED_ITERS} calls per window) [{card}]")
+    check(all(c >= INT8_COS for c in cos), f"int8 cosine {cos} below {INT8_COS}")
+
+
 def main() -> None:
     try:
         import torch
@@ -2953,6 +3233,23 @@ def main() -> None:
     with phase("6f timing: eager and graphed train steps, fp32 and bf16 storage"):
         graph_timing_phase(card)
 
+    with tempfile.TemporaryDirectory(prefix="artifacts_") as folder:
+        with phase("7a B/32 serving artifact with kernel attention, through the export CLI (main path)"):
+            clipvip_artifact_launches, (b32_model, b32_batch) = clipvip_artifact_phase(card, folder)
+        with phase("7b LF-VILA serving artifact, window kernel on (main path)"):
+            lfvila_artifact_launches = lfvila_artifact_phase(card, lfvila_preset, folder)
+        with phase("7c HD-VILA serving artifact at the stage-1 preset's width"):
+            hdvila_artifact_phase(card)
+        with phase("7d xpt::patch_embed_u8 through torch.export (main path)"):
+            patch_artifact_launches = patch_embed_export_phase(card, folder)
+    with phase("7e w8a8 serving of B/32 against bf16"):
+        int8_phase(card, b32_model, b32_batch)
+        del b32_model, b32_batch
+        release_memory()
+    # the serving artifacts' main path: each run's counts, read just after it
+    artifact_launches = {name: clipvip_artifact_launches[name] + lfvila_artifact_launches[name]
+                         + patch_artifact_launches[name] for name in KERNELS}
+
     paths = {"eval": eval_launches, "train": train_launches, "lfvila_retrieval": lfvila_launches,
              "ops": ops_launches, "lfvila_stage1": stage1_launches, "lfvila_stage2": stage2_launches,
              **{f"lfvila_{task}": counts for task, counts in task_launches.items()},
@@ -2961,7 +3258,7 @@ def main() -> None:
              **{f"hdvila_retrieval_{k}": v for k, v in hdvila_retrieval_launches.items()},
              **{f"hdvila_qa_{k}": v for k, v in hdvila_qa_launches.items()},
              "train_graphed_bf16_async": graphed_launches, "lfvila_stage1_graphed": lfvila_graphed_launches,
-             "clipvip_factorized": factorized_launches}
+             "clipvip_factorized": factorized_launches, "serving_artifact": artifact_launches}
     window_timing = {dt: win_timings[("s3_shifted", dt)] for dt in ("bfloat16", "float32")}
     summary = {"kernels": [
         {

@@ -19,6 +19,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _xpt_ops import xpt_ops_on_cpu  # noqa: E402
+
 from xpretrain_tpu_torch.cli import run_tasks_lfvila  # noqa: E402
 from xpretrain_tpu_torch.models.lf_vila import swin3d  # noqa: E402
 from xpretrain_tpu_torch.models.lf_vila.convert import flax_param_paths, load_jax_params  # noqa: E402
@@ -273,7 +275,15 @@ def _fake_launch(q, k, v, bias, mask, out):
     out.copy_(wa.window_attention_plain(q, k, v, bias, mask))
 
 
-def test_kernel_path_serves_and_refuses_to_train(pair, monkeypatch):
+@pytest.fixture()
+def _ops_take_cpu_tensors():
+    """The kernel branch's wiring runs on CPU tensors, its launch replaced by
+    the plain version: the ``xpt::`` ops take the CPU for the test."""
+    with xpt_ops_on_cpu():
+        yield
+
+
+def test_kernel_path_serves_and_refuses_to_train(pair, monkeypatch, _ops_take_cpu_tensors):
     """The model with the window attention routed through the CUDA branch
     (the launch replaced by the plain version, on CPU tensors): a forward
     without gradients counts one launch per gated block and gives the plain

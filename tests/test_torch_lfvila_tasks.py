@@ -18,6 +18,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _xpt_ops import xpt_ops_on_cpu  # noqa: E402
+
 from xpretrain_tpu_torch.cli import run_tasks_lfvila  # noqa: E402
 from xpretrain_tpu_torch.config import ConfigDict  # noqa: E402
 from xpretrain_tpu_torch.data.tokenization import build_model_tokenizer  # noqa: E402
@@ -159,7 +161,15 @@ def _fake_launch(q, k, v, bias, mask, out):
     out.copy_(wa.window_attention_plain(q, k, v, bias, mask))
 
 
-def test_eval_forward_goes_through_the_kernel_gate(head, monkeypatch):
+@pytest.fixture()
+def _ops_take_cpu_tensors():
+    """The kernel branch's wiring runs on CPU tensors, its launch replaced by
+    the plain version: the ``xpt::`` ops take the CPU for the test."""
+    with xpt_ops_on_cpu():
+        yield
+
+
+def test_eval_forward_goes_through_the_kernel_gate(head, monkeypatch, _ops_take_cpu_tensors):
     """With the launch stood in for by the plain version on CPU tensors: one
     eval forward counts one window launch per gated block (the QA video is
     encoded once for all its choices) and gives the plain path's logits; a

@@ -12,10 +12,20 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _xpt_ops import xpt_ops_on_cpu  # noqa: E402
+
 from xpretrain_tpu_torch.data.transforms import CLIP_MEAN, CLIP_STD, normalize  # noqa: E402
 from xpretrain_tpu_torch.ops import patchify  # noqa: E402
 
 P, D = 8, 24
+
+
+@pytest.fixture(autouse=True)
+def _ops_take_cpu_tensors():
+    """The CUDA branch's wiring runs here on CPU tensors, its launch replaced
+    by the plain version: the ``xpt::`` ops take the CPU for each test."""
+    with xpt_ops_on_cpu():
+        yield
 
 
 @pytest.fixture(scope="module")

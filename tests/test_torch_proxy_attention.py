@@ -11,6 +11,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _xpt_ops import xpt_ops_on_cpu  # noqa: E402
+
 from xpretrain_tpu_torch.ops import proxy_attention as pa  # noqa: E402
 from xpretrain_tpu_torch.ops.proxy_attention import (  # noqa: E402
     proxy_attention,
@@ -22,6 +24,14 @@ from xpretrain_tpu_torch.ops.proxy_attention import (  # noqa: E402
 # (M, N, L, D): odd L, single proxy, wide head, and the B/32 frame geometry
 SHAPES = [(3, 4, 13, 16), (1, 3, 7, 32), (4, 2, 49, 64)]
 B, H = 2, 2
+
+
+@pytest.fixture(autouse=True)
+def _ops_take_cpu_tensors():
+    """The CUDA branch's wiring runs here on CPU tensors, its launch replaced
+    by the plain version: the ``xpt::`` ops take the CPU for each test."""
+    with xpt_ops_on_cpu():
+        yield
 
 
 @pytest.fixture(scope="module")

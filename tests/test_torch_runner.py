@@ -147,9 +147,10 @@ def test_train_mode_trains_on_the_val_split_without_a_train_annotation(tmp_path,
 
 
 def test_fused_adamw_is_read_and_ignored(tmp_path):
-    """``--fused_adamw`` picks an optimizer-state layout in JAX; the port has
-    one (``ClipVipTrainer``'s docstring): 0 and 1 give bit-identical first
-    steps, parameters and optimizer state."""
+    """With fp32 moments ``--fused_adamw`` picks an optimizer-state layout in
+    JAX; the port has one (``ClipVipTrainer``'s docstring): 0 and 1 give
+    bit-identical first steps, parameters and optimizer state (with bf16
+    moments 0 raises: the next test)."""
     flags = ["--num_train_steps", "1", "--validate_at_start", "0", "--valid_steps", "100", "--save_steps", "1"]
     for fused in ("0", "1"):
         run_retrieval_clipvip.main(TRAIN + flags + ["--fused_adamw", fused, "--output_dir", str(tmp_path / fused)])
@@ -159,6 +160,27 @@ def test_fused_adamw_is_read_and_ignored(tmp_path):
     for moment in ("mu", "nu"):
         for key, value in a["optimizer"][moment].items():
             torch.testing.assert_close(b["optimizer"][moment][key], value, rtol=0, atol=0, msg=key)
+
+
+def test_moment_dtype_bf16_without_fused_adamw_raises_as_in_jax(tmp_path):
+    """``--moment_dtype bf16 --fused_adamw 0``: JAX's ``build_optimizer``
+    raises ``ValueError("moment_dtype requires fused=True ...")``; the
+    port's raises the same, through the CLI and called alone, and takes
+    ``fused_adamw 1``."""
+    import jax.numpy as jnp
+
+    from xpretrain_tpu.optim.optimizer import build_optimizer as jax_build_optimizer
+    from xpretrain_tpu_torch.optim.optimizer import build_optimizer
+
+    with pytest.raises(ValueError, match="moment_dtype requires fused=True") as jax_error:
+        jax_build_optimizer({"w": jnp.zeros((2, 2))}, lambda step: 1e-3, fused=False, moment_dtype=jnp.bfloat16)
+    with pytest.raises(ValueError, match="moment_dtype requires fused=True") as port_error:
+        build_optimizer({"w": torch.zeros(2, 2)}, lambda step: 1e-3, fused=False, moment_dtype=torch.bfloat16)
+    assert str(port_error.value) == str(jax_error.value)
+    flags = ["--num_train_steps", "1", "--validate_at_start", "0", "--valid_steps", "100", "--moment_dtype", "bf16"]
+    with pytest.raises(ValueError, match="moment_dtype requires fused=True"):
+        run_retrieval_clipvip.main(TRAIN + flags + ["--fused_adamw", "0", "--output_dir", str(tmp_path / "0")])
+    run_retrieval_clipvip.main(TRAIN + flags + ["--fused_adamw", "1", "--output_dir", str(tmp_path / "1")])
 
 
 def test_absent_cuda_fails_instead_of_falling_back():

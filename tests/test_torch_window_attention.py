@@ -12,6 +12,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _xpt_ops import xpt_ops_on_cpu  # noqa: E402
+
 from xpretrain_tpu_torch.ops import window_attention as wa  # noqa: E402
 from xpretrain_tpu_torch.ops.window_attention import (  # noqa: E402
     window_attention,
@@ -28,6 +30,14 @@ CASES = {
     "n120_d32_masked": (4, 2, 120, 32, 2),
     "n77_d64_one_window": (3, 3, 77, 64, 1),
 }
+
+
+@pytest.fixture(autouse=True)
+def _ops_take_cpu_tensors():
+    """The CUDA branch's wiring runs here on CPU tensors, its launch replaced
+    by the plain version: the ``xpt::`` ops take the CPU for each test."""
+    with xpt_ops_on_cpu():
+        yield
 
 
 @pytest.fixture(scope="module")

@@ -19,19 +19,31 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from xpretrain_tpu_torch.ops import _kernels
+
 NEG_INF = -1e9  # additive-mask fill; large but finite so bf16 stays well-behaved
 
 
-@functools.lru_cache(maxsize=128)
 def device_constant(builder: Callable, args: tuple, device: torch.device) -> torch.Tensor:
     """``builder(*args)`` (numpy) as a tensor on ``device``, made once per
     (builder, args, device) and shared: callers must not write to it. A
     forward that copied a host constant to the card at every call could not
     be captured in a CUDA graph. Made outside inference mode even when first
     asked for inside it, so that a process that serves and then trains can
-    use it under autograd."""
+    use it under autograd. Under a trace (``torch.export``) it is made anew
+    and not cached: the trace's tensor is fake, and the program holds it as
+    a constant."""
+    if _kernels.tracing():
+        return _make_constant(builder, args, device)
+    return _cached_constant(builder, args, device)
+
+
+def _make_constant(builder: Callable, args: tuple, device: torch.device) -> torch.Tensor:
     with torch.inference_mode(False):
         return torch.from_numpy(np.array(builder(*args))).to(device)
+
+
+_cached_constant = functools.lru_cache(maxsize=128)(_make_constant)
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:

@@ -45,6 +45,14 @@ def counted(fn: Callable) -> Callable:
     return fn
 
 
+def tracing() -> bool:
+    """True while ``torch.export``, ``torch.compile`` or ``make_fx`` traces:
+    a tensor made then is fake or a node of the graph being built, so a
+    cache must not keep it (the next eager call would get it back)."""
+    return (torch.compiler.is_compiling() or torch._guards.detect_fake_mode() is not None
+            or torch._C._get_dispatch_mode(torch._C._TorchDispatchModeKey.PROXY) is not None)
+
+
 def _cuda_tool(name: str) -> str:
     tool = shutil.which(name)
     if tool is None:

@@ -14,7 +14,9 @@ folds into the weights:
   cores, u8 widened exactly and the fp32 weight split into hi + lo bf16
   terms; fp32 out on the CUDA cores), or raises; a CPU tensor,
   and ``use_kernel`` None or False, take :func:`patch_embed_plain`
-  (``_xla_patch_embed``).
+  (``_xla_patch_embed``). The kernel launches inside the ``torch.library``
+  custom op ``xpt::patch_embed_u8`` (a fake for ``torch.export``, a real
+  body that launches and counts).
 """
 
 from __future__ import annotations
@@ -39,7 +41,8 @@ def fold_normalization(
     """
     P, D = patch_kernel.shape[0], patch_kernel.shape[-1]
     w = patch_kernel.float()
-    mean, std = _on_device(_values(mean), _values(std), w.device)
+    make = _mean_std if _kernels.tracing() else _on_device  # a trace's tensors are not cached
+    mean, std = make(_values(mean), _values(std), w.device)
     scale = (1.0 / (255.0 * std)).reshape(1, 1, 3, 1)
     offset = (mean / std).reshape(1, 1, 3, 1)
     folded = (w * scale).reshape(P * P * 3, D)
@@ -51,16 +54,18 @@ def _values(x) -> tuple[float, ...]:
     return tuple(np.asarray(x, np.float32).reshape(-1).tolist())
 
 
-@functools.lru_cache(maxsize=16)
-def _on_device(mean: tuple[float, ...], std: tuple[float, ...], device: torch.device
-               ) -> tuple[torch.Tensor, torch.Tensor]:
-    """fp32 (mean, std) on ``device``, made once per device and shared
-    (callers must not write to them): a fresh host-to-device copy at every
-    call is what a captured CUDA graph cannot hold. Made outside inference
-    mode, so that a process that serves and then trains can use them."""
+def _mean_std(mean: tuple[float, ...], std: tuple[float, ...], device: torch.device
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """fp32 (mean, std) on ``device``, made outside inference mode, so that a
+    process that serves and then trains can use them."""
     with torch.inference_mode(False):
         return (torch.tensor(mean, dtype=torch.float32, device=device),
                 torch.tensor(std, dtype=torch.float32, device=device))
+
+
+# made once per device and shared (callers must not write to them): a fresh
+# host-to-device copy at every call is what a captured CUDA graph cannot hold
+_on_device = functools.lru_cache(maxsize=16)(_mean_std)
 
 
 def extract_patches_u8(frames: torch.Tensor, patch: int) -> torch.Tensor:
@@ -141,9 +146,31 @@ def _launch(frames_u8, folded_w, bias, patch, out_dtype) -> torch.Tensor:
         raise ValueError(f"fused_patch_embed kernel takes an embedding dim that is a multiple of 4, got {D}")
     if folded_w.device != frames_u8.device:
         raise ValueError(f"frames on {frames_u8.device}, patch_kernel on {folded_w.device}")
-    N, H, W, _ = frames_u8.shape
-    out = torch.empty((N, (H // patch) * (W // patch), D), dtype=out_dtype, device=frames_u8.device)
-    _kernels.patch_embed_u8(frames_u8.contiguous(), folded_w.contiguous(), bias.contiguous(), out, patch)
+    return torch.ops.xpt.patch_embed_u8(frames_u8.contiguous(), folded_w.contiguous(), bias.contiguous(), patch,
+                                        out_dtype)
+
+
+def _patch_launch(frames_u8, folded_w, bias, patch, out_dtype):
+    """The body of ``xpt::patch_embed_u8``: allocates [N, L, D] in
+    ``out_dtype``, launches, counts."""
+    out = _patch_out(frames_u8, folded_w, patch, out_dtype)
+    _kernels.patch_embed_u8(frames_u8, folded_w, bias, out, patch)
     fused_patch_embed.launches += 1
     return out
+
+
+def _patch_out(frames_u8, folded_w, patch, out_dtype):
+    N, H, W, _ = frames_u8.shape
+    return frames_u8.new_empty((N, (H // patch) * (W // patch), folded_w.shape[1]), dtype=out_dtype)
+
+
+_patch_op = torch.library.custom_op(
+    "xpt::patch_embed_u8", _patch_launch, mutates_args=(), device_types="cuda",
+    schema="(Tensor frames_u8, Tensor folded_w, Tensor bias, int patch, ScalarType out_dtype) -> Tensor",
+)
+
+
+@_patch_op.register_fake
+def _(frames_u8, folded_w, bias, patch, out_dtype):
+    return _patch_out(frames_u8, folded_w, patch, out_dtype)
 

@@ -30,9 +30,23 @@ everything, each frame's patches attend [proxies | own frame]
   in their load and store addresses (replacing ``_attention_pallas_packed``
   and ``_attention_pallas_bwd_packed``); its CPU path is split, plain,
   merge, as the JAX fallback.
+
+Each kernel launches inside a ``torch.library`` custom op,
+``xpt::proxy_attention_fwd`` and ``xpt::proxy_attention_bwd`` (``head_dim``
+0 for [B, H, S, D], else the packed layout), so that ``torch.export`` and
+``torch.compile`` trace through it: the op's fake gives the output's shape,
+dtype and strides, its real body checks what ``cp.async`` needs, launches
+and counts the launch on the public wrapper (in eager code, in an exported
+program and at a captured graph's capture alike). A call that needs no
+gradient calls the forward op directly; one that does goes through
+``_ProxyAttentionFn``, whose backward calls the backward op on the forward's
+LSE. :func:`force_plain_attention` is the one way to run the plain version
+on CUDA tensors: an artifact exported with ``attention="plain"``.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -169,8 +183,8 @@ def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, M: int, N: 
 
 
 class _ProxyAttentionFn(torch.autograd.Function):
-    """Kernel forward, kernel backward; q/k/v and, when a gradient will
-    follow, each row's LSE are saved, P is recomputed."""
+    """Kernel forward, kernel backward, through the two ops; q/k/v and, when
+    a gradient will follow, each row's LSE are saved, P is recomputed."""
 
     @staticmethod
     def forward(ctx, q, k, v, M, N, L, scale):
@@ -189,7 +203,7 @@ class _ProxyAttentionFn(torch.autograd.Function):
 
 class _ProxyAttentionPackedFn(torch.autograd.Function):
     """``_ProxyAttentionFn`` on the packed [B, S, H*D] layout (the
-    ``jax.custom_vjp`` ``_flash_packed``): the same two kernels, reading and
+    ``jax.custom_vjp`` ``_flash_packed``): the same two ops, reading and
     writing the packed tensors through their head strides."""
 
     @staticmethod
@@ -208,6 +222,34 @@ class _ProxyAttentionPackedFn(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None, None
 
 
+def _attend(q, k, v, M: int, N: int, L: int, scale: float, head_dim: int) -> torch.Tensor:
+    """The CUDA branch of the two forward entries, checked already: through
+    autograd when a gradient will follow, else the forward op alone (what
+    ``torch.export`` traces under ``no_grad``)."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        if head_dim:
+            return _ProxyAttentionPackedFn.apply(q, k, v, M, N, L, scale, head_dim)
+        return _ProxyAttentionFn.apply(q, k, v, M, N, L, scale)
+    return _launch_fwd(q, k, v, M, N, L, scale, head_dim)[0]
+
+
+_PLAIN_ON_CUDA = [False]  # set while inside force_plain_attention()
+
+
+@contextlib.contextmanager
+def force_plain_attention():
+    """While inside, :func:`proxy_attention` and
+    :func:`proxy_attention_packed` compute their plain versions on CUDA
+    tensors too (JAX's ``force_xla_attention``): what an artifact exported
+    with ``attention="plain"`` holds. Nothing else routes a CUDA tensor to
+    the plain version."""
+    before, _PLAIN_ON_CUDA[0] = _PLAIN_ON_CUDA[0], True
+    try:
+        yield
+    finally:
+        _PLAIN_ON_CUDA[0] = before
+
+
 @_kernels.counted
 def proxy_attention(
     q: torch.Tensor,  # [B, H, S, D], S = M + N*L
@@ -224,12 +266,12 @@ def proxy_attention(
     kernel. ``proxy_attention.launches`` counts forward kernel launches (CUDA
     calls only)."""
     _check_shapes(q, k, v, M, N, L)
-    if q.device.type == "cpu":
+    if q.device.type == "cpu" or (q.device.type == "cuda" and _PLAIN_ON_CUDA[0]):
         return proxy_attention_plain(q, k, v, M, L, scale)
     if q.device.type != "cuda":
         raise ValueError(f"proxy_attention runs on cpu or cuda tensors, got {q.device}")
     _check_kernel_inputs(q, k, v)
-    return _ProxyAttentionFn.apply(q, k, v, M, N, L, scale)
+    return _attend(q, k, v, M, N, L, scale, 0)
 
 
 
@@ -303,12 +345,12 @@ def proxy_attention_packed(
     kernel. ``proxy_attention_packed.launches`` counts forward kernel launches
     (CUDA calls only)."""
     _check_packed_shapes(q, k, v, M, N, L, head_dim)
-    if q.device.type == "cpu":
+    if q.device.type == "cpu" or (q.device.type == "cuda" and _PLAIN_ON_CUDA[0]):
         return proxy_attention_packed_plain(q, k, v, M, L, scale, head_dim)
     if q.device.type != "cuda":
         raise ValueError(f"proxy_attention_packed runs on cpu or cuda tensors, got {q.device}")
     _check_packed_kernel_inputs(head_dim, q, k, v)
-    return _ProxyAttentionPackedFn.apply(q, k, v, M, N, L, scale, head_dim)
+    return _attend(q, k, v, M, N, L, scale, head_dim)
 
 
 
@@ -344,29 +386,34 @@ def proxy_attention_packed_bwd(
 
 
 
-def _launch_fwd(q, k, v, M, N, L, scale, head_dim=None, with_lse=False):
-    """The forward kernel on [B, H, S, D] tensors or, given ``head_dim``, on
-    packed [B, S, H*D] ones through their head views; counts the launch.
-    Returns the output and, ``with_lse``, each row's fp32 [B, H, S] LSE
-    (else None)."""
+def _head_views(head_dim: int, *tensors: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """[B, H, S, D] tensors as they are (``head_dim`` 0), or the head views
+    of packed [B, S, H*D] ones."""
+    return tensors if not head_dim else tuple(_heads(t, head_dim) for t in tensors)
+
+
+def _fwd_launch(q, k, v, M, N, L, scale, head_dim, with_lse):
+    """The body of ``xpt::proxy_attention_fwd``: the forward kernel on
+    [B, H, S, D] tensors or, given ``head_dim``, on packed [B, S, H*D] ones
+    through their head views; counts the launch. Returns the output and,
+    ``with_lse``, each row's fp32 [B, H, S] LSE (else an empty [0])."""
     out = torch.empty_like(q)
-    views = (q, k, v, out) if head_dim is None else tuple(_heads(t, head_dim) for t in (q, k, v, out))
+    views = _head_views(head_dim, q, k, v, out)
     _check_cp_async(*views)
     B, H, S, _ = views[0].shape
-    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device) if with_lse else None
-    _kernels.proxy_attention_fwd(*views, lse, M, N, L, scale)
-    (proxy_attention if head_dim is None else proxy_attention_packed).launches += 1
+    lse = torch.empty((B, H, S) if with_lse else (0,), dtype=torch.float32, device=q.device)
+    _kernels.proxy_attention_fwd(*views, lse if with_lse else None, M, N, L, scale)
+    (proxy_attention_packed if head_dim else proxy_attention).launches += 1
     return out, lse
 
 
-def _launch_bwd(q, k, v, d_out, M, N, L, scale, head_dim=None, lse=None):
-    """The backward kernel, as :func:`_launch_fwd`, on the forward's fp32
-    [B, H, S] ``lse`` or, when it is None, on an LSE the kernel computes
-    first; delta is fp32 [B, H, S] scratch."""
+def _bwd_launch(q, k, v, d_out, lse, M, N, L, scale, head_dim):
+    """The body of ``xpt::proxy_attention_bwd``: the backward kernel, laid
+    out as :func:`_fwd_launch`, on the forward's fp32 [B, H, S] ``lse`` or,
+    when it is None, on an LSE the kernel computes first (into scratch);
+    delta is fp32 [B, H, S] scratch. Counts the launch."""
     grads = (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v))
-    views = (q, k, v, d_out, *grads)
-    if head_dim is not None:
-        views = tuple(_heads(t, head_dim) for t in views)
+    views = _head_views(head_dim, q, k, v, d_out, *grads)
     _check_cp_async(*views)
     B, H, S, _ = views[0].shape
     lse_given = lse is not None
@@ -374,5 +421,41 @@ def _launch_bwd(q, k, v, d_out, M, N, L, scale, head_dim=None, lse=None):
         lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     _kernels.proxy_attention_bwd(*views, lse, delta, lse_given, M, N, L, scale)
-    (proxy_attention_bwd if head_dim is None else proxy_attention_packed_bwd).launches += 1
+    (proxy_attention_packed_bwd if head_dim else proxy_attention_bwd).launches += 1
     return grads
+
+
+_fwd_op = torch.library.custom_op(
+    "xpt::proxy_attention_fwd", _fwd_launch, mutates_args=(), device_types="cuda",
+    schema="(Tensor q, Tensor k, Tensor v, int M, int N, int L, float scale, int head_dim, bool with_lse)"
+           " -> (Tensor, Tensor)",
+)
+_bwd_op = torch.library.custom_op(
+    "xpt::proxy_attention_bwd", _bwd_launch, mutates_args=(), device_types="cuda",
+    schema="(Tensor q, Tensor k, Tensor v, Tensor d_out, Tensor? lse, int M, int N, int L, float scale,"
+           " int head_dim) -> (Tensor, Tensor, Tensor)",
+)
+
+
+@_fwd_op.register_fake
+def _(q, k, v, M, N, L, scale, head_dim, with_lse):
+    B, H, S, _ = _head_views(head_dim, q)[0].shape
+    return torch.empty_like(q), q.new_empty((B, H, S) if with_lse else (0,), dtype=torch.float32)
+
+
+@_bwd_op.register_fake
+def _(q, k, v, d_out, lse, M, N, L, scale, head_dim):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+def _launch_fwd(q, k, v, M, N, L, scale, head_dim=None, with_lse=False):
+    """The forward op alone: the output and, ``with_lse``, each row's LSE
+    (else None)."""
+    out, lse = torch.ops.xpt.proxy_attention_fwd(q, k, v, M, N, L, scale, head_dim or 0, with_lse)
+    return out, (lse if with_lse else None)
+
+
+def _launch_bwd(q, k, v, d_out, M, N, L, scale, head_dim=None, lse=None):
+    """The backward op alone, on the forward's ``lse`` or, when None, on an
+    LSE the kernel computes first."""
+    return torch.ops.xpt.proxy_attention_bwd(q, k, v, d_out, lse, M, N, L, scale, head_dim or 0)

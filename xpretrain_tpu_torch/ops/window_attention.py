@@ -18,6 +18,12 @@ an fp32 softmax, and PV.
   backward yet, so a CUDA call that needs a gradient raises; so does a CUDA
   tensor the kernel does not take. Nothing falls back to the plain version
   on the card.
+
+The kernel launches inside the ``torch.library`` custom op
+``xpt::window_attention_fwd``, so that ``torch.export`` traces through it:
+its fake gives the output's shape, dtype and strides; its real body checks
+what ``cp.async`` needs, launches and counts the launch on
+:func:`window_attention`.
 """
 
 from __future__ import annotations
@@ -76,7 +82,6 @@ def _check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> N
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError(f"window_attention kernel reads q/k/v with a unit stride on the head dim, got strides "
                          f"{q.stride()}, {k.stride()}, {v.stride()}")
-    _kernels.check_cp_async("window_attention bf16 kernel", q, k, v)
 
 
 @_kernels.counted
@@ -115,7 +120,26 @@ def _launch(q, k, v, bias, mask) -> torch.Tensor:
     _check_kernel_inputs(q, k, v)
     bias = bias.float().contiguous()
     mask = None if mask is None else mask.float().contiguous()
+    return torch.ops.xpt.window_attention_fwd(q, k, v, bias, mask)
+
+
+def _window_launch(q, k, v, bias, mask):
+    """The body of ``xpt::window_attention_fwd``: q/k/v views as they are,
+    contiguous fp32 bias and mask (or None); allocates [Bn, H, N, d],
+    launches, counts."""
+    _kernels.check_cp_async("window_attention bf16 kernel", q, k, v)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _kernels.window_attention_fwd(q, k, v, bias, mask, out)
     window_attention.launches += 1
     return out
+
+
+_window_op = torch.library.custom_op(
+    "xpt::window_attention_fwd", _window_launch, mutates_args=(), device_types="cuda",
+    schema="(Tensor q, Tensor k, Tensor v, Tensor bias, Tensor? mask) -> Tensor",
+)
+
+
+@_window_op.register_fake
+def _(q, k, v, bias, mask):
+    return q.new_empty(q.shape)

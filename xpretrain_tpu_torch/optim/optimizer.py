@@ -388,10 +388,18 @@ def build_optimizer(
     no_decay_patterns: Sequence[str] = NO_DECAY_DEFAULT,
     grad_accum_steps: int = 1,
     frozen_patterns: Sequence[str] = (),
+    fused: bool = True,
     moment_dtype: Optional[torch.dtype] = None,
     paths: Optional[Mapping[str, str]] = None,
 ) -> tuple[GroupedAdamW, dict[str, str]]:
-    """Build the grouped AdamW; returns (optimizer, labels)."""
+    """Build the grouped AdamW; returns (optimizer, labels).
+
+    ``fused`` is JAX's ``--fused_adamw``, which there picks between two
+    optimizer-state layouts of the same update; the port has one layout,
+    ``GroupedAdamW``'s, under both values. As in JAX, reduced-precision
+    moments (``moment_dtype``) need ``fused=True``."""
+    if moment_dtype is not None and not fused:
+        raise ValueError("moment_dtype requires fused=True (--fused_adamw 1)")
     labels = param_group_labels(named_params, lr_mul_prefix, no_decay_patterns, frozen_patterns, paths)
     opt = GroupedAdamW(
         named_params, labels, schedule, weight_decay, betas, eps, lr_mul, max_grad_norm,

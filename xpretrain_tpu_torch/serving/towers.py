@@ -3,18 +3,24 @@
 
 The same three calls: ``encode_video`` on frames, ``encode_text`` on token
 ids + mask, both to L2-normalized features, and ``similarity`` for ranking;
-:class:`RetrievalTowers` for CLIP-ViP, :class:`LfVilaTowers` for LF-VILA
-(the towers of ``export_lfvila_retrieval_towers`` there). Saving a
-standalone artifact (``torch.export``) comes later.
+:class:`RetrievalTowers` for CLIP-ViP, :class:`LfVilaTowers` for LF-VILA and
+:class:`HdVilaTowers` for HD-VILA (the towers of
+``export_lfvila_retrieval_towers`` and ``export_hdvila_retrieval_towers``
+there). ``serving/artifact.py`` exports the same towers to one file.
 """
 
 from __future__ import annotations
+
+from typing import TYPE_CHECKING
 
 import numpy as np
 import torch
 
 from xpretrain_tpu_torch.models.clip_vip.model import CLIPViPModel
 from xpretrain_tpu_torch.models.lf_vila.tasks import LfVilaRetrieval
+
+if TYPE_CHECKING:
+    from xpretrain_tpu_torch.cli.run_pretrain_hdvila import HdVilaPretrainModel
 
 
 class _Towers:
@@ -30,11 +36,11 @@ class _Towers:
             x = torch.from_numpy(np.ascontiguousarray(x))
         return x.to(self.device)
 
-    def encode_video(self, video) -> torch.Tensor:
+    def encode_video(self, *video) -> torch.Tensor:
         """Frames -> L2-normalized [B, dim] features (the model's
         ``forward_video``)."""
         with torch.inference_mode():
-            return self.model.forward_video(self._to_device(video))
+            return self.model.forward_video(*(self._to_device(v) for v in video))
 
     def encode_text(self, input_ids, attention_mask) -> torch.Tensor:
         """Token ids + mask -> L2-normalized [B, dim] features (the model's
@@ -73,3 +79,20 @@ class LfVilaTowers(_Towers):
         with torch.inference_mode():
             scores = text_feats.float() @ video_feats.float().T
             return scores / self.model.config.temp if scaled else scores
+
+
+class HdVilaTowers(_Towers):
+    """HD-VILA's stage-1 ITC towers: ``encode_video`` on the uint8 pair
+    ``(img_middle [B, clips, 3, H, W], img_other [B, clips, T-1, 3, H/4,
+    W/4])``, normalized once on the device, ``encode_text`` on [B, seq] ids +
+    mask; features [B, dim]."""
+
+    model: HdVilaPretrainModel
+
+    def similarity(self, text_feats: torch.Tensor, video_feats: torch.Tensor,
+                   scaled: bool = False) -> torch.Tensor:
+        """[Nt, Nv] retrieval scores; ``scaled`` divides by the model's
+        contrastive temperature."""
+        with torch.inference_mode():
+            scores = text_feats.float() @ video_feats.float().T
+            return scores / self.model.temp if scaled else scores

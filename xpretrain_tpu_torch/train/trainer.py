@@ -77,12 +77,13 @@ def check_single_device(cfg) -> None:
 class ClipVipTrainer:
     """End-to-end CLIP-ViP training on one device.
 
-    ``fused_adamw`` is read and ignored, on purpose: JAX picks between two
-    optimizer-state layouts of the same AdamW update with it (and, on
-    resume, follows the layout the checkpoint was written with,
-    ``xpretrain_tpu/train/trainer.py``), while the port has one layout,
-    ``GroupedAdamW``'s; its checkpoints are torch files that JAX cannot
-    read, so there is no other layout to follow on resume."""
+    ``fused_adamw`` goes to ``build_optimizer``, which raises, as JAX does,
+    on ``moment_dtype bf16`` with ``fused_adamw 0``. Otherwise it changes
+    nothing: JAX picks between two optimizer-state layouts of the same AdamW
+    update with it (and, on resume, follows the layout the checkpoint was
+    written with, ``xpretrain_tpu/train/trainer.py``), while the port has
+    one layout, ``GroupedAdamW``'s; its checkpoints are torch files that JAX
+    cannot read, so there is no other layout to follow on resume."""
 
     def __init__(
         self,
@@ -143,6 +144,7 @@ class ClipVipTrainer:
             max_grad_norm=float(cfg.get("grad_norm", 2.0)),
             grad_accum_steps=accum,
             frozen_patterns=tuple(frozen),
+            fused=bool(cfg.get("fused_adamw", True)),
             moment_dtype=moment_dtype_from_cfg(cfg),
             paths=flax_param_paths(self.model.config),
         )
