@@ -176,12 +176,29 @@ Phases, in order; any failure exits non-zero and prints no result:
 7e. B/32 under ``int8_serving`` (w8a8, ``torch._int_mm``) at b=24: embedding
    cosine (JAX's: of the batch's flattened features) >= 0.9994 against the
    bf16 path, the lowest row's printed, both timed (a record);
-8. print the kernel summary (each kernel's time in CUDA events and on the
+8a. set up a one-rank NCCL group as ``torchrun`` would (``RANK=0``,
+   ``WORLD_SIZE=1``, ``LOCAL_RANK=0``, ``MASTER_ADDR``, a free
+   ``MASTER_PORT``; the runner's ``parse_args`` joins it) and run 4b's
+   fine-tune again (``--zero2 1``), eagerly and at ``--steps_per_call 2``
+   (NCCL inside the captured graph): losses, gradient norms, every tensor of
+   the last checkpoint and the validation report bit for bit against 4b's
+   run without a group (else within phase 5b's bars), launches equal;
+8b. the B/32 bf16 step at b=32, ZeRO-2, K = 2 under the group: 2 replayed
+   steps under ``torch.profiler`` (the proxy kernels by name as in 5f, and
+   the NCCL kernels the collectives left in the graph), then its ms a step
+   (5 windows of CUDA events) with the group and, once it is destroyed,
+   without: the collectives' cost at world size 1;
+8c. LF-VILA stage 1 (the preset's widths, depth cut, b=8, 3 steps, MTC and
+   InfoNCE over the global batch, ZeRO-2) and the retrieval eval with the
+   window kernel on, without a group and under a one-rank group: held as
+   8a, the eval's report and window launches equal;
+9. print the kernel summary (each kernel's time in CUDA events and on the
    device, plain time, library time and the bound of its work at the card's
    peak rates) and, as the last line, the status JSON.
 
 Each main-path run (4, 4b, 4c, 4d, 4e, 4f, each run of 4g, 4h, 4i, each
-run of 4j-4m, 4n, 4o, 4p, and the artifact calls of 7a, 7b and 7d) sets
+run of 4j-4m, 4n, 4o, 4p, the artifact calls of 7a, 7b and 7d, and each run
+of 8a and 8c under the group) sets
 every launch count to 0 just before it and reads the counts just after (a
 graphed step adds, at each replay, the launches its capture recorded; an
 exported program counts in the kernels' ``xpt::`` ops, which it calls); the
@@ -1421,18 +1438,19 @@ def hdvila_card_vs_cpu_phase() -> None:
 def hdvila_timing_phase(card: str) -> dict:
     """Phase 6e: the stage-1 bf16 train step at batch 8 (the preset's) in
     windows of CUDA events, its device time by op class (``torch.profiler``)
-    and its operations (``torch.utils.flop_counter`` over one step: the
+    and its operations (``utils/profiling.py:flops_estimate``, the
+    ``torch.utils.flop_counter`` count of one step: the
     convolutions, GEMMs and attention that the code runs, forward and
     backward) against the card's bf16 dense peak; and the video tower
     (``forward_video``) at batch 8."""
     import torch
-    from torch.utils.flop_counter import FlopCounterMode
     from xpretrain_tpu_torch.models.hd_vila.convert import flax_param_paths
     from xpretrain_tpu_torch.optim.optimizer import build_optimizer
     from xpretrain_tpu_torch.optim.schedules import get_schedule
     from xpretrain_tpu_torch.parallel.train_step import TrainState, make_model_train_step
     from xpretrain_tpu_torch.tools.profile_train_step import median, spread, window_ms
     from xpretrain_tpu_torch.train.profiling import start_profiler, stop_profiler
+    from xpretrain_tpu_torch.utils.profiling import flops_estimate
 
     batch = HDVILA_TIMED_BATCH
     model = hdvila_full_width(1, bf16=True, device="cuda")
@@ -1446,9 +1464,8 @@ def hdvila_timing_phase(card: str) -> dict:
         return step(state, data, 0)
 
     train()
-    with FlopCounterMode(display=False) as counter:
-        train()
-    flops = counter.get_total_flops()
+    flops = flops_estimate(train)
+    check(flops > 0, "torch.utils.flop_counter counted no operation in the step")
     torch.cuda.reset_peak_memory_stats()
     windows = window_ms(train, iters=4, windows=6)
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -1474,10 +1491,8 @@ def hdvila_timing_phase(card: str) -> dict:
     model.eval()
     with torch.inference_mode():
         video = window_ms(lambda: model.forward_video(data["img_middle"], data["img_other"]), iters=5, windows=5)
-        video_flops_mode = FlopCounterMode(display=False)
-        with video_flops_mode:
-            model.forward_video(data["img_middle"], data["img_other"])
-    video_flops = video_flops_mode.get_total_flops()
+        video_flops = flops_estimate(model.forward_video, data["img_middle"], data["img_other"])
+    check(video_flops > 0, "torch.utils.flop_counter counted no operation in the video tower")
     print(f"  video tower (forward_video) b={batch} bf16: {spread(video)}; windows {video} (CUDA events, 5 calls per "
           f"window); {video_flops / 1e12:.3f} TFLOP, share of the bf16 peak at the median "
           f"{video_flops / PEAK_FLOPS * 1e3 / median(video):.4f} [{card}]")
@@ -1972,11 +1987,12 @@ def replays_against_device(call) -> dict:
     rows = [r for r in key_average_rows(prof) if r["device_type"] == "CUDA"]
     device = {part: sum(r["count"] for r in rows if any(n in r["name"] for n in names))
               for part, names in PROXY_DEVICE_KERNELS.items()}
+    kernels = {r["name"]: r["count"] for r in rows}
     check(counted["proxy_attention_fwd"] > 0, f"no proxy launch counted: {counted}")
     check(device == {"forward": counted["proxy_attention_fwd"], "backward dq": counted["proxy_attention_bwd"],
                      "backward dkv": counted["proxy_attention_bwd"]},
           f"counted {counted} against the device's proxy kernels {device}")
-    return {"counted": {key: n for key, n in counted.items() if n}, "device": device}
+    return {"counted": {key: n for key, n in counted.items() if n}, "device": device, "kernels": kernels}
 
 
 def profile_per_step(fn, steps: int) -> dict:
@@ -2323,6 +2339,281 @@ def int8_phase(card: str, model, batch: dict) -> None:
     print(f"  B/32 video+text b=24 w8a8 (int8_serving, torch._int_mm): {spread(int8)}; windows {int8} (CUDA events, "
           f"{ARTIFACT_TIMED_ITERS} calls per window) [{card}]")
     check(all(c >= INT8_COS for c in cos), f"int8 cosine {cos} below {INT8_COS}")
+
+
+# ---------------------------------------------------------------------------
+# The data-parallel layer (phases 8a-8c): the runners under a one-rank NCCL
+# group, set up as torchrun would, against the same runs without a group
+# ---------------------------------------------------------------------------
+
+DP_LFVILA = dict(batch=8, steps=3, eval_samples=16, depths=[1, 1, 2, 1, 1, 1], bert_layers=(2, 4))
+DP_GRAPH_K = 2  # phase 8b: steps a call of 8a's graphed step
+
+
+def finetune_argv(out_dir: str) -> list[str]:
+    """Phase 4b's ``run_retrieval_clipvip`` arguments (8a runs them again
+    under a group)."""
+    return ["--config", os.path.join(REPO, PRESET), "--dummy_data", "1", "--device_ingest", "1",
+            "--mode", "train", "--num_train_steps", str(TRAIN_STEPS),
+            "--valid_steps", str(TRAIN_EVERY), "--save_steps", str(TRAIN_EVERY), "--log_steps", "1",
+            "--zero2", "1", "--device", "cuda", "--output_dir", out_dir]
+
+
+def finished_run(out_dir: str, report, launches: dict) -> dict:
+    """What a training run left in ``out_dir``, on the host: its logged
+    scalars, its last checkpoint (model and optimizer state), its report
+    and launch counts."""
+    import torch
+
+    ckpt = os.path.join(out_dir, "ckpt")
+    last = max(int(name.split(".")[0]) for name in os.listdir(ckpt))
+    state = torch.load(os.path.join(ckpt, f"{last}.pt"), map_location="cpu", weights_only=True)
+    return {"tags": scalars(out_dir), "state": state, "report": report, "launches": launches}
+
+
+def _tensors(tree, prefix: str = "") -> dict:
+    """The tensors of a nested dict, by '/'-joined key."""
+    import torch
+
+    out = {}
+    for key, value in (tree.items() if isinstance(tree, dict) else ()):
+        if isinstance(value, torch.Tensor):
+            out[prefix + str(key)] = value
+        elif isinstance(value, dict):
+            out.update(_tensors(value, f"{prefix}{key}/"))
+    return out
+
+
+def measured_report(report) -> dict:
+    """A report's numbers without its wall-clock block (``perf``)."""
+    return {k: v for k, v in (report or {}).items() if k != "perf"}
+
+
+def hold_to_ungrouped(tag: str, got: dict, want: dict, card: str) -> bool:
+    """A run under the one-rank group against the same run without one:
+    logged losses and gradient norms, every tensor of the last checkpoint
+    (parameters, moments, masters) and the report, bit for bit; where they
+    differ, the largest differences within phase 5b's bars (loss 1e-4,
+    gradient norm 1e-3 relative). Launch counts must be equal. Returns
+    whether all was bit-identical."""
+    compared = sorted(t for t in want["tags"] if t.startswith("train/") and ("loss" in t or t == "train/grad_norm"))
+    check(bool(compared), f"{tag}: no losses logged")
+    tags_same = all(got["tags"].get(t) == want["tags"][t] for t in compared)
+    a, b = _tensors(got["state"]), _tensors(want["state"])
+    check(set(a) == set(b), f"{tag}: checkpoint keys differ: {sorted(set(a) ^ set(b))[:6]}")
+    state_same = all(a[k].dtype == b[k].dtype and a[k].shape == b[k].shape and bool((a[k] == b[k]).all())
+                     for k in b)
+    report_same = measured_report(got["report"]) == measured_report(want["report"])
+    worst_state = max(((a[k].double() - b[k].double()).abs().max().item() for k in b if a[k].numel()), default=0.0)
+    worst = {}
+    for name in compared:
+        x, y = want["tags"][name], got["tags"].get(name, [])
+        check(len(x) == len(y) and all(math.isfinite(v) for v in y), f"{tag} {name}: without {x}, with {y}")
+        worst[name] = (max(abs(v / u - 1) for u, v in zip(x, y)) if name == "train/grad_norm"
+                       else max(abs(u - v) for u, v in zip(x, y)))
+    same = tags_same and state_same and report_same
+    print(f"  {tag}: against the run without a group: bit-identical losses/grad norms {tags_same}, checkpoint "
+          f"tensors {state_same} ({len(b)} tensors, largest difference {worst_state:.3e}), report {report_same}; "
+          f"launches {got['launches']} (without {want['launches']}) [{card}]")
+    if not same:
+        print(f"  {tag}: largest differences {{{', '.join(f'{k}: {v:.3e}' for k, v in worst.items())}}}")
+        for name, value in worst.items():
+            bar = 1e-3 if name == "train/grad_norm" else 1e-4
+            check(value <= bar, f"{tag} {name}: {value} against the run without a group (phase 5b's bar {bar})")
+    check(got["launches"] == want["launches"], f"{tag}: launches {got['launches']}, without a group "
+                                               f"{want['launches']}")
+    return same
+
+
+@contextlib.contextmanager
+def one_rank_nccl_group():
+    """torchrun's environment for one rank on this card (a free
+    ``MASTER_PORT``); the runner's ``parse_args`` joins the group. On exit
+    the group is destroyed and the environment restored."""
+    import socket
+
+    from xpretrain_tpu_torch.parallel import mesh
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}
+    saved = {key: os.environ.get(key) for key in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        release_memory()
+        mesh.destroy_distributed()
+        for key, value in saved.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+
+
+def data_parallel_finetune_phase(card: str, reference: dict) -> dict:
+    """Phase 8a, inside :func:`one_rank_nccl_group`: phase 4b's run of
+    ``run_retrieval_clipvip`` (6 steps, ZeRO-2, validations) eagerly, then at
+    ``--steps_per_call 2`` (the graph captures the NCCL collectives), each
+    held to 4b's run without a group. Returns each run's launch counts."""
+    import torch
+    from xpretrain_tpu_torch.cli import run_retrieval_clipvip
+    from xpretrain_tpu_torch.parallel import mesh
+
+    launches = {}
+    for k in (1, 2):
+        with tempfile.TemporaryDirectory() as out_dir, built_trainers(run_retrieval_clipvip,
+                                                                       "ClipVipTrainer") as rec:
+            release_memory()
+            t0 = time.perf_counter()
+            with plain_on_cuda_guard() as plain_cuda_calls:
+                reset_launches()
+                report = run_retrieval_clipvip.main(finetune_argv(out_dir) + ["--steps_per_call", str(k)])
+                torch.cuda.synchronize()
+                counts = launch_counts()
+            wall = time.perf_counter() - t0
+            group = mesh.current_mesh()
+            check(group is not None and group.backend == "nccl" and group.world_size == 1
+                  and torch.distributed.get_backend() == "nccl", f"the runner joined no one-rank NCCL group: {group}")
+            optimizer = rec["built"][0].optimizer
+            sharded = len(optimizer.shards)
+            check(sharded > 0 and optimizer.mesh is group, "--zero2 1 sharded no optimizer leaf under the group")
+            graphs = capture_launches(rec["built"][0].train_step) if k > 1 else []
+            tag = "eager" if k == 1 else f"--steps_per_call {k} ({len(graphs)} graph(s), launches recorded {graphs})"
+            print(f"  {tag}: group {group.backend} rank {group.rank} of {group.world_size} on {group.device}, "
+                  f"{sharded} optimizer leaves ZeRO-2 sharded (one block: the whole leaf); run wall {wall:.1f} s "
+                  f"[{card}]")
+            check(not plain_cuda_calls, f"the plain version ran on CUDA tensors: {plain_cuda_calls[:4]}")
+            hold_to_ungrouped(f"8a {tag}", finished_run(out_dir, report, counts), reference, card)
+            launches[k] = counts
+            del rec["built"][:], optimizer
+    return launches
+
+
+def data_parallel_graph_phase(card: str) -> None:
+    """Phase 8b: the B/32 bf16 train step at b=32 (5f's and 6f's batch),
+    ZeRO-2, at K = 2 under the one-rank group: 2 replayed steps under
+    ``torch.profiler`` (the proxy kernels by name against the counters, as in
+    5f, and the NCCL kernels and copies the collectives left in the graph),
+    then the step's ms (5 windows of CUDA events) with the group, and after
+    the group is destroyed, without it."""
+    import torch
+    from xpretrain_tpu_torch.optim.optimizer import zero2_shard
+    from xpretrain_tpu_torch.parallel import mesh
+
+    batches, stacked = b32_train_batches(DP_GRAPH_K)
+
+    def graphed_state():
+        state = b32_train_state(False, lr=1e-6)
+        state.optimizer = zero2_shard(state.optimizer)
+        return state, b32_steps(DP_GRAPH_K)[1]
+
+    state, graphed = graphed_state()
+    graphed(state, stacked, 0)  # warm-up (its collectives create nothing new: the group exists) and capture
+    replayed = replays_against_device(lambda: graphed(state, stacked, 1))
+    nccl = {name: n for name, n in replayed["kernels"].items() if "nccl" in name.lower() or "onerank" in name.lower()}
+    copies = {name: n for name, n in replayed["kernels"].items() if "memcpy dtod" in name.lower()}
+    print(f"  {DP_GRAPH_K} replayed steps under torch.profiler: {sum(replayed['kernels'].values())} device kernels; "
+          f"proxy launches counted {replayed['counted']}, the device ran {replayed['device']}; NCCL kernels {nccl}; "
+          f"device-to-device copies {copies} [{card}]")
+    check(bool(nccl), f"no NCCL kernel in the replayed graph: {sorted(replayed['kernels'])[:40]}")
+    timed = time_steps({"one-rank NCCL group, ZeRO-2": lambda: graphed(state, stacked, 0)}, DP_GRAPH_K, card,
+                       f"B/32 bf16 train step b=32 at K={DP_GRAPH_K},")
+    del state, graphed
+    release_memory()
+    mesh.destroy_distributed()
+    state, graphed = graphed_state()
+    graphed(state, stacked, 0)  # warm-up and capture, before the peak is reset, as for the group's
+    timed.update(time_steps({"no group": lambda: graphed(state, stacked, 0)}, DP_GRAPH_K, card,
+                            f"B/32 bf16 train step b=32 at K={DP_GRAPH_K},"))
+    from xpretrain_tpu_torch.tools.profile_train_step import median
+
+    with_group, without = (median(timed[k]["step_ms"]) for k in ("one-rank NCCL group, ZeRO-2", "no group"))
+    print(f"  the collectives at world size 1 cost {with_group - without:.4f} ms a step (median {with_group:.4f} "
+          f"against {without:.4f} ms) [{card}]")
+    del state, graphed, batches, stacked
+    release_memory()
+
+
+def dp_lfvila_config(folder: str, kernel: bool) -> str:
+    """The stage-1 preset at full width, its depth cut (one block a Swin3D
+    stage but two at stage 2, 2 + 2 BERT layers), written to ``folder``; the
+    window kernel on for the eval config."""
+    with open(os.path.join(REPO, STAGE_PRESETS[1])) as f:
+        cfg = json.load(f)
+    cfg["video_encoder"]["depths"] = DP_LFVILA["depths"]
+    cfg["num_local_layers"], cfg["stage1_layers"] = DP_LFVILA["bert_layers"]
+    if kernel:
+        cfg["video_encoder"]["use_pallas_attention"] = True
+    path = os.path.join(folder, f"lfvila_dp_{'kernel' if kernel else 'train'}.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return path
+
+
+def data_parallel_lfvila_runs(card: str, folder: str, tag: str) -> dict:
+    """Phase 8c's two runs, with or without the group as the caller set up:
+    ``run_pretrain_lfvila --stage 1`` (MTC and InfoNCE over the global batch,
+    ZeRO-2) for 3 steps with a save, then ``run_tasks_lfvila --task
+    retrieval`` without a train step on the kernel config. Returns
+    {"train": finished_run, "eval": (report, launches)}."""
+    import torch
+    from xpretrain_tpu_torch.cli import run_pretrain_lfvila, run_tasks_lfvila
+
+    out = {}
+    with tempfile.TemporaryDirectory() as out_dir:
+        release_memory()
+        with plain_on_cuda_guard() as plain_cuda_calls:
+            reset_launches()
+            run_pretrain_lfvila.main([
+                "--config", dp_lfvila_config(folder, kernel=False), "--stage", "1", "--dummy_data", "1",
+                "--device_ingest", "1", "--train_batch_size", str(DP_LFVILA["batch"]),
+                "--num_train_steps", str(DP_LFVILA["steps"]), "--log_steps", "1",
+                "--save_steps", str(DP_LFVILA["steps"]), "--zero2", "1", "--device", "cuda", "--output_dir", out_dir])
+            torch.cuda.synchronize()
+            out["train"] = finished_run(out_dir, None, launch_counts())
+        check(not plain_cuda_calls, f"{tag}: the plain version ran on CUDA tensors: {plain_cuda_calls[:4]}")
+    with tempfile.TemporaryDirectory() as out_dir:
+        size = run_tasks_lfvila.DUMMY_SIZE
+        run_tasks_lfvila.DUMMY_SIZE = DP_LFVILA["eval_samples"]
+        try:
+            with plain_on_cuda_guard() as plain_cuda_calls:
+                reset_launches()
+                report = run_tasks_lfvila.main([
+                    "--task", "retrieval", "--config", dp_lfvila_config(folder, kernel=True), "--dummy_data", "1",
+                    "--num_train_steps", "0", "--val_batch_size", str(DP_LFVILA["batch"]), "--device", "cuda",
+                    "--output_dir", out_dir])
+                torch.cuda.synchronize()
+                out["eval"] = (report, launch_counts())
+        finally:
+            run_tasks_lfvila.DUMMY_SIZE = size
+        check(not plain_cuda_calls, f"{tag}: the plain version ran on CUDA tensors: {plain_cuda_calls[:4]}")
+    return out
+
+
+def data_parallel_lfvila_phase(card: str) -> dict:
+    """Phase 8c: :func:`data_parallel_lfvila_runs` without a group, then
+    under the one-rank NCCL group: the training run held as 8a's, the eval's
+    report equal and its window launches equal (and > 0). Returns the
+    group's launch counts, training and eval."""
+    from xpretrain_tpu_torch.parallel import mesh
+
+    with tempfile.TemporaryDirectory() as folder:
+        without = data_parallel_lfvila_runs(card, folder, "without a group")
+        with one_rank_nccl_group():
+            grouped = data_parallel_lfvila_runs(card, folder, "one-rank group")
+            check(mesh.current_mesh() is not None, "run_pretrain_lfvila joined no group")
+    hold_to_ungrouped("8c LF-VILA stage 1", grouped["train"], without["train"], card)
+    (report, launches), (want_report, want_launches) = grouped["eval"], without["eval"]
+    same = measured_report(report) == measured_report(want_report)
+    print(f"  8c LF-VILA retrieval eval, window kernel on, {DP_LFVILA['eval_samples']} clips: t2v "
+          f"{ {k: report['t2v'][k] for k in ('R1', 'R5', 'R10')} }; launches {launches} (without a group "
+          f"{want_launches}); report equal to the one without a group: {same} [{card}]")
+    check(same, "8c: the eval report differs from the one without a group")
+    check(launches == want_launches and launches["window_attention_fwd"] > 0,
+          f"8c eval launches {launches}, without a group {want_launches}")
+    return {"train": grouped["train"]["launches"], "eval": launches}
 
 
 def main() -> None:
@@ -2673,12 +2964,7 @@ def main() -> None:
         t0 = time.perf_counter()
         with plain_on_cuda_guard() as plain_cuda_calls:
             reset_launches()
-            report = run_retrieval_clipvip.main([
-                "--config", os.path.join(REPO, PRESET), "--dummy_data", "1", "--device_ingest", "1",
-                "--mode", "train", "--num_train_steps", str(TRAIN_STEPS),
-                "--valid_steps", str(TRAIN_EVERY), "--save_steps", str(TRAIN_EVERY), "--log_steps", "1",
-                "--device", "cuda", "--output_dir", out_dir,
-            ])
+            report = run_retrieval_clipvip.main(finetune_argv(out_dir))
             torch.cuda.synchronize()
             train_launches = launch_counts()
         wall = time.perf_counter() - t0
@@ -2709,6 +2995,7 @@ def main() -> None:
         print(f"  checkpoints {ckpts}; run wall {wall:.1f} s (host clock, synthetic data and "
               f"{validations} validations included) [{card}]")
         print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+        finetune_reference = finished_run(out_dir, report, train_launches)  # phase 8a's run without a group
 
     with open(os.path.join(REPO, LFVILA_PRESET)) as f:
         lfvila_preset = json.load(f)
@@ -3246,6 +3533,14 @@ def main() -> None:
         int8_phase(card, b32_model, b32_batch)
         del b32_model, b32_batch
         release_memory()
+    with one_rank_nccl_group():
+        with phase("8a B/32 fine-tune under a one-rank NCCL group, eager and graphed, against 4b (main path)"):
+            dp_launches = data_parallel_finetune_phase(card, finetune_reference)
+            del finetune_reference
+        with phase("8b the graphed step's collectives: profile and timing with and without the group"):
+            data_parallel_graph_phase(card)
+    with phase("8c LF-VILA stage 1 and the window-kernel eval under a one-rank NCCL group (main path)"):
+        dp_lfvila_launches = data_parallel_lfvila_phase(card)
     # the serving artifacts' main path: each run's counts, read just after it
     artifact_launches = {name: clipvip_artifact_launches[name] + lfvila_artifact_launches[name]
                          + patch_artifact_launches[name] for name in KERNELS}
@@ -3258,7 +3553,10 @@ def main() -> None:
              **{f"hdvila_retrieval_{k}": v for k, v in hdvila_retrieval_launches.items()},
              **{f"hdvila_qa_{k}": v for k, v in hdvila_qa_launches.items()},
              "train_graphed_bf16_async": graphed_launches, "lfvila_stage1_graphed": lfvila_graphed_launches,
-             "clipvip_factorized": factorized_launches, "serving_artifact": artifact_launches}
+             "clipvip_factorized": factorized_launches, "serving_artifact": artifact_launches,
+             "train_data_parallel": dp_launches[1], "train_data_parallel_graphed": dp_launches[2],
+             "lfvila_stage1_data_parallel": dp_lfvila_launches["train"],
+             "lfvila_retrieval_data_parallel": dp_lfvila_launches["eval"]}
     window_timing = {dt: win_timings[("s3_shifted", dt)] for dt in ("bfloat16", "float32")}
     summary = {"kernels": [
         {

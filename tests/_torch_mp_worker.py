@@ -1,0 +1,382 @@
+"""One rank of the port's data-parallel CPU tests (run as a subprocess).
+
+``python _torch_mp_worker.py <out_dir> <store_file> <scenario>...`` joins the
+gloo group that ``RANK`` / ``WORLD_SIZE`` describe through the ``file://``
+store, runs each scenario and writes ``<out_dir>/<scenario>_<rank>.json``
+(and ``.pt`` files where a scenario keeps tensors). The launching test
+(``test_torch_data_parallel.py``) runs it at 1, 2 and 4 ranks and compares
+the results. It imports nothing of JAX: the JAX parameters of the CLIP-ViP
+case come from ``clipvip_params.npz`` beside ``<out_dir>``, written by the test.
+
+Scenarios:
+- ``clipvip``: ``tests/_mp_worker.py``'s tiny CLIP-ViP through
+  ``ClipVipTrainer``: global batch 16 over the ranks' loaders, 3 steps of
+  NCELearnableTempLoss with ZeRO-2 at min_size 64, then the 22-row eval at
+  global batch 8.
+- ``clipvip_bf16``: the same at ``param_dtype`` bf16 (fp32 masters), saving
+  a checkpoint at step 2; records its step-3 loss, its final parameters and
+  optimizer state, and the per-leaf sizes of each rank's state.
+- ``lfvila1`` / ``lfvila2`` / ``hdvila1``: tiny LF-VILA stages 1 and 2
+  (explicit MTC clips, dropout off) and HD-VILA stage 1 through
+  ``GenericTrainer`` on contiguous blocks of fixed global batches.
+- ``units``: the sample-mixing sites against their one-process math on the
+  global batch: the VTM roll's exchange, the global MLM mean, the
+  contrastive and MTC losses with their averaged gradients, HD-VILA's
+  rolled captions, and the per-rank dropout draws.
+"""
+
+import dataclasses
+import json
+import os
+import sys
+
+import numpy as np
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+
+from xpretrain_tpu_torch.config import ConfigDict  # noqa: E402
+from xpretrain_tpu_torch.parallel import mesh as mesh_lib  # noqa: E402
+
+GLOBAL_BATCH, STEPS, VAL_ROWS, VAL_BATCH = 16, 3, 22, 8
+PARAMS = {"file": ""}  # the CLIP-ViP case's JAX parameters (main sets it)
+OPT = dict(learning_rate=1e-4, decay="constant", warmup_ratio=0.0, weight_decay=0.01, grad_norm=5.0, seed=0,
+           validate_at_start=0, valid_steps=100, log_steps=1)
+ZERO2_MIN_SIZE = 64  # JAX's test's min_size: the tiny models' leaves of 64 elements or more are sharded
+
+
+def _zero2(trainer):
+    """ZeRO-2 over the group at the tests' ``min_size`` (the trainers' is
+    JAX's default, 16384)."""
+    from xpretrain_tpu_torch.optim.optimizer import zero2_shard
+
+    trainer.optimizer = zero2_shard(trainer.optimizer, min_size=ZERO2_MIN_SIZE)
+    return trainer
+
+
+def _record(trainer) -> list:
+    """Wrap ``trainer.train_step`` to keep each step's metrics as floats."""
+    rows = []
+    step = trainer.train_step
+
+    def recorded(state, batch, seed):
+        state, metrics = step(state, batch, seed)
+        rows.append({k: float(v) for k, v in metrics.items()})
+        return state, metrics
+
+    trainer.train_step = recorded
+    return rows
+
+
+def _clipvip_config():
+    from xpretrain_tpu_torch.models.clip_vip.model import CLIPTextConfig, CLIPVipConfig, CLIPVisionConfig, VipConfig
+
+    return CLIPVipConfig(
+        text=CLIPTextConfig(vocab_size=49408, hidden_size=32, intermediate_size=64, num_hidden_layers=2,
+                            num_attention_heads=4, max_position_embeddings=16),
+        vision=CLIPVisionConfig(hidden_size=32, intermediate_size=64, num_hidden_layers=2, num_attention_heads=4,
+                                image_size=32, patch_size=16),
+        vip=VipConfig(temporal_size=2, add_cls_num=2), projection_dim=16)
+
+
+class _Transformed:
+    """``_mp_worker.py``'s synthetic clips with the CLIP transform."""
+
+    def __init__(self, size, seed):
+        from xpretrain_tpu_torch.data.datasets import SyntheticVideoTextDataset
+
+        self.ds = SyntheticVideoTextDataset(size=size, num_frames=2, image_size=32, seed=seed)
+
+    def __len__(self):
+        return len(self.ds)
+
+    def __getitem__(self, i):
+        from xpretrain_tpu_torch.data.transforms import clip_transform
+
+        item = self.ds[i]
+        item["video"] = clip_transform(item["frames"], 32)
+        return item
+
+
+def _unflatten(flat: dict) -> dict:
+    tree: dict = {}
+    for key, value in flat.items():
+        node = tree
+        *parents, leaf = key.split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = value
+    return tree
+
+
+def _clipvip_trainer(out_dir: str, params_file: str = "", **cfg):
+    from xpretrain_tpu_torch.data.datasets import RetrievalCollator
+    from xpretrain_tpu_torch.data.loader import BatchLoader, SequentialEvalLoader
+    from xpretrain_tpu_torch.data.tokenization import HashTokenizer
+    from xpretrain_tpu_torch.train.trainer import ClipVipTrainer
+
+    pi, pc = mesh_lib.process_index_count()
+    collate = RetrievalCollator(HashTokenizer(), max_txt_len=16)
+    train = BatchLoader(_Transformed(48, seed=0), GLOBAL_BATCH // pc, collate, seed=0, process_index=pi,
+                        process_count=pc)
+    val = SequentialEvalLoader(_Transformed(VAL_ROWS, seed=7), VAL_BATCH // pc, collate, process_index=pi,
+                               process_count=pc)
+    with np.load(params_file or PARAMS["file"]) as f:
+        params = _unflatten({k: f[k] for k in f.files})
+    opt = dict(OPT, learning_rate=1e-3, weight_decay=0.0, grad_norm=2.0, num_train_steps=STEPS,
+               save_steps=100, loss_name="NCELearnableTempLoss", bf16=0)
+    opt.update(cfg)
+    trainer = ClipVipTrainer(ConfigDict(output_dir=out_dir, **opt), train, val, val.valid_len,
+                             model_cfg=_clipvip_config(), init_params=params, device="cpu")
+    return _zero2(trainer)
+
+
+def clipvip(out_dir: str) -> dict:
+    trainer = _clipvip_trainer(out_dir)
+    rows = _record(trainer)
+    trainer.train()
+    report = trainer.validate()
+    return {"losses": [r["loss"] for r in rows], "grad_norms": [r["grad_norm"] for r in rows],
+            "logit_scale": float(trainer.model.logit_scale.detach().reshape(-1)[0]),
+            "t2v": report["t2v"], "v2t": report["v2t"], "t2v_dsl": report["t2v_dsl"]}
+
+
+def clipvip_bf16(out_dir: str) -> dict:
+    """3 steps at bf16 storage, a checkpoint at step 2; per-leaf state sizes."""
+    trainer = _clipvip_trainer(out_dir, param_dtype="bf16", save_steps=2)
+    rows = _record(trainer)
+    trainer.train()
+    opt = trainer.optimizer
+    sizes = {}
+    for i, name in enumerate(opt.names):
+        master = opt.targets[i].numel() if i in opt.masters else 0
+        sizes[name] = [opt.mu[i].numel(), opt.nu[i].numel(), master, opt.params[i].numel(), i in opt.shards]
+    state = opt.state_dict()  # a collective: every rank gathers
+    if mesh_lib.is_main_process():
+        torch.save({"model": trainer.model.state_dict(), "optimizer": state},
+                   os.path.join(out_dir, "final.pt"))
+    state = opt.mu + opt.nu + opt.acc + [opt.targets[i] for i in opt.masters]
+    return {"losses": [r["loss"] for r in rows], "sizes": sizes,
+            "state_bytes": sum(t.numel() * t.element_size() for t in state)}
+
+
+def _lfvila(stage: int):
+    from xpretrain_tpu_torch.models.lf_vila.pretrain import LfVilaConfig, LfVilaPretrain
+    from xpretrain_tpu_torch.models.lf_vila.swin3d import Swin3DConfig
+
+    base = LfVilaConfig.tiny(stage=stage, sample_frame=8, final_num_patches=1)
+    cfg = dataclasses.replace(
+        base, video=Swin3DConfig.tiny(drop_path_rate=0.0),
+        bert=dataclasses.replace(base.bert, hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0))
+    model = LfVilaPretrain(cfg).init_weights(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(stage)
+    B, M, L = 4, 4, 8
+    batches = []
+    for _ in range(2):
+        mask = (np.arange(L)[None, None] < rng.integers(2, L + 1, size=(B, M, 1))).astype(np.int64)
+        batches.append({
+            "video_frames": rng.normal(size=(B, 3, 8, 96, 160)).astype(np.float32),
+            "text_ids": rng.integers(1, 1000, size=(B, M, L)),
+            "attention_mask": mask,
+            "mlm_labels": np.where(rng.random((B, M * L)) < 0.3, rng.integers(1, 1000, size=(B, M * L)), -100),
+            "mtc_key": np.stack([rng.permutation(M)[:2] for _ in range(B)]),
+            "mtc_value": np.stack([rng.permutation(M)[:2] for _ in range(B)]),
+            "mtc_other": rng.integers(0, M, size=B),
+        })
+
+    def apply_fn(m, b, generator):
+        return m(b["video_frames"], b["text_ids"], b["attention_mask"],
+                 mlm_labels=b["mlm_labels"] if stage == 2 else None, generator=generator,
+                 mtc_indices=(b["mtc_key"], b["mtc_value"], b["mtc_other"]))
+
+    keys = ("ct_global_loss", "ct_time_loss", "mlm_loss", "vtm_loss", "mlm_acc", "vtm_acc")
+    return model, apply_fn, batches, keys
+
+
+def _hdvila():
+    from xpretrain_tpu_torch.cli.run_pretrain_hdvila import HdVilaPretrainModel
+    from xpretrain_tpu_torch.models.bert import BertConfig
+    from xpretrain_tpu_torch.models.hd_vila.e2e import HdVilaEncoderConfig
+    from xpretrain_tpu_torch.models.hd_vila.modeling import HdVilaModelConfig
+
+    bert = BertConfig(hidden_size=64, num_hidden_layers=4, num_attention_heads=4, intermediate_size=128,
+                      stage_bounds=(2,), vocab_size=1000, hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    model = HdVilaPretrainModel(HdVilaEncoderConfig.tiny(timesformer_frames=3, timesformer_hw=(1, 2)),
+                                HdVilaModelConfig.tiny(stage=1, bert=bert, pixel_random_sampling_size=0))
+    model.init_weights(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(11)
+    B, L = 8, 10
+    batches = [{
+        "img_middle": rng.integers(0, 256, size=(B, 1, 3, 64, 128)).astype(np.uint8),
+        "img_other": rng.integers(0, 256, size=(B, 1, 2, 3, 16, 32)).astype(np.uint8),
+        "text_input_ids": rng.integers(2, 1000, size=(B, L)),
+        "text_input_mask": (np.arange(L) < rng.integers(3, L + 1, size=(B, 1))).astype(np.int64),
+    } for _ in range(2)]
+
+    def apply_fn(m, b, generator):
+        return m(b["img_middle"], b["img_other"], b["text_input_ids"], b["text_input_mask"], generator=generator)
+
+    return model, apply_fn, batches, ("itc_loss",)
+
+
+def _generic(out_dir: str, model, apply_fn, batches, keys) -> dict:
+    """Two steps of ``GenericTrainer`` on this rank's blocks of ``batches``."""
+    from xpretrain_tpu_torch.train.generic_trainer import GenericTrainer
+
+    mesh = mesh_lib.current_mesh()
+    n, rank = (1, 0) if mesh is None else (mesh.world_size, mesh.rank)
+    mine = [{k: v[rank * (len(v) // n):(rank + 1) * (len(v) // n)] for k, v in b.items()} for b in batches]
+    trainer = _zero2(GenericTrainer(ConfigDict(output_dir=out_dir, num_train_steps=len(batches), save_steps=100,
+                                               **OPT), model, apply_fn, iter(mine), metric_keys=keys, device="cpu"))
+    rows = _record(trainer)
+    trainer.train()
+    if mesh_lib.is_main_process():
+        torch.save(trainer.model.state_dict(), os.path.join(out_dir, "final.pt"))
+    return {"metrics": rows}
+
+
+def lfvila1(out_dir: str) -> dict:
+    return _generic(out_dir, *_lfvila(1))
+
+
+def lfvila2(out_dir: str) -> dict:
+    return _generic(out_dir, *_lfvila(2))
+
+
+def hdvila1(out_dir: str) -> dict:
+    return _generic(out_dir, *_hdvila())
+
+
+def units(out_dir: str) -> dict:
+    """Each site under the group against its one-process math on the global
+    batch, computed here from the same seeded inputs; returns the largest
+    differences."""
+    from xpretrain_tpu_torch.cli.run_retrieval_hdvila import rolled_captions
+    from xpretrain_tpu_torch.models.common import dropout
+    from xpretrain_tpu_torch.models.lf_vila.pretrain import shuffle_embd_for_vtm
+    from xpretrain_tpu_torch.ops import losses
+    from xpretrain_tpu_torch.parallel.train_step import _seed
+
+    mesh = mesh_lib.current_mesh()
+    n, rank = mesh.world_size, mesh.rank
+    b = 2
+    B = n * b
+    block = slice(rank * b, (rank + 1) * b)
+    out = {}
+
+    # the VTM roll: values, labels and the gradient through the exchange
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(B, 3, 5, generator=g, dtype=torch.float64)
+    w = torch.randn(B, 3, 5, generator=g, dtype=torch.float64)
+    mine = x[block].clone().requires_grad_(True)
+    rolled, labels = shuffle_embd_for_vtm(mine)
+    (rolled * w[block]).sum().backward()
+    ref_x = x.clone().requires_grad_(True)
+    ref = torch.cat([torch.roll(ref_x[:B // 2], 1, dims=0), ref_x[B // 2:]])
+    (ref * w).sum().backward()
+    ref_labels = (torch.arange(B) >= B // 2).long()
+    out["vtm"] = float((rolled - ref[block]).abs().max())
+    out["vtm_labels"] = bool(torch.equal(labels, ref_labels[block]))
+    out["vtm_grad"] = float((mine.grad - ref_x.grad[block]).abs().max())
+
+    # the global MLM mean with unequal masked counts per rank, through a
+    # shared linear layer whose averaged gradient is the global one
+    V, T = 7, 6
+    theta0 = torch.randn(4, V, generator=g, dtype=torch.float64)
+    feats = torch.randn(B, T, 4, generator=g, dtype=torch.float64)
+    lab = torch.randint(0, V, (B, T), generator=g)
+    counts = torch.arange(B) % T + 1  # row i masks its first counts[i] tokens, so the ranks differ
+    lab = torch.where(torch.arange(T)[None] < counts[:, None], lab, torch.full_like(lab, -100))
+    theta = theta0.clone().requires_grad_(True)
+    loss = losses.mlm_loss(feats[block] @ theta, lab[block])
+    loss.backward()
+    grad = theta.grad.clone()
+    mesh_lib.all_reduce_mean_([grad])
+    mean_loss = mesh_lib.all_reduce_sum(loss.detach()) / n
+    with _no_group():
+        ref_theta = theta0.clone().requires_grad_(True)
+        ref_loss = losses.mlm_loss(feats @ ref_theta, lab)
+        ref_loss.backward()
+    out["mlm_counts"] = int(lab[block].ne(-100).sum())
+    out["mlm_loss"] = float(abs(mean_loss - ref_loss))
+    out["mlm_grad"] = float((grad - ref_theta.grad).abs().max())
+
+    # the contrastive registry loss and MTC (its rolled negatives cross
+    # ranks), each on features from a shared layer
+    C, Mc = 8, 4
+    theta0 = torch.randn(C, C, generator=g, dtype=torch.float64)
+    vis, txt = torch.randn(B, C, generator=g, dtype=torch.float64), torch.randn(B, C, generator=g, dtype=torch.float64)
+    vloc, tloc = torch.randn(B, Mc, C, generator=g, dtype=torch.float64), torch.randn(B, Mc, C, generator=g,
+                                                                                      dtype=torch.float64)
+    idx = (torch.stack([torch.randperm(Mc, generator=g)[:2] for _ in range(B)]),
+           torch.stack([torch.randperm(Mc, generator=g)[:2] for _ in range(B)]),
+           torch.randint(0, Mc, (B,), generator=g))
+    nce = losses.build_loss_fn("NCELearnableTempLoss")
+    scale = torch.tensor(2.0, dtype=torch.float64)
+
+    def both(th, rows, ids):
+        norm = torch.nn.functional.normalize
+        return (nce(norm(vis[rows] @ th, dim=-1), norm(txt[rows] @ th, dim=-1), scale)
+                + losses.mtc_loss(norm(vloc[rows] @ th, dim=-1), norm(tloc[rows] @ th, dim=-1), indices=ids))
+
+    theta = theta0.clone().requires_grad_(True)
+    loss = both(theta, block, tuple(t[block] for t in idx))
+    loss.backward()
+    grad = theta.grad.clone()
+    mesh_lib.all_reduce_mean_([grad])
+    losses_all = mesh_lib.gather_rows(loss.detach()[None])
+    with _no_group():
+        ref_theta = theta0.clone().requires_grad_(True)
+        ref_loss = both(ref_theta, slice(None), idx)
+        ref_loss.backward()
+    out["contrastive_loss"] = float((losses_all - ref_loss).abs().max())
+    out["contrastive_grad"] = float((grad - ref_theta.grad).abs().max())
+
+    # HD-VILA's rolled captions over the global batch
+    ids = torch.arange(B * 3).reshape(B, 3)
+    got_ids, got_mask = rolled_captions(ids[block], ids[block] % 2, 3)
+    want = torch.cat([ids[block]] + [torch.roll(ids, s, 0)[block] for s in (1, 2, 3)])
+    out["rerank_ids"] = bool(torch.equal(got_ids, want) and torch.equal(got_mask, want % 2))
+
+    # per-rank draws: the step generator of each rank, and rank 0's is the
+    # one a process without a group draws
+    keep = dropout(torch.ones(64), 0.5, torch.Generator().manual_seed(_seed(123))) > 0
+    masks = mesh_lib.gather_rows(keep[None].long())
+    out["draws_distinct"] = len({tuple(m.tolist()) for m in masks}) == n
+    with _no_group():
+        alone = dropout(torch.ones(64), 0.5, torch.Generator().manual_seed(_seed(123))) > 0
+    out["rank0_draw_is_the_ungrouped_draw"] = bool(torch.equal(masks[0].bool(), alone))
+    return out
+
+
+class _no_group:
+    """Compute as a process without a group (the reference math)."""
+
+    def __enter__(self):
+        self.saved, mesh_lib._MESH = mesh_lib._MESH, None
+
+    def __exit__(self, *exc):
+        mesh_lib._MESH = self.saved
+
+
+SCENARIOS = {f.__name__: f for f in (clipvip, clipvip_bf16, lfvila1, lfvila2, hdvila1, units)}
+
+
+def main() -> None:
+    out_dir, store = sys.argv[1], sys.argv[2]
+    torch.set_num_threads(1)
+    PARAMS["file"] = os.path.join(os.path.dirname(os.path.abspath(out_dir)), "clipvip_params.npz")
+    mesh = mesh_lib.maybe_init_distributed("cpu", init_method=f"file://{store}")
+    assert mesh is not None and mesh.world_size == int(os.environ["WORLD_SIZE"])
+    for name in sys.argv[3:]:
+        run_dir = os.path.join(out_dir, name)
+        os.makedirs(run_dir, exist_ok=True)
+        result = SCENARIOS[name](run_dir)
+        with open(os.path.join(out_dir, f"{name}_{mesh.rank}.json"), "w") as f:
+            json.dump(result, f)
+    mesh_lib.destroy_distributed()
+
+
+if __name__ == "__main__":
+    main()

@@ -80,7 +80,7 @@ CV2_HOST_LAYER = ("xpretrain_tpu_torch/data/datasets.py", "xpretrain_tpu_torch/d
 SOURCES = sorted(
     os.path.relpath(p, REPO)
     for p in glob.glob(os.path.join(REPO, "xpretrain_tpu_torch", "**", "*.py"), recursive=True)
-) + ["chip_smoke.py"]
+) + ["chip_smoke.py", "tests/_torch_mp_worker.py"]  # the worker: each rank runs the port alone
 PRESETS = sorted(glob.glob(os.path.join(REPO, "xpretrain_tpu", "configs", "presets", "*.json")))
 # a path into the JAX package, as opposed to a "file.py:line" reference to it
 _JAX_PATH = re.compile(r"(?<![\w.])xpretrain_tpu/")
@@ -128,6 +128,9 @@ def test_every_port_module_is_scanned():
     hdvila = ["data/datasets_hdvila.py", "data/datasets_hdvila_tasks.py", "data/transforms.py",
               "data/sample_frames.py", "models/hd_vila/resnet.py", "cli/run_video_qa_hdvila.py"]
     assert all(f"xpretrain_tpu_torch/{name}" in SOURCES for name in hdvila)
+    data_parallel = ["parallel/mesh.py", "utils/prng.py", "utils/profiling.py"]
+    assert all(f"xpretrain_tpu_torch/{name}" in SOURCES for name in data_parallel)
+    assert "tests/_torch_mp_worker.py" in SOURCES
 
 
 def _imported_modules(tree: ast.AST) -> list[str]:

@@ -96,7 +96,7 @@ def test_default_mode_is_train(monkeypatch):
         seen["mode"] = parser.get_default("mode")
         raise SystemExit(0)
 
-    monkeypatch.setattr(run_retrieval_clipvip, "parse_with_config", capture)
+    monkeypatch.setattr(run_retrieval_clipvip, "parse_args", capture)
     with pytest.raises(SystemExit):
         run_retrieval_clipvip.main([])
     assert seen["mode"] == "train"

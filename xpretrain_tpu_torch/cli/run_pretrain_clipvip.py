@@ -1,5 +1,5 @@
-"""CLIP-ViP pretraining on one device (PyTorch port of
-``xpretrain_tpu/cli/run_pretrain_clipvip.py``).
+"""CLIP-ViP pretraining, on one device or on each rank of a torchrun
+data-parallel group (PyTorch port of ``xpretrain_tpu/cli/run_pretrain_clipvip.py``).
 
 The runner surface of ``CLIP-ViP/src/pretrain/run_pretrain.py:202-445``:
 video-subtitle pairs plus the auxiliary image/caption branch, trained
@@ -28,14 +28,13 @@ from xpretrain_tpu_torch.cli.run_retrieval_clipvip import (
     build_loaders,
     build_tokenizer_from_cfg,
     load_pretrained,
-    reroot_data_paths,
     resolve_device,
 )
-from xpretrain_tpu_torch.cli.shared_args import build_shared_parser
-from xpretrain_tpu_torch.config import parse_with_config
+from xpretrain_tpu_torch.cli.shared_args import build_shared_parser, parse_args
 from xpretrain_tpu_torch.data.datasets import PretrainCollator, SyntheticVideoTextDataset
 from xpretrain_tpu_torch.data.loader import BatchLoader, InfiniteIterator, MetaLoader
 from xpretrain_tpu_torch.data.transforms import clip_transform
+from xpretrain_tpu_torch.parallel.mesh import is_main_process, process_index_count
 from xpretrain_tpu_torch.train.checkpoints import save_training_meta
 from xpretrain_tpu_torch.train.trainer import ClipVipTrainer
 from xpretrain_tpu_torch.utils.basic import save_json
@@ -65,10 +64,12 @@ class _SyntheticPretrain:
 
 def build_train_loader(cfg) -> MetaLoader:
     """The synthetic source behind a ``MetaLoader``, as the JAX runner builds
-    it for process 0 of 1."""
+    it: each rank's share of every batch."""
     collate = PretrainCollator(build_tokenizer_from_cfg(cfg), max_txt_len=int(cfg.get("max_txt_len", 70)))
     ds = _SyntheticPretrain(DUMMY_SIZE, cfg.num_frm, cfg.crop_img_size, seed=cfg.seed)
-    loader = InfiniteIterator(BatchLoader(ds, cfg.train_batch_size, collate, seed=cfg.seed))
+    pi, pc = process_index_count()
+    loader = InfiniteIterator(BatchLoader(ds, cfg.train_batch_size, collate, seed=cfg.seed, process_index=pi,
+                                          process_count=pc))
     return MetaLoader({"synthetic": (loader, 1)}, seed=cfg.seed)
 
 
@@ -83,9 +84,10 @@ def build_parser():
 
 
 def main(argv=None):
-    cfg = reroot_data_paths(parse_with_config(build_parser(), argv))
-    setup_logging(cfg.output_dir, 0)
-    save_training_meta(cfg.output_dir, cfg)
+    cfg = parse_args(build_parser(), argv)
+    setup_logging(cfg.output_dir, process_index_count()[0])
+    if is_main_process():
+        save_training_meta(cfg.output_dir, cfg)
     device = resolve_device(cfg.device)
 
     if cfg.get("dummy_data"):
@@ -99,7 +101,9 @@ def main(argv=None):
                 cfg.train_batch_size, cfg.loss_name)
     state = trainer.train()
     if val_loader is not None:
-        save_json(trainer.validate(), f"{cfg.output_dir}/final_report.json", pretty=True)
+        report = trainer.validate()
+        if is_main_process():
+            save_json(report, f"{cfg.output_dir}/final_report.json", pretty=True)
     return state
 
 

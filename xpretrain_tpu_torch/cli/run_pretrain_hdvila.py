@@ -1,4 +1,5 @@
-"""HD-VILA pretraining runner, stages 1 and 2, on one device (PyTorch port of
+"""HD-VILA pretraining runner, stages 1 and 2, on one device or on each rank
+of a torchrun data-parallel group (PyTorch port of
 ``xpretrain_tpu/cli/run_pretrain_hdvila.py``).
 
 The runner surface of ``hd-vila/src/pretrain/run_pretrain_stage1_group.py:220-495``
@@ -27,9 +28,8 @@ from typing import Optional
 import torch
 from torch import nn
 
-from xpretrain_tpu_torch.cli.run_retrieval_clipvip import reroot_data_paths, resolve_device
-from xpretrain_tpu_torch.cli.shared_args import build_shared_parser
-from xpretrain_tpu_torch.config import parse_with_config
+from xpretrain_tpu_torch.cli.run_retrieval_clipvip import resolve_device
+from xpretrain_tpu_torch.cli.shared_args import build_shared_parser, parse_args
 from xpretrain_tpu_torch.data.datasets import FrameSource
 from xpretrain_tpu_torch.data.datasets_hdvila import HdVilaPretrainCollator, HdVilaPretrainDataset
 from xpretrain_tpu_torch.data.loader import BatchLoader, InfiniteIterator
@@ -42,6 +42,7 @@ from xpretrain_tpu_torch.models.hd_vila.resnet import FrozenBatchNorm
 from xpretrain_tpu_torch.models.hd_vila.timesformer import DividedBlock
 from xpretrain_tpu_torch.models.pretrained import load_hdvila_e2e
 from xpretrain_tpu_torch.ops.losses import nce_loss
+from xpretrain_tpu_torch.parallel.mesh import gather_rows, is_main_process, process_index_count
 from xpretrain_tpu_torch.train.checkpoints import save_training_meta
 from xpretrain_tpu_torch.train.generic_trainer import GenericTrainer
 from xpretrain_tpu_torch.utils.logging import LOGGER, setup_logging
@@ -112,7 +113,8 @@ class HdVilaPretrainModel(nn.Module):
         out = self.transformer(grid, text_input_ids, text_input_mask, mlm_labels=mlm_labels,
                                itm_labels=itm_labels, generator=generator, sample_indices=sample_indices)
         if self.model_cfg.stage == 1:
-            out["itc_loss"] = nce_loss(out["vis_features"], out["text_features"], self.temp)
+            # over the global batch in a data-parallel group (parallel/mesh.py)
+            out["itc_loss"] = nce_loss(gather_rows(out["vis_features"]), gather_rows(out["text_features"]), self.temp)
             out["loss"] = out["itc_loss"]
         else:
             zero = torch.zeros((), device=grid.device)
@@ -214,7 +216,9 @@ def build_loader(cfg, tokenizer, use_mlm: bool, use_itm: bool) -> InfiniteIterat
         seed=cfg.seed,
         synthetic_size=DUMMY_SIZE if cfg.get("dummy_data") else 0,
     )
-    return InfiniteIterator(BatchLoader(ds, cfg.train_batch_size, collate, seed=cfg.seed))
+    pi, pc = process_index_count()
+    return InfiniteIterator(BatchLoader(ds, cfg.train_batch_size, collate, seed=cfg.seed, process_index=pi,
+                                        process_count=pc))
 
 
 def main(argv=None):
@@ -227,11 +231,12 @@ def main(argv=None):
     parser.add_argument("--stage2_b16_fallback", type=int, default=1,
                         help="JAX's grad-accum rewrite of stage-2 batches >= 16 on a TPU (never applies here)")
     parser.add_argument("--device", type=str, default="cuda", help="torch device: cuda, cuda:N or cpu")
-    cfg = reroot_data_paths(parse_with_config(parser, argv))
+    cfg = parse_args(parser, argv)
     device = resolve_device(cfg.device)
     cfg = apply_stage2_batch_fallback(cfg, device.type)
-    setup_logging(cfg.output_dir, 0)
-    save_training_meta(cfg.output_dir, cfg)
+    setup_logging(cfg.output_dir, process_index_count()[0])
+    if is_main_process():
+        save_training_meta(cfg.output_dir, cfg)
 
     enc_cfg, model_cfg = hdvila_configs_from(cfg)
     stage2 = model_cfg.stage == 2

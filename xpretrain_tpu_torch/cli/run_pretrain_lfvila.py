@@ -1,5 +1,6 @@
-"""LF-VILA pretraining runner, stages 1 and 2, on one device (PyTorch port
-of ``xpretrain_tpu/cli/run_pretrain_lfvila.py``).
+"""LF-VILA pretraining runner, stages 1 and 2, on one device or on each rank
+of a torchrun data-parallel group (PyTorch port of
+``xpretrain_tpu/cli/run_pretrain_lfvila.py``).
 
 The runner surface of ``LF-VILA/src/run_pretrain.py:21-121`` +
 ``src/tools/trainer_pretrain.py``: a YAML/JSON config, the two-stage model
@@ -33,9 +34,8 @@ from __future__ import annotations
 
 import torch
 
-from xpretrain_tpu_torch.cli.run_retrieval_clipvip import reroot_data_paths, resolve_device
-from xpretrain_tpu_torch.cli.shared_args import build_shared_parser
-from xpretrain_tpu_torch.config import parse_with_config
+from xpretrain_tpu_torch.cli.run_retrieval_clipvip import resolve_device
+from xpretrain_tpu_torch.cli.shared_args import build_shared_parser, parse_args
 from xpretrain_tpu_torch.data.datasets import FrameSource
 from xpretrain_tpu_torch.data.datasets_lfvila import LfVilaPretrainCollator, LfVilaPretrainDataset
 from xpretrain_tpu_torch.data.loader import BatchLoader, InfiniteIterator
@@ -46,6 +46,7 @@ from xpretrain_tpu_torch.models.lf_vila.pretrain import LfVilaConfig, LfVilaPret
 from xpretrain_tpu_torch.models.lf_vila.swin3d import Swin3DConfig
 from xpretrain_tpu_torch.models.pretrained import load_lfvila_cascade
 from xpretrain_tpu_torch.optim.optimizer import NO_DECAY_LFVILA
+from xpretrain_tpu_torch.parallel.mesh import is_main_process, process_index_count
 from xpretrain_tpu_torch.train.checkpoints import save_training_meta
 from xpretrain_tpu_torch.train.generic_trainer import GenericTrainer
 from xpretrain_tpu_torch.utils.basic import load_jsonl
@@ -141,7 +142,9 @@ def build_loader(cfg, tokenizer, stage: int) -> InfiniteIterator:
     else:
         ds = LfVilaPretrainDataset(load_jsonl(cfg.train_annotation), FrameSource(cfg.video_root), cfg.sample_frame,
                                    cfg.sample_clip, tuple(cfg.input_hw), seed=cfg.seed, device_ingest=device_ingest)
-    return InfiniteIterator(BatchLoader(ds, cfg.train_batch_size, collate, seed=cfg.seed))
+    pi, pc = process_index_count()
+    return InfiniteIterator(BatchLoader(ds, cfg.train_batch_size, collate, seed=cfg.seed, process_index=pi,
+                                        process_count=pc))
 
 
 def load_weights(cfg, model, swin_config: Swin3DConfig) -> None:
@@ -178,9 +181,10 @@ def main(argv=None):
     parser.add_argument("--pretrained_2d", type=int, default=1)
     parser.add_argument("--device", type=str, default="cuda", help="torch device: cuda, cuda:N or cpu")
     parser.set_defaults(device_ingest=1)
-    cfg = reroot_data_paths(parse_with_config(parser, argv))
-    setup_logging(cfg.output_dir, 0)
-    save_training_meta(cfg.output_dir, cfg)
+    cfg = parse_args(parser, argv)
+    setup_logging(cfg.output_dir, process_index_count()[0])
+    if is_main_process():
+        save_training_meta(cfg.output_dir, cfg)
     device = resolve_device(cfg.device)
 
     model_cfg = lfvila_config_from(cfg)

@@ -1,5 +1,6 @@
-"""CLIP-ViP retrieval on one device (PyTorch port of
-``xpretrain_tpu/cli/run_retrieval_clipvip.py``).
+"""CLIP-ViP retrieval (PyTorch port of
+``xpretrain_tpu/cli/run_retrieval_clipvip.py``), on one device or on every
+rank of a ``torchrun`` data-parallel group.
 
 ``--mode train`` (the default) fine-tunes with the contrastive loss through
 ``ClipVipTrainer`` (on the val split when no ``--train_annotation`` is
@@ -14,14 +15,16 @@ Usage (synthetic ingest, the MSR-VTT B/32 fine-tune preset, on the card):
     python -m xpretrain_tpu_torch.cli.run_retrieval_clipvip --dummy_data 1 \
         --config xpretrain_tpu_torch/configs/msrvtt_retrieval_vip_base_32.json \
         --device_ingest 1 --device cuda --output_dir output/ft
+and on the cards of one host (``--train_batch_size`` is per process, as in
+JAX; the loss sees the global batch):
+    torchrun --nproc_per_node 8 -m xpretrain_tpu_torch.cli.run_retrieval_clipvip ...
 """
 
 from __future__ import annotations
 
 import torch
 
-from xpretrain_tpu_torch.cli.shared_args import build_shared_parser
-from xpretrain_tpu_torch.config import parse_with_config
+from xpretrain_tpu_torch.cli.shared_args import build_shared_parser, parse_args
 from xpretrain_tpu_torch.data.datasets import (
     FrameSource,
     RetrievalCollator,
@@ -33,6 +36,7 @@ from xpretrain_tpu_torch.data.tokenization import build_tokenizer, warn_if_hash_
 from xpretrain_tpu_torch.data.transforms import clip_resize_crop_u8, clip_transform
 from xpretrain_tpu_torch.models.clip_vip.convert import load_torch_checkpoint, merge_pretrained
 from xpretrain_tpu_torch.models.clip_vip.model import CLIPViPModel
+from xpretrain_tpu_torch.parallel.mesh import is_main_process, process_index_count
 from xpretrain_tpu_torch.parallel.train_step import make_eval_step
 from xpretrain_tpu_torch.train.checkpoints import save_training_meta
 from xpretrain_tpu_torch.train.evaluate import evaluate_retrieval
@@ -75,7 +79,7 @@ def build_tokenizer_from_cfg(cfg):
 
 def build_loaders(cfg) -> tuple[InfiniteIterator | None, SequentialEvalLoader, int]:
     """(train loader or None, val loader, val clip count), as the JAX runner
-    builds them for process 0 of 1."""
+    builds them: each rank's share of every batch."""
     collate = RetrievalCollator(build_tokenizer_from_cfg(cfg), max_txt_len=int(cfg.get("max_txt_len", 70)))
     ingest = bool(cfg.get("device_ingest"))
     if cfg.get("dummy_data"):
@@ -95,22 +99,15 @@ def build_loaders(cfg) -> tuple[InfiniteIterator | None, SequentialEvalLoader, i
             cfg.val_annotation, source, cfg.num_frm, cfg.crop_img_size,
             train=False, device_ingest=ingest,
         )
+    pi, pc = process_index_count()
     train_loader = None
     if train_ds is not None:
         train_loader = InfiniteIterator(
-            BatchLoader(train_ds, cfg.train_batch_size, collate, seed=cfg.seed)
+            BatchLoader(train_ds, cfg.train_batch_size, collate, seed=cfg.seed, process_index=pi,
+                        process_count=pc)
         )
-    return train_loader, SequentialEvalLoader(val_ds, cfg.val_batch_size, collate), len(val_ds)
-
-
-def reroot_data_paths(cfg):
-    """Re-root relative data paths under ``--data_mount_dir``, as the JAX
-    package's ``cli/shared_args.py:parse_args`` does."""
-    if cfg.get("data_mount_dir"):
-        for key in ("train_annotation", "val_annotation", "video_root"):
-            if cfg.get(key) and not str(cfg[key]).startswith("/"):
-                cfg[key] = f"{cfg['data_mount_dir'].rstrip('/')}/{cfg[key]}"
-    return cfg
+    val_loader = SequentialEvalLoader(val_ds, cfg.val_batch_size, collate, process_index=pi, process_count=pc)
+    return train_loader, val_loader, len(val_ds)
 
 
 def resolve_device(name: str) -> torch.device:
@@ -154,9 +151,10 @@ def main(argv=None):
     parser.add_argument("--save_feats", type=str, default="",
                         help="dump eval features to this .npz (ref run_video_retrieval.py:233 save_feat)")
     parser.add_argument("--device", type=str, default="cuda", help="torch device: cuda, cuda:N or cpu")
-    cfg = reroot_data_paths(parse_with_config(parser, argv))
-    setup_logging(cfg.output_dir, 0)
-    save_training_meta(cfg.output_dir, cfg)
+    cfg = parse_args(parser, argv)
+    setup_logging(cfg.output_dir, process_index_count()[0])
+    if is_main_process():
+        save_training_meta(cfg.output_dir, cfg)
     device = resolve_device(cfg.device)
     feats_path = cfg.get("save_feats") or None
 
@@ -168,7 +166,8 @@ def main(argv=None):
             make_eval_step(device), model, val_loader, valid_len,
             save_feats_path=feats_path,
         )
-        save_json(report, f"{cfg.output_dir}/eval_report.json", pretty=True)
+        if is_main_process():
+            save_json(report, f"{cfg.output_dir}/eval_report.json", pretty=True)
         return report
     # without --train_annotation the val split is the train split, as in JAX
     trainer = ClipVipTrainer(cfg, train_loader or val_loader, val_loader, valid_len, device=device)
@@ -176,7 +175,8 @@ def main(argv=None):
     LOGGER.info("train on %s: %d steps, batch %d", device, trainer.num_train_steps, cfg.train_batch_size)
     trainer.train()
     report = trainer.validate(save_feats_path=feats_path)
-    save_json(report, f"{cfg.output_dir}/final_report.json", pretty=True)
+    if is_main_process():
+        save_json(report, f"{cfg.output_dir}/final_report.json", pretty=True)
     return report
 
 

@@ -1,5 +1,6 @@
-"""HD-VILA video-text retrieval on one device: dual-encoder ITC fine-tune and
-R@K eval (PyTorch port of ``xpretrain_tpu/cli/run_retrieval_hdvila.py``).
+"""HD-VILA video-text retrieval, on one device or on each rank of a torchrun
+data-parallel group: dual-encoder ITC fine-tune and R@K eval (PyTorch port of
+``xpretrain_tpu/cli/run_retrieval_hdvila.py``).
 
 The runner surface of ``hd-vila/src/tasks/run_video_retrieval.py:168-434``:
 the hybrid encoder's stage-1 ITC features trained with the contrastive loss
@@ -38,9 +39,8 @@ from xpretrain_tpu_torch.cli.run_pretrain_hdvila import (
     init_hdvila_weights,
     load_e2e_weights,
 )
-from xpretrain_tpu_torch.cli.run_retrieval_clipvip import reroot_data_paths, resolve_device
-from xpretrain_tpu_torch.cli.shared_args import build_shared_parser
-from xpretrain_tpu_torch.config import parse_with_config
+from xpretrain_tpu_torch.cli.run_retrieval_clipvip import resolve_device
+from xpretrain_tpu_torch.cli.shared_args import build_shared_parser, parse_args
 from xpretrain_tpu_torch.data.datasets import FrameSource
 from xpretrain_tpu_torch.data.datasets_hdvila import HdVilaPretrainCollator
 from xpretrain_tpu_torch.data.datasets_hdvila_tasks import HdVilaClipLoader, HdVilaRetrievalDataset
@@ -50,6 +50,7 @@ from xpretrain_tpu_torch.models.hd_vila.convert import flax_param_paths
 from xpretrain_tpu_torch.models.hd_vila.e2e import HdVilaEncoder, HdVilaEncoderConfig
 from xpretrain_tpu_torch.models.hd_vila.modeling import HdVilaForVideoTextRetrieval, HdVilaModelConfig
 from xpretrain_tpu_torch.ops.losses import build_loss_fn
+from xpretrain_tpu_torch.parallel.mesh import gather_rows, is_main_process, process_index_count, rank_slice
 from xpretrain_tpu_torch.parallel.train_step import make_eval_step
 from xpretrain_tpu_torch.train.checkpoints import save_training_meta
 from xpretrain_tpu_torch.train.evaluate import evaluate_retrieval
@@ -60,6 +61,25 @@ from xpretrain_tpu_torch.utils.logging import LOGGER, setup_logging
 DUMMY_TRAIN_ROWS, DUMMY_VAL_ROWS = 128, 64  # synthetic captions (as the JAX runner)
 HDVILA_EVAL_IO = (("img_middle", "img_other", "text_input_ids", "text_input_mask"),
                   {"vis_features": "vis_features", "text_features": "text_features"})
+
+
+def rolled_captions(text_input_ids: torch.Tensor, text_input_mask: torch.Tensor, k: int
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(ids, mask) of the (1+k)*b pairs: this rank's b captions, then for
+    each roll 1..k its rows of the global batch's captions rolled by it (the
+    in-batch negatives; in a data-parallel group the captions of every rank
+    are gathered first)."""
+    all_ids, all_mask = gather_rows(text_input_ids), gather_rows(text_input_mask)
+    B = all_ids.shape[0]
+    if k >= B:
+        # a roll s with s % B == 0 would reproduce the positive pair: its
+        # "negative" column then adds a constant margin with zero gradient
+        raise ValueError(
+            f"rank mode needs num_negs < batch size, got num_negs={k} with batch {B} (every roll "
+            "1..num_negs must be a distinct non-identity permutation)")
+    ids = torch.cat([text_input_ids] + [rank_slice(torch.roll(all_ids, s, 0)) for s in range(1, k + 1)])
+    mask = torch.cat([text_input_mask] + [rank_slice(torch.roll(all_mask, s, 0)) for s in range(1, k + 1)])
+    return ids, mask
 
 
 class HdVilaRerankModel(nn.Module):
@@ -86,20 +106,10 @@ class HdVilaRerankModel(nn.Module):
         if not with_rank_loss:
             return self.head(grid, text_input_ids, text_input_mask, generator)
         k = self.num_negs
-        B = text_input_ids.shape[0]
-        if k >= B:
-            # a roll s with s % B == 0 would reproduce the positive pair: its
-            # "negative" column then adds a constant margin with zero gradient
-            raise ValueError(
-                f"rank mode needs num_negs < batch size, got num_negs={k} with batch {B} (every roll "
-                "1..num_negs must be a distinct non-identity permutation)")
-        # (1+k)*B pairs: video_i x [own caption, k rolled captions]; block 0
-        # is the positive and doubles as the eval output, so the fusion tower
-        # runs once over all pairs
-        ids = torch.cat([text_input_ids] + [torch.roll(text_input_ids, s, 0) for s in range(1, k + 1)])
-        mask = torch.cat([text_input_mask] + [torch.roll(text_input_mask, s, 0) for s in range(1, k + 1)])
+        ids, mask = rolled_captions(text_input_ids, text_input_mask, k)
         pair = self.head(grid.repeat(1 + k, *([1] * (grid.dim() - 1))), ids, mask, generator)
-        out = {name: pair[name][:B] for name in ("logits", "text_features", "vis_features")}
+        b = text_input_ids.shape[0]
+        out = {name: pair[name][:b] for name in ("logits", "text_features", "vis_features")}
         scores = torch.sigmoid(pair["logits"].float()).reshape(1 + k, -1).T
         pos, neg = scores[:, :1], scores[:, 1:]
         out["rank_loss"] = torch.clamp(self.margin + neg - pos, min=0.0).mean()
@@ -108,8 +118,8 @@ class HdVilaRerankModel(nn.Module):
 
 
 def build_data(cfg, tokenizer) -> tuple[InfiniteIterator, SequentialEvalLoader]:
-    """(train loader, val loader), as the JAX runner builds them for process
-    0 of 1."""
+    """(train loader, val loader), as the JAX runner builds them: each
+    rank's share of every batch."""
     collate = HdVilaPretrainCollator(tokenizer, max_txt_len=int(cfg.get("max_txt_len", 50)), mlm=False, itm=False)
     loader_args = dict(n_clips=cfg.train_n_clips, num_frm=cfg.num_frm, sample_rate=cfg.sample_rate or 12,
                        crop_hw=tuple(cfg.get("crop_size", (640, 1024))))
@@ -122,8 +132,10 @@ def build_data(cfg, tokenizer) -> tuple[InfiniteIterator, SequentialEvalLoader]:
         clip_loader = HdVilaClipLoader(FrameSource(cfg.video_root), **loader_args)
         train_ds = HdVilaRetrievalDataset(cfg.train_annotation, clip_loader, train=True, seed=cfg.seed)
         val_ds = HdVilaRetrievalDataset(cfg.val_annotation, clip_loader)
-    train = InfiniteIterator(BatchLoader(train_ds, cfg.train_batch_size, collate, seed=cfg.seed))
-    return train, SequentialEvalLoader(val_ds, cfg.val_batch_size, collate)
+    pi, pc = process_index_count()
+    train = InfiniteIterator(BatchLoader(train_ds, cfg.train_batch_size, collate, seed=cfg.seed, process_index=pi,
+                                         process_count=pc))
+    return train, SequentialEvalLoader(val_ds, cfg.val_batch_size, collate, process_index=pi, process_count=pc)
 
 
 def main(argv=None):
@@ -136,10 +148,11 @@ def main(argv=None):
     parser.add_argument("--margin", type=float, default=0.2)
     parser.add_argument("--num_negs", type=int, default=3, help="rank mode: in-batch rolled negatives per video")
     parser.add_argument("--device", type=str, default="cuda", help="torch device: cuda, cuda:N or cpu")
-    cfg = reroot_data_paths(parse_with_config(parser, argv))
+    cfg = parse_args(parser, argv)
     cfg["stage"] = 1  # dual-encoder ITC
-    setup_logging(cfg.output_dir, 0)
-    save_training_meta(cfg.output_dir, cfg)
+    setup_logging(cfg.output_dir, process_index_count()[0])
+    if is_main_process():
+        save_training_meta(cfg.output_dir, cfg)
     device = resolve_device(cfg.device)
 
     enc_cfg, model_cfg = hdvila_configs_from(cfg)
@@ -181,7 +194,8 @@ def main(argv=None):
 
     if cfg.mode == "eval":
         report = run_eval(model)
-        save_json(report, f"{cfg.output_dir}/eval_report.json", pretty=True)
+        if is_main_process():
+            save_json(report, f"{cfg.output_dir}/eval_report.json", pretty=True)
         return report
     trainer = GenericTrainer(cfg, model, apply_fn, train_loader, eval_fn=run_eval,
                              metric_keys=("rank_loss",) if rank_mode else (), param_paths=flax_param_paths(model),
@@ -190,7 +204,8 @@ def main(argv=None):
                 trainer.num_train_steps, cfg.train_batch_size)
     state = trainer.train()
     report = run_eval(state.model)
-    save_json(report, f"{cfg.output_dir}/final_report.json", pretty=True)
+    if is_main_process():
+        save_json(report, f"{cfg.output_dir}/final_report.json", pretty=True)
     return report
 
 

@@ -1,4 +1,5 @@
-"""LF-VILA downstream runner on one device (PyTorch port of
+"""LF-VILA downstream runner, on one device or on each rank of a torchrun
+data-parallel group (PyTorch port of
 ``xpretrain_tpu/cli/run_tasks_lfvila.py``): retrieval, QA multichoice
 (How2QA), QA classification (VIOLIN / ActivityNet-QA) and video
 classification (COIN / LVU).
@@ -34,9 +35,8 @@ import numpy as np
 import torch
 
 from xpretrain_tpu_torch.cli.run_pretrain_lfvila import lfvila_config_from
-from xpretrain_tpu_torch.cli.run_retrieval_clipvip import reroot_data_paths, resolve_device
-from xpretrain_tpu_torch.cli.shared_args import build_shared_parser
-from xpretrain_tpu_torch.config import parse_with_config
+from xpretrain_tpu_torch.cli.run_retrieval_clipvip import resolve_device
+from xpretrain_tpu_torch.cli.shared_args import build_shared_parser, parse_args
 from xpretrain_tpu_torch.data.datasets import FrameSource
 from xpretrain_tpu_torch.data.datasets_lfvila import (
     LfVilaPretrainCollator,
@@ -64,6 +64,7 @@ from xpretrain_tpu_torch.models.lf_vila.tasks import (
 )
 from xpretrain_tpu_torch.models.pretrained import load_lfvila_cascade
 from xpretrain_tpu_torch.optim.optimizer import NO_DECAY_LFVILA
+from xpretrain_tpu_torch.parallel.mesh import host_rows, is_main_process, process_index_count
 from xpretrain_tpu_torch.parallel.train_step import LFVILA_EVAL_IO, batch_to_device, make_eval_step
 from xpretrain_tpu_torch.train.checkpoints import save_training_meta
 from xpretrain_tpu_torch.train.evaluate import evaluate_retrieval
@@ -84,7 +85,7 @@ def _synth_video_ds(cfg):
 
 def build_loaders(cfg, tokenizer) -> tuple[InfiniteIterator, SequentialEvalLoader]:
     """(train, val) loaders of the retrieval task, as the JAX runner builds
-    them for process 0 of 1."""
+    them: each rank's share of every batch."""
     collate = LfVilaPretrainCollator(tokenizer, max_sent_len=int(cfg.get("max_txt_len", 50)), mlm=False)
     if cfg.get("dummy_data"):
         train_ds = _synth_video_ds(cfg)
@@ -95,8 +96,15 @@ def build_loaders(cfg, tokenizer) -> tuple[InfiniteIterator, SequentialEvalLoade
                                           cfg.sample_clip, tuple(cfg.input_hw), train=True)
         val_ds = LfVilaRetrievalDataset(load_jsonl(cfg.val_annotation), source,
                                         cfg.sample_frame, cfg.sample_clip, tuple(cfg.input_hw))
-    train = InfiniteIterator(BatchLoader(train_ds, cfg.train_batch_size, collate, seed=cfg.seed))
-    return train, SequentialEvalLoader(val_ds, cfg.val_batch_size, collate)
+    return rank_loaders(cfg, train_ds, val_ds, collate)
+
+
+def rank_loaders(cfg, train_ds, val_ds, collate) -> tuple[InfiniteIterator, SequentialEvalLoader]:
+    """(train, val) loaders over this rank's share of every batch."""
+    pi, pc = process_index_count()
+    train = InfiniteIterator(BatchLoader(train_ds, cfg.train_batch_size, collate, seed=cfg.seed, process_index=pi,
+                                         process_count=pc))
+    return train, SequentialEvalLoader(val_ds, cfg.val_batch_size, collate, process_index=pi, process_count=pc)
 
 
 def _task_datasets(cfg, ds_cls, **extra):
@@ -158,17 +166,18 @@ def with_labels(collate):
 
 def evaluate_accuracy(model, loader: SequentialEvalLoader, keys: tuple[str, ...], device) -> dict:
     """Accuracy of the argmax of ``logits`` over the first ``valid_len``
-    samples, forward under ``inference_mode``; ``perf`` holds the wall time
-    and clips/s (host clock, decode and upload included)."""
+    samples, forward under ``inference_mode``, with every rank's predictions
+    gathered in a group; ``perf`` holds the wall time and clips/s (host
+    clock, decode and upload included)."""
     place = batch_to_device(device)
     correct = total = 0
     t0 = time.perf_counter()
     with torch.inference_mode():
         for batch in loader:
-            labels = batch["labels"]
+            labels = host_rows(batch["labels"])
             inputs = place({k: batch[k] for k in keys})
             out = model(*(inputs[k] for k in keys))
-            pred = out["logits"].float().argmax(dim=-1).cpu().numpy()
+            pred = host_rows(out["logits"].float().argmax(dim=-1).cpu().numpy())
             n = min(len(labels), loader.valid_len - total)
             correct += int((pred[:n] == labels[:n]).sum())
             total += n
@@ -205,11 +214,12 @@ def main(argv=None):
     # paragraph of 512 sentence positions: its default is 50 (the JAX
     # runner's own fallback; 8 x 50 = 400 fits), the other tasks keep 70
     parser.set_defaults(max_txt_len=None)
-    cfg = reroot_data_paths(parse_with_config(parser, argv))
+    cfg = parse_args(parser, argv)
     if cfg.max_txt_len is None:
         cfg.max_txt_len = 50 if cfg.task == "qa_mc" else 70
-    setup_logging(cfg.output_dir, 0)
-    save_training_meta(cfg.output_dir, cfg)
+    setup_logging(cfg.output_dir, process_index_count()[0])
+    if is_main_process():
+        save_training_meta(cfg.output_dir, cfg)
     device = resolve_device(cfg.device)
 
     model_cfg = lfvila_config_from(cfg)
@@ -219,9 +229,7 @@ def main(argv=None):
         model, keys = LfVilaRetrieval(model_cfg, device=device), VIDEO_TEXT
     else:
         model, collate, train_ds, val_ds, keys = build_task(cfg, model_cfg, tokenizer, device)
-        collate = with_labels(collate)
-        train_loader = InfiniteIterator(BatchLoader(train_ds, cfg.train_batch_size, collate, seed=cfg.seed))
-        val_loader = SequentialEvalLoader(val_ds, cfg.val_batch_size, collate)
+        train_loader, val_loader = rank_loaders(cfg, train_ds, val_ds, with_labels(collate))
     model.init_weights(torch.Generator(device=device).manual_seed(int(cfg.seed)))
     if cfg.get("model_weight"):
         # the task models share video_encoder/text_encoder/projection names
@@ -258,7 +266,8 @@ def main(argv=None):
     else:
         report = evaluate_accuracy(model, val_loader, keys, device)
         LOGGER.info("%s accuracy: %.4f", cfg.task, report["accuracy"])
-    save_json(report, f"{cfg.output_dir}/final_report.json", pretty=True)
+    if is_main_process():
+        save_json(report, f"{cfg.output_dir}/final_report.json", pretty=True)
     return report
 
 

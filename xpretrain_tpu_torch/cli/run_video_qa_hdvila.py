@@ -1,5 +1,6 @@
-"""HD-VILA video QA on one device: train and standalone inference (PyTorch port
-of ``xpretrain_tpu/cli/run_video_qa_hdvila.py``).
+"""HD-VILA video QA, on one device or on each rank of a torchrun data-parallel
+group: train and standalone inference (PyTorch port of
+``xpretrain_tpu/cli/run_video_qa_hdvila.py``).
 
 The runner surface of ``hd-vila/src/tasks/run_video_qa.py:386-705`` (and the
 MSR-VTT-MC runner ``run_msrvtt_mc.py:145-316``): multiple-choice heads for
@@ -23,9 +24,8 @@ import torch
 from torch import nn
 
 from xpretrain_tpu_torch.cli.run_pretrain_hdvila import hdvila_configs_from, init_hdvila_weights, load_e2e_weights
-from xpretrain_tpu_torch.cli.run_retrieval_clipvip import reroot_data_paths, resolve_device
-from xpretrain_tpu_torch.cli.shared_args import build_shared_parser
-from xpretrain_tpu_torch.config import parse_with_config
+from xpretrain_tpu_torch.cli.run_retrieval_clipvip import resolve_device
+from xpretrain_tpu_torch.cli.shared_args import build_shared_parser, parse_args
 from xpretrain_tpu_torch.data.datasets import FrameSource
 from xpretrain_tpu_torch.data.datasets_hdvila_tasks import HdVilaClipLoader, HdVilaQACollator, HdVilaQADataset
 from xpretrain_tpu_torch.data.loader import BatchLoader, InfiniteIterator, SequentialEvalLoader
@@ -38,6 +38,7 @@ from xpretrain_tpu_torch.models.hd_vila.modeling import (
     HdVilaForSequenceClassification,
 )
 from xpretrain_tpu_torch.ops.losses import label_smoothing_xent
+from xpretrain_tpu_torch.parallel.mesh import host_rows, is_main_process, process_index_count
 from xpretrain_tpu_torch.parallel.train_step import make_eval_step
 from xpretrain_tpu_torch.train.checkpoints import CheckpointManager, save_training_meta
 from xpretrain_tpu_torch.train.generic_trainer import GenericTrainer
@@ -124,15 +125,18 @@ def build_qa_data(cfg, tok):
         train_ds = HdVilaQADataset(cfg.train_annotation, clip_loader, cfg.task_type, answer_vocab=vocab,
                                    train=True, seed=cfg.seed)
         val_ds = HdVilaQADataset(cfg.val_annotation, val_clip_loader, cfg.task_type, answer_vocab=vocab)
-    train_loader = InfiniteIterator(BatchLoader(train_ds, cfg.train_batch_size, collate, seed=cfg.seed))
-    val_loader = SequentialEvalLoader(val_ds, cfg.val_batch_size, collate)
+    pi, pc = process_index_count()
+    train_loader = InfiniteIterator(BatchLoader(train_ds, cfg.train_batch_size, collate, seed=cfg.seed,
+                                                process_index=pi, process_count=pc))
+    val_loader = SequentialEvalLoader(val_ds, cfg.val_batch_size, collate, process_index=pi, process_count=pc)
     return train_loader, val_loader, val_ds
 
 
 def evaluate_qa(model: nn.Module, val_loader, device, val_ds=None, task_type: str = "open") -> dict:
     """Accuracy + per-question predictions (+ the per-answer-type breakdown
     of the open-ended TGIF/MSRVTT tasks). The clip-score aggregation already
-    happened inside the model's forward, so each eval row is one question."""
+    happened inside the model's forward, so each eval row is one question.
+    In a group every rank's predictions, labels and ids are gathered."""
     model.eval()
     eval_step = make_eval_step(device, QA_EVAL_IO)
     preds, golds, row_ids = [], [], []
@@ -143,10 +147,11 @@ def evaluate_qa(model: nn.Module, val_loader, device, val_ds=None, task_type: st
             pred = np.clip((logits + 0.5).astype(np.int64), 1, 10)
         else:
             pred = np.argmax(logits, -1)
-        n = min(len(batch["labels"]), val_loader.valid_len - total)
+        pred, labels, ids = host_rows(pred), host_rows(batch["labels"]), host_rows(batch["ids"])
+        n = min(len(labels), val_loader.valid_len - total)
         preds.extend(pred[:n].tolist())
-        golds.extend(np.asarray(batch["labels"][:n]).tolist())
-        row_ids.extend(np.asarray(batch["ids"][:n]).tolist())
+        golds.extend(labels[:n].tolist())
+        row_ids.extend(ids[:n].tolist())
         total += n
     preds_arr, golds_arr = np.asarray(preds), np.asarray(golds)
     acc = float((preds_arr == golds_arr).mean()) if total else 0.0
@@ -182,7 +187,7 @@ def main(argv=None):
     parser.add_argument("--answer_vocab", type=str, default="")
     parser.add_argument("--inference_model_step", type=int, default=-1)
     parser.add_argument("--device", type=str, default="cuda", help="torch device: cuda, cuda:N or cpu")
-    cfg = reroot_data_paths(parse_with_config(parser, argv))
+    cfg = parse_args(parser, argv)
 
     if cfg.mode == "inference":
         # restore the training-time args, without the inference-only keys
@@ -192,7 +197,7 @@ def main(argv=None):
             for key, value in load_json(args_path).items():
                 if not str(key).startswith(("inference", "mode")) and key not in ("output_dir", "device"):
                     cfg[key] = value
-    setup_logging(cfg.output_dir, 0)
+    setup_logging(cfg.output_dir, process_index_count()[0])
     device = resolve_device(cfg.device)
 
     enc_cfg, model_cfg = hdvila_configs_from(cfg)
@@ -212,10 +217,12 @@ def main(argv=None):
             model.load_state_dict(restored["params"])
             LOGGER.info("restored best model (score %.4f)", float(restored["score"]))
         report = evaluate_qa(model, val_loader, device, val_ds=val_ds, task_type=cfg.task_type)
-        save_json(report, f"{cfg.output_dir}/inference_report.json", pretty=True)
+        if is_main_process():
+            save_json(report, f"{cfg.output_dir}/inference_report.json", pretty=True)
         return report
 
-    save_training_meta(cfg.output_dir, cfg)
+    if is_main_process():
+        save_training_meta(cfg.output_dir, cfg)
 
     def apply_fn(m, batch, generator):
         return m(batch["img_middle"], batch["img_other"], batch["text_input_ids"], batch["text_input_mask"],
@@ -230,7 +237,8 @@ def main(argv=None):
                 cfg.train_batch_size)
     state = trainer.train()
     report = evaluate_qa(state.model, val_loader, device, val_ds=val_ds, task_type=cfg.task_type)
-    save_json(report, f"{cfg.output_dir}/final_report.json", pretty=True)
+    if is_main_process():
+        save_json(report, f"{cfg.output_dir}/final_report.json", pretty=True)
     return report
 
 

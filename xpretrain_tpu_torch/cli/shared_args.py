@@ -7,11 +7,18 @@ over --config JSON" merge semantics and 0/1->bool coercion
 (``xpretrain_tpu_torch/config.py:parse_with_config``); fp16/amp flags become
 bf16. The flags, defaults and choices are the JAX package's, so one config
 file parses the same in both; flags whose feature is not ported are read by
-the trainers, which raise on them."""
+the trainers, which raise on them. :func:`parse_args` is every runner's
+entry: it parses, re-roots the data paths and joins the data-parallel group
+that the environment describes (``torchrun``'s variables,
+``parallel/mesh.py``) before any model touches the device."""
 
 from __future__ import annotations
 
 import argparse
+from typing import Sequence
+
+from xpretrain_tpu_torch.config import ConfigDict, parse_with_config
+from xpretrain_tpu_torch.parallel.mesh import maybe_init_distributed
 
 
 def build_shared_parser(desc: str = "xpretrain_tpu_torch runner") -> argparse.ArgumentParser:
@@ -71,7 +78,8 @@ def build_shared_parser(desc: str = "xpretrain_tpu_torch runner") -> argparse.Ar
     p.add_argument("--gradient_checkpointing", type=int, default=0)
     p.add_argument("--remat_policy", type=str, default="",
                    help="selective-remat policy of the LF-VILA Swin3D blocks; '' = full remat")
-    p.add_argument("--zero2", type=int, default=1, help="shard optimizer state (one device: no effect)")
+    p.add_argument("--zero2", type=int, default=1,
+                   help="shard the Adam moments and masters over the data-parallel ranks (one process: no effect)")
     p.add_argument("--zero3", type=int, default=0, help="FSDP (not ported; raises)")
     p.add_argument("--async_checkpoint", type=int, default=0, help="non-blocking saves")
     p.add_argument("--tp", type=int, default=1, help="tensor-parallel degree (> 1 is not ported; raises)")
@@ -93,3 +101,26 @@ def build_shared_parser(desc: str = "xpretrain_tpu_torch runner") -> argparse.Ar
                    help="path to a torch CLIP / CLIP-ViP checkpoint to convert")
     p.add_argument("--e2e_weights_path", type=str, default="")
     return p
+
+
+def reroot_data_paths(cfg: ConfigDict) -> ConfigDict:
+    """Re-root relative data paths under ``--data_mount_dir`` (the
+    reference's blob_mount / data_mount, ref
+    ``CLIP-ViP/src/pretrain/run_pretrain.py:447-466``)."""
+    if cfg.get("data_mount_dir"):
+        for key in ("train_annotation", "val_annotation", "video_root"):
+            if cfg.get(key) and not str(cfg[key]).startswith("/"):
+                cfg[key] = f"{cfg['data_mount_dir'].rstrip('/')}/{cfg[key]}"
+    return cfg
+
+
+def parse_args(parser: argparse.ArgumentParser, argv: Sequence[str] | None = None) -> ConfigDict:
+    """Parse a runner's flags (``parse_with_config``), re-root its data paths
+    and join the data-parallel group of the environment
+    (``maybe_init_distributed``, with the runner's ``--device``). In a group
+    on CUDA, ``cfg.device`` becomes this rank's card, ``cuda:LOCAL_RANK``."""
+    cfg = reroot_data_paths(parse_with_config(parser, argv))
+    mesh = maybe_init_distributed(cfg.get("device", "cuda"))
+    if mesh is not None:
+        cfg["device"] = str(mesh.device)
+    return cfg

@@ -1,5 +1,5 @@
 """Config system: JSON/YAML files + argparse CLI with "explicit CLI wins" merge
-(the port's copy of ``xpretrain_tpu/config.py``, the parts the runners use).
+(the port's copy of ``xpretrain_tpu/config.py``).
 
 Reproduces the reference's config semantics
 (``CLIP-ViP/src/configs/config.py:12-30, 260-267``):
@@ -59,6 +59,14 @@ class ConfigDict(dict):
 
         return unwrap(self)
 
+    def get_path(self, dotted: str, default: Any = None) -> Any:
+        node: Any = self
+        for part in dotted.split("."):
+            if not isinstance(node, Mapping) or part not in node:
+                return default
+            node = node[part]
+        return node
+
 
 
 def _wrap(value: Any) -> Any:
@@ -69,6 +77,16 @@ def _wrap(value: Any) -> Any:
     if isinstance(value, (list, tuple)):
         return [_wrap(v) for v in value]
     return value
+
+
+def deep_update(base: ConfigDict, override: Mapping[str, Any]) -> ConfigDict:
+    """Recursively merge ``override`` into ``base`` (override wins)."""
+    for key, value in override.items():
+        if key in base and isinstance(base[key], ConfigDict) and isinstance(value, Mapping):
+            deep_update(base[key], value)
+        else:
+            base[key] = value
+    return base
 
 
 def load_config_file(path: str) -> ConfigDict:
@@ -139,3 +157,9 @@ def parse_with_config(
     }
     _coerce_bools(cfg, bool_keys)
     return cfg
+
+
+def dump_config(cfg: ConfigDict, path: str) -> None:
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(cfg.to_dict(), f, indent=2, sort_keys=True, default=str)

@@ -1,7 +1,8 @@
 """Frame-index samplers (host-side, numpy, explicitly seeded; the port's copy
-of the parts of ``xpretrain_tpu/data/sample_frames.py`` it uses).
+of ``xpretrain_tpu/data/sample_frames.py``).
 
-The uniform sampling-with-jitter path used when ``sample_rate == 0``
+The mmaction2-style ``SampleFrames`` (``CLIP-ViP/src/datasets/sample_frames.py:11-188``,
+:class:`FrameSampler`), the uniform sampling-with-jitter path used when ``sample_rate == 0``
 (``CLIP-ViP/src/datasets/dataset_video_retrieval.py:78-95``), the HD-VILA
 center-frame neighborhood samplers (``hd-vila/src/datasets/dataset_pretrain.py:66-80``,
 ``dataset_video_qa.py:79-100``), the LF-VILA multi-clip splitter
@@ -15,6 +16,99 @@ reproducible per (seed, epoch, index).
 from __future__ import annotations
 
 import numpy as np
+
+
+class FrameSampler:
+    """clip_len / frame_interval / num_clips sampling.
+
+    Train mode: each clip's window is placed at a random offset inside its
+    evenly-divided span. Test mode: windows are centered (avg_interval / 2
+    shift), with optional ``twice_sample`` adding the non-shifted set.
+    Out-of-bound indices either wrap (``loop``) or clamp to the last valid
+    frame of the clip (``repeat_last``).
+    """
+
+    def __init__(
+        self,
+        clip_len: int,
+        frame_interval: int = 1,
+        num_clips: int = 1,
+        temporal_jitter: bool = False,
+        twice_sample: bool = False,
+        out_of_bound_opt: str = "loop",
+        test_mode: bool = False,
+        keep_tail_frames: bool = False,
+    ):
+        if out_of_bound_opt not in ("loop", "repeat_last"):
+            raise ValueError(f"bad out_of_bound_opt {out_of_bound_opt!r}")
+        self.clip_len = clip_len
+        self.frame_interval = frame_interval
+        self.num_clips = num_clips
+        self.temporal_jitter = temporal_jitter
+        self.twice_sample = twice_sample
+        self.out_of_bound_opt = out_of_bound_opt
+        self.test_mode = test_mode
+        self.keep_tail_frames = keep_tail_frames
+
+    # -- clip offset selection ------------------------------------------------
+
+    def _train_offsets(self, num_frames: int, rng: np.random.Generator) -> np.ndarray:
+        span = self.clip_len * self.frame_interval
+        if self.keep_tail_frames:
+            avg = (num_frames - span + 1) / float(self.num_clips)
+            if num_frames > span - 1:
+                base = np.arange(self.num_clips) * avg
+                return (base + rng.uniform(0, avg, self.num_clips)).astype(np.int64)
+            return np.zeros((self.num_clips,), dtype=np.int64)
+        avg = (num_frames - span + 1) // self.num_clips
+        if avg > 0:
+            base = np.arange(self.num_clips) * avg
+            return base + rng.integers(0, avg, size=self.num_clips)
+        if num_frames > max(self.num_clips, span):
+            return np.sort(rng.integers(0, num_frames - span + 1, size=self.num_clips))
+        if avg == 0:
+            ratio = (num_frames - span + 1.0) / self.num_clips
+            return np.around(np.arange(self.num_clips) * ratio).astype(np.int64)
+        return np.zeros((self.num_clips,), dtype=np.int64)
+
+    def _test_offsets(self, num_frames: int) -> np.ndarray:
+        span = self.clip_len * self.frame_interval
+        avg = (num_frames - span + 1) / float(self.num_clips)
+        if num_frames > span - 1:
+            base = np.arange(self.num_clips) * avg
+            offsets = (base + avg / 2.0).astype(np.int64)
+            if self.twice_sample:
+                offsets = np.concatenate([offsets, base.astype(np.int64)])
+            return offsets
+        return np.zeros((self.num_clips,), dtype=np.int64)
+
+    # -- public API -----------------------------------------------------------
+
+    def __call__(
+        self,
+        total_frames: int,
+        rng: np.random.Generator | None = None,
+        start_index: int = 0,
+    ) -> np.ndarray:
+        """Return flat frame indices of shape [num_clips * clip_len]."""
+        if rng is None:
+            rng = np.random.default_rng()
+        if self.test_mode:
+            offsets = self._test_offsets(total_frames)
+        else:
+            offsets = self._train_offsets(total_frames, rng)
+        inds = offsets[:, None] + np.arange(self.clip_len)[None, :] * self.frame_interval
+        inds = inds.reshape(-1)
+        if self.temporal_jitter and self.frame_interval > 1:
+            inds = inds + rng.integers(0, self.frame_interval, size=len(inds))
+        inds = inds.reshape(-1, self.clip_len)
+        if self.out_of_bound_opt == "loop":
+            inds = np.mod(inds, total_frames)
+        else:  # repeat_last: clamp overshoot to the clip's last in-bounds index
+            safe = inds < total_frames
+            last = np.max(np.where(safe, inds, 0), axis=1, keepdims=True)
+            inds = np.where(safe, inds, last)
+        return (inds.reshape(-1) + start_index).astype(np.int64)
 
 
 def uniform_sample_with_jitter(

@@ -173,3 +173,7 @@ def _read_frames_cv2(path, frame_indices, out_hw=None) -> np.ndarray:
     finally:
         cap.release()
     return np.stack([frames[int(i)] for i in frame_indices])
+
+
+def native_available() -> bool:
+    return bool(_load_lib())

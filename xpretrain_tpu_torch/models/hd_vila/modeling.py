@@ -44,7 +44,7 @@ from torch import nn
 from xpretrain_tpu_torch.models.bert import BertConfig, BertMLMHead, BertPooler, StagedBertModel
 from xpretrain_tpu_torch.models.clip_vip.model import l2_normalize
 from xpretrain_tpu_torch.models.common import Embedding, LayerNorm, Linear, dropout
-from xpretrain_tpu_torch.ops.losses import itm_loss, mlm_loss
+from xpretrain_tpu_torch.ops.losses import global_ratio, itm_loss, mlm_loss
 
 
 @dataclasses.dataclass(frozen=True)
@@ -233,7 +233,7 @@ class HdVilaForPreTraining(nn.Module):
             out["mlm_loss"] = mlm_loss(mlm_logits, labels)
             sel = labels != -100
             correct = (mlm_logits.argmax(dim=-1) == labels) & sel
-            out["mlm_acc"] = correct.sum() / sel.sum().clamp_min(1)
+            out["mlm_acc"] = global_ratio(correct.sum(), sel.sum())
         if itm_labels is not None:
             out["itm_loss"] = itm_loss(itm_logits, itm_labels)
             out["itm_acc"] = (itm_logits.argmax(dim=-1) == itm_labels).float().mean()

@@ -25,6 +25,12 @@ either tree totally.
 ``module.training`` stands for flax's ``deterministic=False``; dropout and,
 without explicit indices, the MTC clip draws come from the
 ``torch.Generator`` handed to ``forward``.
+
+In a data-parallel group (``parallel/mesh.py``) the losses are those of the
+global batch, as in JAX: the InfoNCE and MTC features are gathered over
+ranks, the VTM roll runs over the global batch's first half (each rank gets
+the one row that crosses its boundary), and the MLM loss and accuracy divide
+by the global count of masked tokens.
 """
 
 from __future__ import annotations
@@ -40,7 +46,8 @@ from xpretrain_tpu_torch.models.bert import BertConfig, BertMLMHead, StagedBertM
 from xpretrain_tpu_torch.models.clip_vip.model import l2_normalize
 from xpretrain_tpu_torch.models.common import Embedding, LayerNorm, Linear, dropout
 from xpretrain_tpu_torch.models.lf_vila.swin3d import Swin3DConfig, SwinTransformer3D
-from xpretrain_tpu_torch.ops.losses import mlm_loss, mtc_loss, nce_loss, softmax_xent
+from xpretrain_tpu_torch.ops.losses import global_ratio, mlm_loss, mtc_loss, nce_loss, softmax_xent
+from xpretrain_tpu_torch.parallel.mesh import current_mesh, gather_rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -167,12 +174,30 @@ def encode_text_stages(text_encoder: StagedBertModel, sent_embedding: SentEmbedd
 
 def shuffle_embd_for_vtm(video_embd: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Roll the first half of the batch by one to make the VTM negatives
-    (label 0); the second half keeps its own video (label 1) (ref ``:168-173``)."""
-    B = video_embd.shape[0]
-    out = torch.cat([torch.roll(video_embd[: B // 2], 1, dims=0), video_embd[B // 2:]], dim=0)
-    labels = torch.cat([torch.zeros(B // 2, dtype=torch.long, device=video_embd.device),
-                        torch.ones(B - B // 2, dtype=torch.long, device=video_embd.device)])
-    return out, labels
+    (label 0); the second half keeps its own video (label 1) (ref ``:168-173``).
+
+    In a group the batch is the global one and ``video_embd`` this rank's
+    block of it: a rank's first row takes the previous rank's last row (the
+    global first row takes the last row of the first half), so each rank
+    exchanges two rows, not its embedding; the exchange carries gradients."""
+    mesh = current_mesh()
+    if mesh is None:
+        B = video_embd.shape[0]
+        out = torch.cat([torch.roll(video_embd[: B // 2], 1, dims=0), video_embd[B // 2:]], dim=0)
+        labels = torch.cat([torch.zeros(B // 2, dtype=torch.long, device=video_embd.device),
+                            torch.ones(B - B // 2, dtype=torch.long, device=video_embd.device)])
+        return out, labels
+    b, rank = video_embd.shape[0], mesh.rank
+    start, half = rank * b, b * mesh.world_size // 2
+    wrap = half - 1 - start  # the local index of the first half's last row, if this rank holds it
+    held = video_embd[wrap:wrap + 1] if 0 <= wrap < b else torch.zeros_like(video_embd[:1])
+    # rank q's last row at 2q, and at 2q + 1 the first half's last row where q holds it
+    boundary = gather_rows(torch.cat([video_embd[-1:], held]))
+    first = boundary[2 * ((half - 1) // b) + 1] if rank == 0 else boundary[2 * (rank - 1)]
+    shifted = torch.cat([first[None], video_embd[:-1]])
+    positive = torch.arange(start, start + b, device=video_embd.device) >= half
+    out = torch.where(positive.reshape(-1, *([1] * (video_embd.dim() - 1))), video_embd, shifted)
+    return out, positive.long()
 
 
 @torch.no_grad()
@@ -198,6 +223,16 @@ def init_lfvila_weights(model: nn.Module, generator: torch.Generator) -> nn.Modu
         if name.endswith(("relative_position_bias_table", "s_pos_embed", "t_pos_embed")):
             p.normal_(0.0, 0.02, generator=generator)
     return model
+
+
+def _first_positive_row(b: int) -> int:
+    """The first local row of ``b`` in the global batch's second (VTM
+    positive) half: ``b // 2`` without a group."""
+    mesh = current_mesh()
+    if mesh is None:
+        return b // 2
+    start, half = mesh.rank * b, b * mesh.world_size // 2
+    return min(b, max(0, half - start))
 
 
 def accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -261,7 +296,8 @@ class LfVilaPretrain(nn.Module):
             text_global_feat = l2_normalize(self.text_global_proj(text_hidden[:, 0]))
             out["video_global_feat"] = video_global_feat
             out["text_global_feat"] = text_global_feat
-            out["ct_global_loss"] = cfg.ct_global_loss_weight * nce_loss(video_global_feat, text_global_feat, cfg.temp)
+            out["ct_global_loss"] = cfg.ct_global_loss_weight * nce_loss(
+                gather_rows(video_global_feat), gather_rows(text_global_feat), cfg.temp)
             if cfg.use_time_match and (generator is not None or mtc_indices is not None):
                 out["ct_time_loss"] = cfg.ct_time_loss_weight * mtc_loss(
                     out["video_local_feat"], out["text_local_feat"], generator, cfg.num_key, cfg.num_value,
@@ -288,14 +324,15 @@ class LfVilaPretrain(nn.Module):
         if mlm_labels is not None:
             # the CLS position is never masked; MLM on the positive (un-rolled)
             # half of the VTM batch only (ref text_encoder.py:88-92), and its
-            # accuracy on that half too
+            # accuracy on that half too: this rank's rows of the global half
+            keep = _first_positive_row(B)
             full = torch.cat([torch.full((B, 1), -100, dtype=mlm_labels.dtype, device=mlm_labels.device),
-                              mlm_labels], dim=1)[B // 2:]
-            logits = mlm_logits[B // 2:]
+                              mlm_labels], dim=1)[keep:]
+            logits = mlm_logits[keep:]
             out["mlm_loss"] = cfg.mlm_loss_weight * mlm_loss(logits, full)
             selected = full != -100
             correct = (logits.argmax(dim=-1) == full) & selected
-            out["mlm_acc"] = correct.sum() / selected.sum().clamp_min(1)
+            out["mlm_acc"] = global_ratio(correct.sum(), selected.sum())
         else:
             out["mlm_loss"] = torch.zeros((), device=vtm_logits.device)
             out["mlm_acc"] = torch.zeros((), device=vtm_logits.device)

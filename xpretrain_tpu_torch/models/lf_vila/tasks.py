@@ -47,6 +47,7 @@ from xpretrain_tpu_torch.models.lf_vila.pretrain import (
 )
 from xpretrain_tpu_torch.models.lf_vila.swin3d import SwinTransformer3D
 from xpretrain_tpu_torch.ops.losses import label_smoothing_xent, nce_loss, softmax_xent
+from xpretrain_tpu_torch.parallel.mesh import gather_rows
 
 
 class _LfVilaBase(nn.Module):
@@ -110,7 +111,8 @@ class LfVilaRetrieval(_LfVilaBase):
         text_hidden, _ = self.encode_text_global(text_ids, attention_mask, generator)
         video_feat = l2_normalize(self.video_global_proj(clips.mean(dim=1)))
         text_feat = l2_normalize(self.text_global_proj(text_hidden[:, 0]))
-        loss = cfg.ct_global_loss_weight * nce_loss(video_feat, text_feat, cfg.temp)
+        # over the global batch in a data-parallel group (parallel/mesh.py)
+        loss = cfg.ct_global_loss_weight * nce_loss(gather_rows(video_feat), gather_rows(text_feat), cfg.temp)
         return {
             "video_global_feat": video_feat,
             "text_global_feat": text_feat,

@@ -17,6 +17,13 @@ HD-VILA): ``mlm_loss``, ``itm_loss``, ``label_smoothing_xent`` and
 denominator, -100 for ignored rows). ``mtc_loss`` draws its clip
 permutations from a ``torch.Generator`` where JAX splits a PRNG key, so the
 two draw other clips from the same seed; ``indices=`` fixes them for both.
+
+In a data-parallel group (``parallel/mesh.py``) the losses see the global
+batch, as JAX's SPMD losses do: the registry's functions
+(:func:`build_loss_fn`) and :func:`mtc_loss` gather their features over ranks
+(with gradients) and compute the global loss on every rank; a mean over a
+data-dependent count (:func:`mlm_loss`, :func:`global_ratio`) divides by the
+global count. Without a group nothing changes.
 """
 
 from __future__ import annotations
@@ -25,6 +32,8 @@ import functools
 from typing import Callable, Optional
 
 import torch
+
+from xpretrain_tpu_torch.parallel.mesh import all_reduce_sum, current_mesh, gather_rows, world_size
 
 Tensor = torch.Tensor
 
@@ -208,22 +217,37 @@ def nce_learnable_temp_vsc_fc(
 # ---------------------------------------------------------------------------
 
 
-def _masked_xent_flat(logits: Tensor, labels: Tensor, ignore_index: int = -100) -> Tensor:
+def global_ratio(numerator: Tensor, count: Tensor) -> Tensor:
+    """``numerator / max(count, 1)`` over the global batch: in a group of N
+    ranks, this rank's ``numerator`` times N over the count summed over
+    ranks, a per-rank term whose mean over ranks (and whose gradient's) is
+    the global mean (``parallel/mesh.py``). Without a group, the local mean."""
+    if current_mesh() is None:
+        return numerator / count.clamp_min(1)
+    return numerator / all_reduce_sum(count).clamp_min(1) * world_size()
+
+
+def _masked_xent_flat(logits: Tensor, labels: Tensor, ignore_index: int = -100,
+                      global_count: bool = False) -> Tensor:
     """Mean CE over rows whose label != ignore_index (torch CrossEntropyLoss),
-    fp32; 0 when every row is ignored."""
+    fp32; 0 when every row is ignored. ``global_count``: over the rows of
+    every rank (:func:`global_ratio`)."""
     logits = logits.float()
     valid = labels != ignore_index
     safe = torch.where(valid, labels, torch.zeros_like(labels))
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, safe[:, None])[:, 0]
     per = torch.where(valid, logz - gold, torch.zeros_like(logz))
+    if global_count:
+        return global_ratio(per.sum(), valid.sum())
     return per.sum() / valid.sum().clamp_min(1)
 
 
 def mlm_loss(logits: Tensor, labels: Tensor, ignore_index: int = -100) -> Tensor:
-    """Masked-LM cross-entropy averaged over non-ignored positions."""
+    """Masked-LM cross-entropy averaged over the non-ignored positions of the
+    global batch."""
     vocab = logits.shape[-1]
-    return _masked_xent_flat(logits.reshape(-1, vocab), labels.reshape(-1), ignore_index)
+    return _masked_xent_flat(logits.reshape(-1, vocab), labels.reshape(-1), ignore_index, global_count=True)
 
 
 def itm_loss(logits: Tensor, labels: Tensor) -> Tensor:
@@ -265,7 +289,9 @@ def mtc_loss(
     first-vs-last ties are -100 (ignored), and ``num_other_neg`` rolled
     cross-batch clips extend the negative pool (shift 0, the un-rolled sample
     itself, included, as the reference does). The clips are ``indices`` when
-    given, else drawn from ``generator``."""
+    given, else drawn from ``generator`` (each rank draws its own rows'). In
+    a group, features and clip indices are gathered over ranks and the
+    rolled negatives cross them: every rank computes the global loss."""
     b, m, _ = video_local_feat.shape
     device = video_local_feat.device
     if indices is not None:
@@ -275,6 +301,10 @@ def mtc_loss(
         key_idx = mtc_permutations(b, m, num_key, generator, device)
         value_idx = mtc_permutations(b, m, num_value, generator, device)
         other_idx = mtc_permutations(b, m, 1, generator, device)[:, 0]
+    if current_mesh() is not None:
+        video_local_feat, text_local_feat = gather_rows(video_local_feat), gather_rows(text_local_feat)
+        key_idx, value_idx, other_idx = gather_rows(key_idx), gather_rows(value_idx), gather_rows(other_idx)
+        b = video_local_feat.shape[0]
 
     def gather(feats, idx):
         return torch.take_along_dim(feats, idx[..., None], dim=1)
@@ -321,13 +351,22 @@ LOSS_REGISTRY: dict[str, tuple[Callable, str]] = {
 }
 
 
+_NUM_FEATURES = {"pair_temp": 2, "pair_scale": 2, "quad_scale": 4}
+
+
 def build_loss_fn(loss_name: str, **static_kwargs) -> Callable:
     """Look up a loss by its reference class name, with static kwargs (temp,
     margin, hard_negative_num, ...) bound; the result carries
-    ``signature_kind``."""
+    ``signature_kind``. It takes the local features and computes the loss of
+    the global batch: in a group it gathers them over ranks first."""
     if loss_name not in LOSS_REGISTRY:
         raise KeyError(f"unknown loss {loss_name!r}; known: {sorted(LOSS_REGISTRY)}")
     fn, kind = LOSS_REGISTRY[loss_name]
-    bound = functools.partial(fn, **static_kwargs)
+    n = _NUM_FEATURES[kind]
+
+    def on_global_batch(*args, **kwargs):
+        return fn(*(gather_rows(a) for a in args[:n]), *args[n:], **{**static_kwargs, **kwargs})
+
+    bound = functools.update_wrapper(on_global_batch, fn)
     bound.signature_kind = kind  # type: ignore[attr-defined]
     return bound

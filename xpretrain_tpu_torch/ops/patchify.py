@@ -68,6 +68,16 @@ def _mean_std(mean: tuple[float, ...], std: tuple[float, ...], device: torch.dev
 _on_device = functools.lru_cache(maxsize=16)(_mean_std)
 
 
+def normalize_u8(frames_u8: torch.Tensor, mean, std, out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Plain on-device normalize for models without a patchify front end
+    (HD-VILA's ResNet path): [..., H, W, 3] u8 -> [..., 3, H, W],
+    ``(x / 255 - mean) / std`` in fp32, then ``out_dtype``."""
+    x = frames_u8.float() / 255.0
+    m = torch.as_tensor(np.asarray(mean, np.float32), device=x.device)
+    s = torch.as_tensor(np.asarray(std, np.float32), device=x.device)
+    return ((x - m) / s).movedim(-1, -3).to(out_dtype)
+
+
 def extract_patches_u8(frames: torch.Tensor, patch: int) -> torch.Tensor:
     """uint8 [N, H, W, 3] -> [N, L, patch*patch*3] (channel-last within patch).
 

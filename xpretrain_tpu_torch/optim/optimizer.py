@@ -33,6 +33,15 @@ they run the same arithmetic.
 parameters of two or more dims in bf16 and keeps their fp32 masters in the
 optimizer: the update runs on the masters, in fp32, from upcast gradients,
 and lands each stored parameter on ``bf16(master)`` exactly.
+
+ZeRO-2 (:func:`zero2_shard`, JAX's ``zero2_state_shardings``): in a
+data-parallel group of N ranks, each trained leaf of at least ``min_size``
+elements keeps only its rank's block of ``mu``, ``nu`` and (with masters)
+its fp32 master, along the leaf's first dimension divisible by N. Each rank
+updates its block from the averaged gradient, and one all-gather per dtype
+rebuilds the parameters. ``state_dict`` gathers the full state and
+``load_state_dict`` takes this rank's block of it, so a checkpoint written
+at N ranks resumes at any other count.
 """
 
 from __future__ import annotations
@@ -41,6 +50,8 @@ from typing import Callable, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
+
+from xpretrain_tpu_torch.parallel.mesh import DataMesh, _blocks, all_gather_shards_, current_mesh, gather_shards
 
 NO_DECAY_DEFAULT = ("bias", "layer_norm", "layernorm", "_norm", "norm_", "logit_scale")
 # LF-VILA also exempts position embeddings and the relative-position-bias
@@ -108,6 +119,7 @@ class GroupedAdamW:
         max_grad_norm: Optional[float],
         moment_dtype: Optional[torch.dtype] = None,
         grad_accum_steps: int = 1,
+        group_schedules: Optional[Mapping[str, Callable[[int], float]]] = None,
     ):
         self.names = list(named_params)
         self.params = [named_params[n] for n in self.names]
@@ -124,15 +136,28 @@ class GroupedAdamW:
         # (``master_weights``); ``masters`` lists the indices that have one
         self.targets = list(self.params)
         self.masters: list[int] = []
+        # ZeRO-2: index -> (dim, ranks, rank) of the leaves whose state this
+        # rank holds one block of (``zero2_shard``)
+        self.shards: dict[int, tuple[int, int, int]] = {}
+        self.mesh: Optional[DataMesh] = None
         self._init_state()
-        # (lr multiplier, weight decay) -> indices of the parameters that use it
-        self.groups: dict[tuple[float, float], list[int]] = {}
+        # (lr multiplier or schedule group, weight decay) -> indices of the
+        # parameters that use it, and each group's lr at an update count
+        self.groups: dict[tuple, list[int]] = {}
+        self.group_lrs: list[Callable[[int], float]] = []
         for i, label in enumerate(self.labels):
             if label == "frozen":
                 continue
-            mul = lr_mul if label.startswith("top_") else 1.0
             wd = weight_decay if label.endswith("_decay") and not label.endswith("no_decay") else 0.0
-            self.groups.setdefault((mul, wd), []).append(i)
+            if group_schedules is not None:  # "<group>_decay" / "<group>_no_decay"
+                tag = label.rsplit("_no_decay", 1)[0] if label.endswith("_no_decay") else label.rsplit("_decay", 1)[0]
+                lr = group_schedules[tag]
+            else:
+                tag = lr_mul if label.startswith("top_") else 1.0
+                lr = (lambda mul: lambda count: self.schedule(count) * mul)(tag)
+            if (tag, wd) not in self.groups:
+                self.group_lrs.append(lr)
+            self.groups.setdefault((tag, wd), []).append(i)
         # what the next update reads, filled by prepare(): Adam's bias
         # corrections c1 and c2, then -lr * mul for each group
         device = self.params[0].device if self.params else torch.device("cpu")
@@ -153,19 +178,37 @@ class GroupedAdamW:
             self.nu = [moment(p, lb) for p, lb in zip(self.targets, self.labels)]
             self.acc = [torch.zeros_like(p) for p in self.targets] if self.k > 1 else []
 
+    def _block(self, t: torch.Tensor, i: int) -> torch.Tensor:
+        """This rank's block of a full-shaped tensor of leaf ``i`` (a view;
+        ``t`` itself when the leaf is not sharded)."""
+        if i not in self.shards:
+            return t
+        dim, n, rank = self.shards[i]
+        return _blocks(t, dim, n)[rank]
+
+    def _target(self, i: int) -> torch.Tensor:
+        """What the update of leaf ``i`` writes: its master (a block under
+        ZeRO-2), else the parameter or this rank's block of it."""
+        if i in self.masters:
+            return self.targets[i]
+        return self._block(self.params[i], i)
+
     @torch.no_grad()
     def sync_masters(self) -> None:
         """Set each master to its stored parameter (after weights were loaded
         into the stored copies)."""
         for i in self.masters:
-            self.targets[i].copy_(self.params[i])
+            self.targets[i].copy_(self._block(self.params[i], i))
 
     @torch.no_grad()
     def _store(self) -> None:
-        """Land every trained parameter that has a master on ``bf16(master)``."""
+        """Land every trained parameter that has a master on ``bf16(master)``,
+        then rebuild the sharded parameters from every rank's block."""
         idx = [i for i in self.masters if self.labels[i] != "frozen"]
         if idx:
-            torch._foreach_copy_([self.params[i] for i in idx], [self.targets[i] for i in idx])
+            torch._foreach_copy_([self._block(self.params[i], i) for i in idx], [self.targets[i] for i in idx])
+        if self.shards:
+            all_gather_shards_([(self.params[i], self.shards[i][0]) for i in self.shards], self.mesh)
 
     @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor], grad_norm: Optional[torch.Tensor] = None) -> None:
@@ -192,11 +235,10 @@ class GroupedAdamW:
         if not self._updates_now():
             return
         count = self.count + 1
-        lr = self.schedule(self.count)
         # bias corrections in fp32, as JAX computes them
         c1 = float(1 - np.float32(self.b1) ** np.float32(count))
         c2 = float(1 - np.float32(self.b2) ** np.float32(count))
-        values = torch.tensor([c1, c2] + [-lr * mul for mul, _ in self.groups], dtype=torch.float32)
+        values = torch.tensor([c1, c2] + [-float(lr(self.count)) for lr in self.group_lrs], dtype=torch.float32)
         cuda = self.scalars.is_cuda
         self.scalars.copy_(values.pin_memory() if cuda else values, non_blocking=cuda)
 
@@ -249,8 +291,8 @@ class GroupedAdamW:
             torch._foreach_mul_(grads, torch.where(keep, one, torch.full_like(gnorm, self.max_grad_norm)))
         c1, c2 = self.scalars[0], self.scalars[1]
         for group, ((_, wd), idx) in enumerate(self.groups.items()):
-            p = [self.targets[i] for i in idx]
-            g = [grads[i] for i in idx]
+            p = [self._target(i) for i in idx]
+            g = [self._block(grads[i], i) for i in idx]
             if self.moment_dtype is not None:  # stored reduced, accumulated in fp32
                 g = [t.float() for t in g]
                 m = [self.mu[i].float() for i in idx]
@@ -278,23 +320,32 @@ class GroupedAdamW:
             torch._foreach_add_(p, u)
         self._store()
 
+    def _full(self, t: torch.Tensor, i: int) -> torch.Tensor:
+        """The full tensor of leaf ``i``'s state ``t`` (gathered under ZeRO-2)."""
+        if i not in self.shards:
+            return t
+        return gather_shards(t, self.shards[i][0], self.mesh)
+
     def state_dict(self) -> dict:
         """Counters, moments, accumulators and, with ``master_weights``, the
         fp32 masters by parameter name (JAX's ``MasterWeightsState.master``;
-        the leaves that are their own master have none)."""
+        the leaves that are their own master have none). Under ZeRO-2 the
+        sharded state is gathered, so every rank calls this (a collective)
+        and gets the full state."""
         state = {
             "count": self.count,
             "mini_step": self.mini_step,
-            "mu": dict(zip(self.names, self.mu)),
-            "nu": dict(zip(self.names, self.nu)),
+            "mu": {n: self._full(t, i) for i, (n, t) in enumerate(zip(self.names, self.mu))},
+            "nu": {n: self._full(t, i) for i, (n, t) in enumerate(zip(self.names, self.nu))},
             "acc": dict(zip(self.names, self.acc)),
         }
         if self.masters:
-            state["master"] = {self.names[i]: self.targets[i] for i in self.masters}
+            state["master"] = {self.names[i]: self._full(self.targets[i], i) for i in self.masters}
         return state
 
     def load_state_dict(self, state: Mapping) -> None:
-        """Restore :meth:`state_dict`'s output; with masters, the stored
+        """Restore :meth:`state_dict`'s output (full tensors; under ZeRO-2
+        this rank keeps its block of each); with masters, the stored
         parameters are set to ``bf16(master)``, so a run resumes from its
         masters."""
         if bool(self.masters) != ("master" in state):
@@ -303,22 +354,26 @@ class GroupedAdamW:
         self.count = int(state["count"])
         self.mini_step = int(state["mini_step"])
         with torch.no_grad():
-            masters = [self.targets[i] for i in self.masters]
-            master_names = [self.names[i] for i in self.masters]
-            for key, tensors, names in (("mu", self.mu, self.names), ("nu", self.nu, self.names),
-                                        ("acc", self.acc, self.names), ("master", masters, master_names)):
-                if key == "master" and not masters:
+            everyone = range(len(self.names))
+            for key, tensors, index in (("mu", self.mu, everyone), ("nu", self.nu, everyone),
+                                        ("acc", self.acc, everyone if self.acc else []),
+                                        ("master", [self.targets[i] for i in self.masters], self.masters)):
+                if key == "master" and not self.masters:
                     continue
                 saved = state[key]
-                if set(saved) != (set(names) if tensors else set()):
+                names = [self.names[i] for i in index]
+                if set(saved) != set(names):
                     raise KeyError(f"optimizer state {key!r} does not match the parameters")
-                for name, t in zip(names, tensors):
-                    if tuple(saved[name].shape) != tuple(t.shape):
-                        raise ValueError(f"optimizer state {key}[{name}]: shape "
-                                         f"{tuple(saved[name].shape)} != {tuple(t.shape)}")
-                    t.copy_(saved[name])
+                for i, name, t in zip(index, names, tensors):
+                    full = saved[name]
+                    want = tuple(self.params[i].shape) if (i in self.shards and key != "acc") else tuple(t.shape)
+                    if tuple(full.shape) != want:
+                        raise ValueError(f"optimizer state {key}[{name}]: shape {tuple(full.shape)} != {want}")
+                    t.copy_(self._block(full.to(t.device), i) if key != "acc" else full)
             for i in self.masters:
-                self.params[i].copy_(self.targets[i])
+                self._block(self.params[i], i).copy_(self.targets[i])
+            if self.shards:
+                all_gather_shards_([(self.params[i], self.shards[i][0]) for i in self.shards], self.mesh)
 
 
 def moment_dtype_from_cfg(cfg: Mapping) -> Optional[torch.dtype]:
@@ -367,12 +422,77 @@ def master_weights(optimizer: GroupedAdamW, master_dtype: torch.dtype = torch.fl
     ``master_dtype`` are their own master."""
     if optimizer.count or optimizer.mini_step:
         raise ValueError("master weights are attached before the first step")
+    if optimizer.shards:
+        raise ValueError("master weights are attached before zero2_shard, which shards them")
     with torch.no_grad():
         for i, p in enumerate(optimizer.params):
             if p.is_floating_point() and p.dtype != master_dtype:
                 optimizer.targets[i] = p.detach().to(master_dtype)
                 optimizer.masters.append(i)
         optimizer._init_state()  # the moments in the masters' dtype
+    return optimizer
+
+
+def build_multi_schedule_optimizer(
+    named_params: Mapping[str, torch.Tensor],
+    groups: Mapping[str, tuple[Sequence[str], Callable[[int], float]]],
+    default_schedule: Callable[[int], float],
+    weight_decay: float = 0.01,
+    betas: tuple[float, float] = (0.9, 0.98),
+    eps: float = 1e-6,
+    max_grad_norm: Optional[float] = 1.0,
+    no_decay_patterns: Sequence[str] = NO_DECAY_DEFAULT,
+    paths: Optional[Mapping[str, str]] = None,
+) -> tuple[GroupedAdamW, dict[str, str]]:
+    """AdamW with independent LR schedules per named param group.
+
+    The HD-VILA pattern of three schedules over transformer/cnn/align groups
+    (ref ``hd-vila/src/pretrain/run_pretrain_stage1_group.py:402-437``):
+    ``groups`` maps a group name to (path substrings, schedule); params not
+    matching any group use ``default_schedule``. Each group still splits
+    decay/no-decay. Labels are ``<group>_decay`` / ``<group>_no_decay``,
+    matched on the flax ``paths`` as :func:`param_group_labels`."""
+    labels = {}
+    for name, p in named_params.items():
+        path_s = (paths[name] if paths is not None else name.replace(".", "/")).lower()
+        group = next((g for g, (patterns, _) in groups.items() if any(pat.lower() in path_s for pat in patterns)),
+                     "default")
+        labels[name] = group + ("_no_decay" if _is_no_decay(path_s, p.dim(), no_decay_patterns) else "_decay")
+    schedules = {**{g: sched for g, (_, sched) in groups.items()}, "default": default_schedule}
+    opt = GroupedAdamW(named_params, labels, default_schedule, weight_decay, betas, eps, 1.0, max_grad_norm,
+                       group_schedules=schedules)
+    return opt, labels
+
+
+@torch.no_grad()
+def zero2_shard(optimizer: GroupedAdamW, mesh: Optional[DataMesh] = None, min_size: int = 16384) -> GroupedAdamW:
+    """ZeRO-2 over the data-parallel group (``mesh``, default the current
+    one; without a group nothing is sharded): every trained leaf of at least
+    ``min_size`` elements keeps only this rank's block of its moments and
+    master, along its first dimension the world size divides; smaller or
+    indivisible leaves stay whole on every rank. Call it after
+    :func:`master_weights` and before the first step."""
+    mesh = mesh or current_mesh()
+    if mesh is None:
+        return optimizer
+    if optimizer.count or optimizer.mini_step:
+        raise ValueError("zero2_shard runs before the first step")
+    optimizer.mesh = mesh
+    n, rank = mesh.world_size, mesh.rank
+    for i, (p, label) in enumerate(zip(optimizer.params, optimizer.labels)):
+        if label == "frozen" or p.numel() < min_size:
+            continue
+        # JAX's zero2_state_shardings rule: the first dimension the ranks divide
+        dim = next((d for d, extent in enumerate(p.shape) if extent % n == 0 and extent >= n), None)
+        if dim is None:
+            continue
+        optimizer.shards[i] = (dim, n, rank)
+        if i in optimizer.masters:
+            optimizer.targets[i] = optimizer._block(optimizer.targets[i], i).clone()
+        dt = optimizer.moment_dtype or optimizer.targets[i].dtype
+        shape = optimizer._block(p, i).shape
+        optimizer.mu[i] = torch.zeros(shape, dtype=dt, device=p.device)
+        optimizer.nu[i] = torch.zeros(shape, dtype=dt, device=p.device)
     return optimizer
 
 

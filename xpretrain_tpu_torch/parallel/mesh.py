@@ -1,0 +1,326 @@
+"""The data-parallel process group and its collectives
+(``xpretrain_tpu/parallel/mesh.py``).
+
+JAX runs one SPMD program over a device mesh; here each rank is a process
+that drives one device, joined by a ``torch.distributed`` group: NCCL for
+CUDA devices, gloo for the CPU (the CPU tests). :class:`DataMesh` stands for
+the 1-D ``data`` mesh: its rank, its world size and its device. The reference
+bootstraps the same way (Horovod ``hvd.init()`` at
+``CLIP-ViP/src/pretrain/run_pretrain.py:470``, ``deepspeed.init_distributed()``
+at ``LF-VILA/src/run_pretrain.py:120``).
+
+The losses see the global batch as JAX's do: :func:`gather_rows` all-gathers
+features with a backward that sums the gradient over ranks (LF-VILA's
+``SyncFunction``, ``LF-VILA/src/utils/dist.py:21-41``). Every rank then
+computes the same global loss, so each rank's gradient is N times its share,
+and the train step *averages* the parameter gradients over ranks
+(:func:`all_reduce_mean_`). A loss that stays on a rank's own rows follows
+the same convention when its value is a per-rank term whose mean over ranks
+is the global loss (a mean over equal per-rank batches is one; a mean over a
+data-dependent count takes the global count, ``ops/losses.py``).
+
+Every collective here runs on the group's device: a CUDA tensor never goes
+through a gloo group (it raises). Without a group (no ``WORLD_SIZE`` in the
+environment) every helper is the identity and nothing is communicated.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import datetime
+import os
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+DATA_AXIS = "data"
+MODEL_AXIS = "model"
+
+# torch 2.13 renamed the tensor forms; the card's torch has only the old names
+_all_gather_single = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+_reduce_scatter_single = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class DataMesh:
+    """The data-parallel group of this process: ``rank`` of ``world_size``,
+    driving ``device`` (``cuda:LOCAL_RANK`` under NCCL, ``cpu`` under gloo)."""
+
+    rank: int
+    world_size: int
+    device: torch.device
+    backend: str
+
+
+_MESH: Optional[DataMesh] = None
+
+
+def maybe_init_distributed(device: str | torch.device = "cuda", init_method: Optional[str] = None,
+                           timeout: Optional[datetime.timedelta] = None) -> Optional[DataMesh]:
+    """Join the data-parallel group that the environment describes, once.
+
+    The decision is made from the environment only, as JAX's: torchrun's
+    ``RANK``, ``WORLD_SIZE`` and ``LOCAL_RANK``, with ``MASTER_ADDR`` /
+    ``MASTER_PORT`` for the rendezvous, or the ``init_method`` the caller
+    passes (``file://...`` in the CPU tests). Without ``WORLD_SIZE`` and
+    without ``init_method`` this is one process with no group: returns None.
+    ``WORLD_SIZE=1`` makes a group of one, whose collectives run (and are
+    exact). The backend is NCCL for a CUDA ``device``, whose index becomes
+    ``LOCAL_RANK``, and gloo for the CPU. A second call returns the group of
+    the first. An init that fails raises: the process never falls back to
+    running alone."""
+    global _MESH
+    if _MESH is not None:
+        return _MESH
+    env = os.environ
+    if init_method is None and "WORLD_SIZE" not in env:
+        return None
+    world = int(env.get("WORLD_SIZE", "1"))
+    rank = int(env.get("RANK", "0"))
+    local_rank = int(env.get("LOCAL_RANK", str(rank)))
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"WORLD_SIZE={world} with a CUDA device, but torch sees no CUDA device")
+        dev = torch.device("cuda", local_rank)
+        torch.cuda.set_device(dev)
+        backend = "nccl"
+    elif dev.type == "cpu":
+        backend = "gloo"
+    else:
+        raise ValueError(f"data parallelism runs on cuda or cpu devices, not {dev}")
+    try:
+        if not dist.is_initialized():
+            kwargs = {} if timeout is None else {"timeout": timeout}
+            if backend == "nccl":
+                kwargs["device_id"] = dev  # the communicator forms now, before any graph capture
+            dist.init_process_group(backend, init_method=init_method or "env://", world_size=world, rank=rank,
+                                    **kwargs)
+        if dist.get_backend() != backend or dist.get_world_size() != world:
+            raise RuntimeError(f"a {dist.get_backend()} group of {dist.get_world_size()} ranks is already "
+                               f"initialized; this process asked for {backend} at WORLD_SIZE={world}")
+    except Exception as e:
+        raise RuntimeError(f"rank {rank} of WORLD_SIZE={world}: the {backend} process group did not form "
+                           f"({type(e).__name__}: {e}); not running as one process") from e
+    _MESH = DataMesh(rank=dist.get_rank(), world_size=world, device=dev, backend=backend)
+    return _MESH
+
+
+def current_mesh() -> Optional[DataMesh]:
+    """The group :func:`maybe_init_distributed` joined, or None."""
+    return _MESH
+
+
+def destroy_distributed() -> None:
+    """Leave the group (a no-op without one)."""
+    global _MESH
+    if _MESH is not None:
+        dist.destroy_process_group()
+        _MESH = None
+
+
+def process_index_count() -> tuple[int, int]:
+    """(rank, world size) for the loaders' ``process_index`` /
+    ``process_count``: (0, 1) without a group."""
+    return (0, 1) if _MESH is None else (_MESH.rank, _MESH.world_size)
+
+
+def is_main_process() -> bool:
+    """Rank 0 (or no group): the process that writes logs, checkpoints and
+    reports."""
+    return _MESH is None or _MESH.rank == 0
+
+
+def mesh_from_config(cfg) -> Optional[DataMesh]:
+    """The data mesh of a run (JAX: a 1-D data mesh, or a 2-D (data, model)
+    mesh for ``tp`` / ``cp`` > 1). The model axis is not ported: ``--tp`` and
+    ``--cp`` > 1 raise."""
+    for key, item in (("tp", "DTensor tensor parallelism"), ("cp", "ring attention with Swin3D --cp")):
+        if int(cfg.get(key, 1) or 1) > 1:
+            raise NotImplementedError(f"--{key} > 1 (a model mesh axis) is not ported yet: ROADMAP Queue 1, {item}")
+    return _MESH
+
+
+def local_batch_size(global_batch: int, mesh: Optional[DataMesh] = None) -> int:
+    """This rank's rows of a global batch."""
+    n = 1 if mesh is None else mesh.world_size
+    if global_batch % n:
+        raise ValueError(f"global batch {global_batch} not divisible by {DATA_AXIS}={n}")
+    return global_batch // n
+
+
+def shard_host_batch(batch: dict, mesh: Optional[DataMesh] = None, leading_stack: bool = False) -> dict:
+    """This rank's contiguous block of a global host (numpy) batch, as
+    tensors on its device (a per-process loader's batch is the rank's own
+    already: ``parallel/train_step.py:batch_to_device`` places it).
+    ``leading_stack``: the leaves carry a leading steps-per-call axis ([K, B,
+    ...]) and the batch axis is the second. Leaves of fewer dims, and what
+    is not an array, stay as they are."""
+    n, rank = (1, 0) if mesh is None else (mesh.world_size, mesh.rank)
+    target = torch.device("cpu") if mesh is None else mesh.device
+    axis = 1 if leading_stack else 0
+
+    def put(x):
+        if not isinstance(x, np.ndarray) or x.ndim <= axis:
+            return x
+        b = x.shape[axis] // n
+        x = np.take(x, np.arange(rank * b, (rank + 1) * b), axis=axis) if n > 1 else x
+        return torch.from_numpy(np.ascontiguousarray(x)).to(target)
+
+    return {k: put(v) for k, v in batch.items()}
+
+
+def _check(t: torch.Tensor, mesh: DataMesh) -> None:
+    if t.device.type != mesh.device.type:
+        raise RuntimeError(f"a {t.device.type} tensor cannot go through the {mesh.backend} group of "
+                           f"{mesh.device}")
+
+
+def _gather(x: torch.Tensor, mesh: DataMesh) -> torch.Tensor:
+    _check(x, mesh)
+    x = x.contiguous()
+    out = torch.empty((mesh.world_size * x.shape[0], *x.shape[1:]), dtype=x.dtype, device=x.device)
+    _all_gather_single(out, x)
+    return out
+
+
+class _GatherRows(torch.autograd.Function):
+    """All-gather along dim 0; the backward reduce-scatters (sums over ranks)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, mesh: DataMesh) -> torch.Tensor:
+        ctx.mesh = mesh
+        return _gather(x, mesh)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        mesh = ctx.mesh
+        grad = grad.contiguous()
+        out = torch.empty((grad.shape[0] // mesh.world_size, *grad.shape[1:]), dtype=grad.dtype,
+                          device=grad.device)
+        _reduce_scatter_single(out, grad, op=dist.ReduceOp.SUM)
+        return out, None
+
+
+def gather_rows(x: torch.Tensor, mesh: Optional[DataMesh] = None) -> torch.Tensor:
+    """The global batch of ``x``: every rank's rows along dim 0, in rank
+    order. Carries gradients (summed over ranks in the backward) when ``x``
+    needs them. The identity without a group."""
+    mesh = mesh or _MESH
+    if mesh is None:
+        return x
+    if x.requires_grad and torch.is_grad_enabled():
+        return _GatherRows.apply(x, mesh)
+    return _gather(x, mesh)
+
+
+def all_reduce_sum(x: torch.Tensor, mesh: Optional[DataMesh] = None) -> torch.Tensor:
+    """The sum of ``x`` over ranks, as a new tensor without gradient (counts
+    and metrics). The identity without a group."""
+    mesh = mesh or _MESH
+    if mesh is None:
+        return x
+    _check(x, mesh)
+    out = x.detach().clone()
+    dist.all_reduce(out, op=dist.ReduceOp.SUM)
+    return out
+
+
+def world_size(mesh: Optional[DataMesh] = None) -> int:
+    mesh = mesh or _MESH
+    return 1 if mesh is None else mesh.world_size
+
+
+def rank_slice(global_rows: torch.Tensor, mesh: Optional[DataMesh] = None) -> torch.Tensor:
+    """This rank's block of rows of a global-batch tensor."""
+    mesh = mesh or _MESH
+    if mesh is None:
+        return global_rows
+    b = global_rows.shape[0] // mesh.world_size
+    return global_rows[mesh.rank * b:(mesh.rank + 1) * b]
+
+
+@torch.no_grad()
+def all_reduce_mean_(tensors: Sequence[torch.Tensor], mesh: Optional[DataMesh] = None) -> None:
+    """Average ``tensors`` over ranks in place, one collective per dtype over
+    a flat copy (the gradient all-reduce of the train step). NCCL averages
+    with ``AVG`` (at one rank it still launches its reduce kernel, exactly x
+    * 1); gloo has no ``AVG`` and sums, then divides. A no-op without a
+    group."""
+    mesh = mesh or _MESH
+    if mesh is None or not tensors:
+        return
+    by_dtype: dict[torch.dtype, list[torch.Tensor]] = {}
+    for t in tensors:
+        by_dtype.setdefault(t.dtype, []).append(t)
+    for group in by_dtype.values():
+        for t in group:
+            _check(t, mesh)
+        flat = torch.cat([t.reshape(-1) for t in group])
+        if mesh.backend == "nccl":
+            dist.all_reduce(flat, op=dist.ReduceOp.AVG)
+        else:
+            dist.all_reduce(flat, op=dist.ReduceOp.SUM)
+            flat.div_(mesh.world_size)
+        for t, chunk in zip(group, flat.split([t.numel() for t in group])):
+            t.copy_(chunk.view_as(t))
+
+
+@torch.no_grad()
+def all_gather_shards_(pieces: Sequence[tuple[torch.Tensor, int]], mesh: Optional[DataMesh] = None) -> None:
+    """Rebuild sharded tensors in place: each ``(full, dim)`` holds this rank's
+    block of ``full`` along ``dim`` (block r of ``world_size`` equal blocks);
+    one all-gather per dtype fills every rank's block (ZeRO-2's parameter
+    all-gather after the sharded update)."""
+    mesh = mesh or _MESH
+    if mesh is None or not pieces:
+        return
+    n, rank = mesh.world_size, mesh.rank
+    by_dtype: dict[torch.dtype, list[tuple[torch.Tensor, int]]] = {}
+    for full, dim in pieces:
+        by_dtype.setdefault(full.dtype, []).append((full, dim))
+    for group in by_dtype.values():
+        blocks = [_blocks(full, dim, n) for full, dim in group]
+        local = torch.cat([b[rank].reshape(-1) for b in blocks])
+        _check(local, mesh)
+        out = torch.empty((n, local.numel()), dtype=local.dtype, device=local.device)
+        _all_gather_single(out.view(-1), local)
+        offset = 0
+        for b in blocks:
+            size = b[rank].numel()
+            b.copy_(out[:, offset:offset + size].reshape(b.shape))
+            offset += size
+
+
+def _blocks(full: torch.Tensor, dim: int, n: int) -> torch.Tensor:
+    """``full`` viewed as [n, ...] blocks along ``dim`` (a view)."""
+    return full.unflatten(dim, (n, full.shape[dim] // n)).movedim(dim, 0)
+
+
+def gather_shards(shard: torch.Tensor, dim: int, mesh: Optional[DataMesh] = None) -> torch.Tensor:
+    """The full tensor of equal per-rank blocks ``shard`` along ``dim``, as a
+    new tensor on every rank (the optimizer's ``state_dict``)."""
+    mesh = mesh or _MESH
+    if mesh is None:
+        return shard
+    out = _gather(shard.movedim(dim, 0), mesh)  # [n * block, ...] along dim 0
+    return out.movedim(0, dim).contiguous()
+
+
+def host_rows(x, mesh: Optional[DataMesh] = None) -> np.ndarray:
+    """A host array of this rank's rows -> every rank's rows in rank order
+    (the eval gather of features, predictions and ids; JAX's ``_host_rows``
+    for metadata). Numeric arrays go through the group's device; others
+    (strings) through ``all_gather_object``."""
+    mesh = mesh or _MESH
+    x = np.asarray(x)
+    if mesh is None:
+        return x
+    if x.dtype.kind in "biuf":
+        t = torch.from_numpy(np.ascontiguousarray(x)).to(mesh.device)
+        return _gather(t, mesh).cpu().numpy()
+    rows: list = [None] * mesh.world_size
+    dist.all_gather_object(rows, x)
+    return np.concatenate(rows)

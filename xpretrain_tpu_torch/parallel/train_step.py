@@ -1,12 +1,18 @@
-"""Single-device train and eval steps (``xpretrain_tpu/parallel/train_step.py``).
+"""Data-parallel train and eval steps (``xpretrain_tpu/parallel/train_step.py``).
 
-The JAX step is one jitted SPMD program over a mesh; here one card runs it
-eagerly, so the global contrastive batch is the local batch. The train step
-updates the model's parameters and the optimizer's state in place (JAX
-returns new arrays; in place saves a copy of every parameter and moment).
-The mesh layouts (tensor parallel, FSDP) are not ported; ``zero2`` shards the
-optimizer state over the data axis, which on one device holds everything, so
-it is accepted and changes nothing.
+The JAX step is one jitted SPMD program over a mesh; here each rank of the
+data-parallel group (``parallel/mesh.py``) runs it eagerly on its own
+device and batch. The losses see the global batch through autograd-carrying
+gathers (``ops/losses.py``); after the backward the step averages the
+gradients over ranks with explicit collectives (not DDP hooks, so the same
+code runs eagerly, inside a captured CUDA graph and under gloo), takes the
+global grad norm on the averaged gradients, and averages the metrics, so
+``loss`` and ``grad_norm`` are the global ones on every rank. Without a
+group the step is one device's, with no collective. The train step updates
+the model's parameters and the optimizer's state in place (JAX returns new
+arrays; in place saves a copy of every parameter and moment); under ZeRO-2
+the optimizer updates its shard and all-gathers the parameters
+(``optim/optimizer.py:zero2_shard``).
 
 ``steps_per_call = K > 1`` (JAX's ``_scan_steps``: K steps chained in one
 ``lax.scan`` dispatch) takes batches stacked on a leading axis and returns
@@ -14,9 +20,11 @@ the metrics with a leading axis. On the CPU it is a loop of eager steps. On
 a card it is a CUDA graph of one step (:class:`GraphedStep`), replayed once
 per batch after that batch is copied into the graph's input buffers: the
 first call of each micro-step index (accumulation takes one graph each) runs
-eagerly on a side stream as the warm-up, the second captures. Step ``s`` of
-a chunk seeds its generator with ``seed + s`` in every path, so a run at
-K = 4 equals a run at K = 1, bit for bit.
+eagerly on a side stream as the warm-up (which also runs the group's first
+collectives, so NCCL's communicator exists before the capture), the second
+captures. Step ``s`` of a chunk seeds its generator with ``seed + s`` (and
+the rank, ``utils/prng.py:rank_seed``) in every path, so a run at K = 4
+equals a run at K = 1, bit for bit.
 """
 
 from __future__ import annotations
@@ -30,7 +38,8 @@ from torch import nn
 
 from xpretrain_tpu_torch.ops import _kernels
 from xpretrain_tpu_torch.optim.optimizer import LOGIT_SCALE_MAX, GroupedAdamW, clamp_logit_scale, global_norm
-from xpretrain_tpu_torch.utils.logging import LOGGER
+from xpretrain_tpu_torch.parallel.mesh import all_reduce_mean_, current_mesh
+from xpretrain_tpu_torch.utils.prng import rank_seed
 
 
 @dataclasses.dataclass
@@ -84,7 +93,6 @@ def make_train_step(
     loss_fn: Callable,
     device: torch.device | str,
     steps_per_call: int = 1,
-    zero2: bool = False,
 ) -> Callable[[TrainState, dict, int], tuple[TrainState, dict]]:
     """Build ``step(state, batch, seed) -> (state, metrics)``.
 
@@ -95,9 +103,8 @@ def make_train_step(
     update, clamp. The metrics (``loss``, ``grad_norm`` of the raw
     gradients, ``logit_scale`` of the forward) stay device tensors, so the
     step does not wait for the card. With ``steps_per_call > 1`` the batch
-    is stacked on a leading axis (see the module's docstring)."""
-    if zero2:
-        LOGGER.info("zero2: one device holds the whole optimizer state; nothing to shard")
+    is stacked on a leading axis (see the module's docstring). In a group
+    the gradients and ``loss`` are averaged over ranks."""
 
     def run(state: TrainState, batch: dict, generator: torch.Generator) -> dict:
         model = state.model
@@ -110,13 +117,10 @@ def make_train_step(
         outputs = apply_fn(model, batch, generator)
         loss = contrastive_loss_from_outputs(outputs, loss_fn)
         loss.backward()
-        grads = state.optimizer.upcast([p.grad if p.grad is not None else torch.zeros_like(p)
-                                        for p in named.values()])
-        metrics = {
-            "loss": loss.detach(),
-            "grad_norm": global_norm(grads),
-            "logit_scale": outputs["logit_scale"].detach().clone(),
-        }
+        grads = _global_grads(state.optimizer, named.values())
+        metrics = _global_metrics({"loss": loss.detach()})
+        metrics["grad_norm"] = global_norm(grads)
+        metrics["logit_scale"] = outputs["logit_scale"].detach().clone()
         # the metric's norm is the one clipping needs: one pass, not two
         state.optimizer.apply(grads, metrics["grad_norm"])
         for p in named.values():
@@ -139,7 +143,9 @@ def make_model_train_step(
 
     ``apply_fn(model, batch, generator)`` returns a dict holding ``loss_key``;
     the ``metric_keys`` it also holds are copied (detached) into the metrics,
-    beside ``loss`` (fp32) and ``grad_norm`` of the raw gradients. In order:
+    beside ``loss`` (fp32) and ``grad_norm`` of the raw gradients; in a group
+    each is averaged over ranks (the model's losses and metrics are per-rank
+    terms whose mean is the global value, ``parallel/mesh.py``). In order:
     forward, backward, update. ``steps_per_call`` as :func:`make_train_step`."""
 
     def run(state: TrainState, batch: dict, generator: torch.Generator) -> dict:
@@ -151,17 +157,34 @@ def make_model_train_step(
         outputs = apply_fn(model, batch, generator)
         loss = outputs[loss_key].float()
         loss.backward()
-        grads = state.optimizer.upcast([p.grad if p.grad is not None else torch.zeros_like(p) for p in params])
-        metrics = {"loss": loss.detach(), "grad_norm": global_norm(grads)}
+        grads = _global_grads(state.optimizer, params)
+        metrics = {"loss": loss.detach()}
         for key in metric_keys:
             if key in outputs:
                 metrics[key] = outputs[key].detach()
+        metrics = _global_metrics(metrics)
+        metrics["grad_norm"] = global_norm(grads)
         state.optimizer.apply(grads, metrics["grad_norm"])
         for p in params:
             p.grad = None
         return metrics
 
     return _stepper(run, device, steps_per_call)
+
+
+def _global_grads(optimizer: GroupedAdamW, params) -> list[torch.Tensor]:
+    """Every parameter's gradient (zeros where none), in the update's dtype,
+    averaged over the group's ranks."""
+    grads = optimizer.upcast([p.grad if p.grad is not None else torch.zeros_like(p) for p in params])
+    all_reduce_mean_(grads)
+    return grads
+
+
+def _global_metrics(metrics: dict) -> dict:
+    """The metrics averaged over the group's ranks (in place: they are
+    fresh detached tensors)."""
+    all_reduce_mean_(list(metrics.values()))
+    return metrics
 
 
 def _stepper(run: Callable[[TrainState, dict, torch.Generator], dict], device: torch.device | str,
@@ -175,7 +198,7 @@ def _stepper(run: Callable[[TrainState, dict, torch.Generator], dict], device: t
 
     def eager(state: TrainState, batch: dict, seed: int) -> dict:
         state.optimizer.prepare()
-        metrics = run(state, batch, torch.Generator(device=device).manual_seed(int(seed)))
+        metrics = run(state, batch, torch.Generator(device=device).manual_seed(_seed(seed)))
         state.optimizer.advance()
         state.step += 1
         return metrics
@@ -197,6 +220,12 @@ def _stepper(run: Callable[[TrainState, dict, torch.Generator], dict], device: t
 
     multi.graphed = one if isinstance(one, GraphedStep) else None
     return multi
+
+
+def _seed(seed: int) -> int:
+    """The generator seed of this rank for the step seeded ``seed``."""
+    mesh = current_mesh()
+    return rank_seed(seed, 0 if mesh is None else mesh.rank)
 
 
 def _schema(batch: dict) -> tuple:
@@ -264,7 +293,7 @@ class GraphedStep:
         for t in batch.values():
             t.record_stream(side)
         with torch.cuda.stream(side):
-            metrics = self.run(state, batch, torch.Generator(device=self.device).manual_seed(int(seed)))
+            metrics = self.run(state, batch, torch.Generator(device=self.device).manual_seed(_seed(seed)))
         main.wait_stream(side)
         for t in metrics.values():
             t.record_stream(main)
@@ -293,7 +322,7 @@ class GraphedStep:
     def _replay(capture: _Capture, batch: dict, seed: int) -> dict:
         for key, buf in capture.inputs.items():
             buf.copy_(batch[key], non_blocking=True)
-        capture.generator.manual_seed(int(seed))
+        capture.generator.manual_seed(_seed(seed))
         capture.graph.replay()
         for fn, n in capture.launches:
             fn.launches += n

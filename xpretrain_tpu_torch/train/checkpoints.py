@@ -18,6 +18,11 @@ synchronous save's at step s. A save first waits for the previous write (a
 failure there is a warning: the newer save supersedes it); :meth:`poll`
 releases the host copy once its write has landed and :meth:`wait` drains,
 each retrying a failed write synchronously.
+
+In a data-parallel group every rank builds the state to save (the
+optimizer's ``state_dict`` gathers its shards, a collective) and rank 0
+alone writes it (``write=False`` elsewhere); every rank restores from the
+files.
 """
 
 from __future__ import annotations
@@ -40,9 +45,10 @@ class CheckpointManager:
     """Step-numbered ``torch.save`` checkpoints in one directory."""
 
     def __init__(self, directory: str, max_to_keep: int = 2, retries: int = 10,
-                 async_save: bool = False):
+                 async_save: bool = False, write: bool = True):
         self.directory = os.path.abspath(directory)
         os.makedirs(self.directory, exist_ok=True)
+        self.write = write  # False: this rank saves nothing (it is not rank 0)
         self.max_to_keep = max_to_keep
         self.retries = retries
         self.async_save = async_save
@@ -66,7 +72,9 @@ class CheckpointManager:
         """Write ``state`` as step ``step`` (replacing one of that step), then
         drop all but the newest ``max_to_keep`` steps. Synchronous by
         default; with ``async_save`` it returns once the state is
-        snapshotted (see the module's docstring)."""
+        snapshotted (see the module's docstring). A no-op off rank 0."""
+        if not self.write:
+            return
         if not self.async_save:
             self._save_with_retry(step, state)
             return
@@ -191,17 +199,22 @@ def _snapshot(state: dict) -> dict:
 class BestModelSaver:
     """Keep the best-metric parameters (ref ``BestModelSaver`` ``:65-83``)."""
 
-    def __init__(self, directory: str):
-        self.mgr = CheckpointManager(os.path.join(directory, "best"), max_to_keep=1)
+    def __init__(self, directory: str, write: bool = True):
+        self.mgr = CheckpointManager(os.path.join(directory, "best"), max_to_keep=1, write=write)
         self.best_score = -float("inf")
         self.best_step = -1
 
     def maybe_save(self, step: int, score: float, params: Any) -> bool:
+        """Save ``params`` (a state dict, or a module whose state dict is
+        copied to the host) when ``score`` beats the best so far."""
         if score <= self.best_score:
             return False
         self.best_score = score
         self.best_step = step
-        self.mgr.save(step, {"params": params, "score": float(score)})
+        if self.mgr.write:
+            if isinstance(params, torch.nn.Module):
+                params = {k: v.detach().cpu() for k, v in params.state_dict().items()}
+            self.mgr.save(step, {"params": params, "score": float(score)})
         LOGGER.info("new best score %.4f at step %d", score, step)
         return True
 

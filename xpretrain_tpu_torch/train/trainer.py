@@ -1,5 +1,5 @@
-"""The CLIP-ViP retrieval fine-tune trainer on one device
-(``xpretrain_tpu/train/trainer.py``).
+"""The CLIP-ViP retrieval fine-tune trainer (``xpretrain_tpu/train/trainer.py``),
+on one device or on each rank of a data-parallel group.
 
 Model and optimizer set-up, resume, the train step, validation with
 best-model tracking, periodic checkpoints and scalar logging, as the JAX
@@ -9,6 +9,12 @@ from a JAX ``{"params": ...}`` tree (``load_jax_params``); the runners merge a
 torch checkpoint over them before ``train()`` (``load_pretrained``), and a
 checkpoint that ``train()`` resumes from wins over both. A batch with
 ``image`` (pretraining) also runs the image/caption branch.
+
+In a group (``parallel/mesh.py``) each rank trains on its loader's share of
+the global batch; ``--zero2`` shards the optimizer state
+(``optim/optimizer.py:zero2_shard``, leaves of at least JAX's 16384
+elements); rank 0 alone writes the scalars, checkpoints (of the gathered
+state) and best models.
 """
 
 from __future__ import annotations
@@ -26,8 +32,10 @@ from xpretrain_tpu_torch.optim.optimizer import (
     master_weights,
     moment_dtype_from_cfg,
     param_dtype_from_cfg,
+    zero2_shard,
 )
 from xpretrain_tpu_torch.optim.schedules import get_schedule
+from xpretrain_tpu_torch.parallel.mesh import is_main_process, mesh_from_config, process_index_count
 from xpretrain_tpu_torch.parallel.train_step import (
     TrainState,
     batch_to_device,
@@ -65,17 +73,22 @@ def clip_vip_config_from(cfg) -> CLIPVipConfig:
     )
 
 
-def check_single_device(cfg) -> None:
-    """The mesh layouts (--tp, --cp, --zero3) are not ported: raise on them."""
-    for key in ("tp", "cp"):
-        if int(cfg.get(key, 1) or 1) > 1:
-            raise NotImplementedError(f"--{key} > 1 (a multi-device mesh) is not ported yet (ROADMAP Queue 1)")
+def check_ported_layouts(cfg) -> None:
+    """Data parallelism and ZeRO-2 are ported; the other layouts are not:
+    raise on --tp, --cp and --zero3."""
+    mesh_from_config(cfg)
     if cfg.get("zero3"):
-        raise NotImplementedError("--zero3 (FSDP) is not ported yet (ROADMAP Queue 1)")
+        raise NotImplementedError("--zero3 (FSDP) is not ported yet: ROADMAP Queue 1, FSDP2")
+
+
+def shard_optimizer(cfg, optimizer):
+    """``--zero2``: shard ``optimizer``'s state over the data-parallel group
+    (nothing without one)."""
+    return zero2_shard(optimizer) if cfg.get("zero2", False) else optimizer
 
 
 class ClipVipTrainer:
-    """End-to-end CLIP-ViP training on one device.
+    """End-to-end CLIP-ViP training.
 
     ``fused_adamw`` goes to ``build_optimizer``, which raises, as JAX does,
     on ``moment_dtype bf16`` with ``fused_adamw 0``. Otherwise it changes
@@ -95,7 +108,7 @@ class ClipVipTrainer:
         init_params: Optional[Mapping[str, Any]] = None,
         device: torch.device | str = "cuda",
     ):
-        check_single_device(cfg)
+        check_ported_layouts(cfg)
         self.cfg = cfg
         self.device = torch.device(device)
         self.train_loader = train_loader
@@ -112,11 +125,12 @@ class ClipVipTrainer:
 
         # ---- io ----
         out_dir = cfg.get("output_dir", "output")
+        main = is_main_process()
         self.ckpt = CheckpointManager(
-            f"{out_dir}/ckpt", max_to_keep=2, async_save=bool(cfg.get("async_checkpoint", False))
+            f"{out_dir}/ckpt", max_to_keep=2, async_save=bool(cfg.get("async_checkpoint", False)), write=main
         )
-        self.best = BestModelSaver(out_dir)
-        self.writer = ScalarWriter(f"{out_dir}/log", 0)
+        self.best = BestModelSaver(out_dir, write=main)
+        self.writer = ScalarWriter(f"{out_dir}/log", process_index_count()[0])
         self.meter = RunningMeter("train_loss")
 
         # ---- optimizer ----
@@ -154,6 +168,7 @@ class ClipVipTrainer:
             # masters in the optimizer (optim.master_weights)
             cast_params_for_storage(self.model, pd)
             self.optimizer = master_weights(self.optimizer)
+        self.optimizer = shard_optimizer(cfg, self.optimizer)
         self.num_train_steps = num_steps * accum
         self.steps_per_call = max(1, int(cfg.get("steps_per_call", 1)))
 
@@ -161,7 +176,6 @@ class ClipVipTrainer:
         self.train_step = make_train_step(
             self._apply_train, loss_fn, self.device,
             steps_per_call=self.steps_per_call,
-            zero2=bool(cfg.get("zero2", False)),
         )
         self.eval_step = make_eval_step(self.device)
         self.place_batch = batch_to_device(self.device)
@@ -232,8 +246,7 @@ class ClipVipTrainer:
                 return
             report = self.validate()
             score = report.get("t2v", {}).get("R1", 0.0)
-            params = {k: v.detach().cpu() for k, v in state.model.state_dict().items()}
-            self.best.maybe_save(step, score, params)
+            self.best.maybe_save(step, score, state.model)
             self.writer.log_scalar_dict(report.get("t2v", {}), prefix="val_t2v", step=step)
 
         def on_save(step, state):

@@ -121,3 +121,13 @@ class ScalarWriter:
 
     def close(self) -> None:
         self.flush()
+
+
+class NoOp:
+    """Object that swallows every method call; handed to non-zero processes."""
+
+    def __getattr__(self, _name):
+        def _noop(*args, **kwargs):
+            return None
+
+        return _noop

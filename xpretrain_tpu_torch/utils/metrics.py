@@ -1,10 +1,10 @@
-"""Retrieval metrics (numpy, host-side; the port's copy of the parts of
-``xpretrain_tpu/utils/metrics.py`` it uses).
+"""Retrieval metrics (numpy, host-side; the port's copy of
+``xpretrain_tpu/utils/metrics.py``).
 
 Capability parity with the reference's metrics modules
 (``CLIP-ViP/src/utils/metrics.py:3-69``, ``LF-VILA/src/utils/metrics.py:4-18``):
-rank-of-the-diagonal retrieval metrics (R@1/5/10/50, MedR, MeanR) and the
-dual-softmax (DSL) similarity renormalization
+rank-of-the-diagonal retrieval metrics (R@1/5/10/50, MedR, MeanR), a
+multi-positive variant, and the dual-softmax (DSL) similarity renormalization
 used at eval time. All pure numpy so results are bit-stable across backends.
 """
 
@@ -12,6 +12,11 @@ from __future__ import annotations
 
 import numpy as np
 
+
+
+def cosine_sim(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Plain dot-product similarity; inputs are expected pre-normalized."""
+    return a @ b.T
 
 
 def np_softmax(x: np.ndarray, axis: int = 0, temperature: float = 1.0) -> np.ndarray:
@@ -56,6 +61,42 @@ def compute_metrics(sim: np.ndarray) -> dict[str, float]:
     }
     return metrics
 
+
+
+def retrieval_report(t2v_sim: np.ndarray, with_dsl: bool = True) -> dict[str, dict[str, float]]:
+    """Both directions + optional DSL, the standard eval block."""
+    report = {
+        "t2v": compute_metrics(t2v_sim),
+        "v2t": compute_metrics(t2v_sim.T),
+    }
+    if with_dsl:
+        report["t2v_dsl"] = compute_metrics(dsl_renormalize(t2v_sim))
+        report["v2t_dsl"] = compute_metrics(dsl_renormalize(t2v_sim.T))
+    return report
+
+
+def compute_metrics_multi(sim: np.ndarray, positive_mask: np.ndarray) -> dict[str, float]:
+    """Multi-positive retrieval metrics.
+
+    ``positive_mask[i, j] = 1`` marks gallery item j as a correct match for
+    query i (e.g. MSR-VTT full-split has 20 captions per video). The rank of a
+    query is the best rank among its positives.
+    """
+    assert sim.shape == positive_mask.shape
+    order = np.argsort(-sim, axis=1)
+    pos_sorted = np.take_along_axis(positive_mask.astype(bool), order, axis=1)
+    # first True position per row
+    ranks = np.argmax(pos_sorted, axis=1).astype(np.float64)
+    has_pos = pos_sorted.any(axis=1)
+    ranks = ranks[has_pos]
+    return {
+        "R1": float(100.0 * np.mean(ranks < 1)),
+        "R5": float(100.0 * np.mean(ranks < 5)),
+        "R10": float(100.0 * np.mean(ranks < 10)),
+        "R50": float(100.0 * np.mean(ranks < 50)),
+        "MedR": float(np.median(ranks) + 1),
+        "MeanR": float(np.mean(ranks) + 1),
+    }
 
 
 def retrieval_report(t2v_sim: np.ndarray, with_dsl: bool = True) -> dict[str, dict[str, float]]:
