@@ -192,13 +192,28 @@ Phases, in order; any failure exits non-zero and prints no result:
    InfoNCE over the global batch, ZeRO-2) and the retrieval eval with the
    window kernel on, without a group and under a one-rank group: held as
    8a, the eval's report and window launches equal;
-9. print the kernel summary (each kernel's time in CUDA events and on the
+9a. under a one-rank group again, 4b's fine-tune at ``--zero3 1`` (each
+   parameter of >= 16384 elements in its one data rank's block, gathered per
+   transformer block), eagerly and at ``--steps_per_call 2``: bit for bit
+   against 4b's run, launches equal;
+9b. the B/32 bf16 step (b=32, 2 eager steps) under the tensor-parallel plan
+   ``--tp N`` applies (``apply_tensor_parallel``) over a 1 x 1 (data, model)
+   mesh, bit for bit against the step without a group, launches equal; the
+   proxy kernels at the local head counts of ``--tp 2`` and ``4`` (6 and 3)
+   with phases 3 and 3b's bars; the graphed step (K = 2) timed under the TP
+   plan and under ZeRO-3 (8b's measure);
+9c. the LF-VILA towers of 4c (b=8, one batch) built as ``--cp`` builds them,
+   over a model axis of one rank, bit for bit against the towers without it,
+   6 window launches; the window kernel at one rank's stage-3 windows under
+   ``--cp 2`` with phase 3c's bars;
+10. print the kernel summary (each kernel's time in CUDA events and on the
    device, plain time, library time and the bound of its work at the card's
    peak rates) and, as the last line, the status JSON.
 
 Each main-path run (4, 4b, 4c, 4d, 4e, 4f, each run of 4g, 4h, 4i, each
-run of 4j-4m, 4n, 4o, 4p, the artifact calls of 7a, 7b and 7d, and each run
-of 8a and 8c under the group) sets
+run of 4j-4m, 4n, 4o, 4p, the artifact calls of 7a, 7b and 7d, each run
+of 8a and 8c under the group, each run of 9a, 9b's step under the plan and
+9c's cp towers) sets
 every launch count to 0 just before it and reads the counts just after (a
 graphed step adds, at each replay, the launches its capture recorded; an
 exported program counts in the kernels' ``xpt::`` ops, which it calls); the
@@ -209,7 +224,7 @@ TimeSformer attention and BERT in XLA): its phases check that they launch
 none and that the encoder's inputs and parameters are on the card.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``
-(about 10 minutes on one H100, the kernels' build included).
+(about 13 minutes on one H100, the kernels' build included).
 """
 
 from __future__ import annotations
@@ -398,6 +413,127 @@ def window_inputs(shape: tuple, dtype, seed: int = 0):
     if mask is not None:
         check(tuple(mask.shape) == (mask.shape[0], N, N) and Bn % mask.shape[0] == 0, f"mask {mask.shape}")
     return q, k, v, bias, mask
+
+
+def check_proxy_fwd(name: str, s: dict, dtype) -> float:
+    """Phase 3's check of the proxy forward kernel at one shape and dtype
+    against its plain version (and, in bf16, the fp32 plain version), with
+    the LSE it saves; prints the line and returns the max abs error."""
+    import torch
+    from xpretrain_tpu_torch.ops import proxy_attention as pa
+
+    q, k, v = qkv(s, dtype)
+    before = pa.proxy_attention.launches
+    got = pa.proxy_attention(q, k, v, s["M"], s["N"], s["L"], s["D"] ** -0.5)
+    torch.cuda.synchronize()
+    check(pa.proxy_attention.launches == before + 1, f"{name}: launch not counted")
+    want = pa.proxy_attention_plain(q, k, v, s["M"], s["L"], s["D"] ** -0.5)
+    dt = str(dtype).split(".")[-1]
+    err = (got.float() - want.float()).abs().max().item()
+    line = f"  {name:10s} {dt:8s} {s} max_abs {err:.3e} tol {TOL[dt]:.0e}"
+    check(got.dtype == dtype and got.shape == q.shape, f"{name} {dt}: output dtype/shape")
+    check(math.isfinite(err) and err <= TOL[dt], f"{name} {dt}: max_abs {err} > {TOL[dt]}")
+    if dtype == torch.bfloat16:
+        # The bf16 plain version rounds P to bf16 before PV, so its
+        # error floor hides a kernel that accumulates in bf16; the
+        # fp32 plain version of the same inputs leaves only the
+        # kernel's output rounding, at most half an ulp.
+        exact = pa.proxy_attention_plain(q.float(), k.float(), v.float(), s["M"], s["L"],
+                                         s["D"] ** -0.5)
+        ulps = bf16_ulps(got, exact)
+        line += (f"; vs fp32 plain max_abs {(got.float() - exact).abs().max().item():.3e}, "
+                 f"{ulps:.3f} ulp (tol {BF16_MAX_ULP:.0f})")
+        check(ulps <= BF16_MAX_ULP, f"{name} bf16: {ulps} ulp from the fp32 plain version")
+    # the LSE the forward saves for the backward (when a gradient follows)
+    with_lse, lse = pa._launch_fwd(q, k, v, s["M"], s["N"], s["L"], s["D"] ** -0.5, with_lse=True)
+    lse_err = (lse - pa.proxy_attention_lse_plain(q.float(), k.float(), s["M"], s["L"],
+                                                  s["D"] ** -0.5)).abs().max().item()
+    line += f"; LSE max_abs {lse_err:.3e} (tol {LSE_TOL:.0e})"
+    check(torch.equal(with_lse, got), f"{name} {dt}: the output changes when the LSE is saved")
+    check(lse.dtype == torch.float32 and lse.shape == q.shape[:3], f"{name} {dt}: LSE dtype/shape")
+    check(math.isfinite(lse_err) and lse_err <= LSE_TOL, f"{name} {dt}: LSE max_abs {lse_err}")
+    print(line)
+    return err
+
+
+def check_proxy_bwd(name: str, s: dict, dtype) -> dict:
+    """Phase 3b's check of the proxy backward kernel at one shape and dtype,
+    alone and on the forward's LSE, against the fp32 plain gradients; prints
+    the line and returns {mode: max abs error}."""
+    import torch
+    from xpretrain_tpu_torch.ops import proxy_attention as pa
+
+    scale = s["D"] ** -0.5
+    errors = {}
+    q, k, v, d_out = qkv(s, dtype, seed=1, n=4)
+    before = pa.proxy_attention_bwd.launches
+    alone = pa.proxy_attention_bwd(q, k, v, d_out, s["M"], s["N"], s["L"], scale)
+    torch.cuda.synchronize()
+    check(pa.proxy_attention_bwd.launches == before + 1, f"{name}: backward launch not counted")
+    # as autograd calls it: on the LSE the forward saved
+    _, lse = pa._launch_fwd(q, k, v, s["M"], s["N"], s["L"], scale, with_lse=True)
+    runs = {"alone": (alone, pa.proxy_attention_bwd(q, k, v, d_out, s["M"], s["N"], s["L"], scale)),
+            "forward's LSE": tuple(pa._launch_bwd(q, k, v, d_out, s["M"], s["N"], s["L"], scale, lse=lse)
+                                   for _ in range(2))}
+    torch.cuda.synchronize()
+    # the fp32 plain gradients of the same inputs: for bf16 that
+    # leaves the kernel's one rounding at the store
+    want = pa.proxy_attention_bwd_plain(*(t.float() for t in (q, k, v, d_out)),
+                                        s["M"], s["L"], scale)
+    dt = str(dtype).split(".")[-1]
+    line = f"  {name:10s} {dt:8s}"
+    for mode, (got, again) in runs.items():
+        for g, w, gname in zip(got, want, ("dq", "dk", "dv")):
+            check(g.dtype == dtype and g.shape == q.shape, f"{name} {dt} {gname}: dtype/shape")
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"{name} {dt} {mode}: two calls differ (the backward is not deterministic)")
+        err = max((g.float() - w).abs().max().item() for g, w in zip(got, want))
+        errors[mode] = err
+        line += f" {mode}: max_abs {err:.3e}"
+        check(math.isfinite(err), f"{name} {dt} {mode}: backward not finite")
+        if dtype == torch.float32:
+            line += f" (tol {BWD_TOL_FP32:.0e})"
+            check(err <= BWD_TOL_FP32, f"{name} fp32 backward {mode}: max_abs {err} > {BWD_TOL_FP32}")
+        else:
+            ulps = max(bf16_grad_ulps(g, w) for g, w in zip(got, want))
+            line += f", {ulps:.3f} ulp of the fp32 plain gradients (tol {BWD_MAX_ULP:.0f})"
+            check(ulps <= BWD_MAX_ULP, f"{name} bf16 backward {mode}: {ulps} ulp")
+        line += ";"
+    same = all(torch.equal(a, b) for a, b in zip(*(got for got, _ in runs.values())))
+    print(f"{line} two calls bit-identical; alone bit-equal to with the forward's LSE: {same}")
+    del q, k, v, d_out, alone, runs, want
+    return errors
+
+
+def check_window(name: str, shape: tuple, dtype) -> float:
+    """Phase 3c's check of the window kernel at one shape and dtype against
+    its plain version (and, in bf16, the fp32 plain version); prints the line
+    and returns the max abs error."""
+    import torch
+    from xpretrain_tpu_torch.ops import window_attention as wa
+
+    q, k, v, bias, mask = window_inputs(shape, dtype)
+    before = wa.window_attention.launches
+    got = wa.window_attention(q, k, v, bias, mask)
+    torch.cuda.synchronize()
+    check(wa.window_attention.launches == before + 1, f"{name}: launch not counted")
+    want = wa.window_attention_plain(q, k, v, bias, mask)
+    dt = str(dtype).split(".")[-1]
+    err = (got.float() - want.float()).abs().max().item()
+    line = (f"  {name:10s} {dt:8s} [Bn,H,N,d]={list(shape[:4])} mask "
+            f"{None if mask is None else list(mask.shape)} max_abs {err:.3e} tol {TOL[dt]:.0e}")
+    check(got.dtype == dtype and got.shape == q.shape, f"{name} {dt}: output dtype/shape")
+    check(math.isfinite(err) and err <= TOL[dt], f"{name} {dt}: max_abs {err} > {TOL[dt]}")
+    if dtype == torch.bfloat16:
+        # as in phase 3: against the fp32 plain version of the same
+        # inputs only the kernel's output rounding is left
+        exact = wa.window_attention_plain(q.float(), k.float(), v.float(), bias, mask)
+        ulps = bf16_ulps(got, exact)
+        line += f"; vs fp32 plain {ulps:.3f} ulp (tol {BF16_MAX_ULP:.0f})"
+        check(ulps <= BF16_MAX_ULP, f"{name} bf16: {ulps} ulp from the fp32 plain version")
+    print(line)
+    del q, k, v, bias, mask, got, want
+    return err
 
 
 def bf16_grad_ulps(got, want):
@@ -1603,10 +1739,11 @@ def release_memory() -> None:
     torch.cuda.empty_cache()
 
 
-def b32_train_state(bf16_storage: bool, accum: int = 1, lr: float = 1e-5):
+def b32_train_state(bf16_storage: bool, accum: int = 1, lr: float = 1e-5, layout=None):
     """A B/32 bf16-compute model (seed 0) and its grouped AdamW (cosine with
     warmup, so the lr moves every update), with ``--param_dtype bf16``'s
-    storage and masters when asked."""
+    storage and masters when asked; ``layout(model)`` lays the model out
+    (returning its layouts) before the optimizer is built."""
     import torch
     from xpretrain_tpu_torch.models.clip_vip.convert import flax_param_paths
     from xpretrain_tpu_torch.models.clip_vip.model import CLIPVipConfig, CLIPViPModel
@@ -1616,8 +1753,11 @@ def b32_train_state(bf16_storage: bool, accum: int = 1, lr: float = 1e-5):
 
     model = CLIPViPModel(CLIPVipConfig.base_patch32(dtype=torch.bfloat16), device="cuda")
     model.init_weights(torch.Generator(device="cuda").manual_seed(0))
+    layouts = layout(model) if layout is not None else {}
     optimizer, _ = build_optimizer(dict(model.named_parameters()), get_schedule("cosine", lr, 16, warmup_ratio=0.25),
                                    grad_accum_steps=accum, paths=flax_param_paths(model.config))
+    if layouts:
+        optimizer.set_layouts(layouts)
     if bf16_storage:
         cast_params_for_storage(model, torch.bfloat16)
         optimizer = master_weights(optimizer)
@@ -2347,6 +2487,14 @@ def int8_phase(card: str, model, batch: dict) -> None:
 # ---------------------------------------------------------------------------
 
 DP_LFVILA = dict(batch=8, steps=3, eval_samples=16, depths=[1, 1, 2, 1, 1, 1], bert_layers=(2, 4))
+# phase 9: the proxy kernels at the B/32 train step's local shapes under --tp 2 and 4 (6 and 3 heads a rank), and
+# the window kernel at one rank's stage-3 windows under --cp 2 (16 of the 32 frames at 192x320, b=8)
+TP_PROXY_SHAPES = {f"b32_train_tp{tp}": dict(B32_TRAIN, H=B32_TRAIN["H"] // tp) for tp in (2, 4)}
+CP_WINDOW_SHAPES = {
+    "s3_shifted_cp2": (32, 16, 240, 32, ("shifted", (16, 6, 10), (16, 3, 5), (0, 1, 2))),
+    "s3_cp2": (32, 16, 240, 32, None),
+}
+LAYOUT_STEPS = 2  # phase 9b: eager B/32 steps with and without the TP plan
 DP_GRAPH_K = 2  # phase 8b: steps a call of 8a's graphed step
 
 
@@ -2616,6 +2764,161 @@ def data_parallel_lfvila_phase(card: str) -> dict:
     return {"train": grouped["train"]["launches"], "eval": launches}
 
 
+def zero3_finetune_phase(card: str, reference: dict) -> dict:
+    """Phase 9a, inside :func:`one_rank_nccl_group`: phase 4b's run of
+    ``run_retrieval_clipvip`` at ``--zero3 1`` (each parameter of >= 16384
+    elements in its one data rank's block, the whole leaf, gathered by
+    all-gathers of one rank), eagerly and at ``--steps_per_call 2``, each
+    held to 4b's run without a group and required bit-identical. Returns
+    each run's launch counts."""
+    import torch
+    from xpretrain_tpu_torch.cli import run_retrieval_clipvip
+    from xpretrain_tpu_torch.parallel import mesh
+
+    launches = {}
+    for k in (1, DP_GRAPH_K):
+        with tempfile.TemporaryDirectory() as out_dir, built_trainers(run_retrieval_clipvip,
+                                                                       "ClipVipTrainer") as rec:
+            release_memory()
+            t0 = time.perf_counter()
+            with plain_on_cuda_guard() as plain_cuda_calls:
+                reset_launches()
+                report = run_retrieval_clipvip.main(finetune_argv(out_dir) + ["--zero3", "1", "--steps_per_call",
+                                                                              str(k)])
+                torch.cuda.synchronize()
+                counts = launch_counts()
+            wall = time.perf_counter() - t0
+            group = mesh.current_mesh()
+            trainer = rec["built"][0]
+            zero3 = sum(lay.dp_dim is not None for lay in trainer.layouts.values())
+            check(group is not None and group.backend == "nccl" and zero3 > 0,
+                  f"--zero3 1 under the group sharded no parameter ({group})")
+            graphs = capture_launches(trainer.train_step) if k > 1 else []
+            tag = "eager" if k == 1 else f"--steps_per_call {k} ({len(graphs)} graph(s), launches recorded {graphs})"
+            print(f"  {tag}: group {group.backend} rank {group.rank} of {group.world_size}, {zero3} of "
+                  f"{len(trainer.optimizer.names)} parameters ZeRO-3 sharded; run wall {wall:.1f} s [{card}]")
+            check(not plain_cuda_calls, f"the plain version ran on CUDA tensors: {plain_cuda_calls[:4]}")
+            same = hold_to_ungrouped(f"9a {tag}", finished_run(out_dir, report, counts), reference, card)
+            check(same, f"9a {tag}: not bit-identical to 4b's run")
+            launches[k] = counts
+            del rec["built"][:], trainer
+    return launches
+
+
+def tp_plan_phase(card: str) -> dict:
+    """Phase 9b: ``LAYOUT_STEPS`` eager B/32 bf16 train steps at b=32 without
+    a group, then with the plan ``--tp N`` applies
+    (``parallel/tensor_parallel.py:apply_tensor_parallel``) over a 1 x 1
+    (data, model) mesh of the one-rank NCCL group: losses, grad norms and
+    every parameter bit-identical, launches equal. Then the proxy kernels at
+    the local shapes of ``--tp 2`` and ``4`` with phases 3 and 3b's bars, and
+    the graphed step's time at world size 1 under the TP plan and under
+    ZeRO-3 (8b's measure). Returns the TP run's launch counts."""
+    import torch
+    from xpretrain_tpu_torch.config import ConfigDict
+    from xpretrain_tpu_torch.parallel import fsdp, mesh
+    from xpretrain_tpu_torch.parallel.tensor_parallel import apply_tensor_parallel
+
+    batches, stacked = b32_train_batches(LAYOUT_STEPS)
+    step = b32_steps(1)[0]
+
+    def run(state):
+        reset_launches()
+        rows = [step(state, b, i)[1] for i, b in enumerate(batches)]
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        params = {n: p.detach().clone() for n, p in state.model.named_parameters()}
+        return [{k: float(v) for k, v in r.items()} for r in rows], params, counts
+
+    mesh.destroy_distributed()
+    want_rows, want_params, want_counts = run(b32_train_state(False, lr=1e-6))
+    release_memory()
+    group = mesh.maybe_init_distributed("cuda")
+    group = mesh.init_model_axis(1)
+    check(group.has_model_axis and group.model_size == 1 and group.world_size == 1, f"the 1 x 1 mesh: {group}")
+    layouts = {}
+    state = b32_train_state(False, lr=1e-6, layout=lambda m: layouts.update(apply_tensor_parallel(m, group))
+                            or layouts)
+    got_rows, got_params, got_counts = run(state)
+    tp_leaves = sum(lay.tp_dim is not None for lay in layouts.values())
+    same_rows = got_rows == want_rows
+    same_params = all(torch.equal(got_params[n], want_params[n]) for n in want_params)
+    worst = max((got_params[n].float() - want_params[n].float()).abs().max().item() for n in want_params)
+    print(f"  TP plan at mp=1: {tp_leaves} parameters column/row-sharded (one block each), "
+          f"{sum(lay.model_partial for lay in layouts.values())} model-partial; losses "
+          f"{[r['loss'] for r in got_rows]} (without a group {[r['loss'] for r in want_rows]}); metrics "
+          f"bit-identical {same_rows}, parameters bit-identical {same_params} (largest difference {worst:.3e}); "
+          f"launches {got_counts} (without {want_counts}) [{card}]")
+    check(tp_leaves > 0 and same_rows and same_params, "9b: the TP plan at mp=1 is not bit-identical to the step")
+    check(got_counts == want_counts and got_counts["proxy_attention_fwd"] > 0, "9b: launches differ")
+    del state, got_params, want_params
+    release_memory()
+    for name, s in TP_PROXY_SHAPES.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            check_proxy_fwd(name, s, dtype)
+            check_proxy_bwd(name, s, dtype)
+    # records: the graphed step's time at world size 1 under each layout (8b's measure)
+    timed = {}
+    for tag, layout in (("TP plan, mp=1", lambda m: apply_tensor_parallel(m, group)),
+                        ("ZeRO-3, dp=1", lambda m: fsdp.apply_layouts(ConfigDict(zero3=1), m))):
+        state = b32_train_state(False, lr=1e-6, layout=layout)
+        graphed = b32_steps(DP_GRAPH_K)[1]
+        graphed(state, stacked, 0)  # warm-up and capture
+        timed.update(time_steps({tag: lambda: graphed(state, stacked, 0)}, DP_GRAPH_K, card,
+                                f"B/32 bf16 train step b=32 at K={DP_GRAPH_K},"))
+        del state, graphed
+        release_memory()
+    del batches, stacked
+    return got_counts
+
+
+def cp_towers_phase(card: str, preset: dict) -> dict:
+    """Phase 9c, on 9b's 1 x 1 mesh: the LF-VILA towers of 4c (bf16, window
+    kernel on) built as ``--cp`` builds them (``context_parallel_axis``), at
+    b=8 on one batch, against the same towers without it: bit-identical
+    video and text features, ``WINDOW_BLOCKS`` window launches a video
+    call; then the window kernel at one rank's stage-3 windows under ``--cp
+    2`` with phase 3c's bars. Returns the cp call's launch counts."""
+    import torch
+    from xpretrain_tpu_torch.cli import run_tasks_lfvila
+    from xpretrain_tpu_torch.models.lf_vila.tasks import LfVilaRetrieval
+    from xpretrain_tpu_torch.parallel import mesh
+
+    group = mesh.current_mesh()
+    check(group is not None and group.has_model_axis, "9c runs on 9b's mesh")
+    models = {}
+    for tag, cfg in (("plain", preset), ("cp", {**preset, "cp": 2})):
+        model = LfVilaRetrieval(run_tasks_lfvila.lfvila_config_from(cfg), device="cuda")
+        models[tag] = model.init_weights(torch.Generator(device="cuda").manual_seed(0)).eval()
+    check(models["cp"].video_encoder.context_mesh() is group, "the cp towers do not shard time")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    b = LFVILA_BATCH
+    frames = torch.randn(b, 3, 32, 192, 320, device="cuda", generator=g)
+    ids = torch.randint(1, 30522, (b, 4, 70), device="cuda", generator=g)
+    mask = (torch.arange(70, device="cuda")[None, None] < torch.randint(5, 70, (b, 4, 1), device="cuda",
+                                                                         generator=g)).long()
+    out = {}
+    with torch.inference_mode():
+        for tag, model in models.items():
+            reset_launches()
+            out[tag] = (model.forward_video(frames), model.forward_text(ids, mask))
+            torch.cuda.synchronize()
+            out[tag] += (launch_counts(),)
+    same = all(torch.equal(a, b_) for a, b_ in zip(out["cp"][:2], out["plain"][:2]))
+    print(f"  towers at b={b}: video {tuple(out['cp'][0].shape)} and text {tuple(out['cp'][1].shape)} features "
+          f"through the cp path at model size 1 bit-identical to the towers without it: {same}; launches "
+          f"{out['cp'][2]} (without {out['plain'][2]}) [{card}]")
+    check(same, "9c: the cp towers differ from the towers without the cp path")
+    counts = out["cp"][2]
+    check(counts == out["plain"][2] == expected(window_attention_fwd=WINDOW_BLOCKS), "9c: window launches")
+    del models, frames, out
+    release_memory()
+    for name, shape in CP_WINDOW_SHAPES.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            check_window(name, shape, dtype)
+    return counts
+
+
 def main() -> None:
     try:
         import torch
@@ -2680,81 +2983,14 @@ def main() -> None:
         errors = {}
         for name, s in CHECK_SHAPES.items():
             for dtype in (torch.float32, torch.bfloat16):
-                q, k, v = qkv(s, dtype)
-                before = pa.proxy_attention.launches
-                got = pa.proxy_attention(q, k, v, s["M"], s["N"], s["L"], s["D"] ** -0.5)
-                torch.cuda.synchronize()
-                check(pa.proxy_attention.launches == before + 1, f"{name}: launch not counted")
-                want = pa.proxy_attention_plain(q, k, v, s["M"], s["L"], s["D"] ** -0.5)
-                dt = str(dtype).split(".")[-1]
-                err = (got.float() - want.float()).abs().max().item()
-                errors[(name, dt)] = err
-                line = f"  {name:10s} {dt:8s} {s} max_abs {err:.3e} tol {TOL[dt]:.0e}"
-                check(got.dtype == dtype and got.shape == q.shape, f"{name} {dt}: output dtype/shape")
-                check(math.isfinite(err) and err <= TOL[dt], f"{name} {dt}: max_abs {err} > {TOL[dt]}")
-                if dtype == torch.bfloat16:
-                    # The bf16 plain version rounds P to bf16 before PV, so its
-                    # error floor hides a kernel that accumulates in bf16; the
-                    # fp32 plain version of the same inputs leaves only the
-                    # kernel's output rounding, at most half an ulp.
-                    exact = pa.proxy_attention_plain(q.float(), k.float(), v.float(), s["M"], s["L"],
-                                                     s["D"] ** -0.5)
-                    ulps = bf16_ulps(got, exact)
-                    line += (f"; vs fp32 plain max_abs {(got.float() - exact).abs().max().item():.3e}, "
-                             f"{ulps:.3f} ulp (tol {BF16_MAX_ULP:.0f})")
-                    check(ulps <= BF16_MAX_ULP, f"{name} bf16: {ulps} ulp from the fp32 plain version")
-                # the LSE the forward saves for the backward (when a gradient follows)
-                with_lse, lse = pa._launch_fwd(q, k, v, s["M"], s["N"], s["L"], s["D"] ** -0.5, with_lse=True)
-                lse_err = (lse - pa.proxy_attention_lse_plain(q.float(), k.float(), s["M"], s["L"],
-                                                              s["D"] ** -0.5)).abs().max().item()
-                line += f"; LSE max_abs {lse_err:.3e} (tol {LSE_TOL:.0e})"
-                check(torch.equal(with_lse, got), f"{name} {dt}: the output changes when the LSE is saved")
-                check(lse.dtype == torch.float32 and lse.shape == q.shape[:3], f"{name} {dt}: LSE dtype/shape")
-                check(math.isfinite(lse_err) and lse_err <= LSE_TOL, f"{name} {dt}: LSE max_abs {lse_err}")
-                print(line)
+                errors[(name, str(dtype).split(".")[-1])] = check_proxy_fwd(name, s, dtype)
 
     with phase("3b backward kernel vs plain"):
         bwd_errors = {}
         for name, s in {**CHECK_SHAPES, "b32_train": B32_TRAIN}.items():
-            scale = s["D"] ** -0.5
             for dtype in (torch.float32, torch.bfloat16):
-                q, k, v, d_out = qkv(s, dtype, seed=1, n=4)
-                before = pa.proxy_attention_bwd.launches
-                alone = pa.proxy_attention_bwd(q, k, v, d_out, s["M"], s["N"], s["L"], scale)
-                torch.cuda.synchronize()
-                check(pa.proxy_attention_bwd.launches == before + 1, f"{name}: backward launch not counted")
-                # as autograd calls it: on the LSE the forward saved
-                _, lse = pa._launch_fwd(q, k, v, s["M"], s["N"], s["L"], scale, with_lse=True)
-                runs = {"alone": (alone, pa.proxy_attention_bwd(q, k, v, d_out, s["M"], s["N"], s["L"], scale)),
-                        "forward's LSE": tuple(pa._launch_bwd(q, k, v, d_out, s["M"], s["N"], s["L"], scale, lse=lse)
-                                               for _ in range(2))}
-                torch.cuda.synchronize()
-                # the fp32 plain gradients of the same inputs: for bf16 that
-                # leaves the kernel's one rounding at the store
-                want = pa.proxy_attention_bwd_plain(*(t.float() for t in (q, k, v, d_out)),
-                                                    s["M"], s["L"], scale)
-                dt = str(dtype).split(".")[-1]
-                line = f"  {name:10s} {dt:8s}"
-                for mode, (got, again) in runs.items():
-                    for g, w, gname in zip(got, want, ("dq", "dk", "dv")):
-                        check(g.dtype == dtype and g.shape == q.shape, f"{name} {dt} {gname}: dtype/shape")
-                    check(all(torch.equal(a, b) for a, b in zip(got, again)),
-                          f"{name} {dt} {mode}: two calls differ (the backward is not deterministic)")
-                    err = max((g.float() - w).abs().max().item() for g, w in zip(got, want))
-                    bwd_errors[(name, dt, mode)] = err
-                    line += f" {mode}: max_abs {err:.3e}"
-                    check(math.isfinite(err), f"{name} {dt} {mode}: backward not finite")
-                    if dtype == torch.float32:
-                        line += f" (tol {BWD_TOL_FP32:.0e})"
-                        check(err <= BWD_TOL_FP32, f"{name} fp32 backward {mode}: max_abs {err} > {BWD_TOL_FP32}")
-                    else:
-                        ulps = max(bf16_grad_ulps(g, w) for g, w in zip(got, want))
-                        line += f", {ulps:.3f} ulp of the fp32 plain gradients (tol {BWD_MAX_ULP:.0f})"
-                        check(ulps <= BWD_MAX_ULP, f"{name} bf16 backward {mode}: {ulps} ulp")
-                    line += ";"
-                same = all(torch.equal(a, b) for a, b in zip(*(got for got, _ in runs.values())))
-                print(f"{line} two calls bit-identical; alone bit-equal to with the forward's LSE: {same}")
-                del q, k, v, d_out, alone, runs, want
+                for mode, err in check_proxy_bwd(name, s, dtype).items():
+                    bwd_errors[(name, str(dtype).split(".")[-1], mode)] = err
         # gradcheck-style: the kernels' gradient through proxy_attention is
         # autograd's through the plain forward (fp32, the tiny shape)
         s = CHECK_SHAPES["tiny"]
@@ -2775,28 +3011,7 @@ def main() -> None:
         win_errors = {}
         for name, shape in WINDOW_SHAPES.items():
             for dtype in (torch.float32, torch.bfloat16):
-                q, k, v, bias, mask = window_inputs(shape, dtype)
-                before = wa.window_attention.launches
-                got = wa.window_attention(q, k, v, bias, mask)
-                torch.cuda.synchronize()
-                check(wa.window_attention.launches == before + 1, f"{name}: launch not counted")
-                want = wa.window_attention_plain(q, k, v, bias, mask)
-                dt = str(dtype).split(".")[-1]
-                err = (got.float() - want.float()).abs().max().item()
-                win_errors[(name, dt)] = err
-                line = (f"  {name:10s} {dt:8s} [Bn,H,N,d]={list(shape[:4])} mask "
-                        f"{None if mask is None else list(mask.shape)} max_abs {err:.3e} tol {TOL[dt]:.0e}")
-                check(got.dtype == dtype and got.shape == q.shape, f"{name} {dt}: output dtype/shape")
-                check(math.isfinite(err) and err <= TOL[dt], f"{name} {dt}: max_abs {err} > {TOL[dt]}")
-                if dtype == torch.bfloat16:
-                    # as in phase 3: against the fp32 plain version of the same
-                    # inputs only the kernel's output rounding is left
-                    exact = wa.window_attention_plain(q.float(), k.float(), v.float(), bias, mask)
-                    ulps = bf16_ulps(got, exact)
-                    line += f"; vs fp32 plain {ulps:.3f} ulp (tol {BF16_MAX_ULP:.0f})"
-                    check(ulps <= BF16_MAX_ULP, f"{name} bf16: {ulps} ulp from the fp32 plain version")
-                print(line)
-                del q, k, v, bias, mask, got, want
+                win_errors[(name, str(dtype).split(".")[-1])] = check_window(name, shape, dtype)
         # the model's q/k/v: views of one fused [Bn, N, 3, H, d] projection,
         # read in place through their strides
         for dtype in (torch.float32, torch.bfloat16):
@@ -3536,11 +3751,20 @@ def main() -> None:
     with one_rank_nccl_group():
         with phase("8a B/32 fine-tune under a one-rank NCCL group, eager and graphed, against 4b (main path)"):
             dp_launches = data_parallel_finetune_phase(card, finetune_reference)
-            del finetune_reference
         with phase("8b the graphed step's collectives: profile and timing with and without the group"):
             data_parallel_graph_phase(card)
     with phase("8c LF-VILA stage 1 and the window-kernel eval under a one-rank NCCL group (main path)"):
         dp_lfvila_launches = data_parallel_lfvila_phase(card)
+    with one_rank_nccl_group():
+        with phase("9a B/32 fine-tune at --zero3 1 under a one-rank NCCL group, eager and graphed, against 4b "
+                   "(main path)"):
+            zero3_launches = zero3_finetune_phase(card, finetune_reference)
+            del finetune_reference
+        with phase("9b the B/32 step under the TP plan over a 1 x 1 (data, model) mesh; #1/#2 at --tp 2 and 4 "
+                   "shapes (main path)"):
+            tp_launches = tp_plan_phase(card)
+        with phase("9c the LF-VILA towers through the cp path at model size 1; #6 at --cp 2 shapes (main path)"):
+            cp_launches = cp_towers_phase(card, lfvila_preset)
     # the serving artifacts' main path: each run's counts, read just after it
     artifact_launches = {name: clipvip_artifact_launches[name] + lfvila_artifact_launches[name]
                          + patch_artifact_launches[name] for name in KERNELS}
@@ -3556,7 +3780,9 @@ def main() -> None:
              "clipvip_factorized": factorized_launches, "serving_artifact": artifact_launches,
              "train_data_parallel": dp_launches[1], "train_data_parallel_graphed": dp_launches[2],
              "lfvila_stage1_data_parallel": dp_lfvila_launches["train"],
-             "lfvila_retrieval_data_parallel": dp_lfvila_launches["eval"]}
+             "lfvila_retrieval_data_parallel": dp_lfvila_launches["eval"],
+             "train_zero3": zero3_launches[1], "train_zero3_graphed": zero3_launches[DP_GRAPH_K],
+             "train_step_tp_plan": tp_launches, "lfvila_towers_cp": cp_launches}
     window_timing = {dt: win_timings[("s3_shifted", dt)] for dt in ("bfloat16", "float32")}
     summary = {"kernels": [
         {

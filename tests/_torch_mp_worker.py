@@ -23,6 +23,25 @@ Scenarios:
   global batch: the VTM roll's exchange, the global MLM mean, the
   contrastive and MTC losses with their averaged gradients, HD-VILA's
   rolled captions, and the per-rank dropout draws.
+
+The model-axis scenarios (``test_torch_model_parallel.py``,
+``test_torch_context_parallel.py``) each form their mesh from the group's:
+- ``clipvip_tp`` / ``clipvip_zero3`` / ``clipvip_zero3_tp``: the CLIP-ViP
+  case at ``--tp 2`` on a (2, 2) mesh, ``--zero3 1`` on (4,) and both on
+  (2, 2), JAX's TP step set-up (cosine 1e-3 over 100 steps, weight decay
+  0.1, min_size 64), 2 steps; the last saves a checkpoint at step 1. Each
+  records its losses, its final (gathered) parameters and its shard sizes.
+- ``units_mp``: on a (2, 2) mesh, the rows each rank's loader reads and the
+  dropout mask each rank draws.
+- ``lfvila1_tp`` / ``hdvila1_tp``: the family cases at ``--tp 2`` on (2, 2);
+  ``lfvila1_cp`` / ``lfvila1_tpcp``: LF-VILA's at ``--cp 2`` and at ``--tp 2
+  --cp 2`` on (2, 2).
+- ``swin_cp``: JAX's tiny context-parallel Swin3D at cp = the world size:
+  the forward (global and local branch, from JAX's parameters in
+  ``swin_cp.npz`` beside ``<out_dir>``) and one backward's gradients
+  against the one-process port.
+- ``lfvila_runner_cp``: ``run_pretrain_lfvila`` at ``--cp 2`` on 2 ranks, or
+  at ``--cp 1`` on 1.
 """
 
 import dataclasses
@@ -40,7 +59,7 @@ from xpretrain_tpu_torch.config import ConfigDict  # noqa: E402
 from xpretrain_tpu_torch.parallel import mesh as mesh_lib  # noqa: E402
 
 GLOBAL_BATCH, STEPS, VAL_ROWS, VAL_BATCH = 16, 3, 22, 8
-PARAMS = {"file": ""}  # the CLIP-ViP case's JAX parameters (main sets it)
+PARAMS = {"file": "", "swin": ""}  # the JAX parameters of the CLIP-ViP and Swin3D cases (main sets them)
 OPT = dict(learning_rate=1e-4, decay="constant", warmup_ratio=0.0, weight_decay=0.01, grad_norm=5.0, seed=0,
            validate_at_start=0, valid_steps=100, log_steps=1)
 ZERO2_MIN_SIZE = 64  # JAX's test's min_size: the tiny models' leaves of 64 elements or more are sharded
@@ -161,13 +180,13 @@ def clipvip_bf16(out_dir: str) -> dict:
             "state_bytes": sum(t.numel() * t.element_size() for t in state)}
 
 
-def _lfvila(stage: int):
+def _lfvila(stage: int, cp: bool = False):
     from xpretrain_tpu_torch.models.lf_vila.pretrain import LfVilaConfig, LfVilaPretrain
     from xpretrain_tpu_torch.models.lf_vila.swin3d import Swin3DConfig
 
     base = LfVilaConfig.tiny(stage=stage, sample_frame=8, final_num_patches=1)
     cfg = dataclasses.replace(
-        base, video=Swin3DConfig.tiny(drop_path_rate=0.0),
+        base, video=Swin3DConfig.tiny(drop_path_rate=0.0, context_parallel_axis="model" if cp else None),
         bert=dataclasses.replace(base.bert, hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0))
     model = LfVilaPretrain(cfg).init_weights(torch.Generator().manual_seed(0))
     rng = np.random.default_rng(stage)
@@ -220,20 +239,23 @@ def _hdvila():
     return model, apply_fn, batches, ("itc_loss",)
 
 
-def _generic(out_dir: str, model, apply_fn, batches, keys) -> dict:
-    """Two steps of ``GenericTrainer`` on this rank's blocks of ``batches``."""
+def _generic(out_dir: str, model, apply_fn, batches, keys, **cfg) -> dict:
+    """Two steps of ``GenericTrainer`` on this rank's blocks of ``batches``
+    (its data index's: the ranks of a model group take the same blocks)."""
     from xpretrain_tpu_torch.train.generic_trainer import GenericTrainer
 
     mesh = mesh_lib.current_mesh()
     n, rank = (1, 0) if mesh is None else (mesh.world_size, mesh.rank)
     mine = [{k: v[rank * (len(v) // n):(rank + 1) * (len(v) // n)] for k, v in b.items()} for b in batches]
     trainer = _zero2(GenericTrainer(ConfigDict(output_dir=out_dir, num_train_steps=len(batches), save_steps=100,
-                                               **OPT), model, apply_fn, iter(mine), metric_keys=keys, device="cpu"))
+                                               **OPT, **cfg), model, apply_fn, iter(mine), metric_keys=keys,
+                                    device="cpu"))
     rows = _record(trainer)
     trainer.train()
+    state = trainer.model.state_dict()  # gathered under a layout: every rank calls it
     if mesh_lib.is_main_process():
-        torch.save(trainer.model.state_dict(), os.path.join(out_dir, "final.pt"))
-    return {"metrics": rows}
+        torch.save(state, os.path.join(out_dir, "final.pt"))
+    return {"metrics": rows, "shards": _shards(trainer)}
 
 
 def lfvila1(out_dir: str) -> dict:
@@ -350,6 +372,187 @@ def units(out_dir: str) -> dict:
     return out
 
 
+def _shards(trainer) -> dict:
+    """{parameter: [this rank's elements, the full leaf's, its first moment's
+    elements]} of the parameters a layout splits."""
+    opt = trainer.optimizer
+    out = {}
+    for i, name in enumerate(opt.names):
+        layout = opt.layouts.get(i)
+        if layout is not None and layout.sharded:
+            out[name] = [opt.params[i].numel(), int(np.prod(layout.full_shape)), opt.mu[i].numel(),
+                         layout.tp_dim is not None, layout.dp_dim is not None]
+    return out
+
+
+def _replicated_sums(trainer) -> dict:
+    """{parameter: the fp64 sum of its values} of the parameters no layout
+    splits: every rank must hold the same."""
+    sharded = {trainer.optimizer.names[i] for i, lay in trainer.optimizer.layouts.items() if lay.sharded}
+    return {n: float(p.detach().double().sum()) for n, p in trainer.model.named_parameters() if n not in sharded}
+
+
+def _with_mesh(**layout):
+    """The scenario's mesh: the group's, with the model axis ``layout`` asks for."""
+    mesh_lib._MESH = WORLD["mesh"]
+    return mesh_lib.mesh_from_config(layout)
+
+
+# JAX's TP / FSDP step set-up (tests/test_tensor_parallel_families.py:_run_steps)
+JAX_STEP = dict(decay="cosine", learning_rate=1e-3, num_train_steps=100, warmup_ratio=0.1, weight_decay=0.1)
+MP_STEPS = 2
+
+
+def _clipvip_layout(out_dir: str, save_steps: int = 100, **layout) -> dict:
+    from xpretrain_tpu_torch.parallel import fsdp
+
+    _with_mesh(**layout)
+    fsdp.MIN_SIZE = 64  # JAX's test's min_size
+    trainer = _clipvip_trainer(out_dir, **JAX_STEP, save_steps=save_steps, **layout)
+    trainer.num_train_steps = MP_STEPS  # the schedule's horizon stays JAX's 100
+    rows = _record(trainer)
+    trainer.train()
+    state = {"model": trainer.model.state_dict(), "optimizer": trainer.optimizer.state_dict()}  # gathered
+    if mesh_lib.is_main_process():
+        torch.save(state, os.path.join(out_dir, "final.pt"))
+    out = {"losses": [r["loss"] for r in rows], "grad_norms": [r["grad_norm"] for r in rows],
+           "shards": _shards(trainer), "replicated": _replicated_sums(trainer)}
+    other = os.path.join(os.path.dirname(out_dir), "clipvip_tp", "final.pt")
+    if layout.get("zero3") and os.path.exists(other):
+        # a file written under --tp 2 alone loads under this layout and
+        # gathers back to itself
+        saved = torch.load(other, weights_only=True)
+        trainer.model.load_state_dict(saved["model"])
+        trainer.optimizer.load_state_dict(saved["optimizer"])
+        again = {"model": trainer.model.state_dict(), "optimizer": trainer.optimizer.state_dict()}
+        flat = lambda d, p="": {f"{p}{k}": v for k, v in d.items() if torch.is_tensor(v)} | {  # noqa: E731
+            x: y for k, v in d.items() if isinstance(v, dict) for x, y in flat(v, f"{p}{k}/").items()}
+        a, b = flat(saved), flat(again)
+        out["cross_layout_load"] = sorted(a) == sorted(b) and all(torch.equal(a[k], b[k]) for k in a)
+    return out
+
+
+def clipvip_tp(out_dir: str) -> dict:
+    return _clipvip_layout(out_dir, tp=2)
+
+
+def clipvip_zero3(out_dir: str) -> dict:
+    return _clipvip_layout(out_dir, zero3=1)
+
+
+def clipvip_zero3_tp(out_dir: str) -> dict:
+    return _clipvip_layout(out_dir, save_steps=1, tp=2, zero3=1)
+
+
+def units_mp(out_dir: str) -> dict:
+    """On a (2, 2) mesh: the sample ids of this rank's first batch and the
+    dropout mask its step generator draws."""
+    from xpretrain_tpu_torch.data.datasets import RetrievalCollator
+    from xpretrain_tpu_torch.data.loader import BatchLoader
+    from xpretrain_tpu_torch.data.tokenization import HashTokenizer
+    from xpretrain_tpu_torch.models.common import dropout
+    from xpretrain_tpu_torch.parallel.train_step import _seed
+
+    mesh = _with_mesh(tp=2)
+    pi, pc = mesh_lib.process_index_count()
+    loader = BatchLoader(_Transformed(48, seed=0), GLOBAL_BATCH // pc, RetrievalCollator(HashTokenizer(), 16),
+                         seed=0, process_index=pi, process_count=pc)
+    batch = next(iter(loader))
+    keep = dropout(torch.ones(64), 0.5, torch.Generator().manual_seed(_seed(123))) > 0
+    return {"data_index": mesh.rank, "model_index": mesh.model_rank, "process_index_count": [pi, pc],
+            "rows": np.asarray(batch["text_input_ids"]).tolist(), "mask": keep.long().tolist()}
+
+
+def lfvila1_tp(out_dir: str) -> dict:
+    _with_mesh(tp=2)
+    return _generic(out_dir, *_lfvila(1), tp=2)
+
+
+def hdvila1_tp(out_dir: str) -> dict:
+    _with_mesh(tp=2)
+    return _generic(out_dir, *_hdvila(), tp=2)
+
+
+def lfvila1_cp(out_dir: str) -> dict:
+    """Stage 1 with the Swin3D frames over the model axis of a (2, 2) mesh
+    (windows 2 and 4 local on 4 frames a rank, 8 and up gathered)."""
+    _with_mesh(cp=2)
+    return _generic(out_dir, *_lfvila(1, cp=True), cp=2)
+
+
+def lfvila1_tpcp(out_dir: str) -> dict:
+    """Stage 1 at ``--tp 2 --cp 2``: BERT TP-sharded, Swin3D time-sharded,
+    on one model axis."""
+    _with_mesh(tp=2, cp=2)
+    return _generic(out_dir, *_lfvila(1, cp=True), tp=2, cp=2)
+
+
+def _swin_cp_model(faithful: bool):
+    from xpretrain_tpu_torch.models.lf_vila.convert import load_jax_params
+    from xpretrain_tpu_torch.models.lf_vila.swin3d import Swin3DConfig, SwinTransformer3D
+
+    cfg = Swin3DConfig.tiny(depths=(1, 1, 1, 1), num_heads=(2, 2, 2, 2), stages=(0, 0, 1, 1),
+                            downsample_stages=(1,), window_size=((2, 2, 2), (4, 2, 2), (8, 2, 2), (8, 2, 2)),
+                            local_window=4, faithful_local_branch=faithful, context_parallel_axis="model")
+    with np.load(PARAMS["swin"]) as f:
+        params = _unflatten({k[len("p/"):]: f[k] for k in f.files if k.startswith("p/")})
+    return load_jax_params(SwinTransformer3D(cfg), params).eval()  # JAX's deterministic apply
+
+
+def swin_cp(out_dir: str) -> dict:
+    """The tiny Swin3D at cp = the world size: forward (faithful and true
+    local branch) and the gradients of one backward, against one process."""
+    mesh = _with_mesh(cp=WORLD["mesh"].world_size)
+    with np.load(PARAMS["swin"]) as f:
+        video = torch.from_numpy(f["video"])
+    out = {"model_size": mesh.model_size}
+    g = torch.Generator().manual_seed(3)
+    for faithful in (True, False):
+        model = _swin_cp_model(faithful)
+        glob, loc = model(video)
+        tag = "faithful" if faithful else "local"
+        if mesh_lib.is_main_process():
+            np.savez(os.path.join(out_dir, f"{tag}.npz"), glob=glob.detach().numpy(), loc=loc.detach().numpy())
+        # one backward: the Swin3D gradients are partial sums over the rank's
+        # frames, summed over the model group as the train step does
+        wg, wl = torch.randn(glob.shape, generator=g), torch.randn(loc.shape, generator=g)
+        ((glob * wg).sum() + (loc * wl).sum()).backward()
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in model.parameters()]
+        mesh_lib.all_reduce_model_sum_(grads)
+        with _no_group():
+            ref = _swin_cp_model(faithful)
+            rg, rl = ref(video)
+            ((rg * wg).sum() + (rl * wl).sum()).backward()
+        want = [torch.zeros_like(p) if p.grad is None else p.grad for p in ref.parameters()]
+        out[f"{tag}_fwd_vs_one_process"] = float(max((glob - rg).abs().max(), (loc - rl).abs().max()))
+        out[f"{tag}_grad"] = max(float((a - w).abs().max() / w.abs().max().clamp_min(1e-12))
+                                 for a, w in zip(grads, want))
+        out[f"{tag}_grads_nonzero"] = sum(bool(w.abs().max() > 0) for w in want)
+    return out
+
+
+def lfvila_runner_cp(out_dir: str) -> dict:
+    """``run_pretrain_lfvila`` at ``--cp 2`` on a group of 2 (one data index:
+    the draws of one process) or at ``--cp 1`` on a group of 1: its scalars."""
+    from xpretrain_tpu_torch.cli import run_pretrain_lfvila
+
+    cfg_path = os.path.join(out_dir, "tiny.json")
+    with open(cfg_path, "w") as f:
+        json.dump({"video_encoder": {"embed_dim": 32, "depths": [1, 1, 2, 1, 1, 1], "num_heads": [2, 2, 4, 4, 4, 4],
+                                     "drop_path_rate": 0.0},
+                   "bert": "tiny", "num_local_layers": 2, "stage1_layers": 4, "sample_frame": 8,
+                   "final_num_patches": 1}, f)
+    cp = WORLD["mesh"].world_size
+    run_pretrain_lfvila.main(["--stage", "1", "--config", cfg_path, "--dummy_data", "1", "--input_hw", "96", "160",
+                              "--num_train_steps", "2", "--train_batch_size", "4", "--max_txt_len", "8", "--bf16",
+                              "0", "--log_steps", "1", "--device", "cpu", "--cp", str(cp), "--output_dir", out_dir])
+    rows = []
+    if mesh_lib.is_main_process():
+        with open(os.path.join(out_dir, "log", "scalars.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+    return {"cp": cp, "model_size": mesh_lib.current_mesh().model_size, "scalars": rows}
+
+
 class _no_group:
     """Compute as a process without a group (the reference math)."""
 
@@ -360,18 +563,24 @@ class _no_group:
         mesh_lib._MESH = self.saved
 
 
-SCENARIOS = {f.__name__: f for f in (clipvip, clipvip_bf16, lfvila1, lfvila2, hdvila1, units)}
+SCENARIOS = {f.__name__: f for f in (clipvip, clipvip_bf16, lfvila1, lfvila2, hdvila1, units, clipvip_tp, clipvip_zero3,
+                                     clipvip_zero3_tp, units_mp, lfvila1_tp, hdvila1_tp, lfvila1_cp, lfvila1_tpcp,
+                                     swin_cp, lfvila_runner_cp)}
+WORLD = {"mesh": None}  # the group's 1-D mesh, from which each scenario forms its own
 
 
 def main() -> None:
     out_dir, store = sys.argv[1], sys.argv[2]
     torch.set_num_threads(1)
     PARAMS["file"] = os.path.join(os.path.dirname(os.path.abspath(out_dir)), "clipvip_params.npz")
+    PARAMS["swin"] = os.path.join(os.path.dirname(os.path.abspath(out_dir)), "swin_cp.npz")
     mesh = mesh_lib.maybe_init_distributed("cpu", init_method=f"file://{store}")
     assert mesh is not None and mesh.world_size == int(os.environ["WORLD_SIZE"])
+    WORLD["mesh"] = mesh
     for name in sys.argv[3:]:
         run_dir = os.path.join(out_dir, name)
         os.makedirs(run_dir, exist_ok=True)
+        mesh_lib._MESH = mesh
         result = SCENARIOS[name](run_dir)
         with open(os.path.join(out_dir, f"{name}_{mesh.rank}.json"), "w") as f:
             json.dump(result, f)

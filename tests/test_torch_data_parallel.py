@@ -41,7 +41,9 @@ def _few_threads():
 
 
 def _spawn(out_dir: str, world: int, scenarios) -> tuple[float, list]:
-    """Start ``world`` ranks of the worker; returns (their deadline, the processes)."""
+    """Start ``world`` ranks of the worker, each writing its output to
+    ``<out_dir>/rank<r>.log`` (a file, not a pipe: a rank never waits for
+    this process to read it); returns (their deadline, the processes)."""
     os.makedirs(out_dir, exist_ok=True)
     store = os.path.join(out_dir, "store")
     procs = []
@@ -50,23 +52,27 @@ def _spawn(out_dir: str, world: int, scenarios) -> tuple[float, list]:
                    MKL_NUM_THREADS="1", PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
         env.pop("MASTER_ADDR", None)
         env.pop("MASTER_PORT", None)
-        procs.append(subprocess.Popen([sys.executable, WORKER, out_dir, store, *scenarios], env=env,
-                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        with open(os.path.join(out_dir, f"rank{rank}.log"), "w") as log:
+            procs.append(subprocess.Popen([sys.executable, WORKER, out_dir, store, *scenarios], env=env,
+                                          stdout=log, stderr=subprocess.STDOUT))
     return time.monotonic() + SPAWN_TIMEOUT, procs
 
 
 def _wait(spawn) -> list:
     deadline, procs = spawn
-    outs = []
     try:
         for p in procs:
-            outs.append(p.communicate(timeout=max(0.0, deadline - time.monotonic()))[0])
+            p.wait(timeout=max(0.0, deadline - time.monotonic()))
     except subprocess.TimeoutExpired:
         for p in procs:
             p.kill()
+            p.wait()
         pytest.fail(f"a rank did not finish within {SPAWN_TIMEOUT} s")
-    for p, out in zip(procs, outs):
-        assert p.returncode == 0, f"rank failed:\n{out[-4000:]}"
+    outs = []
+    for rank, p in enumerate(procs):
+        with open(os.path.join(p.args[2], f"rank{rank}.log")) as f:
+            outs.append(f.read())
+        assert p.returncode == 0, f"rank failed:\n{outs[-1][-4000:]}"
     return outs
 
 
@@ -345,12 +351,21 @@ def test_world_size_two_on_cuda_without_a_card_raises(monkeypatch):
     assert mesh_lib.current_mesh() is None
 
 
-@pytest.mark.parametrize("flag", [{"tp": 2}, {"cp": 2}, {"zero3": 1}])
-def test_unported_layouts_raise_naming_their_roadmap_item(flag):
-    from xpretrain_tpu_torch.train.trainer import check_ported_layouts
-
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        check_ported_layouts(flag)
+@pytest.mark.parametrize("flag, world, match", [
+    ({"tp": 2, "cp": 4}, 8, "share the mesh's model axis"),  # tp != cp, both > 1
+    ({"tp": 4}, 6, "does not divide the 6"),  # mp does not divide the world
+    ({"tp": 2}, None, "does not divide the 1"),  # no group: JAX's 2 on one device
+    ({"cp": 2}, None, "does not divide the 1"),
+])
+def test_invalid_layouts_raise_as_in_jax(monkeypatch, flag, world, match):
+    """``mesh_from_config`` refuses what JAX's refuses, before any group
+    forms (a world of ``world`` ranks stands in for a group)."""
+    if world is not None:
+        monkeypatch.setattr(mesh_lib, "_MESH", mesh_lib.DataMesh(rank=0, world_size=world,
+                                                                 device=torch.device("cpu"), backend="gloo"))
+        monkeypatch.setattr(torch.distributed, "get_world_size", lambda group=None: world)
+    with pytest.raises(ValueError, match=match):
+        mesh_lib.mesh_from_config(flag)
 
 
 def test_a_tensor_off_the_groups_device_is_refused():

@@ -257,12 +257,14 @@ def test_runner_writes_a_finite_final_report(tmp_path, monkeypatch, steps):
      (["--task", "qa_cls", "--model_weight", "lfvila.pt"], FileNotFoundError, "lfvila.pt"),
      (["--task", "video_cls", "--model_weight", "lfvila.pt"], FileNotFoundError, "lfvila.pt"),
      (["--model_weight", "lfvila.pt"], FileNotFoundError, "lfvila.pt"),
-     (["--gradient_checkpointing", "1", "--cp", "2"], NotImplementedError, "ROADMAP"),
-     (["--cp", "2"], NotImplementedError, "ROADMAP")],
+     (["--gradient_checkpointing", "1", "--cp", "2"], ValueError, "does not divide the 1"),
+     (["--cp", "2"], ValueError, "does not divide the 1")],
     ids=["qa_mc", "qa_cls", "video_cls", "model_weight", "remat", "context_parallel"],
 )
 def test_runner_raises_on_what_is_not_ported(tmp_path, extra, error, match):
-    """Context parallelism, with or without remat, raises; the tasks and remat
+    """``--cp 2``, with or without remat, raises in a process without a
+    group, as JAX's mesh does on one device (2 does not divide 1; the sharded
+    runner: ``tests/test_torch_context_parallel.py``); the tasks and remat
     themselves run (``tests/test_torch_lfvila_tasks.py``,
     ``tests/test_torch_lfvila_pretrain.py``). ``--model_weight`` loads a torch
     checkpoint for every task (``tests/test_torch_pretrained_loading.py``):

@@ -160,13 +160,21 @@ def test_kernel_gate_counts_the_unclipped_window(monkeypatch):
 
 
 def test_training_and_multi_device_options_raise():
-    """Context parallelism raises (ROADMAP), with or without remat; remat
+    """Context parallelism builds, with or without remat, and outside a mesh
+    with a model axis changes nothing, as JAX's constraint outside a mesh
+    (its sharded forward: ``tests/test_torch_context_parallel.py``); remat
     builds, and with an unknown policy raises, as JAX's ``getattr`` does; a
     policy without remat is ignored, as in JAX."""
     tiny = swin3d.Swin3DConfig.tiny
+    plain = swin3d.SwinTransformer3D(tiny()).eval()
+    x = torch.randn(1, 3, 8, 48, 80, generator=torch.Generator().manual_seed(0))
+    want = plain(x)
     for kw in (dict(context_parallel_axis="model"), dict(context_parallel_axis="model", remat=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            swin3d.SwinTransformer3D(tiny(**kw))
+        cp = swin3d.SwinTransformer3D(tiny(**kw)).eval()
+        cp.load_state_dict(plain.state_dict())
+        assert cp.context_mesh() is None
+        for got, ref in zip(cp(x), want):
+            torch.testing.assert_close(got, ref, atol=0, rtol=0)
     assert swin3d.SwinTransformer3D(tiny(remat=True)).remat_context_fn is None
     assert swin3d.SwinTransformer3D(tiny(remat=True, remat_policy="dots_saveable")).remat_context_fn is not None
     assert swin3d.SwinTransformer3D(tiny(remat_policy="dots_saveable")).remat_context_fn is None

@@ -34,7 +34,7 @@ from xpretrain_tpu_torch.cli.shared_args import build_shared_parser, parse_args
 from xpretrain_tpu_torch.data.datasets import PretrainCollator, SyntheticVideoTextDataset
 from xpretrain_tpu_torch.data.loader import BatchLoader, InfiniteIterator, MetaLoader
 from xpretrain_tpu_torch.data.transforms import clip_transform
-from xpretrain_tpu_torch.parallel.mesh import is_main_process, process_index_count
+from xpretrain_tpu_torch.parallel.mesh import is_main_process, process_index_count, process_rank
 from xpretrain_tpu_torch.train.checkpoints import save_training_meta
 from xpretrain_tpu_torch.train.trainer import ClipVipTrainer
 from xpretrain_tpu_torch.utils.basic import save_json
@@ -85,7 +85,7 @@ def build_parser():
 
 def main(argv=None):
     cfg = parse_args(build_parser(), argv)
-    setup_logging(cfg.output_dir, process_index_count()[0])
+    setup_logging(cfg.output_dir, process_rank())
     if is_main_process():
         save_training_meta(cfg.output_dir, cfg)
     device = resolve_device(cfg.device)

@@ -42,7 +42,7 @@ from xpretrain_tpu_torch.models.hd_vila.resnet import FrozenBatchNorm
 from xpretrain_tpu_torch.models.hd_vila.timesformer import DividedBlock
 from xpretrain_tpu_torch.models.pretrained import load_hdvila_e2e
 from xpretrain_tpu_torch.ops.losses import nce_loss
-from xpretrain_tpu_torch.parallel.mesh import gather_rows, is_main_process, process_index_count
+from xpretrain_tpu_torch.parallel.mesh import gather_rows, is_main_process, process_index_count, process_rank
 from xpretrain_tpu_torch.train.checkpoints import save_training_meta
 from xpretrain_tpu_torch.train.generic_trainer import GenericTrainer
 from xpretrain_tpu_torch.utils.logging import LOGGER, setup_logging
@@ -234,7 +234,7 @@ def main(argv=None):
     cfg = parse_args(parser, argv)
     device = resolve_device(cfg.device)
     cfg = apply_stage2_batch_fallback(cfg, device.type)
-    setup_logging(cfg.output_dir, process_index_count()[0])
+    setup_logging(cfg.output_dir, process_rank())
     if is_main_process():
         save_training_meta(cfg.output_dir, cfg)
 

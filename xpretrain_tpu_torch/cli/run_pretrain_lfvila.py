@@ -46,7 +46,7 @@ from xpretrain_tpu_torch.models.lf_vila.pretrain import LfVilaConfig, LfVilaPret
 from xpretrain_tpu_torch.models.lf_vila.swin3d import Swin3DConfig
 from xpretrain_tpu_torch.models.pretrained import load_lfvila_cascade
 from xpretrain_tpu_torch.optim.optimizer import NO_DECAY_LFVILA
-from xpretrain_tpu_torch.parallel.mesh import is_main_process, process_index_count
+from xpretrain_tpu_torch.parallel.mesh import is_main_process, process_index_count, process_rank
 from xpretrain_tpu_torch.train.checkpoints import save_training_meta
 from xpretrain_tpu_torch.train.generic_trainer import GenericTrainer
 from xpretrain_tpu_torch.utils.basic import load_jsonl
@@ -182,7 +182,7 @@ def main(argv=None):
     parser.add_argument("--device", type=str, default="cuda", help="torch device: cuda, cuda:N or cpu")
     parser.set_defaults(device_ingest=1)
     cfg = parse_args(parser, argv)
-    setup_logging(cfg.output_dir, process_index_count()[0])
+    setup_logging(cfg.output_dir, process_rank())
     if is_main_process():
         save_training_meta(cfg.output_dir, cfg)
     device = resolve_device(cfg.device)

@@ -36,7 +36,7 @@ from xpretrain_tpu_torch.data.tokenization import build_tokenizer, warn_if_hash_
 from xpretrain_tpu_torch.data.transforms import clip_resize_crop_u8, clip_transform
 from xpretrain_tpu_torch.models.clip_vip.convert import load_torch_checkpoint, merge_pretrained
 from xpretrain_tpu_torch.models.clip_vip.model import CLIPViPModel
-from xpretrain_tpu_torch.parallel.mesh import is_main_process, process_index_count
+from xpretrain_tpu_torch.parallel.mesh import is_main_process, process_index_count, process_rank
 from xpretrain_tpu_torch.parallel.train_step import make_eval_step
 from xpretrain_tpu_torch.train.checkpoints import save_training_meta
 from xpretrain_tpu_torch.train.evaluate import evaluate_retrieval
@@ -152,7 +152,7 @@ def main(argv=None):
                         help="dump eval features to this .npz (ref run_video_retrieval.py:233 save_feat)")
     parser.add_argument("--device", type=str, default="cuda", help="torch device: cuda, cuda:N or cpu")
     cfg = parse_args(parser, argv)
-    setup_logging(cfg.output_dir, process_index_count()[0])
+    setup_logging(cfg.output_dir, process_rank())
     if is_main_process():
         save_training_meta(cfg.output_dir, cfg)
     device = resolve_device(cfg.device)

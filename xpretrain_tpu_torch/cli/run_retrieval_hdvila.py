@@ -50,7 +50,8 @@ from xpretrain_tpu_torch.models.hd_vila.convert import flax_param_paths
 from xpretrain_tpu_torch.models.hd_vila.e2e import HdVilaEncoder, HdVilaEncoderConfig
 from xpretrain_tpu_torch.models.hd_vila.modeling import HdVilaForVideoTextRetrieval, HdVilaModelConfig
 from xpretrain_tpu_torch.ops.losses import build_loss_fn
-from xpretrain_tpu_torch.parallel.mesh import gather_rows, is_main_process, process_index_count, rank_slice
+from xpretrain_tpu_torch.parallel.fsdp import gathered
+from xpretrain_tpu_torch.parallel.mesh import gather_rows, is_main_process, process_index_count, process_rank, rank_slice
 from xpretrain_tpu_torch.parallel.train_step import make_eval_step
 from xpretrain_tpu_torch.train.checkpoints import save_training_meta
 from xpretrain_tpu_torch.train.evaluate import evaluate_retrieval
@@ -150,7 +151,7 @@ def main(argv=None):
     parser.add_argument("--device", type=str, default="cuda", help="torch device: cuda, cuda:N or cpu")
     cfg = parse_args(parser, argv)
     cfg["stage"] = 1  # dual-encoder ITC
-    setup_logging(cfg.output_dir, process_index_count()[0])
+    setup_logging(cfg.output_dir, process_rank())
     if is_main_process():
         save_training_meta(cfg.output_dir, cfg)
     device = resolve_device(cfg.device)
@@ -203,7 +204,8 @@ def main(argv=None):
     LOGGER.info("HD-VILA retrieval (%s) on %s: %d steps at batch %d", cfg.get("loss_type", "itc"), device,
                 trainer.num_train_steps, cfg.train_batch_size)
     state = trainer.train()
-    report = run_eval(state.model)
+    with gathered(state.model):
+        report = run_eval(state.model)
     if is_main_process():
         save_json(report, f"{cfg.output_dir}/final_report.json", pretty=True)
     return report

@@ -64,7 +64,8 @@ from xpretrain_tpu_torch.models.lf_vila.tasks import (
 )
 from xpretrain_tpu_torch.models.pretrained import load_lfvila_cascade
 from xpretrain_tpu_torch.optim.optimizer import NO_DECAY_LFVILA
-from xpretrain_tpu_torch.parallel.mesh import host_rows, is_main_process, process_index_count
+from xpretrain_tpu_torch.parallel.fsdp import gathered
+from xpretrain_tpu_torch.parallel.mesh import host_rows, is_main_process, process_index_count, process_rank
 from xpretrain_tpu_torch.parallel.train_step import LFVILA_EVAL_IO, batch_to_device, make_eval_step
 from xpretrain_tpu_torch.train.checkpoints import save_training_meta
 from xpretrain_tpu_torch.train.evaluate import evaluate_retrieval
@@ -217,7 +218,7 @@ def main(argv=None):
     cfg = parse_args(parser, argv)
     if cfg.max_txt_len is None:
         cfg.max_txt_len = 50 if cfg.task == "qa_mc" else 70
-    setup_logging(cfg.output_dir, process_index_count()[0])
+    setup_logging(cfg.output_dir, process_rank())
     if is_main_process():
         save_training_meta(cfg.output_dir, cfg)
     device = resolve_device(cfg.device)
@@ -259,13 +260,14 @@ def main(argv=None):
     trainer.train()
 
     model.eval()
-    if cfg.task == "retrieval":
-        report = evaluate_retrieval(make_eval_step(device, LFVILA_EVAL_IO), model, val_loader,
-                                    val_loader.valid_len)
-        report["score"] = report["t2v"]["R1"]
-    else:
-        report = evaluate_accuracy(model, val_loader, keys, device)
-        LOGGER.info("%s accuracy: %.4f", cfg.task, report["accuracy"])
+    with gathered(model):
+        if cfg.task == "retrieval":
+            report = evaluate_retrieval(make_eval_step(device, LFVILA_EVAL_IO), model, val_loader,
+                                        val_loader.valid_len)
+            report["score"] = report["t2v"]["R1"]
+        else:
+            report = evaluate_accuracy(model, val_loader, keys, device)
+            LOGGER.info("%s accuracy: %.4f", cfg.task, report["accuracy"])
     if is_main_process():
         save_json(report, f"{cfg.output_dir}/final_report.json", pretty=True)
     return report

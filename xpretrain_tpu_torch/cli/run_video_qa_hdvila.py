@@ -38,7 +38,8 @@ from xpretrain_tpu_torch.models.hd_vila.modeling import (
     HdVilaForSequenceClassification,
 )
 from xpretrain_tpu_torch.ops.losses import label_smoothing_xent
-from xpretrain_tpu_torch.parallel.mesh import host_rows, is_main_process, process_index_count
+from xpretrain_tpu_torch.parallel.fsdp import gathered
+from xpretrain_tpu_torch.parallel.mesh import host_rows, is_main_process, process_index_count, process_rank
 from xpretrain_tpu_torch.parallel.train_step import make_eval_step
 from xpretrain_tpu_torch.train.checkpoints import CheckpointManager, save_training_meta
 from xpretrain_tpu_torch.train.generic_trainer import GenericTrainer
@@ -197,7 +198,7 @@ def main(argv=None):
             for key, value in load_json(args_path).items():
                 if not str(key).startswith(("inference", "mode")) and key not in ("output_dir", "device"):
                     cfg[key] = value
-    setup_logging(cfg.output_dir, process_index_count()[0])
+    setup_logging(cfg.output_dir, process_rank())
     device = resolve_device(cfg.device)
 
     enc_cfg, model_cfg = hdvila_configs_from(cfg)
@@ -236,7 +237,8 @@ def main(argv=None):
     LOGGER.info("HD-VILA QA (%s) on %s: %d steps at batch %d", cfg.task_type, device, trainer.num_train_steps,
                 cfg.train_batch_size)
     state = trainer.train()
-    report = evaluate_qa(state.model, val_loader, device, val_ds=val_ds, task_type=cfg.task_type)
+    with gathered(state.model):
+        report = evaluate_qa(state.model, val_loader, device, val_ds=val_ds, task_type=cfg.task_type)
     if is_main_process():
         save_json(report, f"{cfg.output_dir}/final_report.json", pretty=True)
     return report

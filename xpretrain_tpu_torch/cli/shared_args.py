@@ -10,7 +10,8 @@ file parses the same in both; flags whose feature is not ported are read by
 the trainers, which raise on them. :func:`parse_args` is every runner's
 entry: it parses, re-roots the data paths and joins the data-parallel group
 that the environment describes (``torchrun``'s variables,
-``parallel/mesh.py``) before any model touches the device."""
+``parallel/mesh.py``) and forms the ``(data, model)`` mesh of ``--tp`` /
+``--cp`` before any model touches the device."""
 
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ import argparse
 from typing import Sequence
 
 from xpretrain_tpu_torch.config import ConfigDict, parse_with_config
-from xpretrain_tpu_torch.parallel.mesh import maybe_init_distributed
+from xpretrain_tpu_torch.parallel.mesh import maybe_init_distributed, mesh_from_config
 
 
 def build_shared_parser(desc: str = "xpretrain_tpu_torch runner") -> argparse.ArgumentParser:
@@ -80,10 +81,13 @@ def build_shared_parser(desc: str = "xpretrain_tpu_torch runner") -> argparse.Ar
                    help="selective-remat policy of the LF-VILA Swin3D blocks; '' = full remat")
     p.add_argument("--zero2", type=int, default=1,
                    help="shard the Adam moments and masters over the data-parallel ranks (one process: no effect)")
-    p.add_argument("--zero3", type=int, default=0, help="FSDP (not ported; raises)")
+    p.add_argument("--zero3", type=int, default=0,
+                   help="FSDP: shard the parameters and moments over the data-parallel ranks")
     p.add_argument("--async_checkpoint", type=int, default=0, help="non-blocking saves")
-    p.add_argument("--tp", type=int, default=1, help="tensor-parallel degree (> 1 is not ported; raises)")
-    p.add_argument("--cp", type=int, default=1, help="LF-VILA context-parallel degree (> 1 is not ported; raises)")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel degree: the model axis of a (data, model) mesh of the ranks")
+    p.add_argument("--cp", type=int, default=1,
+                   help="LF-VILA context-parallel degree: Swin3D's frames sharded over the model axis")
 
     # cadence
     p.add_argument("--log_steps", type=int, default=20)
@@ -115,12 +119,15 @@ def reroot_data_paths(cfg: ConfigDict) -> ConfigDict:
 
 
 def parse_args(parser: argparse.ArgumentParser, argv: Sequence[str] | None = None) -> ConfigDict:
-    """Parse a runner's flags (``parse_with_config``), re-root its data paths
-    and join the data-parallel group of the environment
-    (``maybe_init_distributed``, with the runner's ``--device``). In a group
-    on CUDA, ``cfg.device`` becomes this rank's card, ``cuda:LOCAL_RANK``."""
+    """Parse a runner's flags (``parse_with_config``), re-root its data paths,
+    join the group of the environment (``maybe_init_distributed``, with the
+    runner's ``--device``) and form the mesh of ``--tp`` / ``--cp``
+    (``mesh_from_config``) before the loaders take their data index. In a
+    group on CUDA, ``cfg.device`` becomes this rank's card,
+    ``cuda:LOCAL_RANK``."""
     cfg = reroot_data_paths(parse_with_config(parser, argv))
     mesh = maybe_init_distributed(cfg.get("device", "cuda"))
     if mesh is not None:
         cfg["device"] = str(mesh.device)
+    mesh_from_config(cfg)
     return cfg

@@ -138,8 +138,8 @@ class BertSelfAttention(nn.Module):
         heads = cfg.num_attention_heads
         d = cfg.hidden_size // heads
 
-        def split(x):
-            return x.view(b, s, heads, d).transpose(1, 2)
+        def split(x):  # this rank's heads under tensor parallelism
+            return x.view(b, s, -1, d).transpose(1, 2)
 
         q, k, v = split(self.query(hidden)), split(self.key(hidden)), split(self.value(hidden))
         if cfg.attention_window > 0:
@@ -147,7 +147,7 @@ class BertSelfAttention(nn.Module):
             mask = local if mask is None else local + mask
         rate = cfg.attention_probs_dropout_prob if self.training else 0.0
         out = dot_attention(q, k, v, d**-0.5, mask, rate, generator)
-        return out.transpose(1, 2).reshape(b, s, cfg.hidden_size)
+        return out.transpose(1, 2).reshape(b, s, -1)
 
 
 class BertLayer(nn.Module):

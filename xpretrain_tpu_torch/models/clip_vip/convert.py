@@ -33,6 +33,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from xpretrain_tpu_torch.parallel.fsdp import full_shapes
 from xpretrain_tpu_torch.utils.logging import LOGGER
 
 LINEAR = "linear"  # flax Dense kernel [in, out] -> torch Linear weight [out, in]
@@ -220,19 +221,22 @@ def merge_pretrained(model: nn.Module, state_dict: Mapping[str, Any]) -> dict[st
         converted[key] = value
     if report["unmapped"]:
         LOGGER.warning("converter: %d unmapped keys (first 5: %s)", len(report["unmapped"]), report["unmapped"][:5])
-    params = dict(model.named_parameters())
-    with torch.no_grad():
-        for key, value in converted.items():
-            if key not in params:
-                LOGGER.warning("merge: unexpected key %s", key)
-                report["unexpected"].append(key)
-            elif tuple(params[key].shape) != np.shape(value):
-                LOGGER.warning("merge: shape mismatch at %s: %s vs %s — keeping init", key,
-                               tuple(params[key].shape), np.shape(value))
-                report["kept"].append(key)
-            else:
-                params[key].copy_(torch.from_numpy(np.asarray(value, dtype=np.float32)))
-                report["loaded"].append(key)
+    # shapes in the reference layout; a laid-out model (parallel/fsdp.py)
+    # takes its block of each loaded tensor in load_state_dict
+    shapes = full_shapes(model)
+    loaded = {}
+    for key, value in converted.items():
+        if key not in shapes:
+            LOGGER.warning("merge: unexpected key %s", key)
+            report["unexpected"].append(key)
+        elif shapes[key] != np.shape(value):
+            LOGGER.warning("merge: shape mismatch at %s: %s vs %s — keeping init", key, shapes[key],
+                           np.shape(value))
+            report["kept"].append(key)
+        else:
+            loaded[key] = torch.from_numpy(np.asarray(value, dtype=np.float32))
+            report["loaded"].append(key)
+    model.load_state_dict(loaded, strict=False)
     return report
 
 

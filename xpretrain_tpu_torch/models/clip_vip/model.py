@@ -198,10 +198,10 @@ class ProxyAttention(nn.Module):
     ) -> torch.Tensor:
         M, N, L = inputs_size
         B, S, _ = hidden_states.shape
-        H = self.num_heads
-        D = self.embed_dim // H
-        # the kernel takes contiguous [B, H, S, D]
-        split = lambda x: x.view(B, S, H, D).transpose(1, 2).contiguous()
+        D = self.embed_dim // self.num_heads
+        # the kernel takes contiguous [B, H, S, D]; H is this rank's heads
+        # under tensor parallelism (the projections' width over D)
+        split = lambda x: x.view(B, S, -1, D).transpose(1, 2).contiguous()
         q = split(self.q_proj(hidden_states))
         k = split(self.k_proj(hidden_states))
         v = split(self.v_proj(hidden_states))
@@ -221,7 +221,7 @@ class ProxyAttention(nn.Module):
                                 self.dropout_rate, generator, keep)
         else:
             out = proxy_attention(q, k, v, M, N, L, D**-0.5)
-        return self.out_proj(out.transpose(1, 2).reshape(B, S, self.embed_dim))
+        return self.out_proj(out.transpose(1, 2).reshape(B, S, -1))
 
 
 # ---------------------------------------------------------------------------

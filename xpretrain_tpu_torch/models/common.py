@@ -61,7 +61,12 @@ ACT2FN: dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
 
 
 class Linear(nn.Linear):
-    """``nn.Linear`` with fp32 parameters that computes in ``dtype``."""
+    """``nn.Linear`` with fp32 parameters that computes in ``dtype``. Under
+    tensor parallelism ``parallel`` is the layer's plan
+    (``parallel/tensor_parallel.py``), which computes it on this rank's
+    block of the weight."""
+
+    parallel: Optional[Callable] = None
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  dtype: torch.dtype = torch.float32, device=None):
@@ -69,6 +74,8 @@ class Linear(nn.Linear):
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.parallel is not None:
+            return self.parallel(self, x)
         dt = self.compute_dtype
         bias = None if self.bias is None else self.bias.to(dt)
         return F.linear(x.to(dt), self.weight.to(dt), bias)
@@ -193,7 +200,9 @@ def dot_attention(
 
 class MultiHeadAttention(nn.Module):
     """Multi-head self-attention with separate q/k/v/out projections (the
-    CLIP/BERT checkpoint naming)."""
+    CLIP/BERT checkpoint naming). The head count is read off the
+    projections' width, so a tensor-parallel rank attends with its own
+    heads."""
 
     def __init__(self, embed_dim: int, num_heads: int, dtype: torch.dtype = torch.float32,
                  device=None, dropout_rate: float = 0.0):
@@ -210,7 +219,7 @@ class MultiHeadAttention(nn.Module):
 
     def _split(self, x: torch.Tensor) -> torch.Tensor:
         b, s, _ = x.shape
-        return x.view(b, s, self.num_heads, -1).transpose(1, 2)  # [B,H,S,D]
+        return x.view(b, s, -1, self.embed_dim // self.num_heads).transpose(1, 2)  # [B,H,S,D]
 
     def forward(
         self,
@@ -227,7 +236,7 @@ class MultiHeadAttention(nn.Module):
         rate = self.dropout_rate if self.training else 0.0
         out = dot_attention(q, k, v, scale, mask, rate, generator, keep)  # [B,H,Q,D]
         b, _, s, _ = out.shape
-        return self.out_proj(out.transpose(1, 2).reshape(b, s, self.embed_dim))
+        return self.out_proj(out.transpose(1, 2).reshape(b, s, -1))
 
 
 class TransformerMLP(nn.Module):

@@ -72,10 +72,12 @@ class _MHA(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # [..., N, C]
         lead, n = x.shape[:-2], x.shape[-2]
-        h, d = self.num_heads, self.dim // self.num_heads
-        qkv = self.qkv(x).reshape(-1, n, 3, h, d).permute(2, 0, 3, 1, 4)  # [3, B', h, N, d]
+        d = self.dim // self.num_heads
+        qkv = self.qkv(x)
+        h = qkv.shape[-1] // (3 * d)  # this rank's heads under tensor parallelism
+        qkv = qkv.reshape(-1, n, 3, h, d).permute(2, 0, 3, 1, 4)  # [3, B', h, N, d]
         out = F.scaled_dot_product_attention(qkv[0], qkv[1], qkv[2], scale=d**-0.5)
-        out = out.transpose(1, 2).reshape(*lead, n, self.dim)
+        out = out.transpose(1, 2).reshape(*lead, n, h * d)
         return self.proj(out)
 
 

@@ -32,8 +32,21 @@ PatchMerging at stages {0,1,4}, and the local branch.
   through a selective-checkpoint ``context_fn``. A policy without ``remat``
   is ignored and an unknown one raises, as in JAX. The recompute takes the
   forward's dropout masks (``common.recomputed``).
-- ``context_parallel_axis`` raises: it belongs to the multi-device layouts
-  (ROADMAP).
+- ``context_parallel_axis`` ("model", JAX's ``--cp``) shards the time axis
+  of the activations ``[B, T, H, W, C]`` over the model group of the mesh
+  (``parallel/mesh.py``), as JAX's ``with_sharding_constraint`` after the
+  patch embed and after every stage: each model rank keeps ``T / cp``
+  frames. A block whose temporal window (clipped to T) divides ``T / cp``
+  and which has no temporal shift runs on its frames with no communication
+  (the presets set ``temporal_no_shifting``); any other block all-gathers
+  time first, and the stage re-shards after it. The encoder returns what
+  the unsharded one returns, gathered. Every parameter's gradient is then a
+  partial sum over the rank's frames: the layout marks them
+  ``model_partial`` and the train step sums them over the model group
+  (``parallel/fsdp.py``). Outside a mesh with a model axis the setting
+  changes nothing, as JAX's constraint outside a mesh. Dropout draws from
+  the step's generator, which the model ranks share: a block's drop-path
+  drops a sample on every rank's frames alike.
 """
 
 from __future__ import annotations
@@ -51,6 +64,7 @@ from torch.utils.checkpoint import CheckpointPolicy, create_selective_checkpoint
 from xpretrain_tpu_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
 from xpretrain_tpu_torch.models.common import LayerNorm, Linear, device_constant, dot_attention, dropout, recomputed
 from xpretrain_tpu_torch.ops.window_attention import window_attention
+from xpretrain_tpu_torch.parallel.mesh import DataMesh, current_mesh, gather_model, model_block
 
 
 @dataclasses.dataclass(frozen=True)
@@ -206,7 +220,11 @@ def _bias_index(window: tuple[int, int, int], N: int) -> np.ndarray:
 class WindowAttention3D(nn.Module):
     """W-MSA over flattened windows with relative position bias
     (ref ``video_encoder.py:82-164``). ``window`` is the full (unclipped)
-    window, which sizes the bias table."""
+    window, which sizes the bias table. Under tensor parallelism the fused
+    ``qkv`` holds this rank's heads (``parallel/tensor_parallel.py``) and
+    ``tp_heads`` is their range in the bias table."""
+
+    tp_heads: Optional[tuple[int, int]] = None
 
     def __init__(self, dim: int, window: tuple[int, int, int], num_heads: int, qkv_bias: bool = True,
                  attn_drop: float = 0.0, dtype: torch.dtype = torch.float32, use_pallas: bool = False,
@@ -225,7 +243,9 @@ class WindowAttention3D(nn.Module):
     def _bias(self, N: int) -> torch.Tensor:
         idx = device_constant(_bias_index, (self.window, N), self.relative_position_bias_table.device)
         table = self.relative_position_bias_table
-        return table[idx].view(N, N, self.num_heads).permute(2, 0, 1)  # [h, N, N] fp32
+        if self.tp_heads is not None:
+            table = table[:, self.tp_heads[0]:self.tp_heads[1]]
+        return table[idx].view(N, N, -1).permute(2, 0, 1)  # [h, N, N] fp32
 
     def _attend(self, q, k, v, bias, mask, generator):
         """[Bn, h, N, d] q/k/v -> [Bn, h, N, d] context."""
@@ -250,16 +270,15 @@ class WindowAttention3D(nn.Module):
         """x [Bn, N, C], N = group * window tokens; ``mask`` [nW, N, N] is the
         grouped mask whenever ``group > 1``."""
         Bn, N, C = x.shape
-        h = self.num_heads
-        qkv = self.qkv(x).view(Bn, N, 3, h, C // h).permute(2, 0, 3, 1, 4)
+        qkv = self.qkv(x).view(Bn, N, 3, -1, C // self.num_heads).permute(2, 0, 3, 1, 4)
         if group > 1:
             bias = self._bias(N // group)
             eye = torch.eye(group, dtype=bias.dtype, device=bias.device)
-            bias = torch.einsum("gk,hij->hgikj", eye, bias).reshape(h, N, N)
+            bias = torch.einsum("gk,hij->hgikj", eye, bias).reshape(-1, N, N)
         else:
             bias = self._bias(N)
         out = self._attend(qkv[0], qkv[1], qkv[2], bias, mask, generator)
-        return self.proj(out.transpose(1, 2).reshape(Bn, N, C))
+        return self.proj(out.transpose(1, 2).reshape(Bn, N, -1))
 
 
 class DropPath(nn.Module):
@@ -429,10 +448,6 @@ class SwinTransformer3D(nn.Module):
         cfg = self.config = config
         # as JAX, a policy counts only under remat
         self.remat_context_fn = remat_context_fn(cfg.remat_policy or None) if cfg.remat else None
-        if cfg.context_parallel_axis:
-            raise NotImplementedError(
-                "Swin3D context parallelism (--cp) is multi-device work (ROADMAP Queue 1 #8)"
-            )
         dt = cfg.dtype
         self.patch_embed = PatchEmbed3D(cfg.patch_size, cfg.embed_dim, cfg.in_chans, cfg.patch_norm, dt, device)
         n = len(cfg.depths)
@@ -469,17 +484,48 @@ class SwinTransformer3D(nn.Module):
                 channels = 2 * dim
         self.norm = LayerNorm(channels, 1e-5, dt, device)
 
+    def context_mesh(self) -> Optional[DataMesh]:
+        """The mesh whose model group shards time (``context_parallel_axis``),
+        or None."""
+        if not self.config.context_parallel_axis:
+            return None
+        mesh = current_mesh()
+        return mesh if mesh is not None and mesh.has_model_axis else None
+
+    @staticmethod
+    def runs_local(block: "SwinBlock3D", dims: tuple[int, int, int], cp: int) -> bool:
+        """Whether ``block`` computes on ``T / cp`` frames as it would on the
+        ``T`` of ``dims``: no temporal shift, and the window, clipped to the
+        full input, tiles the local frames."""
+        window, shift = _clip_window(dims, block.window, block.shift)
+        return shift[0] == 0 and (dims[0] // cp) % window[0] == 0
+
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
         cfg = self.config
         x = self.patch_embed(x)
         x = dropout(x, cfg.drop_rate if self.training else 0.0, generator)
+        mesh = self.context_mesh()
+        if mesh is not None:
+            if x.shape[1] % mesh.model_size:
+                raise ValueError(f"--cp {mesh.model_size} does not divide the {x.shape[1]} frames after the "
+                                 "patch embed")
+            x = model_block(x, 1, mesh).contiguous()
+        local = mesh is not None  # x holds this rank's frames only
         local_feat = None
         for i_layer in range(len(cfg.depths)):
             if i_layer == self.local_at and self.local_used:
                 local_feat = self.norm_local(self.local_feat_proj(x))
             for b in range(cfg.depths[i_layer]):
                 block = getattr(self, f"layers_{i_layer}_blocks_{b}")
+                if mesh is not None:
+                    T = x.shape[1] * (mesh.model_size if local else 1)
+                    fits = self.runs_local(block, (T, x.shape[2], x.shape[3]), mesh.model_size)
+                    if fits and not local:
+                        x = model_block(x, 1, mesh).contiguous()
+                    elif local and not fits:  # the ranks' downstream work is split: sum the gradient
+                        x = gather_model(x, 1, True, mesh)
+                    local = fits
                 if cfg.remat and torch.is_grad_enabled():
                     kwargs = {} if self.remat_context_fn is None else {"context_fn": self.remat_context_fn}
                     x = recomputed(block, generator, x, **kwargs)
@@ -487,7 +533,14 @@ class SwinTransformer3D(nn.Module):
                     x = block(x, generator)
             if i_layer in cfg.downsample_stages:
                 x = getattr(self, f"layers_{i_layer}_downsample")(x)
+            if mesh is not None and not local:  # re-shard after the stage
+                x = model_block(x, 1, mesh).contiguous()
+                local = True
         x = self.norm(x)
+        if mesh is not None:  # what follows is the same on every model rank
+            if local_feat is not None:
+                local_feat = gather_model(local_feat, 1, False, mesh)
+            x = gather_model(x, 1, False, mesh)
         if local_feat is None:
             local_feat = x
         return x, local_feat

@@ -42,6 +42,20 @@ updates its block from the averaged gradient, and one all-gather per dtype
 rebuilds the parameters. ``state_dict`` gathers the full state and
 ``load_state_dict`` takes this rank's block of it, so a checkpoint written
 at N ranks resumes at any other count.
+
+The model-axis layouts (``parallel/fsdp.py:apply_layouts``: ``--tp``,
+``--cp``, ``--zero3``) reach the optimizer as one ``LeafLayout`` per
+parameter (:meth:`GroupedAdamW.set_layouts`). A TP- or ZeRO-3-sharded
+parameter is its block, so its moments and master are blocks too and the
+update runs on them unchanged; ZeRO-2 leaves such leaves alone.
+:meth:`GroupedAdamW.reduce_gradients` averages the gradients over the data
+group (a ZeRO-3 block's gradient arrives averaged from its gather's
+backward) and sums the model-partial ones over the model group;
+:meth:`GroupedAdamW.grad_norm` counts every element once: a sharded leaf's
+squares are summed over the groups that hold its blocks, a replicated leaf
+is not multiplied by the number of its copies. ``state_dict`` gathers every
+leaf to the reference layout and ``load_state_dict`` takes this rank's
+block, so a file written under one layout resumes under any other.
 """
 
 from __future__ import annotations
@@ -51,7 +65,20 @@ from typing import Callable, Mapping, Optional, Sequence
 import numpy as np
 import torch
 
-from xpretrain_tpu_torch.parallel.mesh import DataMesh, _blocks, all_gather_shards_, current_mesh, gather_shards
+import torch.distributed as dist
+
+from xpretrain_tpu_torch.parallel.mesh import (
+    DataMesh,
+    LeafLayout,
+    _blocks,
+    all_gather_shards_,
+    all_reduce_mean_,
+    all_reduce_model_sum_,
+    current_mesh,
+    full_leaf,
+    gather_shards,
+    local_leaf,
+)
 
 NO_DECAY_DEFAULT = ("bias", "layer_norm", "layernorm", "_norm", "norm_", "logit_scale")
 # LF-VILA also exempts position embeddings and the relative-position-bias
@@ -89,6 +116,13 @@ def param_group_labels(
     return labels
 
 
+def _leaf_norms(tensors: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+    """Each tensor's norm: fp64 on the CPU, fp32 elsewhere (:func:`global_norm`)."""
+    if tensors and tensors[0].device.type == "cpu":
+        return list(torch._foreach_norm([t.double() for t in tensors]))
+    return list(torch._foreach_norm([t.float() for t in tensors]))
+
+
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum of squares over every element (``optax.global_norm``),
     fp32.
@@ -96,11 +130,7 @@ def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     On the CPU the per-tensor norms accumulate in fp64: torch's fp32 CPU norm
     of a 31 M-element tensor (BERT-large's word embeddings) lands 1.7e-3 off,
     where XLA's reduction (and the CUDA one) stays within 1e-6."""
-    if tensors and tensors[0].device.type == "cpu":
-        norms = torch._foreach_norm([t.double() for t in tensors])
-        return torch.linalg.vector_norm(torch.stack(norms)).float()
-    norms = torch._foreach_norm([t.float() for t in tensors])
-    return torch.linalg.vector_norm(torch.stack(norms))
+    return torch.linalg.vector_norm(torch.stack(_leaf_norms(tensors))).float()
 
 
 class GroupedAdamW:
@@ -140,6 +170,9 @@ class GroupedAdamW:
         # rank holds one block of (``zero2_shard``)
         self.shards: dict[int, tuple[int, int, int]] = {}
         self.mesh: Optional[DataMesh] = None
+        # index -> the parameter's layout over the mesh's model axis and, under
+        # ZeRO-3, its data axis (set_layouts)
+        self.layouts: dict[int, LeafLayout] = {}
         self._init_state()
         # (lr multiplier or schedule group, weight decay) -> indices of the
         # parameters that use it, and each group's lr at an update count
@@ -177,6 +210,45 @@ class GroupedAdamW:
             self.mu = [moment(p, lb) for p, lb in zip(self.targets, self.labels)]
             self.nu = [moment(p, lb) for p, lb in zip(self.targets, self.labels)]
             self.acc = [torch.zeros_like(p) for p in self.targets] if self.k > 1 else []
+
+    def set_layouts(self, layouts: Mapping[str, LeafLayout]) -> None:
+        """Take the parameters' layouts by name (``parallel/fsdp.py:
+        apply_layouts``); call it before :func:`zero2_shard`."""
+        if self.shards:
+            raise ValueError("layouts are set before zero2_shard")
+        self.layouts = {i: layouts[n] for i, n in enumerate(self.names) if n in layouts}
+
+    def reduce_gradients(self, grads: Sequence[torch.Tensor]) -> None:
+        """Average ``grads`` over the data group in place, except ZeRO-3
+        blocks (averaged by their gathers' backward), and sum the
+        model-partial ones over the model group."""
+        dp_sharded = {i for i, lay in self.layouts.items() if lay.dp_dim is not None}
+        all_reduce_mean_([g for i, g in enumerate(grads) if i not in dp_sharded])
+        all_reduce_model_sum_([grads[i] for i, lay in self.layouts.items() if lay.model_partial])
+
+    def grad_norm(self, grads: Sequence[torch.Tensor]) -> torch.Tensor:
+        """:func:`global_norm` of the global gradients whose blocks ``grads``
+        holds: a sharded leaf's squares are summed over the data group (ZeRO-3)
+        and the model group (TP) before they count; a replicated leaf counts
+        once."""
+        norms = _leaf_norms(grads)
+        mesh = current_mesh()
+        if mesh is not None:
+            classes: dict[tuple[bool, bool], list[int]] = {}
+            for i, lay in self.layouts.items():
+                over_data = lay.dp_dim is not None and mesh.world_size > 1
+                over_model = lay.tp_dim is not None and mesh.model_size > 1
+                if over_data or over_model:
+                    classes.setdefault((over_data, over_model), []).append(i)
+            for (over_data, over_model), idx in classes.items():
+                squares = torch.stack([norms[i] for i in idx]).square()
+                if over_data:
+                    dist.all_reduce(squares, op=dist.ReduceOp.SUM, group=mesh.group)
+                if over_model:
+                    dist.all_reduce(squares, op=dist.ReduceOp.SUM, group=mesh.model_group)
+                for i, sq in zip(idx, squares.sqrt().unbind(0)):
+                    norms[i] = sq
+        return torch.linalg.vector_norm(torch.stack(norms)).float()
 
     def _block(self, t: torch.Tensor, i: int) -> torch.Tensor:
         """This rank's block of a full-shaped tensor of leaf ``i`` (a view;
@@ -282,7 +354,7 @@ class GroupedAdamW:
     def _update(self, grads: list[torch.Tensor], gnorm: Optional[torch.Tensor]) -> None:
         if self.max_grad_norm is not None:
             if gnorm is None:
-                gnorm = global_norm(grads)
+                gnorm = self.grad_norm(grads)
             keep = gnorm < self.max_grad_norm
             # (g / gnorm) * max_norm when clipping, g / 1 * 1 (exact) when not;
             # 0-d device tensors, so no host sync
@@ -320,9 +392,14 @@ class GroupedAdamW:
             torch._foreach_add_(p, u)
         self._store()
 
-    def _full(self, t: torch.Tensor, i: int) -> torch.Tensor:
-        """The full tensor of leaf ``i``'s state ``t`` (gathered under ZeRO-2)."""
-        if i not in self.shards:
+    def _full(self, t: torch.Tensor, i: int, zero2: bool = True) -> torch.Tensor:
+        """The full tensor of leaf ``i``'s state ``t``, in the reference
+        layout (gathered under ZeRO-2 and the model-axis layouts; a frozen
+        leaf's 0-d placeholder as it is)."""
+        layout = self.layouts.get(i)
+        if layout is not None and layout.sharded and t.dim() > 0:
+            return full_leaf(t, layout)
+        if i not in self.shards or not zero2:
             return t
         return gather_shards(t, self.shards[i][0], self.mesh)
 
@@ -337,7 +414,7 @@ class GroupedAdamW:
             "mini_step": self.mini_step,
             "mu": {n: self._full(t, i) for i, (n, t) in enumerate(zip(self.names, self.mu))},
             "nu": {n: self._full(t, i) for i, (n, t) in enumerate(zip(self.names, self.nu))},
-            "acc": dict(zip(self.names, self.acc)),
+            "acc": {n: self._full(t, i, zero2=False) for i, (n, t) in enumerate(zip(self.names, self.acc))},
         }
         if self.masters:
             state["master"] = {self.names[i]: self._full(self.targets[i], i) for i in self.masters}
@@ -366,10 +443,16 @@ class GroupedAdamW:
                     raise KeyError(f"optimizer state {key!r} does not match the parameters")
                 for i, name, t in zip(index, names, tensors):
                     full = saved[name]
-                    want = tuple(self.params[i].shape) if (i in self.shards and key != "acc") else tuple(t.shape)
+                    layout = self.layouts.get(i)
+                    if layout is not None and layout.sharded and t.dim() > 0:
+                        want, piece = tuple(layout.full_shape), lambda x, lay=layout: local_leaf(x, lay)
+                    elif i in self.shards and key != "acc":
+                        want, piece = tuple(self.params[i].shape), lambda x, i=i: self._block(x, i)
+                    else:
+                        want, piece = tuple(t.shape), lambda x: x
                     if tuple(full.shape) != want:
                         raise ValueError(f"optimizer state {key}[{name}]: shape {tuple(full.shape)} != {want}")
-                    t.copy_(self._block(full.to(t.device), i) if key != "acc" else full)
+                    t.copy_(piece(full.to(t.device)))
             for i in self.masters:
                 self._block(self.params[i], i).copy_(self.targets[i])
             if self.shards:
@@ -480,7 +563,7 @@ def zero2_shard(optimizer: GroupedAdamW, mesh: Optional[DataMesh] = None, min_si
     optimizer.mesh = mesh
     n, rank = mesh.world_size, mesh.rank
     for i, (p, label) in enumerate(zip(optimizer.params, optimizer.labels)):
-        if label == "frozen" or p.numel() < min_size:
+        if label == "frozen" or p.numel() < min_size or (i in optimizer.layouts and optimizer.layouts[i].sharded):
             continue
         # JAX's zero2_state_shardings rule: the first dimension the ranks divide
         dim = next((d for d, extent in enumerate(p.shape) if extent % n == 0 and extent >= n), None)

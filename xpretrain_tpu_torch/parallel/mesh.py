@@ -1,13 +1,26 @@
-"""The data-parallel process group and its collectives
+"""The process groups of the mesh and their collectives
 (``xpretrain_tpu/parallel/mesh.py``).
 
 JAX runs one SPMD program over a device mesh; here each rank is a process
 that drives one device, joined by a ``torch.distributed`` group: NCCL for
-CUDA devices, gloo for the CPU (the CPU tests). :class:`DataMesh` stands for
-the 1-D ``data`` mesh: its rank, its world size and its device. The reference
-bootstraps the same way (Horovod ``hvd.init()`` at
-``CLIP-ViP/src/pretrain/run_pretrain.py:470``, ``deepspeed.init_distributed()``
-at ``LF-VILA/src/run_pretrain.py:120``).
+CUDA devices, gloo for the CPU (the CPU tests). The reference bootstraps the
+same way (Horovod ``hvd.init()`` at ``CLIP-ViP/src/pretrain/run_pretrain.py:470``,
+``deepspeed.init_distributed()`` at ``LF-VILA/src/run_pretrain.py:120``).
+
+:class:`DataMesh` stands for the mesh of this process. Without a model axis
+it is JAX's 1-D ``data`` mesh: ``rank`` and ``world_size`` are the process's
+rank and the group's size. ``--tp`` / ``--cp`` > 1 (:func:`mesh_from_config`)
+make it JAX's 2-D ``(data, model)`` mesh of ``world // mp`` by ``mp``, with
+the model axis trailing as in JAX's ``create_mesh((n // mp, mp))``: global
+rank ``r`` sits at data index ``r // mp`` and model index ``r % mp``. Then
+``rank`` / ``world_size`` are the data index and count, ``group`` is the
+rank's data group (the ranks of its model index), and ``model_rank`` /
+``model_size`` / ``model_group`` are its place on the model axis (the ranks
+of its data index). The ranks of one model group read the same batch rows
+(:func:`process_index_count` returns the data index and count), draw the
+same dropout masks (``parallel/train_step.py`` seeds by the data index) and
+compute the same loss; every collective of this module but the model-axis
+ones acts on the data group.
 
 The losses see the global batch as JAX's do: :func:`gather_rows` all-gathers
 features with a backward that sums the gradient over ranks (LF-VILA's
@@ -45,13 +58,25 @@ _reduce_scatter_single = getattr(dist, "reduce_scatter_single", None) or dist.re
 
 @dataclasses.dataclass(frozen=True)
 class DataMesh:
-    """The data-parallel group of this process: ``rank`` of ``world_size``,
-    driving ``device`` (``cuda:LOCAL_RANK`` under NCCL, ``cpu`` under gloo)."""
+    """The mesh of this process: data index ``rank`` of ``world_size``,
+    driving ``device`` (``cuda:LOCAL_RANK`` under NCCL, ``cpu`` under gloo).
+    ``group`` is the data group (None: the default group, when the mesh has
+    no model axis); ``model_group`` is None without a model axis.
+    ``global_rank`` is the process's rank in the default group."""
 
     rank: int
     world_size: int
     device: torch.device
     backend: str
+    group: Optional[dist.ProcessGroup] = None
+    model_rank: int = 0
+    model_size: int = 1
+    model_group: Optional[dist.ProcessGroup] = None
+    global_rank: int = 0
+
+    @property
+    def has_model_axis(self) -> bool:
+        return self.model_group is not None
 
 
 _MESH: Optional[DataMesh] = None
@@ -104,7 +129,8 @@ def maybe_init_distributed(device: str | torch.device = "cuda", init_method: Opt
     except Exception as e:
         raise RuntimeError(f"rank {rank} of WORLD_SIZE={world}: the {backend} process group did not form "
                            f"({type(e).__name__}: {e}); not running as one process") from e
-    _MESH = DataMesh(rank=dist.get_rank(), world_size=world, device=dev, backend=backend)
+    _MESH = DataMesh(rank=dist.get_rank(), world_size=world, device=dev, backend=backend,
+                     global_rank=dist.get_rank())
     return _MESH
 
 
@@ -122,24 +148,77 @@ def destroy_distributed() -> None:
 
 
 def process_index_count() -> tuple[int, int]:
-    """(rank, world size) for the loaders' ``process_index`` /
-    ``process_count``: (0, 1) without a group."""
+    """(data index, data count) for the loaders' ``process_index`` /
+    ``process_count``: (0, 1) without a group. The ranks of one model group
+    share a data index, so they read the same rows."""
     return (0, 1) if _MESH is None else (_MESH.rank, _MESH.world_size)
 
 
+def process_rank() -> int:
+    """This process's rank in the default group (0 without a group): the
+    index that logs and scalar writers key on."""
+    return 0 if _MESH is None else _MESH.global_rank
+
+
 def is_main_process() -> bool:
-    """Rank 0 (or no group): the process that writes logs, checkpoints and
-    reports."""
-    return _MESH is None or _MESH.rank == 0
+    """Global rank 0 (or no group): the process that writes logs,
+    checkpoints and reports."""
+    return process_rank() == 0
 
 
 def mesh_from_config(cfg) -> Optional[DataMesh]:
-    """The data mesh of a run (JAX: a 1-D data mesh, or a 2-D (data, model)
-    mesh for ``tp`` / ``cp`` > 1). The model axis is not ported: ``--tp`` and
-    ``--cp`` > 1 raise."""
-    for key, item in (("tp", "DTensor tensor parallelism"), ("cp", "ring attention with Swin3D --cp")):
-        if int(cfg.get(key, 1) or 1) > 1:
-            raise NotImplementedError(f"--{key} > 1 (a model mesh axis) is not ported yet: ROADMAP Queue 1, {item}")
+    """The mesh of a run, as JAX's ``mesh_from_config``: the 1-D data mesh
+    (the group, or None without one), or for ``tp`` / ``cp`` > 1 the 2-D
+    ``(data, model)`` mesh of ``mp = max(tp, cp)`` (:func:`init_model_axis`).
+    ``tp`` and ``cp`` share the model axis, so when both exceed 1 they must
+    agree; ``mp`` must divide the world size (1 without a group, which JAX
+    refuses as it refuses 2 on one device). A second call returns the mesh
+    of the first."""
+    tp = int(cfg.get("tp", 1) or 1)
+    cp = int(cfg.get("cp", 1) or 1)
+    if tp > 1 and cp > 1 and tp != cp:
+        raise ValueError(f"tp={tp} and cp={cp} share the mesh's model axis; set them equal")
+    mp = max(tp, cp)
+    if mp <= 1:
+        return _MESH
+    n = 1 if _MESH is None else dist.get_world_size()
+    if n % mp:
+        raise ValueError(f"tp/cp={mp} does not divide the {n} available ranks")
+    return init_model_axis(mp)
+
+
+def init_model_axis(mp: int) -> DataMesh:
+    """Form the 2-D ``(data, model)`` mesh of the group: ``world // mp`` data
+    indices by ``mp`` model indices, one data group per model index and one
+    model group per data index (every rank creates every group, in the same
+    order, as ``torch.distributed.new_group`` requires). ``mp = 1`` makes a
+    model axis of one rank per group, whose collectives run (and are exact).
+    Replaces the current mesh and returns it; a second call with the same
+    ``mp`` returns it, another ``mp`` raises. Needs a group."""
+    global _MESH
+    if _MESH is None:
+        raise ValueError(f"a model axis of {mp} ranks needs a process group; this process has none")
+    if _MESH.has_model_axis:
+        if _MESH.model_size != mp:
+            raise ValueError(f"the mesh already has a model axis of {_MESH.model_size}, not {mp}")
+        return _MESH
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if mp < 1 or world % mp:
+        raise ValueError(f"tp/cp={mp} does not divide the {world} available ranks")
+    dp = world // mp
+    data_group = None  # the default group when it is the whole data axis
+    if mp > 1:
+        for m in range(mp):
+            g = dist.new_group([d * mp + m for d in range(dp)])
+            if rank % mp == m:
+                data_group = g
+    model_group = None
+    for d in range(dp):
+        g = dist.new_group([d * mp + m for m in range(mp)])
+        if rank // mp == d:
+            model_group = g
+    _MESH = dataclasses.replace(_MESH, rank=rank // mp, world_size=dp, group=data_group, model_rank=rank % mp,
+                                model_size=mp, model_group=model_group, global_rank=rank)
     return _MESH
 
 
@@ -182,7 +261,7 @@ def _gather(x: torch.Tensor, mesh: DataMesh) -> torch.Tensor:
     _check(x, mesh)
     x = x.contiguous()
     out = torch.empty((mesh.world_size * x.shape[0], *x.shape[1:]), dtype=x.dtype, device=x.device)
-    _all_gather_single(out, x)
+    _all_gather_single(out, x, group=mesh.group)
     return out
 
 
@@ -200,7 +279,7 @@ class _GatherRows(torch.autograd.Function):
         grad = grad.contiguous()
         out = torch.empty((grad.shape[0] // mesh.world_size, *grad.shape[1:]), dtype=grad.dtype,
                           device=grad.device)
-        _reduce_scatter_single(out, grad, op=dist.ReduceOp.SUM)
+        _reduce_scatter_single(out, grad, op=dist.ReduceOp.SUM, group=mesh.group)
         return out, None
 
 
@@ -224,7 +303,7 @@ def all_reduce_sum(x: torch.Tensor, mesh: Optional[DataMesh] = None) -> torch.Te
         return x
     _check(x, mesh)
     out = x.detach().clone()
-    dist.all_reduce(out, op=dist.ReduceOp.SUM)
+    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=mesh.group)
     return out
 
 
@@ -260,9 +339,9 @@ def all_reduce_mean_(tensors: Sequence[torch.Tensor], mesh: Optional[DataMesh] =
             _check(t, mesh)
         flat = torch.cat([t.reshape(-1) for t in group])
         if mesh.backend == "nccl":
-            dist.all_reduce(flat, op=dist.ReduceOp.AVG)
+            dist.all_reduce(flat, op=dist.ReduceOp.AVG, group=mesh.group)
         else:
-            dist.all_reduce(flat, op=dist.ReduceOp.SUM)
+            dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=mesh.group)
             flat.div_(mesh.world_size)
         for t, chunk in zip(group, flat.split([t.numel() for t in group])):
             t.copy_(chunk.view_as(t))
@@ -286,7 +365,7 @@ def all_gather_shards_(pieces: Sequence[tuple[torch.Tensor, int]], mesh: Optiona
         local = torch.cat([b[rank].reshape(-1) for b in blocks])
         _check(local, mesh)
         out = torch.empty((n, local.numel()), dtype=local.dtype, device=local.device)
-        _all_gather_single(out.view(-1), local)
+        _all_gather_single(out.view(-1), local, group=mesh.group)
         offset = 0
         for b in blocks:
             size = b[rank].numel()
@@ -322,5 +401,197 @@ def host_rows(x, mesh: Optional[DataMesh] = None) -> np.ndarray:
         t = torch.from_numpy(np.ascontiguousarray(x)).to(mesh.device)
         return _gather(t, mesh).cpu().numpy()
     rows: list = [None] * mesh.world_size
-    dist.all_gather_object(rows, x)
+    dist.all_gather_object(rows, x, group=mesh.group)
     return np.concatenate(rows)
+
+
+# -- the model axis ----------------------------------------------------------------
+
+
+def _model_axis(mesh: Optional[DataMesh]) -> Optional[DataMesh]:
+    mesh = mesh or _MESH
+    return mesh if mesh is not None and mesh.has_model_axis else None
+
+
+@torch.no_grad()
+def all_reduce_model_sum_(tensors: Sequence[torch.Tensor], mesh: Optional[DataMesh] = None) -> None:
+    """Sum ``tensors`` over the model group in place, one collective per
+    dtype over a flat copy (the gradients that are partial sums over the
+    model axis). A no-op without a model axis."""
+    mesh = _model_axis(mesh)
+    if mesh is None or not tensors:
+        return
+    by_dtype: dict[torch.dtype, list[torch.Tensor]] = {}
+    for t in tensors:
+        _check(t, mesh)
+        by_dtype.setdefault(t.dtype, []).append(t)
+    for group in by_dtype.values():
+        flat = torch.cat([t.reshape(-1) for t in group])
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=mesh.model_group)
+        for t, chunk in zip(group, flat.split([t.numel() for t in group])):
+            t.copy_(chunk.view_as(t))
+
+
+def _model_sum(x: torch.Tensor, mesh: DataMesh) -> torch.Tensor:
+    _check(x, mesh)
+    out = x.contiguous().clone()
+    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=mesh.model_group)
+    return out
+
+
+def _model_stack(x: torch.Tensor, mesh: DataMesh) -> torch.Tensor:
+    """[model_size, *x.shape]: every model rank's ``x``, in model order."""
+    _check(x, mesh)
+    x = x.contiguous()
+    out = torch.empty((mesh.model_size, *x.shape), dtype=x.dtype, device=x.device)
+    _all_gather_single(out.view(-1), x.view(-1), group=mesh.model_group)
+    return out
+
+
+def _model_cat(x: torch.Tensor, dim: int, mesh: DataMesh) -> torch.Tensor:
+    return torch.cat(_model_stack(x, mesh).unbind(0), dim=dim)
+
+
+def _model_block(x: torch.Tensor, dim: int, mesh: DataMesh) -> torch.Tensor:
+    return _blocks(x, dim, mesh.model_size)[mesh.model_rank]
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Identity; the backward sums the gradient over the model group."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, mesh: DataMesh) -> torch.Tensor:
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return _model_sum(grad, ctx.mesh), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """The sum over the model group; the backward is the identity."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, mesh: DataMesh) -> torch.Tensor:
+        return _model_sum(x, mesh)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return grad, None
+
+
+class _GatherModel(torch.autograd.Function):
+    """All-gather along ``dim`` over the model group. The backward either sums
+    the gradient over the group and keeps this rank's block (``reduce``: the
+    ranks' downstream work is split between them) or keeps this rank's block
+    alone (the ranks' downstream work is the same on every rank)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, dim: int, reduce: bool, mesh: DataMesh) -> torch.Tensor:
+        ctx.dim, ctx.reduce, ctx.mesh = dim, reduce, mesh
+        return _model_cat(x, dim, mesh)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        mesh, dim = ctx.mesh, ctx.dim
+        if not ctx.reduce:
+            return _model_block(grad, dim, mesh).contiguous(), None, None, None
+        moved = grad.movedim(dim, 0).contiguous()
+        out = torch.empty((moved.shape[0] // mesh.model_size, *moved.shape[1:]), dtype=grad.dtype,
+                          device=grad.device)
+        _reduce_scatter_single(out, moved, op=dist.ReduceOp.SUM, group=mesh.model_group)
+        return out.movedim(0, dim), None, None, None
+
+
+def _grad(x: torch.Tensor) -> bool:
+    return x.requires_grad and torch.is_grad_enabled()
+
+
+def copy_to_model(x: torch.Tensor, mesh: Optional[DataMesh] = None) -> torch.Tensor:
+    """A replicated activation entering model-sharded work (Megatron's ``f``):
+    the identity, whose backward sums the gradient over the model group."""
+    mesh = _model_axis(mesh)
+    if mesh is None or not _grad(x):
+        return x
+    return _CopyToModel.apply(x, mesh)
+
+
+def reduce_from_model(x: torch.Tensor, mesh: Optional[DataMesh] = None) -> torch.Tensor:
+    """Partial sums of the model ranks -> their sum on every rank
+    (Megatron's ``g``); the backward is the identity."""
+    mesh = _model_axis(mesh)
+    if mesh is None:
+        return x
+    return _ReduceFromModel.apply(x, mesh) if _grad(x) else _model_sum(x, mesh)
+
+
+def gather_model(x: torch.Tensor, dim: int, reduce: bool, mesh: Optional[DataMesh] = None) -> torch.Tensor:
+    """Every model rank's block of ``x`` along ``dim``, in model order (see
+    :class:`_GatherModel` for ``reduce``)."""
+    mesh = _model_axis(mesh)
+    if mesh is None:
+        return x
+    return _GatherModel.apply(x, dim, reduce, mesh) if _grad(x) else _model_cat(x, dim, mesh)
+
+
+def model_block(x: torch.Tensor, dim: int, mesh: Optional[DataMesh] = None) -> torch.Tensor:
+    """This model rank's block of ``x`` along ``dim`` (a view; the backward
+    puts the gradient in the block and zeros elsewhere)."""
+    mesh = _model_axis(mesh)
+    return x if mesh is None else _model_block(x, dim, mesh)
+
+
+# -- the layouts of a leaf ---------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class LeafLayout:
+    """How one parameter and its optimizer state are split over the mesh.
+
+    ``full_shape`` is the parameter's shape in the reference layout.
+    ``tp_dim`` is the dim split over the model axis, in ``tp_parts`` fused
+    parts (a fused qkv projection has 3: each rank holds its heads' rows of
+    q, of k and of v, in that order); ``dp_dim`` is the dim of the model
+    block split over the data axis (ZeRO-3). ``model_partial``: the
+    gradient of each model rank is a partial sum, to be summed over the
+    model group (a replicated parameter that each rank uses for its share of
+    the work)."""
+
+    full_shape: tuple
+    tp_dim: Optional[int] = None
+    tp_parts: int = 1
+    dp_dim: Optional[int] = None
+    model_partial: bool = False
+
+    @property
+    def sharded(self) -> bool:
+        return self.tp_dim is not None or self.dp_dim is not None
+
+
+def local_leaf(full: torch.Tensor, layout: LeafLayout, mesh: Optional[DataMesh] = None) -> torch.Tensor:
+    """This rank's block of a leaf in the reference layout (a view)."""
+    mesh = mesh or _MESH
+    x = full
+    if layout.tp_dim is not None:
+        d, parts = layout.tp_dim, layout.tp_parts
+        x = x.unflatten(d, (parts, mesh.model_size, -1)).select(d + 1, mesh.model_rank).flatten(d, d + 1)
+    if layout.dp_dim is not None:
+        x = _blocks(x, layout.dp_dim, mesh.world_size)[mesh.rank]
+    return x
+
+
+@torch.no_grad()
+def full_leaf(local: torch.Tensor, layout: LeafLayout, mesh: Optional[DataMesh] = None) -> torch.Tensor:
+    """The leaf in the reference layout from every rank's block, as a new
+    tensor on every rank (a collective over the data and the model groups)."""
+    mesh = mesh or _MESH
+    x = local
+    if layout.dp_dim is not None:
+        x = gather_shards(x, layout.dp_dim, mesh)
+    if layout.tp_dim is not None:
+        d, parts = layout.tp_dim, layout.tp_parts
+        y = _model_stack(x, mesh).movedim(0, d)  # [..., mp, parts * block, ...]
+        y = y.unflatten(d + 1, (parts, -1)).transpose(d, d + 1)  # [..., parts, mp, block, ...]
+        x = y.flatten(d, d + 2).contiguous()
+    return x

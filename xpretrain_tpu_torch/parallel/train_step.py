@@ -23,8 +23,31 @@ first call of each micro-step index (accumulation takes one graph each) runs
 eagerly on a side stream as the warm-up (which also runs the group's first
 collectives, so NCCL's communicator exists before the capture), the second
 captures. Step ``s`` of a chunk seeds its generator with ``seed + s`` (and
-the rank, ``utils/prng.py:rank_seed``) in every path, so a run at K = 4
+the data index, ``utils/prng.py:rank_seed``) in every path, so a run at K = 4
 equals a run at K = 1, bit for bit.
+
+On a 2-D ``(data, model)`` mesh (``--tp`` / ``--cp``, ``parallel/mesh.py``)
+the ranks of one model group hold the same rows and seed the same
+generator, so they draw the same dropout masks on replicated activations
+(different masks would make their replicated parameters drift apart), and
+they compute the same loss. The gradient conventions (the optimizer's
+``reduce_gradients``, ``optim/optimizer.py``):
+
+- every gradient is averaged over the data group, as above; a ZeRO-3 block
+  arrives averaged from its gather's backward (``parallel/fsdp.py``);
+- a TP-sharded parameter's gradient is complete for its block: the column
+  layers' inputs sum their gradients over the model group in the backward
+  (``parallel/tensor_parallel.py``), so every replicated parameter upstream
+  of them gets the whole gradient on every model rank;
+- a ``model_partial`` parameter's gradient is this rank's share and is
+  summed over the model group: a row layer's bias (added on model rank 0),
+  a Swin3D bias table sliced to the rank's heads, and under ``--cp`` every
+  Swin3D parameter, whose rank computes on its own frames.
+
+The grad norm counts each element once (``GroupedAdamW.grad_norm``). The
+captured graph of ``steps_per_call > 1`` holds the layouts' collectives as it
+holds the data-parallel ones, and ZeRO-3's gathers run in forward hooks,
+which the capture records like any other op.
 """
 
 from __future__ import annotations
@@ -37,7 +60,8 @@ import torch
 from torch import nn
 
 from xpretrain_tpu_torch.ops import _kernels
-from xpretrain_tpu_torch.optim.optimizer import LOGIT_SCALE_MAX, GroupedAdamW, clamp_logit_scale, global_norm
+from xpretrain_tpu_torch.optim.optimizer import LOGIT_SCALE_MAX, GroupedAdamW, clamp_logit_scale
+from xpretrain_tpu_torch.parallel.fsdp import step_scope
 from xpretrain_tpu_torch.parallel.mesh import all_reduce_mean_, current_mesh
 from xpretrain_tpu_torch.utils.prng import rank_seed
 
@@ -114,12 +138,13 @@ def make_train_step(
         model.train()
         for p in named.values():
             p.grad = None
-        outputs = apply_fn(model, batch, generator)
-        loss = contrastive_loss_from_outputs(outputs, loss_fn)
-        loss.backward()
+        with step_scope(model):
+            outputs = apply_fn(model, batch, generator)
+            loss = contrastive_loss_from_outputs(outputs, loss_fn)
+            loss.backward()
         grads = _global_grads(state.optimizer, named.values())
         metrics = _global_metrics({"loss": loss.detach()})
-        metrics["grad_norm"] = global_norm(grads)
+        metrics["grad_norm"] = state.optimizer.grad_norm(grads)
         metrics["logit_scale"] = outputs["logit_scale"].detach().clone()
         # the metric's norm is the one clipping needs: one pass, not two
         state.optimizer.apply(grads, metrics["grad_norm"])
@@ -154,16 +179,17 @@ def make_model_train_step(
         model.train()
         for p in params:
             p.grad = None
-        outputs = apply_fn(model, batch, generator)
-        loss = outputs[loss_key].float()
-        loss.backward()
+        with step_scope(model):
+            outputs = apply_fn(model, batch, generator)
+            loss = outputs[loss_key].float()
+            loss.backward()
         grads = _global_grads(state.optimizer, params)
         metrics = {"loss": loss.detach()}
         for key in metric_keys:
             if key in outputs:
                 metrics[key] = outputs[key].detach()
         metrics = _global_metrics(metrics)
-        metrics["grad_norm"] = global_norm(grads)
+        metrics["grad_norm"] = state.optimizer.grad_norm(grads)
         state.optimizer.apply(grads, metrics["grad_norm"])
         for p in params:
             p.grad = None
@@ -174,9 +200,9 @@ def make_model_train_step(
 
 def _global_grads(optimizer: GroupedAdamW, params) -> list[torch.Tensor]:
     """Every parameter's gradient (zeros where none), in the update's dtype,
-    averaged over the group's ranks."""
+    reduced over the mesh (``GroupedAdamW.reduce_gradients``)."""
     grads = optimizer.upcast([p.grad if p.grad is not None else torch.zeros_like(p) for p in params])
-    all_reduce_mean_(grads)
+    optimizer.reduce_gradients(grads)
     return grads
 
 
@@ -223,7 +249,8 @@ def _stepper(run: Callable[[TrainState, dict, torch.Generator], dict], device: t
 
 
 def _seed(seed: int) -> int:
-    """The generator seed of this rank for the step seeded ``seed``."""
+    """The generator seed of this rank for the step seeded ``seed``: a
+    function of its data index, which the ranks of a model group share."""
     mesh = current_mesh()
     return rank_seed(seed, 0 if mesh is None else mesh.rank)
 

@@ -206,14 +206,16 @@ class BestModelSaver:
 
     def maybe_save(self, step: int, score: float, params: Any) -> bool:
         """Save ``params`` (a state dict, or a module whose state dict is
-        copied to the host) when ``score`` beats the best so far."""
+        copied to the host) when ``score`` beats the best so far. Every rank
+        calls it with the same score: a laid-out module's ``state_dict``
+        gathers its parameters (``parallel/fsdp.py``), a collective."""
         if score <= self.best_score:
             return False
         self.best_score = score
         self.best_step = step
+        if isinstance(params, torch.nn.Module) and (self.mgr.write or params.__dict__.get("param_layouts")):
+            params = {k: v.detach().cpu() for k, v in params.state_dict().items()}
         if self.mgr.write:
-            if isinstance(params, torch.nn.Module):
-                params = {k: v.detach().cpu() for k, v in params.state_dict().items()}
             self.mgr.save(step, {"params": params, "score": float(score)})
         LOGGER.info("new best score %.4f at step %d", score, step)
         return True

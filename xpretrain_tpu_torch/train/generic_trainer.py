@@ -1,7 +1,7 @@
 """Generic trainer for models that compute their own loss
 (``xpretrain_tpu/train/generic_trainer.py``), on one device or on each rank
-of a data-parallel group (as ``ClipVipTrainer``: ZeRO-2 under ``--zero2``,
-rank 0 writes).
+of a group (as ``ClipVipTrainer``: the model laid out for ``--tp``, ``--cp``
+and ``--zero3``, ZeRO-2 under ``--zero2``, rank 0 writes).
 
 The LF-VILA and HD-VILA counterpart of ``ClipVipTrainer``: the step
 loop with :func:`make_model_train_step`, the LR schedule, grouped AdamW,
@@ -27,11 +27,12 @@ from xpretrain_tpu_torch.optim.optimizer import (
     param_dtype_from_cfg,
 )
 from xpretrain_tpu_torch.optim.schedules import get_schedule
-from xpretrain_tpu_torch.parallel.mesh import is_main_process, process_index_count
+from xpretrain_tpu_torch.parallel.fsdp import apply_layouts, gathered
+from xpretrain_tpu_torch.parallel.mesh import is_main_process, process_rank
 from xpretrain_tpu_torch.parallel.train_step import TrainState, batch_to_device, make_model_train_step
 from xpretrain_tpu_torch.train.checkpoints import BestModelSaver, CheckpointManager
 from xpretrain_tpu_torch.train.loop import drive_train_loop
-from xpretrain_tpu_torch.train.trainer import check_ported_layouts, shard_optimizer
+from xpretrain_tpu_torch.train.trainer import shard_optimizer
 from xpretrain_tpu_torch.utils.logging import LOGGER, RunningMeter, ScalarWriter
 
 
@@ -54,9 +55,9 @@ class GenericTrainer:
         param_paths: Optional[Mapping[str, str]] = None,
         device: torch.device | str = "cuda",
     ):
-        check_ported_layouts(cfg)
         self.cfg = cfg
         self.device = torch.device(device)
+        self.layouts = apply_layouts(cfg, model)
         self.model = model
         self.apply_fn = apply_fn
         self.metric_keys = metric_keys
@@ -69,7 +70,7 @@ class GenericTrainer:
             f"{out_dir}/ckpt", max_to_keep=2, async_save=bool(cfg.get("async_checkpoint", False)), write=main
         )
         self.best = BestModelSaver(out_dir, write=main)
-        self.writer = ScalarWriter(f"{out_dir}/log", process_index_count()[0])
+        self.writer = ScalarWriter(f"{out_dir}/log", process_rank())
         self.meter = RunningMeter("train_loss")
 
         accum = int(cfg.get("gradient_accumulation_steps", 1))
@@ -100,7 +101,7 @@ class GenericTrainer:
             # masters in the optimizer (optim.master_weights)
             cast_params_for_storage(model, pd)
             self.optimizer = master_weights(self.optimizer)
-        self.optimizer = shard_optimizer(cfg, self.optimizer)
+        self.optimizer = shard_optimizer(cfg, self.optimizer, self.layouts)
         self.num_train_steps = num_steps * accum
         self.steps_per_call = max(1, int(cfg.get("steps_per_call", 1)))
         self.train_step = make_model_train_step(
@@ -136,7 +137,8 @@ class GenericTrainer:
         def on_validate(step, state):
             if self.eval_fn is None:
                 return
-            report = self.eval_fn(state.model)
+            with gathered(state.model):
+                report = self.eval_fn(state.model)
             self.best.maybe_save(step, report.get("score", 0.0), state.model)
             self.writer.log_scalar_dict(
                 {k: v for k, v in report.items() if isinstance(v, (int, float))}, prefix="val", step=step

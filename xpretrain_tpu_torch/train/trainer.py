@@ -13,8 +13,10 @@ checkpoint that ``train()`` resumes from wins over both. A batch with
 In a group (``parallel/mesh.py``) each rank trains on its loader's share of
 the global batch; ``--zero2`` shards the optimizer state
 (``optim/optimizer.py:zero2_shard``, leaves of at least JAX's 16384
-elements); rank 0 alone writes the scalars, checkpoints (of the gathered
-state) and best models.
+elements); ``--tp``, ``--cp`` and ``--zero3`` lay the model out on the mesh
+as JAX's ``resolve_shardings`` does (``parallel/fsdp.py:apply_layouts``),
+before the optimizer is built; rank 0 alone writes the scalars, checkpoints
+(of the gathered state, in the reference layout) and best models.
 """
 
 from __future__ import annotations
@@ -35,7 +37,8 @@ from xpretrain_tpu_torch.optim.optimizer import (
     zero2_shard,
 )
 from xpretrain_tpu_torch.optim.schedules import get_schedule
-from xpretrain_tpu_torch.parallel.mesh import is_main_process, mesh_from_config, process_index_count
+from xpretrain_tpu_torch.parallel.fsdp import apply_layouts, gathered
+from xpretrain_tpu_torch.parallel.mesh import is_main_process, process_rank
 from xpretrain_tpu_torch.parallel.train_step import (
     TrainState,
     batch_to_device,
@@ -73,17 +76,12 @@ def clip_vip_config_from(cfg) -> CLIPVipConfig:
     )
 
 
-def check_ported_layouts(cfg) -> None:
-    """Data parallelism and ZeRO-2 are ported; the other layouts are not:
-    raise on --tp, --cp and --zero3."""
-    mesh_from_config(cfg)
-    if cfg.get("zero3"):
-        raise NotImplementedError("--zero3 (FSDP) is not ported yet: ROADMAP Queue 1, FSDP2")
-
-
-def shard_optimizer(cfg, optimizer):
-    """``--zero2``: shard ``optimizer``'s state over the data-parallel group
-    (nothing without one)."""
+def shard_optimizer(cfg, optimizer, layouts=None):
+    """Give ``optimizer`` the parameters' ``layouts`` (``apply_layouts``),
+    then, under ``--zero2``, shard the state of the leaves they leave whole
+    over the data group (nothing without a group)."""
+    if layouts:
+        optimizer.set_layouts(layouts)
     return zero2_shard(optimizer) if cfg.get("zero2", False) else optimizer
 
 
@@ -108,7 +106,6 @@ class ClipVipTrainer:
         init_params: Optional[Mapping[str, Any]] = None,
         device: torch.device | str = "cuda",
     ):
-        check_ported_layouts(cfg)
         self.cfg = cfg
         self.device = torch.device(device)
         self.train_loader = train_loader
@@ -122,6 +119,7 @@ class ClipVipTrainer:
             self.model.init_weights(generator)
         else:
             load_jax_params(self.model, init_params)
+        self.layouts = apply_layouts(cfg, self.model)
 
         # ---- io ----
         out_dir = cfg.get("output_dir", "output")
@@ -130,7 +128,7 @@ class ClipVipTrainer:
             f"{out_dir}/ckpt", max_to_keep=2, async_save=bool(cfg.get("async_checkpoint", False)), write=main
         )
         self.best = BestModelSaver(out_dir, write=main)
-        self.writer = ScalarWriter(f"{out_dir}/log", process_index_count()[0])
+        self.writer = ScalarWriter(f"{out_dir}/log", process_rank())
         self.meter = RunningMeter("train_loss")
 
         # ---- optimizer ----
@@ -168,7 +166,7 @@ class ClipVipTrainer:
             # masters in the optimizer (optim.master_weights)
             cast_params_for_storage(self.model, pd)
             self.optimizer = master_weights(self.optimizer)
-        self.optimizer = shard_optimizer(cfg, self.optimizer)
+        self.optimizer = shard_optimizer(cfg, self.optimizer, self.layouts)
         self.num_train_steps = num_steps * accum
         self.steps_per_call = max(1, int(cfg.get("steps_per_call", 1)))
 
@@ -201,10 +199,11 @@ class ClipVipTrainer:
         was_training = self.model.training
         self.model.eval()
         try:
-            return evaluate_retrieval(
-                self.eval_step, self.model, self.val_loader, self.val_valid_len,
-                save_feats_path=save_feats_path,
-            )
+            with gathered(self.model):
+                return evaluate_retrieval(
+                    self.eval_step, self.model, self.val_loader, self.val_valid_len,
+                    save_feats_path=save_feats_path,
+                )
         finally:
             self.model.train(was_training)
 
