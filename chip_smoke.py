@@ -206,14 +206,30 @@ Phases, in order; any failure exits non-zero and prints no result:
    over a model axis of one rank, bit for bit against the towers without it,
    6 window launches; the window kernel at one rank's stage-3 windows under
    ``--cp 2`` with phase 3c's bars;
-10. print the kernel summary (each kernel's time in CUDA events and on the
+10a. under a one-rank NCCL group again, ring attention
+   (``ops/ring_attention.py``) on a (data, seq) mesh of one rank at
+   BERT-large's heads over 2048 tokens ([4, 16, 2048, 64]) with a padding
+   mask, fp32 and bf16: the output and the gradients of ``sum(out * w)``
+   against one dense softmax on the same inputs (fp32 2e-5 and 3e-5·max|g|,
+   JAX's bars; bf16 2e-2), both timed;
+10b. the GPipe pipeline (``parallel/pipeline.py``) of BERT-large (24 layers,
+   1024 wide) on a (data, pipe) mesh of one rank, 4 microbatches, b=16,
+   S=50, fp32: output and stacked gradients against ``StagedBertEncoder`` on
+   the same weights (2e-5, 3e-5; bit-identity reported), both timed;
+10c. the MoE FFN (``parallel/moe.py``) at B/32's MLP widths (d 768, 8 experts
+   of d_ff 3072) on a (data, expert) mesh of one rank over 8 clips' vision
+   tokens (4736), top-1 and top-2, fp32 and bf16, capacity factor 1.25: the
+   drops equal to the CPU's routing of the same probabilities, every expert
+   trained, the leaves on the card, ms and peak GiB; at ample capacity the
+   fp32 output within 2e-5 of a per-expert loop;
+11. print the kernel summary (each kernel's time in CUDA events and on the
    device, plain time, library time and the bound of its work at the card's
    peak rates) and, as the last line, the status JSON.
 
 Each main-path run (4, 4b, 4c, 4d, 4e, 4f, each run of 4g, 4h, 4i, each
 run of 4j-4m, 4n, 4o, 4p, the artifact calls of 7a, 7b and 7d, each run
-of 8a and 8c under the group, each run of 9a, 9b's step under the plan and
-9c's cp towers) sets
+of 8a and 8c under the group, each run of 9a, 9b's step under the plan,
+9c's cp towers and the runs of 10a-10c) sets
 every launch count to 0 just before it and reads the counts just after (a
 graphed step adds, at each replay, the launches its capture recorded; an
 exported program counts in the kernels' ``xpt::`` ops, which it calls); the
@@ -2094,8 +2110,9 @@ def graph_equals_eager_phase(card: str) -> None:
         check(graphed_state.optimizer.count == eager_state.optimizer.count == k // accum, "update counts")
         replayed = replays_against_device(lambda: graphed(graphed_state, stacked, 11 + k))
         print(f"  accumulation {accum}: {k} more steps, every one a replay: counted {replayed['counted']}, the "
-              f"device ran {replayed['device']} (torch.profiler kernel names); peak {peak:.2f} GiB allocated over the "
-              f"first {k} graphed steps (warm-up and capture included) [{card}]")
+              f"device ran {replayed['device']} (torch.profiler kernel names; profiled calls {replayed['attempts']}); "
+              f"peak {peak:.2f} GiB allocated over the first {k} graphed steps (warm-up and capture included) "
+              f"[{card}]")
         del eager_state, graphed_state, eager, graphed, pairs
         release_memory()
     del batches, stacked
@@ -2109,30 +2126,50 @@ PROXY_DEVICE_KERNELS = {"forward": ("fwd_mma_kernel", "proxy_attention_fwd_kerne
                         "backward dkv": ("dkv_mma_kernel", "bwd_dkv_kernel")}
 
 
+PROFILE_ATTEMPTS = 3  # profiled windows a replay check may take: the profiler can drop kernel records, never add one
+
+
 def replays_against_device(call) -> dict:
     """``call()`` under ``torch.profiler``: the proxy-attention launches the
     wrappers counted against the proxy kernels the device ran, by name (a
     graph's replay adds what its capture recorded, so this holds the added
-    counts to what ran). Fails on a mismatch or on no launch."""
+    counts to what ran). Each profiled window runs ``call()`` twice, a
+    sleep kernel between the two, and counts the second call's kernels: late
+    in a whole run the profiler lost the first few dozen kernel records of a
+    window's first graph replay (the first proxy forward among them in phase
+    8b; all records in a fresh process), while the rest of the window was
+    whole. Fails on no launch, or when none of ``PROFILE_ATTEMPTS`` windows
+    shows the counted kernels; every attempt is returned."""
     import torch
-    from xpretrain_tpu_torch.train.profiling import key_average_rows
 
-    torch.cuda.synchronize()
-    reset_launches()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        call()
+    attempts = []
+    for _ in range(PROFILE_ATTEMPTS):
         torch.cuda.synchronize()
-    counted = launch_counts()
-    rows = [r for r in key_average_rows(prof) if r["device_type"] == "CUDA"]
-    device = {part: sum(r["count"] for r in rows if any(n in r["name"] for n in names))
-              for part, names in PROXY_DEVICE_KERNELS.items()}
-    kernels = {r["name"]: r["count"] for r in rows}
-    check(counted["proxy_attention_fwd"] > 0, f"no proxy launch counted: {counted}")
-    check(device == {"forward": counted["proxy_attention_fwd"], "backward dq": counted["proxy_attention_bwd"],
-                     "backward dkv": counted["proxy_attention_bwd"]},
-          f"counted {counted} against the device's proxy kernels {device}")
-    return {"counted": {key: n for key, n in counted.items() if n}, "device": device, "kernels": kernels}
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            call()  # the window's first replays, whose records the profiler may lose
+            torch.cuda._sleep(1_000_000)  # the marker: the second call's kernels all run after it
+            reset_launches()
+            call()
+            torch.cuda.synchronize()
+        counted = launch_counts()
+        events = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        marks = [i for i, e in enumerate(events) if "spin_kernel" in e.name]
+        check(bool(marks), f"no sleep kernel among the profiled kernels: {sorted({e.name for e in events})[:20]}")
+        after = events[marks[-1] + 1:]
+        device = {part: sum(any(n in e.name for n in names) for e in after)
+                  for part, names in PROXY_DEVICE_KERNELS.items()}
+        kernels = {}
+        for e in after:
+            kernels[e.name] = kernels.get(e.name, 0) + 1
+        check(counted["proxy_attention_fwd"] > 0, f"no proxy launch counted: {counted}")
+        attempts.append({"device": device, "kernels": len(after), "first_call_kernels": marks[-1]})
+        if device == {"forward": counted["proxy_attention_fwd"], "backward dq": counted["proxy_attention_bwd"],
+                      "backward dkv": counted["proxy_attention_bwd"]}:
+            return {"counted": {key: n for key, n in counted.items() if n}, "device": device, "kernels": kernels,
+                    "attempts": attempts}
+    fail(f"counted {counted} against the device's proxy kernels in {PROFILE_ATTEMPTS} profiled calls: {attempts}")
 
 
 def profile_per_step(fn, steps: int) -> dict:
@@ -2663,7 +2700,8 @@ def data_parallel_graph_phase(card: str) -> None:
     nccl = {name: n for name, n in replayed["kernels"].items() if "nccl" in name.lower() or "onerank" in name.lower()}
     copies = {name: n for name, n in replayed["kernels"].items() if "memcpy dtod" in name.lower()}
     print(f"  {DP_GRAPH_K} replayed steps under torch.profiler: {sum(replayed['kernels'].values())} device kernels; "
-          f"proxy launches counted {replayed['counted']}, the device ran {replayed['device']}; NCCL kernels {nccl}; "
+          f"proxy launches counted {replayed['counted']}, the device ran {replayed['device']} (profiled calls "
+          f"{replayed['attempts']}); NCCL kernels {nccl}; "
           f"device-to-device copies {copies} [{card}]")
     check(bool(nccl), f"no NCCL kernel in the replayed graph: {sorted(replayed['kernels'])[:40]}")
     timed = time_steps({"one-rank NCCL group, ZeRO-2": lambda: graphed(state, stacked, 0)}, DP_GRAPH_K, card,
@@ -2916,6 +2954,293 @@ def cp_towers_phase(card: str, preset: dict) -> dict:
     for name, shape in CP_WINDOW_SHAPES.items():
         for dtype in (torch.float32, torch.bfloat16):
             check_window(name, shape, dtype)
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: the JAX modules that reach no Pallas kernel (ring attention, the
+# GPipe pipeline, the MoE FFN) at full width over a one-rank NCCL group: each
+# axis of one rank, where lax.ppermute is the identity
+# ---------------------------------------------------------------------------
+
+RING = dict(B=4, H=16, S=2048, D=64)  # BERT-large's heads over 2048 tokens
+RING_GRAD_REL = 3e-5  # fp32 gradients, relative to max|g| (JAX's bar, tests/test_ring_attention.py:80)
+PIPE = dict(batch=16, seq=50, microbatches=4)  # BERT-large at hdvila_pretrain_stage2.json's max_txt_len
+# B/32's MLP widths over the vision tokens of 8 clips (12 frames x 49 patches + 4 proxy tokens each)
+MOE = dict(clips=8, tokens=592, d=768, d_ff=3072, experts=8, capacity_factor=1.25)
+PHASE10_ITERS = 5  # calls per CUDA-event timing
+
+
+def sync(device: str) -> None:
+    """Wait for the card (phase 10's functions also run on the CPU)."""
+    import torch
+
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def _rel_err(got, want) -> float:
+    return ((got.float() - want.float()).abs().max() / want.float().abs().max().clamp_min(1e-30)).item()
+
+
+def dense_attention(q, k, v, mask):
+    """The plain version of ring attention at one rank: one fp32 softmax over
+    all keys, the mask a -1e30 key bias, the output in q's dtype."""
+    import torch
+
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * q.shape[-1] ** -0.5
+    s = s + ((1.0 - mask.float()) * -1e30)[:, None, None, :]
+    return torch.matmul(torch.softmax(s, dim=-1), v.float()).to(q.dtype)
+
+
+def ring_attention_phase(card: str, device: str = "cuda", shape: dict = RING) -> dict:
+    """Phase 10a: ``make_ring_attention`` on a (data, seq) mesh of one rank
+    at [B, H, S, D] with a padding mask, fp32 and bf16, forward and the
+    gradients of ``sum(out * w)``, against :func:`dense_attention` on the
+    same inputs (fp32: 2e-5 and 3e-5·max|g|; bf16: 2e-2 and 2e-2·max|g|);
+    both timed. Returns the launch counts of the ring's runs."""
+    import torch
+    from xpretrain_tpu_torch.ops.ring_attention import make_ring_attention, sequence_block
+    from xpretrain_tpu_torch.parallel import mesh
+    from xpretrain_tpu_torch.tools.profile_train_step import cuda_time_ms
+
+    check(mesh.maybe_init_distributed(device) is not None, "phase 10 runs under a one-rank group")
+    group = mesh.create_mesh((1, 1), ("data", "seq"))
+    ring = make_ring_attention(group, seq_axis="seq", data_axis="data")
+    B, H, S, D = (shape[n] for n in ("B", "H", "S", "D"))
+    g = torch.Generator(device=device).manual_seed(0)
+    base = [torch.randn(B, H, S, D, device=device, generator=g) for _ in range(4)]
+    lengths = torch.randint(S // 4, S + 1, (B, 1), device=device, generator=g)
+    mask = (torch.arange(S, device=device)[None] < lengths).long()
+    counts = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace("torch.", "")
+        q, k, v, w = (t.to(dtype) for t in base)
+        outs, grads = {}, {}
+        for tag, fn in (("ring", ring), ("dense", dense_attention)):
+            args = [sequence_block(t, group).clone().requires_grad_(True) for t in (q, k, v)]
+            with plain_on_cuda_guard() as plain_calls:
+                reset_launches()
+                out = fn(*args, sequence_block(mask, group, dim=1))
+                (out.float() * w.float()).sum().backward()
+                sync(device)
+                if tag == "ring":
+                    counts[name] = launch_counts()
+            check(not plain_calls, f"10a: plain kernel versions on CUDA: {plain_calls}")
+            outs[tag], grads[tag] = out.detach(), [a.grad for a in args]
+        bar = TOL[name]
+        err = (outs["ring"].float() - outs["dense"].float()).abs().max().item()
+        gerr = [_rel_err(a, b) for a, b in zip(grads["ring"], grads["dense"])]
+        gbar = RING_GRAD_REL if dtype == torch.float32 else TOL[name]
+        same = torch.equal(outs["ring"], outs["dense"])
+        print(f"  ring attention {name} [{B}, {H}, {S}, {D}], padding mask: max abs {err:.3e} vs the dense "
+              f"softmax (bar {bar}), bit-identical {same}; dq, dk, dv {', '.join(f'{e:.3e}' for e in gerr)} of "
+              f"max|g| (bar {gbar}); launches {counts[name]} [{card}]")
+        check(tuple(outs["ring"].shape) == (B, H, S, D) and bool(torch.isfinite(outs["ring"]).all()),
+              f"10a {name}: output")
+        check(err <= bar and all(e <= gbar for e in gerr), f"10a {name}: ring attention against the dense softmax")
+        check(counts[name] == expected(), f"10a: launches {counts[name]}")
+        if device == "cuda":
+            qkv = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            times = {}
+            for tag, fn in (("dense", dense_attention), ("ring", ring), ("ring ", ring), ("dense ", dense_attention)):
+                fwd = cuda_time_ms(lambda: fn(q, k, v, mask), iters=PHASE10_ITERS, warmup=1)
+                both = cuda_time_ms(lambda: (fn(*qkv, mask).float() * w.float()).sum().backward(),
+                                    iters=PHASE10_ITERS, warmup=1)
+                times.setdefault(tag.strip(), []).append((fwd, both))
+            print(f"  ring attention {name}: forward "
+                  f"{', '.join(f'{t} {mean([f for f, _ in x]):.4f}' for t, x in times.items())} ms; forward + "
+                  f"backward {', '.join(f'{t} {mean([b for _, b in x]):.4f}' for t, x in times.items())} ms "
+                  f"(CUDA events, {PHASE10_ITERS} calls, in turns dense, ring, ring, dense) [{card}]")
+        del outs, grads
+    return counts["bfloat16"]
+
+
+def pipeline_phase(card: str, device: str = "cuda", cfg=None, shape: dict = PIPE) -> dict:
+    """Phase 10b: ``pipelined_bert_encoder`` on a (data, pipe) mesh of one
+    rank (BERT-large unless ``cfg``, fp32, M microbatches) against
+    ``StagedBertEncoder`` on the same weights: the output within 2e-5, the
+    stacked gradients of ``sum(out * w)`` within 3e-5 of the layers' largest
+    gradient and the input's within 3e-5 of its own
+    (bit-identity reported); both timed. Returns the pipeline's launch
+    counts."""
+    import torch
+    from xpretrain_tpu_torch.models.bert import BertConfig, StagedBertEncoder
+    from xpretrain_tpu_torch.models.common import expand_padding_mask
+    from xpretrain_tpu_torch.parallel import mesh
+    from xpretrain_tpu_torch.parallel.pipeline import (
+        pipeline_param_shardings,
+        pipelined_bert_encoder,
+        stack_layer_params,
+    )
+    from xpretrain_tpu_torch.tools.profile_train_step import cuda_time_ms
+
+    cfg = cfg or BertConfig.bert_large()
+    check(mesh.maybe_init_distributed(device) is not None, "phase 10 runs under a one-rank group")
+    group = mesh.create_mesh((1, 1), ("data", "pipe"))
+    g = torch.Generator(device=device).manual_seed(0)
+    encoder = StagedBertEncoder(cfg, device=device).eval()
+    with torch.no_grad():
+        for p in encoder.parameters():
+            if p.dim() >= 2:
+                p.normal_(0.0, 0.02, generator=g)
+    L, b, s = cfg.num_hidden_layers, shape["batch"], shape["seq"]
+    stacked = {n: t.detach().clone().requires_grad_(True)
+               for n, t in stack_layer_params(encoder.state_dict(), L).items()}
+    stage = pipeline_param_shardings(stacked, group, "pipe")
+    run = pipelined_bert_encoder(cfg, group, pipe_axis="pipe", data_axis="data",
+                                 n_microbatches=shape["microbatches"])
+    hidden = torch.randn(b, s, cfg.hidden_size, device=device, generator=g)
+    lengths = torch.randint(s // 4, s + 1, (b, 1), device=device, generator=g)
+    mask = expand_padding_mask((torch.arange(s, device=device)[None] < lengths).long())
+    w = torch.randn(b, s, cfg.hidden_size, device=device, generator=g)
+    x_pipe, x_seq = hidden.clone().requires_grad_(True), hidden.clone().requires_grad_(True)
+    with plain_on_cuda_guard() as plain_calls:
+        reset_launches()
+        got = run(stage, x_pipe, mask)
+        (got * w).sum().backward()
+        sync(device)
+        counts = launch_counts()
+    check(not plain_calls, f"10b: plain kernel versions on CUDA: {plain_calls}")
+    want = encoder(x_seq, mask)
+    (want * w).sum().backward()
+    err = (got - want).abs().max().item()
+    want_g = stack_layer_params({n: p.grad for n, p in encoder.named_parameters()}, L)
+    # relative to the largest gradient of all the layers: a key bias's own is
+    # rounding alone (the softmax ignores a constant added to a query's scores)
+    gmax = max(want_g[n].abs().max().item() for n in stacked)
+    gerr = max((stacked[n].grad - want_g[n]).abs().max().item() for n in stacked) / gmax
+    xerr = _rel_err(x_pipe.grad, x_seq.grad)
+    same = torch.equal(got, want) and all(torch.equal(stacked[n].grad, want_g[n]) for n in stacked)
+    print(f"  pipeline of BERT ({L} layers, {cfg.hidden_size} wide) at pipe=1, M={shape['microbatches']}, "
+          f"b={b}, S={s}, fp32: max abs {err:.3e} vs StagedBertEncoder (bar 2e-5); stacked gradients "
+          f"{gerr:.3e} of the layers' max|g| and input gradient {xerr:.3e} of its max|g| (bar 3e-5); bit-identical {same}; launches "
+          f"{counts} [{card}]")
+    check(tuple(got.shape) == (b, s, cfg.hidden_size) and bool(torch.isfinite(got).all()), "10b: output")
+    check(err <= 2e-5 and gerr <= 3e-5 and xerr <= 3e-5, "10b: the pipeline against the sequential encoder")
+    check(counts == expected(), f"10b: launches {counts}")
+    if device == "cuda":
+        times = {}
+        for tag, fn in (("sequential", lambda x: encoder(x, mask)), ("pipeline", lambda x: run(stage, x, mask)),
+                        ("pipeline ", lambda x: run(stage, x, mask)), ("sequential ", lambda x: encoder(x, mask))):
+            x = hidden.clone().requires_grad_(True)
+            with torch.no_grad():
+                fwd = cuda_time_ms(lambda: fn(hidden), iters=PHASE10_ITERS, warmup=1)
+            both = cuda_time_ms(lambda: (fn(x) * w).sum().backward(), iters=PHASE10_ITERS, warmup=1)
+            times.setdefault(tag.strip(), []).append((fwd, both))
+        print(f"  BERT-large b={b}: forward {', '.join(f'{t} {mean([f for f, _ in x]):.4f}' for t, x in times.items())}"
+              f" ms; forward + backward {', '.join(f'{t} {mean([v for _, v in x]):.4f}' for t, x in times.items())}"
+              f" ms (CUDA events, {PHASE10_ITERS} calls, in turns) [{card}]")
+    del encoder, stacked, stage
+    return counts
+
+
+def moe_loop_reference(ffn, x):
+    """The per-expert loop of ``tests/test_moe.py:_dense_reference`` with no
+    drop: each token's top-k experts by router prob, gates renormalized for
+    k > 1, y = sum of gate · MLP_e(x), fp32."""
+    import torch
+
+    probs = torch.softmax(x.float() @ ffn.router, dim=-1)
+    gates, picks = torch.topk(probs, ffn.num_selected, dim=-1)
+    if ffn.num_selected > 1:
+        gates = gates / gates.sum(dim=-1, keepdim=True)
+    y = torch.zeros_like(x)
+    for e in range(ffn.num_experts):
+        for j in range(ffn.num_selected):
+            rows = (picks[:, j] == e).nonzero()[:, 0]
+            h = ffn.activation(x[rows] @ ffn.w1[e] + ffn.b1[e])
+            y.index_add_(0, rows, gates[rows, j:j + 1] * (h @ ffn.w2[e] + ffn.b2[e]))
+    return y
+
+
+def moe_phase(card: str, device: str = "cuda", shape: dict = MOE) -> dict:
+    """Phase 10c: ``MoeFfn`` on a (data, expert) mesh of one rank, top-1 and
+    top-2, fp32 and bf16, on [clips x tokens, d] tokens: at the capacity
+    factor, a finite output, tokens dropped and the drops of the card's
+    routing equal to the same routing on the CPU, every expert trained by
+    ``mean(y**2) + 0.01 ·
+    aux``, the expert leaves on the card; at ample capacity (C = k·T, no
+    drop) the fp32 output within 2e-5 of :func:`moe_loop_reference`; ms of a
+    forward + backward and the run's peak GiB (above what was allocated
+    before it). Returns the launch counts of the runs
+    at the capacity factor."""
+    import torch
+    from xpretrain_tpu_torch.parallel import mesh
+    from xpretrain_tpu_torch.parallel.moe import MoeFfn, _topk_dispatch
+    from xpretrain_tpu_torch.tools.profile_train_step import cuda_time_ms
+
+    check(mesh.maybe_init_distributed(device) is not None, "phase 10 runs under a one-rank group")
+    group = mesh.create_mesh((1, 1), ("data", "expert"))
+    T, d, E = shape["clips"] * shape["tokens"], shape["d"], shape["experts"]
+    g = torch.Generator(device=device).manual_seed(0)
+    # a component shared by a clip's tokens (as its patches share content) makes
+    # the router's loads uneven, so the capacity binds
+    x = (torch.randn(shape["clips"], 1, d, device=device, generator=g)
+         + torch.randn(shape["clips"], shape["tokens"], d, device=device, generator=g))
+    counts = expected()
+    for k in (1, 2):
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).replace("torch.", "")
+            ffn = MoeFfn(d, E, shape["d_ff"], num_selected=k, capacity_factor=shape["capacity_factor"],
+                         expert_axis="expert", mesh=group, dtype=dtype, device=device,
+                         generator=torch.Generator(device=device).manual_seed(k))
+            check(all(p.device.type == device for p in ffn.parameters()), "10c: a leaf off the card")
+            capacity = max(1, int(math.ceil(k * T / E * shape["capacity_factor"])))
+            if device == "cuda":
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated() if device == "cuda" else 0
+            with plain_on_cuda_guard() as plain_calls:
+                reset_launches()
+                y, aux = ffn(x)
+                ((y.float() ** 2).mean() + 0.01 * aux).backward()
+                sync(device)
+                run_counts = launch_counts()
+            check(not plain_calls, f"10c: plain kernel versions on CUDA: {plain_calls}")
+            counts = {n: counts[n] + run_counts[n] for n in counts}
+            # the run's own peak: above what was allocated before it (earlier phases' leftovers included there)
+            peak = (torch.cuda.max_memory_allocated() - before) / 2**30 if device == "cuda" else float("nan")
+            trained = (ffn.w1.grad.abs().sum(dim=(1, 2)) > 0) & (ffn.w2.grad.abs().sum(dim=(1, 2)) > 0)
+            with torch.no_grad():
+                probs = torch.softmax(x.reshape(T, d).float() @ ffn.router, dim=-1)
+                here = _topk_dispatch(probs, k, capacity, group)[0]
+                cpu = _topk_dispatch(probs.cpu(), k, capacity)[0]
+            same_routing = torch.equal(here.cpu(), cpu)
+            dropped = T * k - int(here.sum().item())
+            print(f"  MoE top-{k} {name}, {E} experts of d_ff {shape['d_ff']} at d={d}, T={T}, capacity factor "
+                  f"{shape['capacity_factor']} (C={capacity}): y {tuple(y.shape)}, aux {aux.item():.6f}; "
+                  f"{dropped} of {T * k} token choices dropped, dispatch equal to the CPU's routing of the same "
+                  f"probs: {same_routing}; experts trained {int(trained.sum())}/{E}; peak {peak:.2f} GiB above the "
+                  f"{before / 2**30:.2f} allocated before the run; "
+                  f"launches {run_counts} [{card}]")
+            check(tuple(y.shape) == tuple(x.shape) and y.dtype == dtype and bool(torch.isfinite(y).all())
+                  and math.isfinite(aux.item()), f"10c top-{k} {name}: output")
+            check(same_routing and dropped > 0 and bool(trained.all()) and bool(ffn.router.grad.abs().sum() > 0),
+                  f"10c top-{k} {name}: routing, drops or gradients")
+            check(run_counts == expected(), f"10c: launches {run_counts}")
+            if dtype == torch.float32:
+                ample = MoeFfn(d, E, shape["d_ff"], num_selected=k, capacity_factor=float(E), expert_axis="expert",
+                               mesh=group, device=device)
+                ample.load_state_dict(ffn.state_dict())
+                with torch.no_grad():
+                    y_ample, _ = ample(x)
+                    want = moe_loop_reference(ample, x.reshape(T, d)).reshape(x.shape)
+                err = (y_ample - want).abs().max().item()
+                print(f"  MoE top-{k} fp32 at ample capacity (C={k * T}): max abs {err:.3e} vs the per-expert "
+                      f"loop (bar 2e-5) [{card}]")
+                check(err <= 2e-5, f"10c top-{k}: MoE against the per-expert loop")
+                del ample, y_ample, want
+            if device == "cuda":
+                xs = x.clone().requires_grad_(True)
+                ms = cuda_time_ms(lambda: (lambda yy, aa: ((yy.float() ** 2).mean() + 0.01 * aa).backward())(
+                    *ffn(xs)), iters=PHASE10_ITERS, warmup=1)
+                fwd = cuda_time_ms(lambda: ffn(x), iters=PHASE10_ITERS, warmup=1)
+                print(f"  MoE top-{k} {name}: forward {fwd:.4f} ms, forward + backward {ms:.4f} ms (CUDA events, "
+                      f"{PHASE10_ITERS} calls) [{card}]")
+            del ffn, y, aux, here, cpu, probs
+            if device == "cuda":
+                release_memory()
     return counts
 
 
@@ -3765,6 +4090,14 @@ def main() -> None:
             tp_launches = tp_plan_phase(card)
         with phase("9c the LF-VILA towers through the cp path at model size 1; #6 at --cp 2 shapes (main path)"):
             cp_launches = cp_towers_phase(card, lfvila_preset)
+    with one_rank_nccl_group():
+        with phase("10a ring attention at BERT-large heads over 2048 tokens on a (data, seq) mesh of one rank "
+                   "(main path)"):
+            ring_launches = ring_attention_phase(card)
+        with phase("10b the GPipe pipeline of BERT-large on a (data, pipe) mesh of one rank (main path)"):
+            pipe_launches = pipeline_phase(card)
+        with phase("10c the MoE FFN at B/32's MLP widths on a (data, expert) mesh of one rank (main path)"):
+            moe_launches = moe_phase(card)
     # the serving artifacts' main path: each run's counts, read just after it
     artifact_launches = {name: clipvip_artifact_launches[name] + lfvila_artifact_launches[name]
                          + patch_artifact_launches[name] for name in KERNELS}
@@ -3782,7 +4115,8 @@ def main() -> None:
              "lfvila_stage1_data_parallel": dp_lfvila_launches["train"],
              "lfvila_retrieval_data_parallel": dp_lfvila_launches["eval"],
              "train_zero3": zero3_launches[1], "train_zero3_graphed": zero3_launches[DP_GRAPH_K],
-             "train_step_tp_plan": tp_launches, "lfvila_towers_cp": cp_launches}
+             "train_step_tp_plan": tp_launches, "lfvila_towers_cp": cp_launches,
+             "ring_attention": ring_launches, "pipeline": pipe_launches, "moe_ffn": moe_launches}
     window_timing = {dt: win_timings[("s3_shifted", dt)] for dt in ("bfloat16", "float32")}
     summary = {"kernels": [
         {

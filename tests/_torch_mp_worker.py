@@ -42,6 +42,18 @@ The model-axis scenarios (``test_torch_model_parallel.py``,
   against the one-process port.
 - ``lfvila_runner_cp``: ``run_pretrain_lfvila`` at ``--cp 2`` on 2 ranks, or
   at ``--cp 1`` on 1.
+
+``seq_pipe_expert`` (``test_torch_seq_pipe_expert.py``, 4 ranks) forms a
+mesh per case (``mesh.create_mesh``) from the inputs in
+``seq_pipe_expert.npz`` beside ``<out_dir>`` and writes each rank's results
+to ``<case>_<rank>.npz``: ring attention on (4,) ``seq`` and on (2, 2)
+``(data, seq)``, with and without a mask (the rank's output block and the
+gradients of its share of a mean-squared loss); the BERT pipeline on (4,)
+``pipe`` at 4 and 8 microbatches and on (2, 2) ``(data, pipe)`` at 2 (the
+output and the stage's gradients of the global loss, averaged over the data
+group); the MoE FFN on (2, 2) ``(data, expert)``, top-1 and top-2 with
+tokens dropped (the rank's output rows, ``aux``, the averaged gradients of
+its leaves, and the checkpoint in the reference layout).
 """
 
 import dataclasses
@@ -59,7 +71,7 @@ from xpretrain_tpu_torch.config import ConfigDict  # noqa: E402
 from xpretrain_tpu_torch.parallel import mesh as mesh_lib  # noqa: E402
 
 GLOBAL_BATCH, STEPS, VAL_ROWS, VAL_BATCH = 16, 3, 22, 8
-PARAMS = {"file": "", "swin": ""}  # the JAX parameters of the CLIP-ViP and Swin3D cases (main sets them)
+PARAMS = {"file": "", "swin": "", "spe": ""}  # the JAX parameters and inputs of the cases (main sets them)
 OPT = dict(learning_rate=1e-4, decay="constant", warmup_ratio=0.0, weight_decay=0.01, grad_norm=5.0, seed=0,
            validate_at_start=0, valid_steps=100, log_steps=1)
 ZERO2_MIN_SIZE = 64  # JAX's test's min_size: the tiny models' leaves of 64 elements or more are sharded
@@ -553,6 +565,103 @@ def lfvila_runner_cp(out_dir: str) -> dict:
     return {"cp": cp, "model_size": mesh_lib.current_mesh().model_size, "scalars": rows}
 
 
+def _spe_inputs() -> dict:
+    with np.load(PARAMS["spe"]) as f:
+        return {k: torch.from_numpy(f[k]) for k in f.files}
+
+
+def _save_rank(out_dir: str, case: str, **arrays) -> None:
+    np.savez(os.path.join(out_dir, f"{case}_{mesh_lib.process_rank()}.npz"),
+             **{k: v.detach().numpy() if torch.is_tensor(v) else np.asarray(v) for k, v in arrays.items()})
+
+
+def _ring_cases(out_dir: str, inputs: dict) -> None:
+    from xpretrain_tpu_torch.ops.ring_attention import make_ring_attention, sequence_block
+    from xpretrain_tpu_torch.parallel.p2p import ring_shift
+
+    q, k, v, target, mask = (inputs[f"ring/{n}"] for n in ("q", "k", "v", "target", "mask"))
+    for shape, names in (((4,), ("seq",)), ((2, 2), ("data", "seq"))):
+        mesh = mesh_lib.create_mesh(shape, names)
+        # the shift's direction: each rank sends its index and receives its
+        # predecessor's; the backward returns each gradient to its sender
+        sent = torch.tensor([float(mesh.model_rank)], requires_grad=True)
+        (got,) = ring_shift((sent,), mesh.model_group)
+        (got * (10.0 + mesh.model_rank)).sum().backward()
+        _save_rank(out_dir, f"shift_{'x'.join(map(str, shape))}", received=got, grad=sent.grad,
+                   index=mesh.model_rank)
+        data_axis = "data" if len(shape) == 2 else None
+        rows = mesh_lib.rank_slice(torch.arange(q.shape[0]), mesh) if data_axis else torch.arange(q.shape[0])
+        ring = make_ring_attention(mesh, seq_axis="seq", data_axis=data_axis)
+        for with_mask in (False, True):
+            local = [sequence_block(t[rows], mesh).clone().requires_grad_(True) for t in (q, k, v)]
+            m = sequence_block(mask[rows], mesh, dim=1) if with_mask else None
+            out = ring(*local, m)
+            # this rank's share of the global mean-squared loss
+            ((out - sequence_block(target[rows], mesh)) ** 2).sum().div(target.numel()).backward()
+            _save_rank(out_dir, f"ring_{'x'.join(map(str, shape))}_{'mask' if with_mask else 'nomask'}", out=out,
+                       gq=local[0].grad, gk=local[1].grad, gv=local[2].grad, rows=rows,
+                       seq_index=mesh.model_rank, seq_size=mesh.model_size)
+
+
+def _pipe_cases(out_dir: str, inputs: dict) -> None:
+    from xpretrain_tpu_torch.models.bert import BertConfig
+    from xpretrain_tpu_torch.models.common import expand_padding_mask
+    from xpretrain_tpu_torch.parallel.pipeline import pipeline_param_shardings, pipelined_bert_encoder
+
+    cfg = BertConfig(vocab_size=500, hidden_size=32, num_hidden_layers=4, num_attention_heads=4,
+                     intermediate_size=64, hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    stacked = {k[len("pipe/stacked/"):]: v for k, v in inputs.items() if k.startswith("pipe/stacked/")}
+    hidden, target, pad = inputs["pipe/hidden"], inputs["pipe/target"], inputs["pipe/pad"]
+    for case, shape, names, n_micro, with_mask in (("pipe_4_m4", (4,), ("pipe",), 4, True),
+                                                  ("pipe_4_m8", (4,), ("pipe",), 8, False),
+                                                  ("pipe_2x2_m2", (2, 2), ("data", "pipe"), 2, True)):
+        mesh = mesh_lib.create_mesh(shape, names)
+        data_axis = "data" if len(shape) == 2 else None
+        stage = {n: t.clone().requires_grad_(True) for n, t in pipeline_param_shardings(stacked, mesh).items()}
+        run = pipelined_bert_encoder(cfg, mesh, data_axis=data_axis, n_microbatches=n_micro)
+        x = mesh_lib.rank_slice(hidden, mesh) if data_axis else hidden
+        m = expand_padding_mask(mesh_lib.rank_slice(pad, mesh) if data_axis else pad) if with_mask else None
+        out = run(stage, x.clone().requires_grad_(True), m)
+        full = mesh_lib.gather_rows(out, mesh) if data_axis else out  # every rank computes the global loss
+        ((full - target) ** 2).mean().backward()
+        grads = [stage[n].grad for n in stage]
+        mesh_lib.all_reduce_mean_(grads, mesh)  # the step's average over the data group
+        _save_rank(out_dir, case, out=full, stage_index=mesh.model_rank, stage_size=mesh.model_size,
+                   **{f"g/{n}": g for n, g in zip(stage, grads)})
+
+
+def _moe_cases(out_dir: str, inputs: dict) -> None:
+    from xpretrain_tpu_torch.parallel.moe import MoeFfn
+
+    x = inputs["moe/x"]
+    mesh = mesh_lib.create_mesh((2, 2), ("data", "expert"))
+    for k in (1, 2):
+        params = {n[len(f"moe{k}/"):]: t for n, t in inputs.items() if n.startswith(f"moe{k}/")}
+        ffn = MoeFfn(x.shape[1], params["w1"].shape[0], params["w1"].shape[2], num_selected=k,
+                     capacity_factor=float(inputs["moe/capacity_factor"]), expert_axis="expert", mesh=mesh)
+        ffn.load_state_dict(params)  # the reference layout in, the rank's experts held
+        y, aux = ffn(mesh_lib.rank_slice(x, mesh))
+        full = mesh_lib.gather_rows(y, mesh)  # every rank computes the global loss
+        ((full**2).mean() + 0.01 * aux).backward()
+        grads = {n: p.grad for n, p in ffn.named_parameters()}
+        mesh_lib.all_reduce_mean_(list(grads.values()), mesh)
+        saved = ffn.state_dict()  # gathered to the reference layout
+        _save_rank(out_dir, f"moe_k{k}", y=full, aux=aux, expert_index=mesh.model_rank,
+                   experts=np.asarray(ffn.experts), **{f"g/{n}": g for n, g in grads.items()},
+                   **{f"local/{n}": p for n, p in ffn.named_parameters()},
+                   **{f"saved/{n}": t for n, t in saved.items()})
+
+
+def seq_pipe_expert(out_dir: str) -> dict:
+    """Ring attention, the pipeline and the MoE FFN on 4 ranks (see the
+    module's docstring); returns the meshes' placements."""
+    inputs = _spe_inputs()
+    _ring_cases(out_dir, inputs)
+    _pipe_cases(out_dir, inputs)
+    _moe_cases(out_dir, inputs)
+    return {"rank": mesh_lib.process_rank()}
+
+
 class _no_group:
     """Compute as a process without a group (the reference math)."""
 
@@ -565,7 +674,7 @@ class _no_group:
 
 SCENARIOS = {f.__name__: f for f in (clipvip, clipvip_bf16, lfvila1, lfvila2, hdvila1, units, clipvip_tp, clipvip_zero3,
                                      clipvip_zero3_tp, units_mp, lfvila1_tp, hdvila1_tp, lfvila1_cp, lfvila1_tpcp,
-                                     swin_cp, lfvila_runner_cp)}
+                                     swin_cp, lfvila_runner_cp, seq_pipe_expert)}
 WORLD = {"mesh": None}  # the group's 1-D mesh, from which each scenario forms its own
 
 
@@ -574,6 +683,7 @@ def main() -> None:
     torch.set_num_threads(1)
     PARAMS["file"] = os.path.join(os.path.dirname(os.path.abspath(out_dir)), "clipvip_params.npz")
     PARAMS["swin"] = os.path.join(os.path.dirname(os.path.abspath(out_dir)), "swin_cp.npz")
+    PARAMS["spe"] = os.path.join(os.path.dirname(os.path.abspath(out_dir)), "seq_pipe_expert.npz")
     mesh = mesh_lib.maybe_init_distributed("cpu", init_method=f"file://{store}")
     assert mesh is not None and mesh.world_size == int(os.environ["WORLD_SIZE"])
     WORLD["mesh"] = mesh

@@ -110,6 +110,37 @@ def test_pspecs_and_policy_match_jax_on_every_path(models, family, dp, mp):
             assert checked >= 2 * len(shapes), (cfg, checked)
 
 
+def test_jax_named_shardings_match_jax(models):
+    """The JAX names (``tp_param_shardings``, ``fsdp_param_shardings``, their
+    state counterparts, ``batch_sharding``, ``replicated_sharding``) give
+    JAX's specs of every parameter, as the port writes a spec."""
+    import jax
+
+    from xpretrain_tpu.parallel import fsdp as jfsdp, mesh as jmesh_lib, tensor_parallel as jtp
+
+    dp, mp = 2, 2
+    model = models["clipvip"]
+    mesh = DataMesh(rank=0, world_size=dp, device=torch.device("cpu"), backend="gloo", model_size=mp)
+    jmesh = jmesh_lib.create_mesh((dp, mp), ("data", "model"), devices=jax.devices()[:dp * mp])
+    params = _flax_tree(model)
+    by_path = {path: n for n, (path, _) in tpm.param_rules(model).items()}
+    got = tpm.tp_param_shardings(model, mesh)
+    for path, spec in _path_specs(jtp.tp_param_shardings(params, jmesh)).items():
+        assert got[by_path[path]] == spec, path
+    for tp in (1, mp):
+        got = fsdp.fsdp_param_shardings(model, mesh, tp=tp)
+        for path, spec in _path_specs(jfsdp.fsdp_param_shardings(params, jmesh, tp=tp)).items():
+            assert got[by_path[path]] == spec, (path, tp)
+    # the moments' specs are the policy's, held to JAX's state trees above
+    assert tpm.hybrid_state_shardings(model, mesh) == fsdp.resolve_shardings(ConfigDict(tp=mp), model, dp, mp)[1]
+    assert fsdp.fsdp_state_shardings(model, mesh, tp=mp) == fsdp.resolve_shardings(
+        ConfigDict(tp=mp, zero3=1), model, dp, mp)[1]
+    from xpretrain_tpu_torch.parallel.mesh import batch_sharding, replicated_sharding
+
+    assert batch_sharding(mesh) == tuple(jmesh_lib.batch_sharding(jmesh).spec) == (DATA_AXIS,)
+    assert replicated_sharding(mesh) == tuple(jmesh_lib.replicated_sharding(jmesh).spec) == ()
+
+
 def test_tp_pspec_rules_as_jax_tests_them():
     """``tests/test_tensor_parallel.py:test_tp_pspec_rules``, on the port's copy."""
     M = MODEL_AXIS

@@ -117,6 +117,24 @@ def resolve_shardings(cfg, model: nn.Module, dp: int, mp: int = 1, min_size: int
     return None, ({n: zero2_pspec(s, dp, min_size) for n, s in shapes.items()} if zero2 else None)
 
 
+def fsdp_param_shardings(model: nn.Module, mesh: DataMesh, tp: int = 1, min_size: int = MIN_SIZE
+                         ) -> dict[str, tuple]:
+    """JAX's ``fsdp_param_shardings`` on the port's parameters: {parameter
+    name: :func:`fsdp_pspec` of its flax path and shape} (flax-layout specs;
+    :func:`apply_zero3` places them)."""
+    rules = param_rules(model)
+    return {n: fsdp_pspec(rules[n][0], flax_shape(tuple(p.shape), rules[n][1]), mesh.world_size, tp, min_size)
+            for n, p in model.named_parameters()}
+
+
+def fsdp_state_shardings(model: nn.Module, mesh: DataMesh, tp: int = 1, min_size: int = MIN_SIZE
+                         ) -> dict[str, tuple]:
+    """JAX's ``fsdp_state_shardings``: the moments of each parameter take its
+    :func:`fsdp_param_shardings` spec (optax's state paths end in the
+    parameter's path)."""
+    return fsdp_param_shardings(model, mesh, tp, min_size)
+
+
 class _GatherShard(torch.autograd.Function):
     """All-gather a ZeRO-3 block over the data group along ``dim``; the
     backward reduce-scatters the gradient and averages it over the group."""
@@ -333,7 +351,9 @@ __all__ = [
     "apply_layouts",
     "apply_zero3",
     "full_shapes",
+    "fsdp_param_shardings",
     "fsdp_pspec",
+    "fsdp_state_shardings",
     "gathered",
     "resolve_shardings",
     "step_scope",

@@ -62,7 +62,9 @@ class DataMesh:
     driving ``device`` (``cuda:LOCAL_RANK`` under NCCL, ``cpu`` under gloo).
     ``group`` is the data group (None: the default group, when the mesh has
     no model axis); ``model_group`` is None without a model axis.
-    ``global_rank`` is the process's rank in the default group."""
+    ``global_rank`` is the process's rank in the default group.
+    ``model_axis`` names the trailing axis: ``model`` (``--tp`` / ``--cp``),
+    or the ``seq``, ``pipe`` or ``expert`` axis of :func:`create_mesh`."""
 
     rank: int
     world_size: int
@@ -73,6 +75,7 @@ class DataMesh:
     model_size: int = 1
     model_group: Optional[dist.ProcessGroup] = None
     global_rank: int = 0
+    model_axis: str = MODEL_AXIS
 
     @property
     def has_model_axis(self) -> bool:
@@ -220,6 +223,62 @@ def init_model_axis(mp: int) -> DataMesh:
     _MESH = dataclasses.replace(_MESH, rank=rank // mp, world_size=dp, group=data_group, model_rank=rank % mp,
                                 model_size=mp, model_group=model_group, global_rank=rank)
     return _MESH
+
+
+def create_mesh(mesh_shape: Optional[Sequence[int]] = None, axis_names: Sequence[str] = (DATA_AXIS,)) -> DataMesh:
+    """JAX's ``create_mesh`` over the ranks of the group: ``(n,)`` named
+    ``data`` is the 1-D data mesh; ``(k,)`` under another name (``seq``,
+    ``pipe``, ``expert``) is one data index by ``k``; ``(dp, k)`` named
+    ``("data", <name>)`` is the 2-D mesh of :func:`init_model_axis`, rank
+    ``r`` at data index ``r // k`` and index ``r % k`` on the named trailing
+    axis, as JAX lays devices out. Re-forms the mesh from the whole group
+    whatever mesh was formed before (new groups), makes it current and
+    returns it; the shape must cover the group's ranks. Needs a group."""
+    global _MESH
+    if _MESH is None:
+        raise ValueError("a mesh over ranks needs a process group; this process has none")
+    world = dist.get_world_size()
+    names = tuple(axis_names)
+    shape = (world,) if mesh_shape is None else tuple(int(n) for n in mesh_shape)
+    if len(shape) != len(names) or len(shape) not in (1, 2) or (len(shape) == 2 and names[0] != DATA_AXIS):
+        raise ValueError(f"mesh {shape} over {names}: the port forms (n,) and (data, <axis>) meshes")
+    if int(np.prod(shape)) != world:
+        raise ValueError(f"mesh shape {shape} does not cover {world} devices")
+    rank = dist.get_rank()
+    _MESH = dataclasses.replace(_MESH, rank=rank, world_size=world, group=None, model_rank=0, model_size=1,
+                                model_group=None, global_rank=rank, model_axis=MODEL_AXIS)
+    if names == (DATA_AXIS,):
+        return _MESH
+    _MESH = dataclasses.replace(init_model_axis(shape[-1]), model_axis=names[-1])
+    return _MESH
+
+
+def axis_group(mesh: Optional[DataMesh], name: str) -> tuple[int, int, Optional[dist.ProcessGroup]]:
+    """(size, this rank's index, group) of the mesh axis ``name``: ``data``
+    or the mesh's trailing axis. No mesh, or an axis of one rank: (1, 0,
+    None). Another name raises, as JAX's mesh does."""
+    if mesh is None:
+        return 1, 0, None
+    if name == DATA_AXIS:
+        if mesh.world_size == 1:
+            return 1, 0, None
+        return mesh.world_size, mesh.rank, dist.group.WORLD if mesh.group is None else mesh.group
+    if name == mesh.model_axis:
+        return mesh.model_size, mesh.model_rank, mesh.model_group if mesh.model_size > 1 else None
+    raise ValueError(f"the mesh has no axis {name!r}: its axes are {DATA_AXIS!r} and {mesh.model_axis!r}")
+
+
+def batch_sharding(mesh: Optional[DataMesh] = None, axis: str = DATA_AXIS) -> tuple:
+    """JAX's ``batch_sharding`` as the port writes a partition spec (a tuple of
+    mesh axes per dim, as ``tp_pspec`` returns): dim 0 over ``axis``; the
+    rows it gives a rank are :func:`shard_host_batch`'s."""
+    axis_group(mesh, axis)
+    return (axis,)
+
+
+def replicated_sharding(mesh: Optional[DataMesh] = None) -> tuple:
+    """JAX's ``replicated_sharding`` as a partition spec: no dim split."""
+    return ()
 
 
 def local_batch_size(global_batch: int, mesh: Optional[DataMesh] = None) -> int:

@@ -309,15 +309,38 @@ def apply_tensor_parallel(model: nn.Module, mesh: DataMesh, skip: tuple[nn.Modul
     return layouts
 
 
+def tp_param_shardings(model: nn.Module, mesh: DataMesh) -> dict[str, tuple]:
+    """JAX's ``tp_param_shardings`` on the port's parameters: {parameter
+    name: :func:`tp_pspec` of its flax path and shape at the mesh's model
+    size} (specs of the flax layout; :func:`apply_tensor_parallel` places
+    them)."""
+    rules = param_rules(model)
+    return {n: tp_pspec(rules[n][0], flax_shape(tuple(p.shape), rules[n][1]), mesh.model_size)
+            for n, p in model.named_parameters()}
+
+
+def hybrid_state_shardings(model: nn.Module, mesh: DataMesh, min_size: int = 16384) -> dict[str, tuple]:
+    """JAX's ``hybrid_state_shardings`` on the port's parameters: {parameter
+    name: :func:`hybrid_state_pspec` of its moments} (the port's moments
+    take the spec of their parameter's path, as optax's state paths end in
+    it)."""
+    rules = param_rules(model)
+    return {n: hybrid_state_pspec(rules[n][0], flax_shape(tuple(p.shape), rules[n][1]), mesh.model_size,
+                                  mesh.world_size, min_size)
+            for n, p in model.named_parameters()}
+
+
 __all__ = [
     "ColumnParallel",
     "RowParallel",
     "apply_tensor_parallel",
     "flax_shape",
     "hybrid_state_pspec",
+    "hybrid_state_shardings",
     "param_rules",
     "plan_tensor_parallel",
     "torch_dim",
+    "tp_param_shardings",
     "tp_pspec",
 ]
 
