@@ -101,6 +101,17 @@ Phases, in order; any failure exits non-zero and prints no result:
 4q. move 16 synthetic B/32 batches onto the card through
    ``PrefetchLoader(depth=2)`` and ``batch_to_device``: each bit-equal to its
    host batch;
+4s. train at attention dropout 0.1, set through the model API as in JAX
+   (no flag sets it): the MSR-VTT B/32 preset through ``run_retrieval_clipvip``
+   with ``ClipVipTrainer(model_cfg=...)`` (both towers' attention dropout),
+   2 steps at b=16 eagerly and at ``--steps_per_call 2``, then its
+   validation: no proxy launch in training (JAX's gate takes
+   ``dot_attention`` over the proxy mask, with dropout: 12 such calls on
+   CUDA a training forward, counted exactly, remat off as in the preset), 12
+   forward launches a validation batch, finite losses, the graphed run bit
+   for bit the eager one; then LF-VILA ``qa_mc`` on the window-kernel config
+   with ``Swin3DConfig.attn_drop_rate`` 0.1, 2 steps at b=4 and its eval: no
+   window launch in training, 6 a batch in the eval, finite losses;
 4r. (inside 4f, 4g, 4h and 4j-4m, after each eager training run) run the
    same runner again at ``--steps_per_call 2``: LF-VILA stage 2 under remat,
    the qa_mc fine-tune, CLIP-ViP pretraining, HD-VILA stages 1 and 2 (2
@@ -152,8 +163,12 @@ Phases, in order; any failure exits non-zero and prints no result:
    tower at b=8;
 6f. time the B/32 bf16 train step at b=32 eager and graphed (K = 4), with
    fp32 and with bf16 parameter storage, and LF-VILA stage 1 at b=16 eager
-   and at K = 2: ms a step (5 windows), device busy time and idle share,
+   and at K = 2: ms a step (5 windows of about 0.5 s, LF-VILA's 0.6),
+   device busy time and idle share,
    device kernels and host launch calls a step, peak memory;
+6g. time the graphed B/32 bf16 train step at b=32 (K = 2) at attention
+   dropout 0.1 beside 0 (6f's measure): what JAX's dense dropout branch
+   costs, a record for a kernel with dropout inside to beat;
 7a. export B/32 (bf16, kernel attention, u8 [b, 12, 224, 224, 3], 70
    tokens) through ``export_serving_clipvip`` to a file, load it with
    ``load_artifact`` and call it at b = 1, 7 and 24: features within 1e-4
@@ -176,6 +191,10 @@ Phases, in order; any failure exits non-zero and prints no result:
 7e. B/32 under ``int8_serving`` (w8a8, ``torch._int_mm``) at b=24: embedding
    cosine (JAX's: of the batch's flattened features) >= 0.9994 against the
    bf16 path, the lowest row's printed, both timed (a record);
+7f. in the process before any group: JAX's one-device call sequence.
+   ``create_mesh((1,), ("seq",))`` returns a one-rank mesh on ``cuda:0`` and
+   leaves no current mesh; ring attention through it at 10a's shapes equals
+   the ``mesh=None`` call bit for bit, fp32 and bf16, gradients included;
 8a. set up a one-rank NCCL group as ``torchrun`` would (``RANK=0``,
    ``WORLD_SIZE=1``, ``LOCAL_RANK=0``, ``MASTER_ADDR``, a free
    ``MASTER_PORT``; the runner's ``parse_args`` joins it) and run 4b's
@@ -206,7 +225,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    over a model axis of one rank, bit for bit against the towers without it,
    6 window launches; the window kernel at one rank's stage-3 windows under
    ``--cp 2`` with phase 3c's bars;
-10a. under a one-rank NCCL group again, ring attention
+10a. under a one-rank NCCL group again (each of 10a-10c forms its mesh with
+   ``create_mesh``, which must leave the run's mesh, and a ``gather_rows``
+   through it, as they were), ring attention
    (``ops/ring_attention.py``) on a (data, seq) mesh of one rank at
    BERT-large's heads over 2048 tokens ([4, 16, 2048, 64]) with a padding
    mask, fp32 and bf16: the output and the gradients of ``sum(out * w)``
@@ -227,14 +248,17 @@ Phases, in order; any failure exits non-zero and prints no result:
    peak rates) and, as the last line, the status JSON.
 
 Each main-path run (4, 4b, 4c, 4d, 4e, 4f, each run of 4g, 4h, 4i, each
-run of 4j-4m, 4n, 4o, 4p, the artifact calls of 7a, 7b and 7d, each run
+run of 4j-4m, 4n, 4o, 4p, each run of 4s, the artifact calls of 7a, 7b and
+7d, 7f's rings, each run
 of 8a and 8c under the group, each run of 9a, 9b's step under the plan,
 9c's cp towers and the runs of 10a-10c) sets
 every launch count to 0 just before it and reads the counts just after (a
 graphed step adds, at each replay, the launches its capture recorded; an
 exported program counts in the kernels' ``xpt::`` ops, which it calls); the
 summary reports each path's count and their sum.
-While they run, a call of a plain version on CUDA tensors fails the phase.
+While they run, a call of a plain version on CUDA tensors fails the phase;
+4s alone expects the masked ``dot_attention`` of JAX's dropout branch, and
+counts its calls.
 HD-VILA runs none of the six kernels (JAX computes its convolutions,
 TimeSformer attention and BERT in XLA): its phases check that they launch
 none and that the encoder's inputs and parameters are on the card.
@@ -1662,6 +1686,7 @@ def hdvila_timing_phase(card: str) -> dict:
 GRAPHED_FINETUNE = dict(steps=8, every=4, k=4)  # phase 4n: the MSR-VTT preset at its batch (16)
 GRAPHED_LFVILA = dict(steps=4, k=2)  # phase 4o: the stage-1 preset at its batch (16), kernel off
 GRAPH_K = 4  # phases 5f and 6f: the B/32 bf16 train step at b=32, K steps a call
+STEP_WINDOW_S = 0.5  # phases 6f and 6g: seconds a timing window of the B/32 step (LF-VILA's: 0.6), 5 windows each
 PREFETCH = dict(batches=16, batch=16, depth=2)  # phase 4q: B/32 u8 clips
 # the host calls that put work on the card, counted per step from torch.profiler's CPU rows
 HOST_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
@@ -1755,11 +1780,13 @@ def release_memory() -> None:
     torch.cuda.empty_cache()
 
 
-def b32_train_state(bf16_storage: bool, accum: int = 1, lr: float = 1e-5, layout=None):
+def b32_train_state(bf16_storage: bool, accum: int = 1, lr: float = 1e-5, layout=None,
+                    attention_dropout: float = 0.0):
     """A B/32 bf16-compute model (seed 0) and its grouped AdamW (cosine with
     warmup, so the lr moves every update), with ``--param_dtype bf16``'s
     storage and masters when asked; ``layout(model)`` lays the model out
-    (returning its layouts) before the optimizer is built."""
+    (returning its layouts) before the optimizer is built;
+    ``attention_dropout`` is both towers'."""
     import torch
     from xpretrain_tpu_torch.models.clip_vip.convert import flax_param_paths
     from xpretrain_tpu_torch.models.clip_vip.model import CLIPVipConfig, CLIPViPModel
@@ -1767,7 +1794,8 @@ def b32_train_state(bf16_storage: bool, accum: int = 1, lr: float = 1e-5, layout
     from xpretrain_tpu_torch.optim.schedules import get_schedule
     from xpretrain_tpu_torch.parallel.train_step import TrainState
 
-    model = CLIPViPModel(CLIPVipConfig.base_patch32(dtype=torch.bfloat16), device="cuda")
+    model = CLIPViPModel(with_attention_dropout(CLIPVipConfig.base_patch32(dtype=torch.bfloat16), attention_dropout),
+                         device="cuda")
     model.init_weights(torch.Generator(device="cuda").manual_seed(0))
     layouts = layout(model) if layout is not None else {}
     optimizer, _ = build_optimizer(dict(model.named_parameters()), get_schedule("cosine", lr, 16, warmup_ratio=0.25),
@@ -2069,6 +2097,161 @@ def prefetch_phase(card: str) -> None:
     release_memory()
 
 
+ATTENTION_DROPOUT = dict(rate=0.1, steps=2, k=2)  # phase 4s (and 6g's K): a rate, runner steps, steps a call
+
+
+def with_attention_dropout(config, rate: float):
+    """A ``CLIPVipConfig`` with ``rate`` as both towers' attention dropout."""
+    return dataclasses.replace(config, text=dataclasses.replace(config.text, attention_dropout=rate),
+                               vision=dataclasses.replace(config.vision, attention_dropout=rate))
+
+
+@contextlib.contextmanager
+def clipvip_model_cfg(edit):
+    """While inside, ``run_retrieval_clipvip`` builds ``ClipVipTrainer(cfg,
+    ..., model_cfg=edit(clip_vip_config_from(cfg)))``: JAX's trainer API
+    for what no flag sets, as attention dropout."""
+    from xpretrain_tpu_torch.cli import run_retrieval_clipvip
+    from xpretrain_tpu_torch.train.trainer import clip_vip_config_from
+
+    original = run_retrieval_clipvip.ClipVipTrainer
+
+    class WithModelCfg(original):
+        def __init__(self, cfg, *args, **kwargs):
+            super().__init__(cfg, *args, model_cfg=edit(clip_vip_config_from(cfg)), **kwargs)
+
+    run_retrieval_clipvip.ClipVipTrainer = WithModelCfg
+    try:
+        yield
+    finally:
+        run_retrieval_clipvip.ClipVipTrainer = original
+
+
+@contextlib.contextmanager
+def lfvila_model_cfg(edit):
+    """While inside, ``run_tasks_lfvila`` builds its model from
+    ``edit(lfvila_config_from(cfg))`` (the model API, as for CLIP-ViP)."""
+    from xpretrain_tpu_torch.cli import run_tasks_lfvila
+
+    original = run_tasks_lfvila.lfvila_config_from
+    run_tasks_lfvila.lfvila_config_from = lambda cfg: edit(original(cfg))
+    try:
+        yield
+    finally:
+        run_tasks_lfvila.lfvila_config_from = original
+
+
+def attention_dropout_phase(card: str) -> dict:
+    """Phase 4s: training at attention dropout, where JAX leaves its kernels
+    for the dense ``dot_attention`` branch (``clip_vip/model.py:216``,
+    ``lf_vila/swin3d.py:270``). The MSR-VTT B/32 preset through
+    ``run_retrieval_clipvip`` at both towers' attention dropout
+    ``ATTENTION_DROPOUT["rate"]``, ``steps`` steps at its b=16 eagerly and at
+    ``--steps_per_call k`` (= steps: one warm-up and one capture + replay),
+    then the final validation: the guard records exactly 12 masked
+    ``dot_attention`` calls on CUDA a traced training forward (the preset has
+    no remat) and no other plain call; the proxy launches are the
+    validation's alone (12 a batch); finite losses and R@K; the graphed run's
+    losses and gradient norms equal the eager one's bit for bit. Then
+    ``run_tasks_lfvila --task qa_mc`` on the window-kernel config with
+    ``attn_drop_rate`` at the rate, ``QA_TRAIN``'s steps and eval: every
+    kernel-gated block at the rate, the window launches the eval's alone (6
+    a batch), finite losses. Returns each run's launch counts."""
+    import torch
+    from xpretrain_tpu_torch.cli import run_retrieval_clipvip, run_tasks_lfvila
+    from xpretrain_tpu_torch.models.clip_vip.model import ProxyAttention
+    from xpretrain_tpu_torch.models.lf_vila.swin3d import WindowAttention3D
+
+    rate, steps, k = ATTENTION_DROPOUT["rate"], ATTENTION_DROPOUT["steps"], ATTENTION_DROPOUT["k"]
+    with open(os.path.join(REPO, PRESET)) as f:
+        preset = json.load(f)
+    n_val = math.ceil(run_retrieval_clipvip.DUMMY_VAL_SIZE / preset["val_batch_size"])
+    S = B32["M"] + B32["N"] * B32["L"]
+    # one masked dot_attention a layer and traced forward: eager, each step;
+    # at K = steps, the warm-up and the capture (the replays trace nothing)
+    want_calls = [("dot_attention", (preset["train_batch_size"], B32["H"], S, B32["D"]))] * (VIDEO_LAYERS * steps)
+    launches, tags = {}, {}
+    for kk in (1, k):
+        with tempfile.TemporaryDirectory() as out_dir, clipvip_model_cfg(lambda c: with_attention_dropout(c, rate)), \
+                built_trainers(run_retrieval_clipvip, "ClipVipTrainer") as rec:
+            release_memory()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            with plain_on_cuda_guard() as calls:
+                reset_launches()
+                report = run_retrieval_clipvip.main([
+                    "--config", os.path.join(REPO, PRESET), "--dummy_data", "1", "--device_ingest", "1",
+                    "--mode", "train", "--num_train_steps", str(steps), "--validate_at_start", "0",
+                    "--valid_steps", "1000", "--save_steps", "1000", "--log_steps", "1", "--steps_per_call", str(kk),
+                    "--device", "cuda", "--output_dir", out_dir,
+                ])
+                torch.cuda.synchronize()
+                launches[kk] = launch_counts()
+            wall = time.perf_counter() - t0
+            model = rec["built"][0].model
+            rates = {m.dropout_rate for m in model.modules() if isinstance(m, ProxyAttention)}
+            check(rates == {rate} and not model.config.remat, f"4s: proxy attention dropout {rates}, remat "
+                                                               f"{model.config.remat}")
+            graphs = capture_launches(rec["built"][0].train_step) if kk > 1 else []
+            tags[kk] = scalars(out_dir)
+            del rec["built"][:], model
+        tag = "eager" if kk == 1 else f"--steps_per_call {kk} ({len(graphs)} graph(s), launches recorded {graphs})"
+        losses, norms = tags[kk].get("train/loss", []), tags[kk].get("train/grad_norm", [])
+        print(f"  B/32 fine-tune at attention dropout {rate}, b={preset['train_batch_size']}, {tag}: losses {losses}, "
+              f"grad norms {norms}; launches {launches[kk]} (the validation's {n_val} batches); masked dot_attention "
+              f"on CUDA {len(calls)} calls (expected {len(want_calls)}: {VIDEO_LAYERS} layers x {steps} traced "
+              f"forwards), other plain calls {[c for c in calls if c[0] != 'dot_attention']}; peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; run wall {wall:.1f} s [{card}]")
+        check(calls == want_calls, f"4s {tag}: plain calls on CUDA {calls[:4]} ({len(calls)}), expected "
+                                   f"{len(want_calls)} x {want_calls[0]}")
+        check(launches[kk] == expected(proxy_attention_fwd=VIDEO_LAYERS * n_val),
+              f"4s {tag}: launches {launches[kk]}, expected the validation's alone")
+        check(len(losses) == steps and all(math.isfinite(x) for x in losses + norms), f"4s {tag}: losses")
+        check(all(math.isfinite(report["t2v"][m]) for m in ("R1", "R5", "R10", "MedR")), f"4s {tag}: R@K")
+    same = all(tags[1][n] == tags[k][n] for n in ("train/loss", "train/grad_norm"))
+    print(f"  K = {k} against eager at attention dropout {rate}: losses and grad norms bit-identical {same}")
+    check(same, f"4s: the graphed run {tags[k]['train/loss']} against eager {tags[1]['train/loss']}")
+
+    def lfvila_dropout(model_cfg):
+        return dataclasses.replace(model_cfg, video=dataclasses.replace(model_cfg.video, attn_drop_rate=rate))
+
+    n_eval = math.ceil(QA_TRAIN["samples"] / QA_TRAIN["batch"])
+    with tempfile.TemporaryDirectory() as out_dir, lfvila_model_cfg(lfvila_dropout), \
+            built_trainers(run_tasks_lfvila, "GenericTrainer") as rec:
+        dummy_size, run_tasks_lfvila.DUMMY_SIZE = run_tasks_lfvila.DUMMY_SIZE, QA_TRAIN["samples"]
+        try:
+            with timed_train_steps() as events, plain_on_cuda_guard() as calls:
+                reset_launches()
+                report = run_tasks_lfvila.main([
+                    "--config", os.path.join(REPO, LFVILA_PRESET), *TASK_RUNS["qa_mc"], "--dummy_data", "1",
+                    "--num_train_steps", str(QA_TRAIN["steps"]), "--train_batch_size", str(QA_TRAIN["batch"]),
+                    "--val_batch_size", str(QA_TRAIN["batch"]), "--log_steps", "1", "--save_steps", "1000",
+                    "--device", "cuda", "--output_dir", out_dir,
+                ])
+                torch.cuda.synchronize()
+                launches["lfvila"] = launch_counts()
+        finally:
+            run_tasks_lfvila.DUMMY_SIZE = dummy_size
+        gated = [(m.attn_drop, m.use_pallas) for m in rec["built"][0].model.modules()
+                 if isinstance(m, WindowAttention3D) and m.use_pallas]
+        del rec["built"][:]
+        qa_tags = scalars(out_dir)
+    losses = qa_tags.get("train/loss", []) + qa_tags.get("train/span_loss", [])
+    print(f"  LF-VILA qa_mc on the window-kernel config at attn_drop_rate {rate}, b={QA_TRAIN['batch']}: "
+          f"{len(gated)} kernel-gated blocks at {sorted({a for a, _ in gated})}; losses {qa_tags.get('train/loss')}, "
+          f"span losses {qa_tags.get('train/span_loss')}; launches {launches['lfvila']} (the eval's {n_eval} batches); "
+          f"plain calls on CUDA {len(calls)}; steps {[round(a.elapsed_time(b), 2) for a, b in events]} ms (CUDA "
+          f"events); accuracy {report['accuracy']:.4f} [{card}]")
+    check(len(gated) == WINDOW_BLOCKS and all(a == rate for a, _ in gated), f"4s: kernel-gated blocks {gated}")
+    check(launches["lfvila"] == expected(window_attention_fwd=WINDOW_BLOCKS * n_eval),
+          f"4s: LF-VILA launches {launches['lfvila']}, expected the eval's alone")
+    check(not calls, f"4s: LF-VILA plain calls on CUDA {calls[:4]}")
+    check(len(losses) == 2 * QA_TRAIN["steps"] and all(math.isfinite(x) for x in losses), "4s: LF-VILA losses")
+    check(math.isfinite(report["accuracy"]) and 0.0 <= report["accuracy"] <= 1.0, "4s: LF-VILA accuracy")
+    release_memory()
+    return {"clipvip": launches[1], "clipvip_graphed": launches[k], "lfvila": launches["lfvila"]}
+
+
 def graph_equals_eager_phase(card: str) -> None:
     """Phase 5f: the B/32 bf16 train step at b=32, 4 steps graphed (K = 4)
     against 4 eager steps on the same batches and seeds, once plain and once
@@ -2236,7 +2419,7 @@ def graph_timing_phase(card: str) -> dict:
         results.update({f"b32 {storage} storage {mode}": row for mode, row in time_steps({
             "eager": lambda: [eager(state, b, 0) for b in batches],
             f"graphed K={k}": lambda: graphed(state, stacked, 0),
-        }, k, card, f"B/32 bf16 train step b=32, {storage} storage,").items()})
+        }, k, card, f"B/32 bf16 train step b=32, {storage} storage,", window_s=STEP_WINDOW_S).items()})
         del state, eager, graphed
         release_memory()
     del batches, stacked
@@ -2260,11 +2443,35 @@ def graph_timing_phase(card: str) -> dict:
         results.update({f"lfvila stage 1 {mode}": row for mode, row in time_steps({
             "eager": lambda: [trainer.train_step(state, b, 0) for b in data],
             f"graphed K={lk}": lambda: graphed(state, lf_stacked, 0),
-        }, lk, card, f"LF-VILA stage-1 bf16 train step b={batch},", window_s=1.2).items()})
+        }, lk, card, f"LF-VILA stage-1 bf16 train step b={batch},", window_s=0.6).items()})
         del trainer, rec["built"][:], state, graphed, data, lf_stacked
     release_memory()
     return results
 
+
+
+def dropout_timing_phase(card: str) -> dict:
+    """Phase 6g: the graphed B/32 bf16 train step at b=32 (K =
+    ``ATTENTION_DROPOUT["k"]``, fp32 storage) at attention dropout 0 and at
+    the rate, 6f's measure (5 windows of CUDA events, device busy, peak GiB
+    from the first call on): what JAX's dense dropout branch costs."""
+    k, rate = ATTENTION_DROPOUT["k"], ATTENTION_DROPOUT["rate"]
+    batches, stacked = b32_train_batches(k)
+    results = {}
+    for p in (0.0, rate):
+        state = b32_train_state(False, lr=1e-6, attention_dropout=p)
+        graphed = b32_steps(k)[1]
+        results[p] = time_steps({f"graphed K={k}": lambda: graphed(state, stacked, 0)}, k, card,
+                                f"B/32 bf16 train step b=32, attention dropout {p},",
+                                window_s=STEP_WINDOW_S)[f"graphed K={k}"]
+        del state, graphed
+        release_memory()
+    del batches, stacked
+    release_memory()
+    base, drop = (results[p] for p in (0.0, rate))
+    print(f"  attention dropout {rate} against 0: {drop['step_ms']} against {base['step_ms']} ms a step, peak "
+          f"{drop['peak_gib']:.2f} against {base['peak_gib']:.2f} GiB [{card}]")
+    return results
 
 
 def _max_abs(a, b) -> float:
@@ -2993,6 +3200,76 @@ def dense_attention(q, k, v, mask):
     return torch.matmul(torch.softmax(s, dim=-1), v.float()).to(q.dtype)
 
 
+def axis_mesh(shape: tuple, names: tuple, device: str):
+    """``create_mesh(shape, names)`` under the run's group, as phase 10 forms
+    each mesh, which must leave the run's mesh as it is (JAX's
+    ``create_mesh`` only builds a ``Mesh``): the current mesh the same object
+    and a ``gather_rows`` of the run's mesh the same rows, before and after.
+    Returns the new mesh."""
+    import torch
+    from xpretrain_tpu_torch.parallel import mesh
+
+    run = mesh.current_mesh()
+    rows = torch.arange(6, dtype=torch.float32, device=device).reshape(2, 3)
+    before = mesh.gather_rows(rows)
+    made = mesh.create_mesh(shape, names)
+    after = mesh.gather_rows(rows)
+    kept = mesh.current_mesh() is run
+    print(f"  create_mesh({shape}, {names}) under the run's {run.backend} group: the run's mesh the same object "
+          f"{kept}, gather_rows of it the same rows before and after {torch.equal(before, after)} "
+          f"{tuple(after.shape)}; the new mesh's {names[-1]} axis of {made.model_size}")
+    check(kept and made is not run and made.model_axis == names[-1] and torch.equal(before, after),
+          f"create_mesh{shape, names} changed the run's mesh: {run} -> {mesh.current_mesh()}")
+    return made
+
+
+def one_process_mesh_phase(card: str, device: str = "cuda", shape: dict = RING) -> dict:
+    """Phase 7f, in a process with no group (before phase 8 forms one):
+    JAX's one-device call sequence, ``create_mesh((1,), ("seq",))``, returns
+    a one-rank mesh on ``cuda:0`` (``device`` when it is not cuda) and leaves
+    no current mesh; ring attention through it at 10a's shapes, fp32 and
+    bf16, equals the ``mesh=None`` call bit for bit, the gradients of
+    ``sum(out * w)`` included. Returns the launch counts of the ring's runs
+    (none of the six kernels)."""
+    import torch
+    from xpretrain_tpu_torch.ops.ring_attention import make_ring_attention, sequence_block
+    from xpretrain_tpu_torch.parallel import mesh
+
+    check(mesh.current_mesh() is None, f"7f runs without a group: {mesh.current_mesh()}")
+    seq = mesh.create_mesh((1,), ("seq",), devices=None if device == "cuda" else [device])
+    want_device = torch.device("cuda", 0) if device == "cuda" else torch.device(device)
+    check(mesh.current_mesh() is None and seq.device == want_device
+          and (seq.world_size, seq.model_size, seq.model_axis) == (1, 1, "seq"), f"7f: {seq}")
+    B, H, S, D = (shape[n] for n in ("B", "H", "S", "D"))
+    g = torch.Generator(device=device).manual_seed(0)
+    base = [torch.randn(B, H, S, D, device=device, generator=g) for _ in range(4)]
+    mask = (torch.arange(S, device=device)[None] < torch.randint(S // 4, S + 1, (B, 1), device=device,
+                                                                  generator=g)).long()
+    counts = expected()
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, w = (t.to(dtype) for t in base)
+        runs = {}
+        for tag, m in (("mesh", seq), ("none", None)):
+            args = [sequence_block(t, m).clone().requires_grad_(True) for t in (q, k, v)]
+            with plain_on_cuda_guard() as plain_calls:
+                reset_launches()
+                out = make_ring_attention(m)(*args, sequence_block(mask, m, dim=1))
+                (out.float() * w.float()).sum().backward()
+                sync(device)
+                run = launch_counts()
+            check(not plain_calls and run == expected(), f"7f: plain calls {plain_calls}, launches {run}")
+            counts = {n: counts[n] + run[n] for n in counts}
+            runs[tag] = [out.detach()] + [a.grad for a in args]
+        same = all(torch.equal(a, b) for a, b in zip(runs["mesh"], runs["none"]))
+        print(f"  ring attention {str(dtype).replace('torch.', '')} [{B}, {H}, {S}, {D}] on create_mesh((1,), "
+              f"('seq',)) ({seq.device}, backend {seq.backend!r}; current mesh {mesh.current_mesh()}) against "
+              f"mesh=None: output and dq, dk, dv bit-identical {same} [{card}]")
+        check(same and bool(torch.isfinite(runs["mesh"][0]).all()), "7f: the one-rank mesh against mesh=None")
+        del runs
+    check(mesh.current_mesh() is None, "7f: a current mesh appeared")
+    return counts
+
+
 def ring_attention_phase(card: str, device: str = "cuda", shape: dict = RING) -> dict:
     """Phase 10a: ``make_ring_attention`` on a (data, seq) mesh of one rank
     at [B, H, S, D] with a padding mask, fp32 and bf16, forward and the
@@ -3005,7 +3282,7 @@ def ring_attention_phase(card: str, device: str = "cuda", shape: dict = RING) ->
     from xpretrain_tpu_torch.tools.profile_train_step import cuda_time_ms
 
     check(mesh.maybe_init_distributed(device) is not None, "phase 10 runs under a one-rank group")
-    group = mesh.create_mesh((1, 1), ("data", "seq"))
+    group = axis_mesh((1, 1), ("data", "seq"), device)
     ring = make_ring_attention(group, seq_axis="seq", data_axis="data")
     B, H, S, D = (shape[n] for n in ("B", "H", "S", "D"))
     g = torch.Generator(device=device).manual_seed(0)
@@ -3077,7 +3354,7 @@ def pipeline_phase(card: str, device: str = "cuda", cfg=None, shape: dict = PIPE
 
     cfg = cfg or BertConfig.bert_large()
     check(mesh.maybe_init_distributed(device) is not None, "phase 10 runs under a one-rank group")
-    group = mesh.create_mesh((1, 1), ("data", "pipe"))
+    group = axis_mesh((1, 1), ("data", "pipe"), device)
     g = torch.Generator(device=device).manual_seed(0)
     encoder = StagedBertEncoder(cfg, device=device).eval()
     with torch.no_grad():
@@ -3171,7 +3448,7 @@ def moe_phase(card: str, device: str = "cuda", shape: dict = MOE) -> dict:
     from xpretrain_tpu_torch.tools.profile_train_step import cuda_time_ms
 
     check(mesh.maybe_init_distributed(device) is not None, "phase 10 runs under a one-rank group")
-    group = mesh.create_mesh((1, 1), ("data", "expert"))
+    group = axis_mesh((1, 1), ("data", "expert"), device)
     T, d, E = shape["clips"] * shape["tokens"], shape["d"], shape["experts"]
     g = torch.Generator(device=device).manual_seed(0)
     # a component shared by a clip's tokens (as its patches share content) makes
@@ -3649,6 +3926,10 @@ def main() -> None:
     with phase("4q PrefetchLoader onto the card"):
         prefetch_phase(card)
 
+    with phase("4s CLIP-ViP and LF-VILA training at attention dropout 0.1: JAX's dense branch, the kernels in "
+               "validation (main path)"):
+        dropout_launches = attention_dropout_phase(card)
+
     with phase("5 serve: card vs CPU, fp32"):
         model_cpu = CLIPViPModel(CLIPVipConfig.base_patch32(dtype=torch.float32))
         model_cpu.init_weights(torch.Generator().manual_seed(0))
@@ -4060,6 +4341,9 @@ def main() -> None:
     with phase("6f timing: eager and graphed train steps, fp32 and bf16 storage"):
         graph_timing_phase(card)
 
+    with phase("6g timing: the graphed B/32 train step at attention dropout 0.1 beside 0"):
+        dropout_timing_phase(card)
+
     with tempfile.TemporaryDirectory(prefix="artifacts_") as folder:
         with phase("7a B/32 serving artifact with kernel attention, through the export CLI (main path)"):
             clipvip_artifact_launches, (b32_model, b32_batch) = clipvip_artifact_phase(card, folder)
@@ -4073,6 +4357,8 @@ def main() -> None:
         int8_phase(card, b32_model, b32_batch)
         del b32_model, b32_batch
         release_memory()
+    with phase("7f create_mesh in a process without a group: ring attention on a one-rank seq mesh (main path)"):
+        one_process_launches = one_process_mesh_phase(card)
     with one_rank_nccl_group():
         with phase("8a B/32 fine-tune under a one-rank NCCL group, eager and graphed, against 4b (main path)"):
             dp_launches = data_parallel_finetune_phase(card, finetune_reference)
@@ -4116,7 +4402,11 @@ def main() -> None:
              "lfvila_retrieval_data_parallel": dp_lfvila_launches["eval"],
              "train_zero3": zero3_launches[1], "train_zero3_graphed": zero3_launches[DP_GRAPH_K],
              "train_step_tp_plan": tp_launches, "lfvila_towers_cp": cp_launches,
-             "ring_attention": ring_launches, "pipeline": pipe_launches, "moe_ffn": moe_launches}
+             "ring_attention": ring_launches, "pipeline": pipe_launches, "moe_ffn": moe_launches,
+             "train_attention_dropout": dropout_launches["clipvip"],
+             "train_attention_dropout_graphed": dropout_launches["clipvip_graphed"],
+             "lfvila_qa_mc_attention_dropout": dropout_launches["lfvila"],
+             "ring_attention_one_process": one_process_launches}
     window_timing = {dt: win_timings[("s3_shifted", dt)] for dt in ("bfloat16", "float32")}
     summary = {"kernels": [
         {

@@ -53,7 +53,9 @@ gradients of its share of a mean-squared loss); the BERT pipeline on (4,)
 output and the stage's gradients of the global loss, averaged over the data
 group); the MoE FFN on (2, 2) ``(data, expert)``, top-1 and top-2 with
 tokens dropped (the rank's output rows, ``aux``, the averaged gradients of
-its leaves, and the checkpoint in the reference layout).
+its leaves, and the checkpoint in the reference layout). Around the cases
+it records the run's mesh (``run_mesh_<rank>.npz``): ``create_mesh`` must
+leave the current mesh and its global-batch ``gather_rows`` as they were.
 """
 
 import dataclasses
@@ -654,11 +656,33 @@ def _moe_cases(out_dir: str, inputs: dict) -> None:
 
 def seq_pipe_expert(out_dir: str) -> dict:
     """Ring attention, the pipeline and the MoE FFN on 4 ranks (see the
-    module's docstring); returns the meshes' placements."""
+    module's docstring); returns the meshes' placements. Around them, the
+    run's mesh: the current mesh object and a global-batch ``gather_rows``
+    before and after ``create_mesh((4,), ("seq",))``, after
+    ``create_mesh((2, 2), ("data", "expert"))`` and after every case, and
+    whether ``devices`` of another count than the ranks raise."""
     inputs = _spe_inputs()
+    run = mesh_lib.current_mesh()
+    block = torch.arange(6, dtype=torch.float32).reshape(2, 3) + 10 * mesh_lib.process_rank()
+
+    def seen():  # the run's mesh as the global-batch losses see it
+        return mesh_lib.current_mesh() is run, mesh_lib.gather_rows(block)
+
+    seen_at = [seen()]
+    for shape, names in (((4,), ("seq",)), ((2, 2), ("data", "expert"))):
+        mesh_lib.create_mesh(shape, names)
+        seen_at.append(seen())
+    try:
+        mesh_lib.create_mesh((4,), ("seq",), devices=["cpu"] * 2)
+        raised = ""
+    except ValueError as e:
+        raised = str(e)
     _ring_cases(out_dir, inputs)
     _pipe_cases(out_dir, inputs)
     _moe_cases(out_dir, inputs)
+    seen_at.append(seen())
+    _save_rank(out_dir, "run_mesh", same=np.asarray([s for s, _ in seen_at]), world=run.world_size,
+               raised=np.asarray(raised), **{f"rows{i}": r for i, (_, r) in enumerate(seen_at)})
     return {"rank": mesh_lib.process_rank()}
 
 

@@ -186,13 +186,36 @@ def test_proxy_attention_dropout_branch_matches_flax(monkeypatch):
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), atol=2e-6, rtol=0)
 
 
-def test_proxy_attention_dropout_raises_off_the_cpu():
-    """The kernels apply no dropout, so with dropout on in training a tensor
-    that is not on the CPU raises instead of taking the plain path (a meta
-    tensor stands in for a CUDA one here)."""
-    from xpretrain_tpu_torch.models.clip_vip.model import ProxyAttention
+def _recorders(monkeypatch, module, names) -> list:
+    """Replace ``module``'s ``names`` with recorders that log (name, device)
+    and return an empty tensor shaped as their first argument."""
+    calls = []
+
+    def recorder(name):
+        def record(q, *args, **kwargs):
+            calls.append((name, q.device.type))
+            return torch.empty_like(q)
+        return record
+
+    for name in names:
+        monkeypatch.setattr(module, name, recorder(name))
+    return calls
+
+
+def test_proxy_attention_dropout_raises_off_the_cpu(monkeypatch):
+    """The name is the check this test made before the port took JAX's gate
+    (``xpretrain_tpu/models/clip_vip/model.py:216``): in training with
+    dropout on, the layer calls the masked ``dot_attention`` and not the
+    kernel wrapper, on any device (a meta tensor stands in for a CUDA one);
+    in eval, or at dropout 0, it calls the wrapper."""
+    from xpretrain_tpu_torch.models.clip_vip import model
 
     M, N, L = 2, 3, 4
-    attn = ProxyAttention(E, HEADS, dropout_rate=0.25, device="meta").train()
-    with pytest.raises(NotImplementedError, match="dropout"):
-        attn(torch.empty(B, M + N * L, E, device="meta"), (M, N, L))
+    calls = _recorders(monkeypatch, model, ("dot_attention", "proxy_attention"))
+    x = torch.empty(B, M + N * L, E, device="meta")
+    for rate, training, want in ((0.25, True, "dot_attention"), (0.25, False, "proxy_attention"),
+                                 (0.0, True, "proxy_attention")):
+        calls.clear()
+        attn = model.ProxyAttention(E, HEADS, dropout_rate=rate, device="meta").train(training)
+        assert attn(x, (M, N, L)).shape == x.shape
+        assert calls == [(want, "meta")], (rate, training, calls)

@@ -22,7 +22,17 @@ devices:
   of 0.75 (tokens dropped), each rank holding 2 of the 4 experts: outputs
   against JAX's unsharded ``MoeFfn`` (2e-5), ``aux`` (1e-6 relative), the
   averaged gradients (2e-5·max|g|), and the checkpoint it writes, in the
-  reference layout.
+  reference layout;
+- around those cases, the run's mesh: ``create_mesh`` returns its mesh and
+  leaves the current one, and a global-batch ``gather_rows`` through it, as
+  they were (JAX's ``create_mesh`` only builds a ``Mesh``).
+
+In this process, with no group: ``create_mesh((1,), (axis,), devices=[cpu])``
+is JAX's one-device mesh, and the three modules on it match JAX's on
+``create_mesh((1,), (axis,), devices=jax.devices()[:1])`` (2e-5; gradients
+3e-5·max|g|, the MoE's 2e-5·max|g|) and equal the port's ``mesh=None`` calls
+bit for bit; a shape that does not cover the devices raises JAX's
+``ValueError``.
 """
 
 import os
@@ -295,3 +305,176 @@ def test_moe_checkpoint_is_the_reference_layout(runs, k):
             np.testing.assert_array_equal(got[f"saved/{name}"], w)
             np.testing.assert_array_equal(got[f"local/{name}"],
                                           w if name == "router" else w[(r % 2) * per:(r % 2 + 1) * per])
+
+
+def test_create_mesh_leaves_the_run_mesh(runs):
+    """On 4 ranks, before and after each ``create_mesh`` (the two explicit
+    calls, then the six of the cases): the current mesh is the same object
+    and ``gather_rows`` of each rank's [2, 3] block gives the 8 global rows;
+    ``devices`` that do not count the ranks raise JAX's ``ValueError``."""
+    want = np.concatenate([np.arange(6, dtype=np.float32).reshape(2, 3) + 10 * r for r in range(WORLD)])
+    ranks = runs["ranks"]["run_mesh"]
+    assert sorted(ranks) == list(range(WORLD))
+    for r, got in ranks.items():
+        assert int(got["world"]) == WORLD and got["same"].tolist() == [True] * 4, r
+        for i in range(4):
+            np.testing.assert_array_equal(got[f"rows{i}"], want, err_msg=f"rank {r}, gather {i}")
+        assert "does not cover 2 devices" in str(got["raised"]), got["raised"]
+
+
+def _one_process_ring(mesh, jmesh, jax, jnp):
+    """Ring attention on the one-rank mesh and on JAX's one-device mesh:
+    (port out, port grads, JAX out, JAX grads, the port's mesh=None run)."""
+    from xpretrain_tpu.ops.ring_attention import make_ring_attention as jax_ring
+    from xpretrain_tpu_torch.ops.ring_attention import make_ring_attention, sequence_block
+
+    rng = np.random.default_rng(3)
+    q, k, v, target = (rng.normal(size=(2, 4, 48, 16)).astype(np.float32) for _ in range(4))
+    mask = np.ones((2, 48), np.int32)
+    mask[0, -10:] = 0
+
+    def loss(qkv):
+        o = jax_ring(jmesh)(*qkv, mask)
+        return jnp.mean((o - target) ** 2), o
+
+    (_, want), want_g = jax.jit(jax.value_and_grad(loss, has_aux=True))((q, k, v))
+
+    def port(m):
+        args = [sequence_block(torch.from_numpy(a), m).requires_grad_(True) for a in (q, k, v)]
+        out = make_ring_attention(m)(*args, torch.from_numpy(mask))
+        ((out - torch.from_numpy(target)) ** 2).mean().backward()
+        return out.detach().numpy(), [a.grad.numpy() for a in args]
+
+    return (*port(mesh), np.asarray(want), [np.asarray(g) for g in want_g], port(None))
+
+
+def _one_process_pipe(mesh, jmesh, jax, jnp):
+    """The tiny BERT pipeline (2 microbatches, padding mask), gradients of a
+    mean-squared loss with respect to the stacked leaves."""
+    from xpretrain_tpu.models.bert import BertConfig as JaxBertConfig, StagedBertEncoder
+    from xpretrain_tpu.models.common import expand_padding_mask as jax_expand
+    from xpretrain_tpu.parallel import pipeline as jpipe
+    from xpretrain_tpu_torch.models.bert import BertConfig
+    from xpretrain_tpu_torch.models.common import expand_padding_mask
+    from xpretrain_tpu_torch.parallel.pipeline import (
+        pipeline_param_shardings,
+        pipelined_bert_encoder,
+        stacked_bert_params_from_flax,
+    )
+
+    rng = np.random.default_rng(4)
+    hidden = rng.normal(size=(4, 10, 32)).astype(np.float32)
+    target = rng.normal(size=hidden.shape).astype(np.float32)
+    pad = np.ones((4, 10), np.int32)
+    pad[1, 6:] = 0
+    jcfg, L = JaxBertConfig(**BERT), BERT["num_hidden_layers"]
+    params = jax.jit(lambda key: StagedBertEncoder(jcfg).init(key, hidden, None))(jax.random.PRNGKey(0))["params"]
+    params = jax.tree_util.tree_map(np.asarray, params)
+    run = jpipe.pipelined_bert_encoder(jcfg, jmesh, n_microbatches=2)
+    jmask = jax_expand(jnp.asarray(pad))
+
+    def loss(p):
+        o = run(jpipe.stack_layer_params(p, L), hidden, jmask)
+        return jnp.mean((o - target) ** 2), o
+
+    (_, want), want_g = jax.jit(jax.value_and_grad(loss, has_aux=True))(params)
+    cfg = BertConfig(**BERT)
+    want_g = stacked_bert_params_from_flax(jax.tree_util.tree_map(np.asarray, want_g), cfg)  # the same transposes
+
+    def port(m):
+        stacked = {n: t.requires_grad_(True) for n, t in stacked_bert_params_from_flax(params, cfg).items()}
+        out = pipelined_bert_encoder(cfg, m, n_microbatches=2)(pipeline_param_shardings(stacked, m),
+                                                               torch.from_numpy(hidden),
+                                                               expand_padding_mask(torch.from_numpy(pad)))
+        ((out - torch.from_numpy(target)) ** 2).mean().backward()
+        return out.detach().numpy(), [stacked[n].grad.numpy() for n in sorted(stacked)]
+
+    return (*port(mesh), np.asarray(want), [want_g[n].numpy() for n in sorted(want_g)], port(None))
+
+
+def _one_process_moe(mesh, jmesh, jax, jnp):
+    """The MoE FFN, top-2 at a capacity factor that drops tokens: y and the
+    gradients of ``mean(y**2) + 0.01·aux`` (``aux`` is held apart)."""
+    from xpretrain_tpu.parallel.moe import MoeFfn as JaxMoeFfn
+    from xpretrain_tpu_torch.parallel.moe import MoeFfn, moe_params_from_flax
+
+    x = np.random.default_rng(5).normal(size=(MOE["tokens"], MOE["d"])).astype(np.float32)
+    kw = dict(num_experts=MOE["experts"], d_ff=MOE["d_ff"], num_selected=2, capacity_factor=MOE["capacity_factor"])
+    params = jax.jit(JaxMoeFfn(**kw).init)(jax.random.PRNGKey(2), jnp.asarray(x))
+    model = JaxMoeFfn(**kw, expert_axis="expert", mesh=jmesh)
+
+    def loss(p):
+        y, aux = model.apply(p, x)
+        return jnp.mean(y**2) + 0.01 * aux, (y, aux)
+
+    (_, (want, want_aux)), want_g = jax.jit(jax.value_and_grad(loss, has_aux=True))(params)
+
+    def port(m):
+        ffn = MoeFfn(MOE["d"], MOE["experts"], MOE["d_ff"], num_selected=2, capacity_factor=MOE["capacity_factor"],
+                     expert_axis="expert", mesh=m)
+        ffn.load_state_dict(moe_params_from_flax(params))
+        y, aux = ffn(torch.from_numpy(x))
+        assert abs(aux.item() / float(want_aux) - 1) <= 1e-6
+        ((y**2).mean() + 0.01 * aux).backward()
+        return y.detach().numpy(), [p.grad.numpy() for _, p in sorted(ffn.named_parameters())]
+
+    names = sorted(want_g["params"])
+    return (*port(mesh), np.asarray(want), [np.asarray(want_g["params"][n]) for n in names], port(None))
+
+
+# axis -> (case, gradient bar relative to max|g|, per leaf or over all leaves:
+# the pipeline's key biases get rounding alone, since the softmax ignores a
+# constant added to a query's scores)
+ONE_PROCESS = {"seq": (_one_process_ring, 3e-5, True), "pipe": (_one_process_pipe, 3e-5, False),
+               "expert": (_one_process_moe, 2e-5, True)}
+
+
+@pytest.mark.parametrize("axis", list(ONE_PROCESS))
+def test_one_process_mesh_matches_jax_one_device(axis):
+    """JAX's call sequence in one process with no group: ``create_mesh((1,),
+    (axis,), devices=[cpu])`` returns a one-rank mesh and leaves no current
+    mesh; the module on it matches JAX's on its one-device mesh and equals
+    its own ``mesh=None`` run bit for bit."""
+    import jax
+    import jax.numpy as jnp
+
+    from xpretrain_tpu.parallel.mesh import create_mesh as jax_create_mesh
+    from xpretrain_tpu_torch.parallel import mesh as mesh_lib
+
+    assert mesh_lib.current_mesh() is None
+    mesh = mesh_lib.create_mesh((1,), (axis,), devices=[torch.device("cpu")])
+    assert mesh_lib.current_mesh() is None
+    assert (mesh.world_size, mesh.model_size, mesh.model_axis, mesh.device) == (1, 1, axis, torch.device("cpu"))
+    case, grad_rel, per_leaf = ONE_PROCESS[axis]
+    out, grads, want, want_g, (none_out, none_grads) = case(
+        mesh, jax_create_mesh((1,), (axis,), devices=jax.devices()[:1]), jax, jnp)
+    np.testing.assert_allclose(out, want, atol=2e-5, rtol=0)
+    assert len(grads) == len(want_g)
+    gmax = max(np.abs(w).max() for w in want_g)
+    for got, w in zip(grads, want_g):
+        err = np.abs(got - w).max() / (np.abs(w).max() if per_leaf else gmax)
+        assert got.shape == w.shape and err <= grad_rel, (got.shape, err)
+    np.testing.assert_array_equal(out, none_out)
+    for got, w in zip(grads, none_grads):
+        np.testing.assert_array_equal(got, w)
+    assert mesh_lib.current_mesh() is None
+
+
+def test_a_mesh_that_does_not_cover_the_devices_raises():
+    """JAX's ``ValueError`` for a shape that does not cover the devices, in a
+    process with no group: the text of JAX's own check on the same call."""
+    import jax
+
+    from xpretrain_tpu.parallel.mesh import create_mesh as jax_create_mesh
+    from xpretrain_tpu_torch.parallel import mesh as mesh_lib
+
+    cpu = torch.device("cpu")
+    for shape, names, n in (((2,), ("seq",), 1), ((1,), ("pipe",), 2), ((1, 2), ("data", "expert"), 1)):
+        with pytest.raises(ValueError, match=f"does not cover {n} devices") as want:
+            jax_create_mesh(shape, names, devices=jax.devices()[:n])
+        with pytest.raises(ValueError) as got:
+            mesh_lib.create_mesh(shape, names, devices=[cpu] * n)
+        assert str(got.value) == str(want.value)
+    with pytest.raises(ValueError, match="does not cover 1 devices"):
+        mesh_lib.create_mesh((4,), ("seq",))  # the default device, cuda:0, is one device
+    assert mesh_lib.current_mesh() is None

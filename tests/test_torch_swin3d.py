@@ -182,14 +182,32 @@ def test_training_and_multi_device_options_raise():
         swin3d.SwinTransformer3D(tiny(remat=True, remat_policy="not_a_policy"))
 
 
-def test_kernel_gated_attention_dropout_raises_off_the_cpu():
-    """The window kernel applies no dropout, so a kernel-gated block in
-    training with attention dropout raises on a tensor off the CPU instead of
-    taking the plain path (a meta tensor stands in for the card); on the CPU
-    it drops from its generator on the plain path, as JAX does on XLA."""
-    attn = swin3d.WindowAttention3D(32, (2, 3, 5), 2, attn_drop=0.25, use_pallas=True, device="meta").train()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        attn(torch.empty(4, 30, 32, device="meta"))
+def test_kernel_gated_attention_dropout_raises_off_the_cpu(monkeypatch):
+    """The name is the check this test made before the port took JAX's gate
+    (``xpretrain_tpu/models/lf_vila/swin3d.py:270``): a kernel-gated block in
+    training with attention dropout calls ``dot_attention`` and not the
+    kernel wrapper, on any device (a meta tensor stands in for the card); in
+    eval, or at dropout 0, it calls the wrapper. On the CPU the dropout
+    branch draws from its generator, as JAX does on XLA."""
+    calls = []
+
+    def recorder(name):
+        def record(q, *args, **kwargs):
+            calls.append((name, q.device.type))
+            return torch.empty_like(q)
+        return record
+
+    with monkeypatch.context() as patch:
+        for name in ("dot_attention", "window_attention"):
+            patch.setattr(swin3d, name, recorder(name))
+        x = torch.empty(4, 30, 32, device="meta")
+        for rate, training, want in ((0.25, True, "dot_attention"), (0.25, False, "window_attention"),
+                                     (0.0, True, "window_attention")):
+            calls.clear()
+            attn = swin3d.WindowAttention3D(32, (2, 3, 5), 2, attn_drop=rate, use_pallas=True,
+                                            device="meta").train(training)
+            assert attn(x).shape == x.shape
+            assert calls == [(want, "meta")], (rate, training, calls)
     attn = swin3d.WindowAttention3D(32, (2, 3, 5), 2, attn_drop=0.25, use_pallas=True).train()
     x = torch.randn(4, 30, 32, generator=torch.Generator().manual_seed(0))
     a = attn(x, generator=torch.Generator().manual_seed(1))

@@ -14,7 +14,9 @@ tasks report accuracy. The report goes to ``final_report.json``.
 temporal span loss (``--use_span_loss``). ``video_encoder.use_pallas_attention:
 true`` in the config routes the window attention of stages whose window
 holds at least ``pallas_min_window`` tokens through the hand-written CUDA
-kernel; it has no backward, so on the card that config evaluates only.
+kernel. It has no backward, so on the card that config evaluates only,
+unless ``Swin3DConfig.attn_drop_rate`` > 0 (the model API; no flag sets it,
+as in JAX): then training takes JAX's einsum branch in those blocks too.
 
 ``--model_weight`` (a reference LF-VILA checkpoint) merges over the seeded
 init shape-tolerantly; the task heads keep their init.

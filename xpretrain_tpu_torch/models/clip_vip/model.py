@@ -169,9 +169,10 @@ class ProxyAttention(nn.Module):
     Sequence layout [M proxy tokens | N frames x L patches]: patch tokens
     attend [proxies | own frame], proxies attend everything. In
     ``masked_full`` mode the kernel path runs unless attention dropout is on
-    in training; then CPU tensors take the masked ``dot_attention``, as the
-    JAX model does, and any other device raises: the kernels apply no
-    dropout, and the card runs no plain path. ``factorized`` mode computes
+    in training; then, on every device, the layer takes JAX's other branch
+    (``model.py:216``): ``dot_attention`` over the proxy mask with dropout
+    (the kernels apply none; ROADMAP Queue 2 keeps dropout inside them as a
+    speed item). ``factorized`` mode computes
     :func:`factorized_proxy_attention` on every device, with dropout in
     training, as JAX does (no kernel)."""
 
@@ -211,12 +212,6 @@ class ProxyAttention(nn.Module):
                 raise ValueError("explicit keep masks are taken by the masked_full mode only")
             out = factorized_proxy_attention(q, k, v, M, N, L, D**-0.5, rate, generator)
         elif rate > 0.0:
-            if q.device.type != "cpu":
-                raise NotImplementedError(
-                    "attention dropout in the proxy attention has no kernel yet (ROADMAP "
-                    "Queue 2: dropout inside the proxy-attention kernels); train with "
-                    "attention_dropout 0 on the card"
-                )
             out = dot_attention(q, k, v, D**-0.5, proxy_bias(S, M, L, q.device),
                                 self.dropout_rate, generator, keep)
         else:

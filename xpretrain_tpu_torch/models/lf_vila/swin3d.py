@@ -250,15 +250,11 @@ class WindowAttention3D(nn.Module):
     def _attend(self, q, k, v, bias, mask, generator):
         """[Bn, h, N, d] q/k/v -> [Bn, h, N, d] context."""
         rate = self.attn_drop if self.training else 0.0
-        if self.use_pallas:
-            if rate == 0.0:
-                return window_attention(q, k, v, bias, mask)
-            if q.device.type != "cpu":
-                raise NotImplementedError(
-                    "the window-attention kernel has no attention dropout and no backward (ROADMAP "
-                    "Queue 2): train with video_encoder.use_pallas_attention off on the card"
-                )
-        # the mask of window w = bn % nW: the bias and mask add once, [nW, h, N, N]
+        if self.use_pallas and rate == 0.0:  # JAX's gate (swin3d.py:270)
+            return window_attention(q, k, v, bias, mask)
+        # dropout in training takes JAX's einsum branch on every device, as a
+        # block under pallas_min_window does: the kernel applies no dropout.
+        # The mask of window w = bn % nW: the bias and mask add once, [nW, h, N, N]
         nW = 1 if mask is None else mask.shape[0]
         add = bias[None] if mask is None else bias[None] + mask[:, None]
         split = lambda t: t.unflatten(0, (-1, nW))

@@ -35,6 +35,12 @@ data-dependent count takes the global count, ``ops/losses.py``).
 Every collective here runs on the group's device: a CUDA tensor never goes
 through a gloo group (it raises). Without a group (no ``WORLD_SIZE`` in the
 environment) every helper is the identity and nothing is communicated.
+
+The current mesh (:func:`current_mesh`) is the run's: the group's 1-D mesh,
+or the 2-D mesh of ``--tp`` / ``--cp``. The helpers default to it, as JAX's
+code defaults to the ambient ``with mesh:``. :func:`create_mesh` builds the
+``seq``, ``pipe`` and ``expert`` meshes of ring attention, the pipeline and
+the MoE FFN, as JAX's does: it returns them and never makes one current.
 """
 
 from __future__ import annotations
@@ -50,6 +56,7 @@ import torch.distributed as dist
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
+NO_GROUP = "none"  # the backend of create_mesh's one-rank mesh in a process without a group
 
 # torch 2.13 renamed the tensor forms; the card's torch has only the old names
 _all_gather_single = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
@@ -64,7 +71,9 @@ class DataMesh:
     no model axis); ``model_group`` is None without a model axis.
     ``global_rank`` is the process's rank in the default group.
     ``model_axis`` names the trailing axis: ``model`` (``--tp`` / ``--cp``),
-    or the ``seq``, ``pipe`` or ``expert`` axis of :func:`create_mesh`."""
+    or the ``seq``, ``pipe`` or ``expert`` axis of :func:`create_mesh`.
+    ``backend`` is ``nccl``, ``gloo``, or :data:`NO_GROUP` for the one-rank
+    mesh of a process without a group, whose collectives are the identity."""
 
     rank: int
     world_size: int
@@ -191,13 +200,10 @@ def mesh_from_config(cfg) -> Optional[DataMesh]:
 
 
 def init_model_axis(mp: int) -> DataMesh:
-    """Form the 2-D ``(data, model)`` mesh of the group: ``world // mp`` data
-    indices by ``mp`` model indices, one data group per model index and one
-    model group per data index (every rank creates every group, in the same
-    order, as ``torch.distributed.new_group`` requires). ``mp = 1`` makes a
-    model axis of one rank per group, whose collectives run (and are exact).
-    Replaces the current mesh and returns it; a second call with the same
-    ``mp`` returns it, another ``mp`` raises. Needs a group."""
+    """Form the run's 2-D ``(data, model)`` mesh (:func:`_form_model_axis`)
+    and make it the current mesh, JAX's ``with mesh:`` of the run; a second
+    call with the same ``mp`` returns it, another ``mp`` raises. Needs a
+    group."""
     global _MESH
     if _MESH is None:
         raise ValueError(f"a model axis of {mp} ranks needs a process group; this process has none")
@@ -205,6 +211,18 @@ def init_model_axis(mp: int) -> DataMesh:
         if _MESH.model_size != mp:
             raise ValueError(f"the mesh already has a model axis of {_MESH.model_size}, not {mp}")
         return _MESH
+    _MESH = _form_model_axis(_MESH, mp)
+    return _MESH
+
+
+def _form_model_axis(base: DataMesh, mp: int, axis: str = MODEL_AXIS) -> DataMesh:
+    """The 2-D ``(data, axis)`` mesh of the group whose 1-D mesh is ``base``:
+    ``world // mp`` data indices by ``mp`` indices on ``axis``, one data
+    group per index on ``axis`` and one ``axis`` group per data index (every
+    rank creates every group, in the same order, as
+    ``torch.distributed.new_group`` requires). ``mp = 1`` makes an axis of
+    one rank per group, whose collectives run (and are exact). Returns the
+    mesh and leaves the current one as it is."""
     world, rank = dist.get_world_size(), dist.get_rank()
     if mp < 1 or world % mp:
         raise ValueError(f"tp/cp={mp} does not divide the {world} available ranks")
@@ -220,37 +238,42 @@ def init_model_axis(mp: int) -> DataMesh:
         g = dist.new_group([d * mp + m for m in range(mp)])
         if rank // mp == d:
             model_group = g
-    _MESH = dataclasses.replace(_MESH, rank=rank // mp, world_size=dp, group=data_group, model_rank=rank % mp,
-                                model_size=mp, model_group=model_group, global_rank=rank)
-    return _MESH
+    return dataclasses.replace(base, rank=rank // mp, world_size=dp, group=data_group, model_rank=rank % mp,
+                               model_size=mp, model_group=model_group, global_rank=rank, model_axis=axis)
 
 
-def create_mesh(mesh_shape: Optional[Sequence[int]] = None, axis_names: Sequence[str] = (DATA_AXIS,)) -> DataMesh:
-    """JAX's ``create_mesh`` over the ranks of the group: ``(n,)`` named
-    ``data`` is the 1-D data mesh; ``(k,)`` under another name (``seq``,
-    ``pipe``, ``expert``) is one data index by ``k``; ``(dp, k)`` named
-    ``("data", <name>)`` is the 2-D mesh of :func:`init_model_axis`, rank
-    ``r`` at data index ``r // k`` and index ``r % k`` on the named trailing
-    axis, as JAX lays devices out. Re-forms the mesh from the whole group
-    whatever mesh was formed before (new groups), makes it current and
-    returns it; the shape must cover the group's ranks. Needs a group."""
-    global _MESH
-    if _MESH is None:
-        raise ValueError("a mesh over ranks needs a process group; this process has none")
-    world = dist.get_world_size()
+def create_mesh(mesh_shape: Optional[Sequence[int]] = None, axis_names: Sequence[str] = (DATA_AXIS,),
+                devices: Optional[Sequence[str | torch.device]] = None) -> DataMesh:
+    """JAX's ``create_mesh``: builds a mesh and returns it; the current mesh
+    (the run's) stays as it is. ``(n,)`` named ``data`` is the 1-D data
+    mesh; ``(k,)`` under another name (``seq``, ``pipe``, ``expert``) is one
+    data index by ``k``; ``(dp, k)`` named ``("data", <name>)`` is the 2-D
+    mesh of :func:`_form_model_axis`, rank ``r`` at data index ``r // k`` and
+    index ``r % k`` on the named trailing axis, as JAX lays devices out.
+    The shape defaults to JAX's ``(n,)``, or ``(n, 1)`` for two names.
+
+    Under a group the mesh spans its ranks (new groups, every call) on the
+    group's devices; ``devices``, if given, must count them. In a process
+    with no group it is the mesh of one rank on ``devices[0]`` (default
+    ``cuda:0``, JAX's first device; pass ``cpu`` for the CPU), whose
+    collectives are the identity. Either way a shape that does not cover the
+    devices raises JAX's ``ValueError``."""
     names = tuple(axis_names)
-    shape = (world,) if mesh_shape is None else tuple(int(n) for n in mesh_shape)
+    world = 1 if _MESH is None else dist.get_world_size()
+    n = world if devices is None else len(devices)
+    shape = ((n,) if len(names) == 1 else (n, 1)) if mesh_shape is None else tuple(int(s) for s in mesh_shape)
     if len(shape) != len(names) or len(shape) not in (1, 2) or (len(shape) == 2 and names[0] != DATA_AXIS):
         raise ValueError(f"mesh {shape} over {names}: the port forms (n,) and (data, <axis>) meshes")
-    if int(np.prod(shape)) != world:
-        raise ValueError(f"mesh shape {shape} does not cover {world} devices")
+    for count in (n, world):  # JAX's check, then one device a rank
+        if int(np.prod(shape)) != count:
+            raise ValueError(f"mesh shape {shape} does not cover {count} devices")
+    axis = MODEL_AXIS if names == (DATA_AXIS,) else names[-1]
+    if _MESH is None:
+        device = torch.device("cuda", 0) if devices is None else torch.device(devices[0])
+        return DataMesh(rank=0, world_size=1, device=device, backend=NO_GROUP, model_axis=axis)
     rank = dist.get_rank()
-    _MESH = dataclasses.replace(_MESH, rank=rank, world_size=world, group=None, model_rank=0, model_size=1,
-                                model_group=None, global_rank=rank, model_axis=MODEL_AXIS)
-    if names == (DATA_AXIS,):
-        return _MESH
-    _MESH = dataclasses.replace(init_model_axis(shape[-1]), model_axis=names[-1])
-    return _MESH
+    base = DataMesh(rank=rank, world_size=world, device=_MESH.device, backend=_MESH.backend, global_rank=rank)
+    return base if names == (DATA_AXIS,) else _form_model_axis(base, shape[-1], axis)
 
 
 def axis_group(mesh: Optional[DataMesh], name: str) -> tuple[int, int, Optional[dist.ProcessGroup]]:
@@ -310,6 +333,13 @@ def shard_host_batch(batch: dict, mesh: Optional[DataMesh] = None, leading_stack
     return {k: put(v) for k, v in batch.items()}
 
 
+def _resolve(mesh: Optional[DataMesh]) -> Optional[DataMesh]:
+    """``mesh``, else the current one; None when that is no mesh or one
+    without a group (the collectives below are then the identity)."""
+    mesh = mesh or _MESH
+    return None if mesh is None or mesh.backend == NO_GROUP else mesh
+
+
 def _check(t: torch.Tensor, mesh: DataMesh) -> None:
     if t.device.type != mesh.device.type:
         raise RuntimeError(f"a {t.device.type} tensor cannot go through the {mesh.backend} group of "
@@ -346,7 +376,7 @@ def gather_rows(x: torch.Tensor, mesh: Optional[DataMesh] = None) -> torch.Tenso
     """The global batch of ``x``: every rank's rows along dim 0, in rank
     order. Carries gradients (summed over ranks in the backward) when ``x``
     needs them. The identity without a group."""
-    mesh = mesh or _MESH
+    mesh = _resolve(mesh)
     if mesh is None:
         return x
     if x.requires_grad and torch.is_grad_enabled():
@@ -357,7 +387,7 @@ def gather_rows(x: torch.Tensor, mesh: Optional[DataMesh] = None) -> torch.Tenso
 def all_reduce_sum(x: torch.Tensor, mesh: Optional[DataMesh] = None) -> torch.Tensor:
     """The sum of ``x`` over ranks, as a new tensor without gradient (counts
     and metrics). The identity without a group."""
-    mesh = mesh or _MESH
+    mesh = _resolve(mesh)
     if mesh is None:
         return x
     _check(x, mesh)
@@ -387,7 +417,7 @@ def all_reduce_mean_(tensors: Sequence[torch.Tensor], mesh: Optional[DataMesh] =
     with ``AVG`` (at one rank it still launches its reduce kernel, exactly x
     * 1); gloo has no ``AVG`` and sums, then divides. A no-op without a
     group."""
-    mesh = mesh or _MESH
+    mesh = _resolve(mesh)
     if mesh is None or not tensors:
         return
     by_dtype: dict[torch.dtype, list[torch.Tensor]] = {}
@@ -412,7 +442,7 @@ def all_gather_shards_(pieces: Sequence[tuple[torch.Tensor, int]], mesh: Optiona
     block of ``full`` along ``dim`` (block r of ``world_size`` equal blocks);
     one all-gather per dtype fills every rank's block (ZeRO-2's parameter
     all-gather after the sharded update)."""
-    mesh = mesh or _MESH
+    mesh = _resolve(mesh)
     if mesh is None or not pieces:
         return
     n, rank = mesh.world_size, mesh.rank
@@ -440,7 +470,7 @@ def _blocks(full: torch.Tensor, dim: int, n: int) -> torch.Tensor:
 def gather_shards(shard: torch.Tensor, dim: int, mesh: Optional[DataMesh] = None) -> torch.Tensor:
     """The full tensor of equal per-rank blocks ``shard`` along ``dim``, as a
     new tensor on every rank (the optimizer's ``state_dict``)."""
-    mesh = mesh or _MESH
+    mesh = _resolve(mesh)
     if mesh is None:
         return shard
     out = _gather(shard.movedim(dim, 0), mesh)  # [n * block, ...] along dim 0
@@ -452,7 +482,7 @@ def host_rows(x, mesh: Optional[DataMesh] = None) -> np.ndarray:
     (the eval gather of features, predictions and ids; JAX's ``_host_rows``
     for metadata). Numeric arrays go through the group's device; others
     (strings) through ``all_gather_object``."""
-    mesh = mesh or _MESH
+    mesh = _resolve(mesh)
     x = np.asarray(x)
     if mesh is None:
         return x
