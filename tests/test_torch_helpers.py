@@ -5,7 +5,6 @@
 
 import json
 import random
-import time
 import zipfile
 
 import numpy as np
@@ -25,7 +24,7 @@ from xpretrain_tpu_torch.utils import basic  # noqa: E402
 from xpretrain_tpu_torch.utils.logging import NoOp, RunningMeter  # noqa: E402
 from xpretrain_tpu_torch.utils.metrics import compute_metrics_multi, cosine_sim  # noqa: E402
 from xpretrain_tpu_torch.utils.prng import key_for_step, rank_seed, set_host_seed, split_dict  # noqa: E402
-from xpretrain_tpu_torch.utils.profiling import StepTimer, flops_estimate, trace  # noqa: E402
+from xpretrain_tpu_torch.utils.profiling import flops_estimate  # noqa: E402
 
 # -- utils/metrics.py ----------------------------------------------------------------
 
@@ -96,29 +95,10 @@ def test_frame_sampler_matches_jax(kwargs, total):
 # -- utils/profiling.py ------------------------------------------------------------------
 
 
-def test_step_timer_skips_warm_up():
-    t = StepTimer(skip=1)
-    t.tick()
-    time.sleep(0.05)  # the warm-up step, skipped
-    t.tick()
-    time.sleep(0.01)
-    t.tick()
-    s = t.summary(items_per_step=4)
-    assert 0.005 < s["mean_s"] < 0.05 and s["items_per_s"] > 50
-    assert StepTimer().summary() == {}
-
-
 def test_flops_estimate_matmul():
     a, b = torch.zeros(64, 128), torch.zeros(128, 32)
     assert flops_estimate(lambda x, y: x @ y, a, b) == 2 * 64 * 32 * 128
     assert flops_estimate(lambda: 1 / 0) == 0.0
-
-
-def test_trace_writes_a_chrome_trace(tmp_path):
-    with trace(str(tmp_path / "prof")):
-        torch.ones(8) @ torch.ones(8)
-    with open(tmp_path / "prof" / "trace.json") as f:
-        assert "traceEvents" in json.load(f)
 
 
 # -- config.py, utils/logging.py, utils/basic.py -------------------------------------------

@@ -48,6 +48,12 @@ The grad norm counts each element once (``GroupedAdamW.grad_norm``). The
 captured graph of ``steps_per_call > 1`` holds the layouts' collectives as it
 holds the data-parallel ones, and ZeRO-3's gathers run in forward hooks,
 which the capture records like any other op.
+
+The host side of a step is spanned (``utils/profiling.py``): ``xpt.step``
+around a call of the public step, ``xpt.step.forward``, ``.backward`` and
+``.optimizer`` inside the device part (on a card's graphed step, only at its
+warm-up and capture), ``xpt.step.warm_up``, ``.capture`` and ``.replay`` in
+:class:`GraphedStep`, and ``xpt.ingest.place`` around a batch's upload.
 """
 
 from __future__ import annotations
@@ -64,6 +70,7 @@ from xpretrain_tpu_torch.optim.optimizer import LOGIT_SCALE_MAX, GroupedAdamW, c
 from xpretrain_tpu_torch.parallel.fsdp import step_scope
 from xpretrain_tpu_torch.parallel.mesh import all_reduce_mean_, current_mesh
 from xpretrain_tpu_torch.utils.prng import rank_seed
+from xpretrain_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -96,7 +103,7 @@ def contrastive_loss_from_outputs(outputs: dict, loss_fn: Callable) -> torch.Ten
 
 def batch_to_device(device: torch.device | str) -> Callable[[dict], dict]:
     """numpy batch -> tensors on ``device``, through pinned memory with
-    ``non_blocking`` copies on CUDA."""
+    ``non_blocking`` copies on CUDA (span ``xpt.ingest.place``)."""
     device = torch.device(device)
     pin = device.type == "cuda"
 
@@ -107,7 +114,8 @@ def batch_to_device(device: torch.device | str) -> Callable[[dict], dict]:
         return t.to(device, non_blocking=pin)
 
     def place(batch: dict) -> dict:
-        return {k: to_device(v) if isinstance(v, np.ndarray) else v for k, v in batch.items()}
+        with span("xpt.ingest.place"):
+            return {k: to_device(v) if isinstance(v, np.ndarray) else v for k, v in batch.items()}
 
     return place
 
@@ -139,15 +147,18 @@ def make_train_step(
         for p in named.values():
             p.grad = None
         with step_scope(model):
-            outputs = apply_fn(model, batch, generator)
-            loss = contrastive_loss_from_outputs(outputs, loss_fn)
-            loss.backward()
-        grads = _global_grads(state.optimizer, named.values())
-        metrics = _global_metrics({"loss": loss.detach()})
-        metrics["grad_norm"] = state.optimizer.grad_norm(grads)
-        metrics["logit_scale"] = outputs["logit_scale"].detach().clone()
-        # the metric's norm is the one clipping needs: one pass, not two
-        state.optimizer.apply(grads, metrics["grad_norm"])
+            with span("xpt.step.forward"):
+                outputs = apply_fn(model, batch, generator)
+                loss = contrastive_loss_from_outputs(outputs, loss_fn)
+            with span("xpt.step.backward"):
+                loss.backward()
+        with span("xpt.step.optimizer"):
+            grads = _global_grads(state.optimizer, named.values())
+            metrics = _global_metrics({"loss": loss.detach()})
+            metrics["grad_norm"] = state.optimizer.grad_norm(grads)
+            metrics["logit_scale"] = outputs["logit_scale"].detach().clone()
+            # the metric's norm is the one clipping needs: one pass, not two
+            state.optimizer.apply(grads, metrics["grad_norm"])
         for p in named.values():
             p.grad = None
         clamp_logit_scale(named, LOGIT_SCALE_MAX)
@@ -180,17 +191,20 @@ def make_model_train_step(
         for p in params:
             p.grad = None
         with step_scope(model):
-            outputs = apply_fn(model, batch, generator)
-            loss = outputs[loss_key].float()
-            loss.backward()
-        grads = _global_grads(state.optimizer, params)
-        metrics = {"loss": loss.detach()}
-        for key in metric_keys:
-            if key in outputs:
-                metrics[key] = outputs[key].detach()
-        metrics = _global_metrics(metrics)
-        metrics["grad_norm"] = state.optimizer.grad_norm(grads)
-        state.optimizer.apply(grads, metrics["grad_norm"])
+            with span("xpt.step.forward"):
+                outputs = apply_fn(model, batch, generator)
+                loss = outputs[loss_key].float()
+            with span("xpt.step.backward"):
+                loss.backward()
+        with span("xpt.step.optimizer"):
+            grads = _global_grads(state.optimizer, params)
+            metrics = {"loss": loss.detach()}
+            for key in metric_keys:
+                if key in outputs:
+                    metrics[key] = outputs[key].detach()
+            metrics = _global_metrics(metrics)
+            metrics["grad_norm"] = state.optimizer.grad_norm(grads)
+            state.optimizer.apply(grads, metrics["grad_norm"])
         for p in params:
             p.grad = None
         return metrics
@@ -231,18 +245,20 @@ def _stepper(run: Callable[[TrainState, dict, torch.Generator], dict], device: t
 
     if steps_per_call == 1:
         def step_fn(state: TrainState, batch: dict, seed: int) -> tuple[TrainState, dict]:
-            return state, eager(state, batch, seed)
+            with span("xpt.step"):
+                return state, eager(state, batch, seed)
 
         return step_fn
 
     one = GraphedStep(run, device) if device.type == "cuda" else eager
 
     def multi(state: TrainState, batches: dict, seed: int) -> tuple[TrainState, dict]:
-        lengths = {int(v.shape[0]) for v in batches.values()}
-        if len(lengths) != 1:
-            raise ValueError(f"stacked batch leaves differ in their leading (step) axis: {sorted(lengths)}")
-        rows = [one(state, {k: v[i] for k, v in batches.items()}, seed + i) for i in range(lengths.pop())]
-        return state, {key: torch.stack([row[key] for row in rows]) for key in rows[0]}
+        with span("xpt.step"):
+            lengths = {int(v.shape[0]) for v in batches.values()}
+            if len(lengths) != 1:
+                raise ValueError(f"stacked batch leaves differ in their leading (step) axis: {sorted(lengths)}")
+            rows = [one(state, {k: v[i] for k, v in batches.items()}, seed + i) for i in range(lengths.pop())]
+            return state, {key: torch.stack([row[key] for row in rows]) for key in rows[0]}
 
     multi.graphed = one if isinstance(one, GraphedStep) else None
     return multi
@@ -313,47 +329,50 @@ class GraphedStep:
         return metrics
 
     def _warm_up(self, state: TrainState, batch: dict, seed: int) -> dict:
-        main = torch.cuda.current_stream(self.device)
-        # one stream for every warm-up, so each reuses the blocks the last cached
-        side = self.side = self.side or torch.cuda.Stream(self.device)
-        side.wait_stream(main)
-        for t in batch.values():
-            t.record_stream(side)
-        with torch.cuda.stream(side):
-            metrics = self.run(state, batch, torch.Generator(device=self.device).manual_seed(_seed(seed)))
-        main.wait_stream(side)
-        for t in metrics.values():
-            t.record_stream(main)
-        return metrics
+        with span("xpt.step.warm_up"):
+            main = torch.cuda.current_stream(self.device)
+            # one stream for every warm-up, so each reuses the blocks the last cached
+            side = self.side = self.side or torch.cuda.Stream(self.device)
+            side.wait_stream(main)
+            for t in batch.values():
+                t.record_stream(side)
+            with torch.cuda.stream(side):
+                metrics = self.run(state, batch, torch.Generator(device=self.device).manual_seed(_seed(seed)))
+            main.wait_stream(side)
+            for t in metrics.values():
+                t.record_stream(main)
+            return metrics
 
     def _capture(self, state: TrainState, batch: dict) -> _Capture:
-        inputs = {k: v.clone() for k, v in batch.items()}
-        generator = torch.Generator(device=self.device)
-        graph = torch.cuda.CUDAGraph()
-        graph.register_generator_state(generator)
-        wrappers = tuple(_kernels.COUNTED)
-        before = [fn.launches for fn in wrappers]
-        # thread-local: an async checkpoint's writer or a prefetch thread may
-        # call into CUDA while this thread captures
-        with torch.cuda.graph(graph, pool=self.pool, capture_error_mode="thread_local"):
-            metrics = self.run(state, inputs, generator)
-        if self.pool is None:
-            self.pool = graph.pool()
-        launches = []
-        for fn, count in zip(wrappers, before):
-            launches.append((fn, fn.launches - count))
-            fn.launches = count  # a capture launches nothing
-        return _Capture(graph, inputs, generator, metrics, tuple(launches))
+        with span("xpt.step.capture"):
+            inputs = {k: v.clone() for k, v in batch.items()}
+            generator = torch.Generator(device=self.device)
+            graph = torch.cuda.CUDAGraph()
+            graph.register_generator_state(generator)
+            wrappers = tuple(_kernels.COUNTED)
+            before = [fn.launches for fn in wrappers]
+            # thread-local: an async checkpoint's writer or a prefetch thread may
+            # call into CUDA while this thread captures
+            with torch.cuda.graph(graph, pool=self.pool, capture_error_mode="thread_local"):
+                metrics = self.run(state, inputs, generator)
+            if self.pool is None:
+                self.pool = graph.pool()
+            launches = []
+            for fn, count in zip(wrappers, before):
+                launches.append((fn, fn.launches - count))
+                fn.launches = count  # a capture launches nothing
+            return _Capture(graph, inputs, generator, metrics, tuple(launches))
 
     @staticmethod
     def _replay(capture: _Capture, batch: dict, seed: int) -> dict:
-        for key, buf in capture.inputs.items():
-            buf.copy_(batch[key], non_blocking=True)
-        capture.generator.manual_seed(_seed(seed))
-        capture.graph.replay()
-        for fn, n in capture.launches:
-            fn.launches += n
-        return {key: value.clone() for key, value in capture.metrics.items()}
+        with span("xpt.step.replay"):
+            for key, buf in capture.inputs.items():
+                buf.copy_(batch[key], non_blocking=True)
+            capture.generator.manual_seed(_seed(seed))
+            capture.graph.replay()
+            for fn, n in capture.launches:
+                fn.launches += n
+            return {key: value.clone() for key, value in capture.metrics.items()}
 
 
 CLIPVIP_EVAL_IO = (("video", "text_input_ids", "text_input_mask"),

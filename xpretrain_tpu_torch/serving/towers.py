@@ -7,6 +7,10 @@ ids + mask, both to L2-normalized features, and ``similarity`` for ranking;
 :class:`HdVilaTowers` for HD-VILA (the towers of
 ``export_lfvila_retrieval_towers`` and ``export_hdvila_retrieval_towers``
 there). ``serving/artifact.py`` exports the same towers to one file.
+
+The two encode calls are the spans ``xpt.serve.encode_video`` and
+``xpt.serve.encode_text`` (``utils/profiling.py``), each holding an
+``xpt.serve.upload`` for every input it copies to the device.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ import torch
 
 from xpretrain_tpu_torch.models.clip_vip.model import CLIPViPModel
 from xpretrain_tpu_torch.models.lf_vila.tasks import LfVilaRetrieval
+from xpretrain_tpu_torch.utils.profiling import span
 
 if TYPE_CHECKING:
     from xpretrain_tpu_torch.cli.run_pretrain_hdvila import HdVilaPretrainModel
@@ -32,20 +37,21 @@ class _Towers:
         self.model = model.to(self.device).eval()
 
     def _to_device(self, x) -> torch.Tensor:
-        if isinstance(x, np.ndarray):
-            x = torch.from_numpy(np.ascontiguousarray(x))
-        return x.to(self.device)
+        with span("xpt.serve.upload"):
+            if isinstance(x, np.ndarray):
+                x = torch.from_numpy(np.ascontiguousarray(x))
+            return x.to(self.device)
 
     def encode_video(self, *video) -> torch.Tensor:
         """Frames -> L2-normalized [B, dim] features (the model's
         ``forward_video``)."""
-        with torch.inference_mode():
+        with span("xpt.serve.encode_video"), torch.inference_mode():
             return self.model.forward_video(*(self._to_device(v) for v in video))
 
     def encode_text(self, input_ids, attention_mask) -> torch.Tensor:
         """Token ids + mask -> L2-normalized [B, dim] features (the model's
         ``forward_text``)."""
-        with torch.inference_mode():
+        with span("xpt.serve.encode_text"), torch.inference_mode():
             return self.model.forward_text(self._to_device(input_ids), self._to_device(attention_mask))
 
 

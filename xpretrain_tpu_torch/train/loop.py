@@ -10,7 +10,9 @@ stacked metrics, and validate and save fire after the chunk that holds their
 boundary. A run whose length is not a multiple of K ends on a shorter chunk.
 ``profile_num_steps > 0`` takes a ``torch.profiler`` trace (host and, on a
 card, device activity) where JAX takes ``jax.profiler``, with its device
-time by op class (``train/profiling.py``).
+time by op class (``train/profiling.py``); its host rows show the spans of
+``utils/profiling.py`` (here ``xpt.loop.next_batch``, the wait for the
+loader, and ``xpt.ingest.stack``).
 
 Step ``s`` draws from ``seed + s`` whatever K is, so a run at K = 4 equals a
 run at K = 1 and a resumed run equals an unbroken one; JAX splits a PRNG key
@@ -25,6 +27,7 @@ from typing import Any, Callable, Optional
 import numpy as np
 
 from xpretrain_tpu_torch.train.profiling import start_profiler, stop_profiler
+from xpretrain_tpu_torch.utils.profiling import span
 
 
 def _batch_schema(batch: dict) -> tuple:
@@ -35,7 +38,8 @@ def _batch_schema(batch: dict) -> tuple:
 
 
 def stack_batches(batches: list) -> dict:
-    """Stack host batches on a leading axis, with a clear schema error."""
+    """Stack host batches on a leading axis, with a clear schema error; the
+    stacking is the span ``xpt.ingest.stack``."""
     if not all(isinstance(b, dict) for b in batches):
         raise ValueError(
             "steps_per_call > 1 requires dict batches (got "
@@ -60,7 +64,8 @@ def stack_batches(batches: list) -> dict:
             f"rank >= 1; got scalar/non-array leaves for keys {scalar_keys}. "
             "Reshape scalars to shape (1,) or use steps_per_call=1."
         )
-    return {k: np.stack([b[k] for b in batches]) for k in batches[0]}
+    with span("xpt.ingest.stack"):
+        return {k: np.stack([b[k] for b in batches]) for k in batches[0]}
 
 
 def drive_train_loop(
@@ -100,7 +105,8 @@ def drive_train_loop(
     k = max(1, int(steps_per_call))
 
     def next_batch():
-        batch = next(it)
+        with span("xpt.loop.next_batch"):  # the wait for the loader
+            batch = next(it)
         if isinstance(batch, tuple):  # MetaLoader yields (task, batch)
             _task, batch = batch
         return batch

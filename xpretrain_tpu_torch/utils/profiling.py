@@ -1,74 +1,104 @@
-"""Profiling and step-time instrumentation (``xpretrain_tpu/utils/profiling.py``).
+"""Spans at the port's layer boundaries, and an operation count
+(``xpretrain_tpu/utils/profiling.py``).
 
-The reference's only instrumentation is a one-off thop FLOPs count
-(``hd-vila/src/modeling/e2e_model.py:262-268``) and wall-clock prints; this
-module provides:
-
-- :func:`trace`: a ``torch.profiler`` trace (host and, on a card, device
-  activity) written as a Chrome trace, ``<log_dir>/trace.json``;
-- :class:`StepTimer`: steady-state step-time/throughput meter with warm-up
-  exclusion and percentile summary (host clock; a caller timing a card
-  synchronizes before each tick);
+- :func:`span`: a named host interval. Every span appends one record to an
+  in-memory ring of its name (:func:`records`): its start and end on the
+  profiler's host clock (Unix nanoseconds, as kineto stamps host events),
+  the innermost span open on its thread, and whether a ``torch.profiler``
+  was active. While one is, the span is also a host event of that name in
+  the profile (a host-only record function: it adds nothing to the device
+  rows), so a Chrome trace shows the ``xpt.*`` ranges on the host rows, on
+  the kernels' clock. Under ``torch.export``, ``torch.compile`` and
+  ``make_fx`` a span does nothing.
 - :func:`flops_estimate`: the operations of one call, counted by
   ``torch.utils.flop_counter`` (GEMMs, convolutions, attention; forward and,
   when the call runs one, backward).
 
-The training loop's op-class tables are ``train/profiling.py``'s.
+The spans, where they sit and what reads each are listed in PERF.md; the
+training loop's op-class tables are ``train/profiling.py``'s.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
-import os
-import time
-from typing import Callable
+import threading
+from time import time_ns
+from typing import Callable, NamedTuple, Optional
 
-import numpy as np
 import torch
+from torch._C._autograd import _profiler_enabled
+from torch._C._profiler import _RecordFunctionFast
+
+# bound once: a span runs them on every call
+_is_compiling = torch.compiler.is_compiling
+_dispatch_modes = torch._C._len_torch_dispatch_stack
+
+# records a name keeps: a 25 s benchmark window makes at most ~1,300 of one
+# name, a training run far more, of which the newest stay
+RING = 1 << 14
 
 
-@contextlib.contextmanager
-def trace(log_dir: str):
-    """Profile the body; write its Chrome trace to ``log_dir/trace.json``."""
-    activities = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(torch.profiler.ProfilerActivity.CUDA)
-    os.makedirs(log_dir, exist_ok=True)
-    with torch.profiler.profile(activities=activities) as prof:
-        yield prof
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+class Record(NamedTuple):
+    name: str
+    start_ns: int  # Unix ns, the clock of the profiler's host events
+    end_ns: int
+    parent: Optional[str]  # the innermost span open on the thread at the start
+    profiled: bool  # a torch.profiler was active
 
 
-class StepTimer:
-    """Track per-step wall time; first ``skip`` steps (warm-up) excluded."""
+class _Open(threading.local):
+    def __init__(self):
+        self.names: list[str] = []
 
-    def __init__(self, skip: int = 2):
-        self.skip = skip
-        self.times: list[float] = []
-        self._last: float | None = None
-        self._count = 0
 
-    def tick(self) -> None:
-        now = time.perf_counter()
-        if self._last is not None:
-            self._count += 1
-            if self._count > self.skip:
-                self.times.append(now - self._last)
-        self._last = now
+_OPEN = _Open()
+_RINGS: dict[str, collections.deque] = {}
 
-    def summary(self, items_per_step: int = 1) -> dict[str, float]:
-        if not self.times:
-            return {}
-        arr = np.asarray(self.times)
-        return {
-            "mean_s": float(arr.mean()),
-            "p50_s": float(np.percentile(arr, 50)),
-            "p90_s": float(np.percentile(arr, 90)),
-            "steps_per_s": float(1.0 / arr.mean()),
-            "items_per_s": float(items_per_step / arr.mean()),
-        }
+
+class _Span:
+    __slots__ = ("name", "parent", "mark", "start_ns")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self) -> None:
+        names = _OPEN.names
+        self.parent = names[-1] if names else None
+        names.append(self.name)
+        if _profiler_enabled():
+            self.mark = _RecordFunctionFast(self.name)
+            self.mark.__enter__()
+        else:
+            self.mark = None
+        self.start_ns = time_ns()
+
+    def __exit__(self, *exc) -> None:
+        end_ns = time_ns()
+        mark = self.mark
+        if mark is not None:
+            mark.__exit__(None, None, None)
+        _OPEN.names.pop()
+        ring = _RINGS.get(self.name)
+        if ring is None:
+            ring = _RINGS.setdefault(self.name, collections.deque(maxlen=RING))
+        ring.append((self.name, self.start_ns, end_ns, self.parent, mark is not None))
+
+
+def span(name: str):
+    """Context manager: a span named ``name`` around the body (see the
+    module's docstring); a null context while a graph tool traces (the cheap
+    test of ``ops/_kernels.py:tracing``: dynamo compiles, or a fake or proxy
+    mode is on the dispatch stack)."""
+    if _is_compiling() or _dispatch_modes():
+        return contextlib.nullcontext()
+    return _Span(name)
+
+
+def records(name: str) -> list[Record]:
+    """The records of the spans named ``name`` that the ring still holds,
+    oldest first."""
+    return [Record(*r) for r in list(_RINGS.get(name, ()))]
 
 
 def flops_estimate(fn: Callable, *args, **kwargs) -> float:
