@@ -101,13 +101,33 @@ def contrastive_loss_from_outputs(outputs: dict, loss_fn: Callable) -> torch.Ten
     raise ValueError(f"unknown loss signature {kind!r}")
 
 
+def _page_locked_owner(x: np.ndarray) -> Optional[torch.Tensor]:
+    """The page-locked tensor under ``x``'s memory (a leaf that
+    ``train/loop.py:stack_batches`` staged, or a view of one), or None."""
+    owner = x.base
+    while isinstance(owner, np.ndarray):
+        owner = owner.base
+    return owner if isinstance(owner, torch.Tensor) and owner.is_pinned() else None
+
+
 def batch_to_device(device: torch.device | str) -> Callable[[dict], dict]:
     """numpy batch -> tensors on ``device``, through pinned memory with
-    ``non_blocking`` copies on CUDA (span ``xpt.ingest.place``)."""
+    ``non_blocking`` copies on CUDA (span ``xpt.ingest.place``). A leaf
+    staged by ``stack_batches`` is copied from the page-locked tensor it is
+    the numpy view of, without pinning it again; copying from that tensor,
+    and not from ``torch.from_numpy`` of the view, makes the caching host
+    allocator record the copy on the block, so the block is not handed out
+    again before the copy has run. A part of a staged leaf is copied out of
+    the block first."""
     device = torch.device(device)
     pin = device.type == "cuda"
 
     def to_device(x: np.ndarray) -> torch.Tensor:
+        owner = _page_locked_owner(x) if pin else None
+        if owner is not None:
+            if owner is x.base and owner.data_ptr() == x.ctypes.data and owner.shape == x.shape:
+                return owner.to(device, non_blocking=True)
+            x = np.array(x)
         t = torch.from_numpy(np.ascontiguousarray(x))
         if pin:
             t = t.pin_memory()

@@ -3,11 +3,15 @@
 Per-step dispatch, or ``steps_per_call`` stacked dispatch: K host batches
 stacked on a leading axis (:func:`stack_batches`), moved to the device in
 one upload, and run by the train step in one call (on a card, K replays of
-one captured CUDA graph; ``parallel/train_step.py``). The log, validate and
-save cadences keep their density: when a chunk crosses several
-``log_every`` boundaries, each is logged from that sub-step's row of the
-stacked metrics, and validate and save fire after the chunk that holds their
-boundary. A run whose length is not a multiple of K ends on a shorter chunk.
+one captured CUDA graph; ``parallel/train_step.py``). Once the process has
+initialised CUDA, the stack lands in page-locked memory that PyTorch's
+caching host allocator hands back call after call, so each host byte is
+written once, into warm pages, and ``batch_to_device`` copies it to the card
+without pinning it again. The log, validate and save cadences keep their
+density: when a chunk crosses several ``log_every`` boundaries, each is
+logged from that sub-step's row of the stacked metrics, and validate and
+save fire after the chunk that holds their boundary. A run whose length is
+not a multiple of K ends on a shorter chunk.
 ``profile_num_steps > 0`` takes a ``torch.profiler`` trace (host and, on a
 card, device activity) where JAX takes ``jax.profiler``, with its device
 time by op class (``train/profiling.py``); its host rows show the spans of
@@ -25,9 +29,16 @@ import time
 from typing import Any, Callable, Optional
 
 import numpy as np
+import torch
 
 from xpretrain_tpu_torch.train.profiling import start_profiler, stop_profiler
-from xpretrain_tpu_torch.utils.profiling import span
+from xpretrain_tpu_torch.utils.profiling import count, span
+
+# the numpy dtypes a page-locked torch tensor can hold
+_TORCH_DTYPES = {
+    np.dtype(name): getattr(torch, name)
+    for name in ("bool", "uint8", "int8", "int16", "int32", "int64", "float16", "float32", "float64")
+}
 
 
 def _batch_schema(batch: dict) -> tuple:
@@ -37,9 +48,36 @@ def _batch_schema(batch: dict) -> tuple:
     )
 
 
+def _host_allocs() -> int:
+    """Page-locked blocks the caching host allocator has made so far."""
+    return torch.cuda.host_memory_stats_as_nested_dict()["num_host_alloc"]
+
+
+def _stage(leaves: list) -> np.ndarray:
+    """``np.stack(leaves)``'s values in a page-locked tensor from PyTorch's
+    caching host allocator, returned as its numpy view (whose ``base`` is
+    that tensor). The allocator hands a block out again only once it is free
+    and the copies recorded on it have run, so a warm block comes back on the
+    next call and a chunk still held or still in flight is never written."""
+    first = leaves[0]
+    dtype = _TORCH_DTYPES.get(first.dtype) if isinstance(first, np.ndarray) else None
+    if dtype is None:
+        return np.stack(leaves)
+    out = torch.empty((len(leaves), *first.shape), dtype=dtype, pin_memory=True)
+    # torch's copy runs on its intra-op threads, np.stack's on one
+    torch.stack([torch.from_numpy(np.ascontiguousarray(leaf)) for leaf in leaves], out=out)
+    count("xpt.ingest.staged")
+    return out.numpy()
+
+
 def stack_batches(batches: list) -> dict:
     """Stack host batches on a leading axis, with a clear schema error; the
-    stacking is the span ``xpt.ingest.stack``."""
+    stacking is the span ``xpt.ingest.stack``. Once CUDA is initialised in
+    the process each numeric leaf is staged in page-locked memory
+    (:func:`_stage`; the counters ``xpt.ingest.staged`` and, for a leaf that
+    took a fresh page-locked block, ``xpt.ingest.stage_fresh``); the values
+    are ``np.stack``'s either way. A staged chunk is read by its device copy
+    until the copy has run: write nothing into it once placed."""
     if not all(isinstance(b, dict) for b in batches):
         raise ValueError(
             "steps_per_call > 1 requires dict batches (got "
@@ -65,7 +103,12 @@ def stack_batches(batches: list) -> dict:
             "Reshape scalars to shape (1,) or use steps_per_call=1."
         )
     with span("xpt.ingest.stack"):
-        return {k: np.stack([b[k] for b in batches]) for k in batches[0]}
+        if not torch.cuda.is_initialized():
+            return {k: np.stack([b[k] for b in batches]) for k in batches[0]}
+        before = _host_allocs()
+        stacked = {k: _stage([b[k] for b in batches]) for k in batches[0]}
+        count("xpt.ingest.stage_fresh", _host_allocs() - before)
+        return stacked
 
 
 def drive_train_loop(
@@ -126,8 +169,9 @@ def drive_train_loop(
             state, metrics = train_step(state, place_batch(next_batch()), seed + step)
             at = lambda i: metrics  # noqa: E731
         else:
-            stacked = stack_batches([next_batch() for _ in range(chunk)])
-            state, metrics = train_step(state, place_batch(stacked), seed + step)
+            # the host chunk is dropped once placed: its page-locked block is free again after its copy
+            placed = place_batch(stack_batches([next_batch() for _ in range(chunk)]))
+            state, metrics = train_step(state, placed, seed + step)
             at = lambda i: {key: value[i] for key, value in metrics.items()}  # noqa: E731
         prev, step = step, step + chunk
         if prof is not None and step >= prof_end:

@@ -10,6 +10,8 @@
   rows), so a Chrome trace shows the ``xpt.*`` ranges on the host rows, on
   the kernels' clock. Under ``torch.export``, ``torch.compile`` and
   ``make_fx`` a span does nothing.
+- :func:`count`: a named counter beside the rings, for how often a
+  mechanism engages (:func:`counts`); nothing counts until it does.
 - :func:`flops_estimate`: the operations of one call, counted by
   ``torch.utils.flop_counter`` (GEMMs, convolutions, attention; forward and,
   when the call runs one, backward).
@@ -54,6 +56,8 @@ class _Open(threading.local):
 
 _OPEN = _Open()
 _RINGS: dict[str, collections.deque] = {}
+_COUNTS: collections.Counter = collections.Counter()
+_COUNTS_LOCK = threading.Lock()
 
 
 class _Span:
@@ -99,6 +103,18 @@ def records(name: str) -> list[Record]:
     """The records of the spans named ``name`` that the ring still holds,
     oldest first."""
     return [Record(*r) for r in list(_RINGS.get(name, ()))]
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name`` (from any thread)."""
+    with _COUNTS_LOCK:
+        _COUNTS[name] += n
+
+
+def counts() -> dict[str, int]:
+    """Every counter's total since the process started (a copy)."""
+    with _COUNTS_LOCK:
+        return dict(_COUNTS)
 
 
 def flops_estimate(fn: Callable, *args, **kwargs) -> float:
