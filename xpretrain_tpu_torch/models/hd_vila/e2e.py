@@ -13,6 +13,13 @@ it takes uint8 frames (or 0-255 floats) as the host ships them, standardizes
 them with the 0-255 ImageNet mean and std in fp32 on the device, and the
 first convolution casts to the compute dtype. (The JAX data path normalizes
 on the host as well, ROADMAP Queue 3.)
+
+:meth:`HdVilaEncoder.extract_features` and its two one-input variants hold
+three spans (``utils/profiling.py:span``): ``xpt.hdvila.cnn``, the
+high-resolution ResNet with ``grid_encoder`` and the middle frame's
+stage-3 grid; ``xpt.hdvila.cnn_low``, the low-resolution ResNet to stage 3
+with ``grid_encoder_low``; ``xpt.hdvila.timesformer``. They record in eager
+steps; a graphed step's replays run no Python and record none.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ from torch import nn
 from xpretrain_tpu_torch.models.common import device_constant
 from xpretrain_tpu_torch.models.hd_vila.resnet import Conv2d, ResNet
 from xpretrain_tpu_torch.models.hd_vila.timesformer import TimeSformer, TimeSformerConfig
+from xpretrain_tpu_torch.utils.profiling import span
 
 IMAGENET_MEAN_255 = (123.675, 116.28, 103.53)
 IMAGENET_STD_255 = (58.395, 57.12, 57.375)
@@ -135,34 +143,43 @@ class HdVilaEncoder(nn.Module):
         middle = self.normalize(img_middle.reshape(-1, c, h, w))
         other = self.normalize(img_other.reshape(-1, c, *img_other.shape[-2:]))
 
-        stage_features = self.cnn(middle)
-        grid_hi = self._grid_encoder(stage_features[-1])
-        mid3 = self._grid_encoder_low(self._downsample_quarter(stage_features[-2]))
+        with span("xpt.hdvila.cnn"):
+            stage_features = self.cnn(middle)
+            grid_hi = self._grid_encoder(stage_features[-1])
+            mid3 = self._grid_encoder_low(self._downsample_quarter(stage_features[-2]))
 
-        other = self._grid_encoder_low(self.cnn_low.forward_to_stage(other, stage=2))
+        with span("xpt.hdvila.cnn_low"):
+            other = self._grid_encoder_low(self.cnn_low.forward_to_stage(other, stage=2))
         other = other.reshape(b * clips, frm - 1, *other.shape[1:])
         half = frm // 2
         temporal = torch.cat([other[:, :half], mid3[:, None], other[:, half:]], dim=1)
-        temporal = self.timesformer(temporal)[:, half]
+        with span("xpt.hdvila.timesformer"):
+            temporal = self.timesformer(temporal)[:, half]
 
         fused = self._combine(torch.cat([grid_hi, temporal], dim=1))
         return stage_features, fused
 
     def _extract_middle_only(self, img_middle: torch.Tensor):
         b, clips, c, h, w = img_middle.shape
-        stage_features = self.cnn(self.normalize(img_middle.reshape(-1, c, h, w)))
-        grid_hi = self._grid_encoder(stage_features[-1])
-        mid3 = self._grid_encoder_low(self._downsample_quarter(stage_features[-2]))
-        temporal = self.timesformer(mid3[:, None])[:, 0]
+        middle = self.normalize(img_middle.reshape(-1, c, h, w))
+        with span("xpt.hdvila.cnn"):
+            stage_features = self.cnn(middle)
+            grid_hi = self._grid_encoder(stage_features[-1])
+            mid3 = self._grid_encoder_low(self._downsample_quarter(stage_features[-2]))
+        with span("xpt.hdvila.timesformer"):
+            temporal = self.timesformer(mid3[:, None])[:, 0]
         fused = self._combine(torch.cat([grid_hi, temporal], dim=1))
         return stage_features, fused
 
     def _extract_other_only(self, img_other: torch.Tensor):
         b, clips, frm, c, h, w = img_other.shape
-        other = self.cnn_low.forward_to_stage(self.normalize(img_other.reshape(-1, c, h, w)), stage=2)
-        other = self._grid_encoder_low(other)
+        other = self.normalize(img_other.reshape(-1, c, h, w))
+        with span("xpt.hdvila.cnn_low"):
+            other = self._grid_encoder_low(self.cnn_low.forward_to_stage(other, stage=2))
         other = other.reshape(b * clips, frm, *other.shape[1:])
-        return (), self.timesformer(other)[:, frm // 2]
+        with span("xpt.hdvila.timesformer"):
+            temporal = self.timesformer(other)[:, frm // 2]
+        return (), temporal
 
     def forward(self, img_middle: Optional[torch.Tensor], img_other: Optional[torch.Tensor]) -> torch.Tensor:
         """-> visual grid [B, clips, 1, H', W', hidden] for the BERT fusion
