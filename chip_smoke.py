@@ -27,6 +27,19 @@ Phases, in order; any failure exits non-zero and prints no result:
 3e. the fused uint8 patch-embed kernel against ``fused_patch_embed``'s plain
    GEMM at the B/32 serving frames (288 of 224x224, P=32, D=768), at P=16 and
    at ragged shapes, fp32 and bf16 out;
+3f. the frozen-BN kernels (``csrc/frozen_bn_act.cu``, HD-VILA's FrozenBN with
+   its ReLU and residual add, a kernel of the port's own) against their plain
+   versions at layer1's bn3 of the high-resolution ResNet (bf16 [32, 256,
+   160, 256], channels_last), in each of the three forms: the ops' output
+   within one bf16 ulp of float32, dx and the identity's gradient bit-equal
+   to the backward's plain version, the parameters' sums within 1e-5 and the
+   same bits in two runs; ``FrozenBatchNorm`` through its wrapper under
+   autograd (also on contiguous maps) against the float32 plain version: y,
+   dx and the identity's gradient within one bf16 ulp, the gradients of
+   scale, bias, mean and var within 1e-3 of their norms, 3 launches (2 with
+   the parameters frozen); and one forward of the stage-1 model, whose 96
+   FrozenBatchNorms all take the kernel (``xpt.frozen_bn.kernel`` 96,
+   ``xpt.frozen_bn.plain`` 0, 96 launches);
 4. run CLIP-ViP B/32 zero-shot retrieval eval (random weights from a seed,
    bf16, synthetic uint8 clips) through the CLI, counting kernel launches;
 4b. run the MSR-VTT B/32 fine-tune preset through the CLI for a few steps
@@ -161,6 +174,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    events, device time by op class, its operations from
    ``torch.utils.flop_counter`` against the bf16 dense peak) and the video
    tower at b=8;
+6h. time the frozen-BN kernels at 3f's shape in the bn3 form (+ identity,
+   ReLU): forward, and forward + backward through autograd, against the
+   plain version (the module's eager arithmetic before the fusion) and the
+   bound of their bytes;
 6f. time the B/32 bf16 train step at b=32 eager and graphed (K = 4), with
    fp32 and with bf16 parameter storage, and LF-VILA stage 1 at b=16 eager
    and at K = 2: ms a step (5 windows of about 0.5 s, LF-VILA's 0.6),
@@ -184,7 +201,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    the program;
 7c. HD-VILA at the stage-1 preset's width in fp32, uint8 middles and
    neighbours, b=1, the exported programs called without a file: within
-   1e-4 of ``HdVilaTowers``, no launch;
+   1e-4 of ``HdVilaTowers``, one frozen-BN launch per FrozenBatchNorm a
+   video call and no other kernel;
 7d. a module calling ``fused_patch_embed(use_kernel=True)`` at the B/32
    frames through ``torch.export``, saved and loaded: bit-equal to the eager
    kernel, one launch a call;
@@ -261,7 +279,9 @@ While they run, a call of a plain version on CUDA tensors fails the phase;
 counts its calls.
 HD-VILA runs none of the six kernels (JAX computes its convolutions,
 TimeSformer attention and BERT in XLA): its phases check that they launch
-none and that the encoder's inputs and parameters are on the card.
+none, that every FrozenBatchNorm takes the frozen-BN kernel (as many
+launches as its modules' calls make, ``frozen_bn_calls``; no plain call) and
+that the encoder's inputs and parameters are on the card. The summary gives that kernel its own entry, ``fused_kernels``.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``
 (about 13 minutes on one H100, the kernels' build included).
@@ -384,6 +404,10 @@ HDVILA_PRESETS = {1: "xpretrain_tpu_torch/configs/hdvila_pretrain_stage1.json",
 HDVILA_STEPS = {1: 4, 2: 4}  # train-step calls; the first warms up; stage 2's preset accumulates 2 per update
 HDVILA_VAL_ROWS = 16  # synthetic captions / questions of the retrieval and QA evals (the runners' default: 64)
 HDVILA_TIMED_BATCH = 8  # phase 6e: the stage-1 preset's batch
+# phases 3f and 6h: layer1's bn3 of the high-resolution ResNet in the cell hdvila_stage1.pretrain (b=16 samples of 2
+# clips: 32 middles of 640x1024, 160x256 after the stem), bf16 channels_last
+FROZEN_BN_SHAPE = (32, 256, 160, 256)
+FROZEN_BN_FORMS = {"affine": (False, False), "relu": (True, False), "relu_identity": (True, True)}
 ARTIFACT_BATCHES = (1, 7, 24)  # 7a: the B/32 kernel artifact called at these batch sizes
 ARTIFACT_TOL = 1e-4  # artifact vs live towers, max abs on the features (phase 5's bar)
 INT8_COS = 0.9994  # 7e: w8a8 against bf16 embedding cosine (JAX's bar at B/32, xpretrain_tpu/ops/quant.py)
@@ -592,15 +616,17 @@ def plain_on_cuda_guard():
     the main paths' kernels stand in for: both proxy-attention versions and
     their packed forms, the masked ``dot_attention`` that ``ProxyAttention``
     takes under dropout, the window-attention version and the plain patch
-    embed GEMM. Yields the list of calls."""
+    embed GEMM, and the frozen BN's plain version. Yields the list of calls."""
     from xpretrain_tpu_torch.models.clip_vip import model as clip_vip_model
+    from xpretrain_tpu_torch.ops import frozen_bn as fb
     from xpretrain_tpu_torch.ops import patchify as pp
     from xpretrain_tpu_torch.ops import proxy_attention as pa
     from xpretrain_tpu_torch.ops import window_attention as wa
 
     hooks = [(pa, "proxy_attention_plain"), (pa, "proxy_attention_bwd_plain"),
              (pa, "proxy_attention_packed_plain"), (pa, "proxy_attention_packed_bwd_plain"),
-             (clip_vip_model, "dot_attention"), (wa, "window_attention_plain"), (pp, "patch_embed_plain")]
+             (clip_vip_model, "dot_attention"), (wa, "window_attention_plain"), (pp, "patch_embed_plain"),
+             (fb, "frozen_bn_act_plain")]
     originals = [getattr(module, name) for module, name in hooks]
     calls = []
 
@@ -621,7 +647,9 @@ def plain_on_cuda_guard():
 
 
 def counted_wrappers() -> dict:
-    """Kernel name -> the wrapper whose ``launches`` counts its launches."""
+    """Kernel name -> the wrapper whose ``launches`` counts its launches: the
+    six of ``KERNELS`` and the frozen-BN kernels (forward and backward)."""
+    from xpretrain_tpu_torch.ops import frozen_bn as fb
     from xpretrain_tpu_torch.ops import patchify as pp
     from xpretrain_tpu_torch.ops import proxy_attention as pa
     from xpretrain_tpu_torch.ops import window_attention as wa
@@ -629,7 +657,8 @@ def counted_wrappers() -> dict:
     return {"proxy_attention_fwd": pa.proxy_attention, "proxy_attention_bwd": pa.proxy_attention_bwd,
             "proxy_attention_packed_fwd": pa.proxy_attention_packed,
             "proxy_attention_packed_bwd": pa.proxy_attention_packed_bwd,
-            "patch_embed_u8": pp.fused_patch_embed, "window_attention_fwd": wa.window_attention}
+            "patch_embed_u8": pp.fused_patch_embed, "window_attention_fwd": wa.window_attention,
+            "frozen_bn_act": fb.frozen_bn_act}
 
 
 def launch_counts() -> dict[str, int]:
@@ -642,8 +671,8 @@ def reset_launches() -> None:
 
 
 def expected(**launches: int) -> dict[str, int]:
-    """Every kernel's expected launch count: 0 unless given."""
-    return {name: launches.get(name, 0) for name in KERNELS}
+    """Every counted kernel's expected launch count: 0 unless given."""
+    return {name: launches.get(name, 0) for name in counted_wrappers()}
 
 
 def alternate(fns: dict, iters: int = 200) -> dict[str, list[float]]:
@@ -1321,6 +1350,44 @@ def devices_seen(cls):
         cls.forward = original
 
 
+@contextlib.contextmanager
+def frozen_bn_calls():
+    """While inside, count from the FrozenBatchNorm modules' own calls on CUDA
+    the frozen-BN kernel launches they must make: ``fwd`` one a call;
+    ``bwd``, for each call whose output then receives its gradient, one for
+    the backward kernel and one more for the sums' finish when the module's
+    parameters train. Yields that dict."""
+    import torch
+    from xpretrain_tpu_torch.models.hd_vila.resnet import FrozenBatchNorm
+
+    n = {"fwd": 0, "bwd": 0}
+
+    def on_grad(launches: int):
+        def hook(grad):
+            n["bwd"] += launches
+
+        return hook
+
+    # a call is counted before it runs: remat's recompute stops inside a
+    # block's last FrozenBatchNorm once its saved tensors are back, after the
+    # launch, so no forward hook sees that call end
+    def pre_hook(module, args):
+        if isinstance(module, FrozenBatchNorm) and args[0].is_cuda:
+            n["fwd"] += 1
+
+    def forward_hook(module, args, out):
+        if isinstance(module, FrozenBatchNorm) and out.is_cuda and out.requires_grad:
+            out.register_hook(on_grad(1 + any(p.requires_grad for p in module.parameters())))
+
+    handles = (torch.nn.modules.module.register_module_forward_pre_hook(pre_hook),
+               torch.nn.modules.module.register_module_forward_hook(forward_hook))
+    try:
+        yield n
+    finally:
+        for handle in handles:
+            handle.remove()
+
+
 def hdvila_preset(stage: int) -> dict:
     with open(os.path.join(REPO, HDVILA_PRESETS[stage])) as f:
         return json.load(f)
@@ -1329,19 +1396,27 @@ def hdvila_preset(stage: int) -> dict:
 def hdvila_run(module, argv: list[str]):
     """One HD-VILA runner run on the card: (its return value, launch counts,
     ms of each train step in CUDA events, host seconds). Fails on a launch of
-    any of the six kernels, a call of a plain version on CUDA, or an encoder
-    input or parameter off the card."""
+    any of the six kernels, frozen-BN launches other than its FrozenBatchNorms'
+    calls make (``frozen_bn_calls``), a call of a plain version on CUDA, or
+    an encoder input or parameter off the card."""
     import torch
     from xpretrain_tpu_torch.models.hd_vila.e2e import HdVilaEncoder
+    from xpretrain_tpu_torch.utils.profiling import counts
 
     t0 = time.perf_counter()
-    with timed_train_steps() as events, plain_on_cuda_guard() as plain_cuda_calls, devices_seen(HdVilaEncoder) as seen:
+    before = counts()
+    with timed_train_steps() as events, plain_on_cuda_guard() as plain_cuda_calls, \
+            devices_seen(HdVilaEncoder) as seen, frozen_bn_calls() as bn:
         reset_launches()
         out = module.main([*argv, "--device", "cuda"])
         torch.cuda.synchronize()
         launches = launch_counts()
     wall = time.perf_counter() - t0
-    check(launches == expected(), f"HD-VILA launched a kernel of the six: {launches}")
+    calls = {k: counts().get(f"xpt.frozen_bn.{k}", 0) - before.get(f"xpt.frozen_bn.{k}", 0) for k in ("kernel", "plain")}
+    check(launches == expected(frozen_bn_act=bn["fwd"] + bn["bwd"]) and bn["fwd"] > 0,
+          f"HD-VILA launched {launches}; its FrozenBatchNorms' calls make {bn} frozen-BN launches and none of the six")
+    check(calls == {"kernel": bn["fwd"], "plain": 0},
+          f"HD-VILA's FrozenBatchNorms: {calls} calls by path, {bn['fwd']} on CUDA")
     check(not plain_cuda_calls, f"the plain version ran on CUDA tensors: {plain_cuda_calls[:4]}")
     check(seen == {"cuda"}, f"HD-VILA encoder inputs or parameters on {sorted(seen)}")
     return out, launches, [a.elapsed_time(b) for a, b in events], wall
@@ -1388,8 +1463,8 @@ def hdvila_stage1_phase(card: str, ckpt_path: str) -> tuple[dict, dict]:
         argv = ["--config", os.path.join(REPO, HDVILA_PRESETS[1]), "--stage", "1", "--dummy_data", "1",
                 "--num_train_steps", str(steps), "--log_steps", "1", "--save_steps", "1000", "--output_dir", out_dir]
         state, launches, ms, wall = hdvila_run(run_pretrain_hdvila, argv)
-        print(f"  preset {HDVILA_PRESETS[1]}, batch {batch}; launches {launches} (expected none); every parameter on "
-              f"the card: {all(p.is_cuda for p in state.model.parameters())}")
+        print(f"  preset {HDVILA_PRESETS[1]}, batch {batch}; launches {launches} (expected none of the six); every "
+              f"parameter on the card: {all(p.is_cuda for p in state.model.parameters())}")
         check(all(p.is_cuda for p in state.model.parameters()), "4j: a parameter off the card")
         report = hdvila_train_report("stage 1", out_dir, ("itc_loss",), steps, ms, wall, batch, card)
         torch.save(hdvila_e2e_state_dict(state.model), ckpt_path)
@@ -1422,7 +1497,7 @@ def hdvila_stage2_phase(card: str, ckpt_path: str) -> tuple[dict, dict]:
         state, launches, ms, wall = hdvila_run(run_pretrain_hdvila, argv)
         print(f"  preset {HDVILA_PRESETS[2]}: batch {batch}, {accum} micro-batches per update, score_agg_func "
               f"{preset['score_agg_func']}, pixel_random_sampling_size {preset['pixel_random_sampling_size']} (the "
-              f"640x1024 grid holds 10 x 16 = 160 tokens: all kept, as in JAX); launches {launches} (expected none)")
+              f"640x1024 grid holds 10 x 16 = 160 tokens: all kept, as in JAX); launches {launches} (expected none of the six)")
         print(f"  load_hdvila_e2e (read, convert, merge into the model on the card): {loaded[0][1]:.2f} s")
         report = hdvila_train_report("stage 2", out_dir, ("mlm_loss", "mlm_acc"), steps, ms, wall, batch, card)
         eager_tags = scalars(out_dir)
@@ -1609,6 +1684,250 @@ def hdvila_card_vs_cpu_phase() -> None:
         check(loss_err <= 1e-5, f"5e stage {stage}: loss card vs cpu {loss_err}")
         check(stage == 2 or norm_err <= 1e-4, f"5e stage 1: grad_norm card vs cpu rel {norm_err}")
         del model_cpu, model_gpu, batch
+
+
+def frozen_bn_inputs(form: str, seed: int = 0):
+    """bf16 channels_last maps of ``FROZEN_BN_SHAPE`` (x, the identity or
+    None, an output gradient) and fp32 per-channel (inv, shift) of both signs."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    _, with_identity = FROZEN_BN_FORMS[form]
+
+    def maps():
+        return torch.randn(FROZEN_BN_SHAPE, device="cuda", generator=g).to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+
+    C = FROZEN_BN_SHAPE[1]
+    x, identity, grad = maps(), maps() if with_identity else None, maps()
+    inv = torch.randn(C, device="cuda", generator=g) * 0.5 + 1.0
+    shift = torch.randn(C, device="cuda", generator=g) * 0.5
+    return x, identity, grad, inv, shift
+
+
+def frozen_bn_module(seed: int):
+    """A FrozenBatchNorm of ``FROZEN_BN_SHAPE``'s channels on the card, its
+    statistics seeded: scales and shifts of both signs, so a ReLU zeroes
+    part of every channel."""
+    import torch
+    from xpretrain_tpu_torch.models.hd_vila.resnet import FrozenBatchNorm
+
+    C = FROZEN_BN_SHAPE[1]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    bn = FrozenBatchNorm(C, device="cuda")
+    with torch.no_grad():
+        bn.scale.copy_(torch.randn(C, device="cuda", generator=g) * 0.5 + 1.0)
+        bn.bias.copy_(torch.randn(C, device="cuda", generator=g) * 0.5)
+        bn.mean.copy_(torch.randn(C, device="cuda", generator=g) * 0.3)
+        bn.var.copy_(torch.rand(C, device="cuda", generator=g) * 1.5 + 0.5)
+    return bn
+
+
+def frozen_bn_module_check(form: str, layout, seed: int) -> dict:
+    """``FrozenBatchNorm(x, relu, identity)`` under autograd at
+    ``FROZEN_BN_SHAPE`` in bf16, maps in ``layout``, against
+    ``frozen_bn_act_plain`` in float32 on the kernel's own per-channel values
+    (inv and shift rounded to bf16, autograd's gradient through the fp32
+    ones): y, dx and the identity's gradient within ``BF16_MAX_ULP``, the
+    gradients of scale, bias, mean and var within 1e-3 of their norms (the
+    kernel sums over N*H*W per block, then across blocks, in another order).
+    Also the same call with the parameters frozen: no sums (one launch
+    fewer), dx and the identity's gradient bit-equal. Returns the readings."""
+    import torch
+    from xpretrain_tpu_torch.ops import frozen_bn as fb
+
+    relu, with_identity = FROZEN_BN_FORMS[form]
+    params = ("scale", "bias", "mean", "var")
+    x, identity, grad, _, _ = frozen_bn_inputs(form, seed=seed)
+    x = x.contiguous(memory_format=layout)
+    identity = None if identity is None else identity.contiguous(memory_format=layout)
+    maps = [x.requires_grad_()] + ([identity.requires_grad_()] if with_identity else [])
+    bn = frozen_bn_module(seed)
+    got = {}
+    for frozen in (True, False):  # trainable last: the reference below takes their gradients
+        for name in params:
+            getattr(bn, name).requires_grad_(not frozen)
+        leaves = maps + ([] if frozen else [getattr(bn, name) for name in params])
+        launches = fb.frozen_bn_act.launches
+        y = bn(x, relu=relu, identity=identity)
+        grads = torch.autograd.grad(y, leaves, grad)
+        torch.cuda.synchronize()
+        got[frozen] = (y.detach(), grads, fb.frozen_bn_act.launches - launches)
+        del y
+    y, grads, launches = got[False]
+    check(launches == 3 and got[True][2] == 2, f"3f {form}: launches {launches} (frozen {got[True][2]}), expected 3 "
+          f"(2 frozen)")
+    check(y.is_contiguous(memory_format=torch.channels_last), f"3f {form}: output strides {y.stride()}")
+    inv = torch.rsqrt(bn.var + bn.eps) * bn.scale
+    shift = bn.bias - bn.mean * inv
+    inv_r = inv + (inv.to(torch.bfloat16).float() - inv).detach()
+    shift_r = shift + (shift.to(torch.bfloat16).float() - shift).detach()
+    fmaps = [t.detach().float().requires_grad_() for t in maps]
+    want = fb.frozen_bn_act_plain(fmaps[0], inv_r, shift_r, relu, fmaps[1] if with_identity else None)
+    wgrads = torch.autograd.grad(want, fmaps + [getattr(bn, name) for name in params], grad.float())
+    names = ["x"] + (["identity"] if with_identity else [])
+    ulps = {"y": bf16_grad_ulps(y, want.detach())}
+    del want
+    ulps.update({f"d{n}": bf16_grad_ulps(a, b) for n, a, b in zip(names, grads, wgrads)})
+    rel = {f"d{n}": ((a - b).norm() / b.norm()).item() for n, a, b in zip(params, grads[len(maps):], wgrads[len(maps):])}
+    frozen_same = all(torch.equal(a, b) for a, b in zip(grads[:len(maps)], got[True][1]))
+    check(all(u <= BF16_MAX_ULP for u in ulps.values()) and all(r <= 1e-3 for r in rel.values()) and frozen_same,
+          f"3f {form} {layout}: FrozenBatchNorm against float32 plain: ulps {ulps}, parameters rel {rel}, frozen "
+          f"bit-equal {frozen_same}")
+    return {"ulps": ulps, "rel": rel}
+
+
+def frozen_bn_check_phase(card: str) -> dict:
+    """Phase 3f: the frozen-BN ops at ``FROZEN_BN_SHAPE`` in each form against
+    their plain versions, then the ResNets' entry, ``FrozenBatchNorm`` with
+    its wrapper, through autograd against float32 plain
+    (``frozen_bn_module_check``; in each form on channels_last maps, and the
+    residual form on contiguous ones too), and one forward of the stage-1
+    model with every FrozenBatchNorm on the kernel. Returns the worst bf16
+    ulps of the ops' outputs per form."""
+    import torch
+    from xpretrain_tpu_torch.ops import frozen_bn as fb
+    from xpretrain_tpu_torch.utils.profiling import counts
+
+    worst = {}
+    for form, (relu, with_identity) in FROZEN_BN_FORMS.items():
+        x, identity, grad, inv, shift = frozen_bn_inputs(form, seed=len(worst))
+        before = fb.frozen_bn_act.launches
+        y = torch.ops.xpt.frozen_bn_act_fwd(x, inv, shift, identity, relu)
+        runs = [torch.ops.xpt.frozen_bn_act_bwd(grad, y if relu else None, x, inv, with_identity) for _ in range(2)]
+        torch.cuda.synchronize()
+        check(fb.frozen_bn_act.launches == before + 5, f"3f {form}: {fb.frozen_bn_act.launches - before} launches")
+        a, b = inv.to(torch.bfloat16).float(), shift.to(torch.bfloat16).float()
+        want = x.float() * a[:, None, None] + b[:, None, None]
+        if with_identity:
+            want += identity.float()
+        if relu:
+            want.relu_()
+        ulps = bf16_grad_ulps(y, want)
+        del want
+        dx, d_identity, sums = runs[0]
+        ref = fb.frozen_bn_act_bwd_plain(grad, y if relu else None, x, inv, with_identity)
+        sums_rel = ((sums - ref[2]).norm(dim=1) / ref[2].norm(dim=1)).max().item()
+        same = all(torch.equal(p, q) for p, q in zip(*runs))
+        exact = torch.equal(dx, ref[0]) and (not with_identity or torch.equal(d_identity, ref[1]))
+        worst[form] = ulps
+        print(f"  {form:14s} ops, bf16 {list(FROZEN_BN_SHAPE)} channels_last: output {ulps:.3f} ulp of float32 (tol "
+              f"{BF16_MAX_ULP:.0f}); dx{' and d_identity' if with_identity else ''} bit-equal to the plain "
+              f"backward: {exact}; parameter sums rel {sums_rel:.2e} (tol 1e-5); two runs bit-equal: {same}")
+        check(ulps <= BF16_MAX_ULP and exact and sums_rel <= 1e-5 and same, f"3f {form}: frozen-BN kernels")
+        del x, identity, grad, y, runs, ref, dx, d_identity, sums
+        release_memory()
+    cases = [(form, torch.channels_last) for form in FROZEN_BN_FORMS] + [("relu_identity", torch.contiguous_format)]
+    for i, (form, layout) in enumerate(cases):
+        r = frozen_bn_module_check(form, layout, seed=10 + i)
+        print(f"  {form:14s} FrozenBatchNorm under autograd, bf16 {list(FROZEN_BN_SHAPE)} {str(layout)[6:]} in: bf16 "
+              f"ulps of float32 plain {({k: round(v, 3) for k, v in r['ulps'].items()})} (tol {BF16_MAX_ULP:.0f}); "
+              f"parameters' gradients rel {({k: f'{v:.2e}' for k, v in r['rel'].items()})} (tol 1e-3); 3 launches, "
+              f"2 with the parameters frozen (dx bit-equal) [{card}]")
+        release_memory()
+    model = hdvila_full_width(1, bf16=True, device="cuda")
+    batch = hdvila_batch(1, 1, hdvila_preset(1)["train_n_clips"], "cuda", seed=4)
+    before, launches = counts(), fb.frozen_bn_act.launches
+    with torch.no_grad(), plain_on_cuda_guard() as plain_cuda_calls:
+        model.forward_video(batch["img_middle"], batch["img_other"])
+    torch.cuda.synchronize()
+    launches = fb.frozen_bn_act.launches - launches
+    calls = {k: counts().get(f"xpt.frozen_bn.{k}", 0) - before.get(f"xpt.frozen_bn.{k}", 0) for k in ("kernel", "plain")}
+    print(f"  one forward of the stage-1 model (bf16, 1 sample): FrozenBatchNorm calls {calls}, frozen-BN launches "
+          f"{launches} (expected kernel 96, plain 0, 96 launches) [{card}]")
+    check(calls == {"kernel": 96, "plain": 0} and launches == 96 and not plain_cuda_calls,
+          f"3f: FrozenBatchNorm calls {calls}, {launches} launches")
+    del model, batch
+    release_memory()
+    return worst
+
+
+def marked_device_ms(fn, iters: int):
+    """Device time per call of ``fn`` (ms), or None: a profiled window of
+    ``iters`` calls, a sleep kernel, then ``iters`` more, summed over every
+    device event after the sleep; up to ``PROFILE_ATTEMPTS`` windows. Late in
+    a whole run the profiler lost a window's first few dozen kernel records
+    (see ``replays_against_device``), and in phase 6h it twice recorded no
+    device event at all (ten one-launch calls read 0 ms; a window held no
+    sleep kernel): None then, as the time was not measured."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(PROFILE_ATTEMPTS):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()  # the window's first records, which the profiler may lose
+            torch.cuda._sleep(1_000_000)
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        marks = [i for i, e in enumerate(events) if "spin_kernel" in e.name]
+        if marks and len(events) > marks[-1] + 1:
+            return sum(e.time_range.elapsed_us() for e in events[marks[-1] + 1:]) / 1e3 / iters
+    return None
+
+
+def frozen_bn_timing_phase(card: str) -> dict:
+    """Phase 6h: the frozen-BN kernels at ``FROZEN_BN_SHAPE`` in the bn3 form
+    (+ identity, ReLU): the forward op, and forward + backward through
+    autograd with the four parameters' gradients, against the plain version
+    (the module's eager arithmetic before the fusion); each in CUDA events
+    and, where the profiler records it, in device time (``marked_device_ms``),
+    and the bound of its bytes (forward: x, identity, y;
+    backward: g, y, x, dx, d_identity; each once). Returns the summary's
+    fields for the kernel (ms: forward + backward)."""
+    import torch
+    from xpretrain_tpu_torch.ops import frozen_bn as fb
+
+    x, identity, grad, inv, shift = frozen_bn_inputs("relu_identity", seed=9)
+    leaves = [t.detach().requires_grad_() for t in (x, identity, inv, shift)]
+
+    def kernel_fwd():
+        return fb.frozen_bn_act(x, inv, shift, True, identity)
+
+    def plain_fwd():
+        return fb.frozen_bn_act_plain(x, inv, shift, True, identity)
+
+    def kernel_fwd_bwd():
+        xl, il, vl, sl = leaves
+        torch.autograd.grad(fb.frozen_bn_act(xl, vl, sl, True, il), leaves, grad)
+
+    def plain_fwd_bwd():
+        xl, il, vl, sl = leaves
+        torch.autograd.grad(fb.frozen_bn_act_plain(xl, vl, sl, True, il), leaves, grad)
+
+    fns = {"kernel": kernel_fwd, "plain": plain_fwd, "kernel_fwd_bwd": kernel_fwd_bwd,
+           "plain_fwd_bwd": plain_fwd_bwd}
+    runs = alternate(fns, iters=20)
+    ms = {name: mean(r) for name, r in runs.items()}
+    dev = {name: marked_device_ms(fn, iters=10) for name, fn in fns.items()}
+    check(all(math.isfinite(v) and v > 0 for v in ms.values()) and all(v is None or v > 0 for v in dev.values()),
+          f"6h: frozen-BN timing {ms} {dev}")
+
+    def device(name):
+        return "not measured: the profiler recorded no device event" if dev[name] is None else f"{dev[name]:.4f}"
+
+    n = math.prod(FROZEN_BN_SHAPE)
+    fwd_bound, by = bound_ms(3 * n, 3 * n * 2)
+    bwd_bound, _ = bound_ms(3 * n, 5 * n * 2)
+    for what, k, p, bound in (("forward", "kernel", "plain", fwd_bound),
+                              ("forward + backward", "kernel_fwd_bwd", "plain_fwd_bwd", fwd_bound + bwd_bound)):
+        shares = {name: "" if dev[name] is None else f", {bound / dev[name]:.3f} of its device time" for name in (k, p)}
+        print(f"  {what:18s} bf16 {list(FROZEN_BN_SHAPE)} + identity, ReLU: kernel {ms[k]:.4f} ms (device "
+              f"{device(k)}), plain {ms[p]:.4f} ms (device {device(p)}); bound {bound:.4f} ms ({by}, "
+              f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s): share {bound / ms[k]:.3f} of the kernel's CUDA-event time"
+              f"{shares[k]}, {bound / ms[p]:.3f} of the plain's{shares[p]}; windows {runs[k]} / {runs[p]} [{card}]")
+    del x, identity, grad, leaves
+    release_memory()
+    return {"ms": ms["kernel_fwd_bwd"], "device_ms": dev["kernel_fwd_bwd"], "plain_ms": ms["plain_fwd_bwd"],
+            "plain_device_ms": dev["plain_fwd_bwd"], "fwd_ms": ms["kernel"], "fwd_device_ms": dev["kernel"],
+            "fwd_plain_ms": ms["plain"], "bound_ms": fwd_bound + bwd_bound, "fwd_bound_ms": fwd_bound,
+            "bound_by": by}
 
 
 def hdvila_timing_phase(card: str) -> dict:
@@ -2616,10 +2935,12 @@ def lfvila_artifact_phase(card: str, preset: dict, folder: str) -> dict:
 def hdvila_artifact_phase(card: str) -> None:
     """Phase 7c: HD-VILA at the stage-1 preset's widths and depth, fp32: the
     exported towers on uint8 middles and neighbours (b=1) against the live
-    towers; no kernel launch. The programs are called as exported, not
+    towers; the frozen-BN op once per FrozenBatchNorm, no other kernel. The
+    programs are called as exported, not
     through a file (the CPU tests round-trip every family's file; this
     saves ~30 s of writing and reading 1.1 GB)."""
     import torch
+    from xpretrain_tpu_torch.models.hd_vila.resnet import FrozenBatchNorm
     from xpretrain_tpu_torch.serving import export_hdvila_retrieval_towers
     from xpretrain_tpu_torch.serving.towers import HdVilaTowers
 
@@ -2637,14 +2958,17 @@ def hdvila_artifact_phase(card: str) -> None:
     got = (art.encode_video(batch["img_middle"], batch["img_other"]),
            art.encode_text(batch["text_input_ids"], batch["text_input_mask"]))
     torch.cuda.synchronize()
-    check(launch_counts() == expected(), f"the HD-VILA artifact launched {launch_counts()}")
+    bns = sum(isinstance(m, FrozenBatchNorm) for m in model.modules())
+    check(launch_counts() == expected(frozen_bn_act=bns), f"the HD-VILA artifact launched {launch_counts()}, "
+          f"expected {bns} frozen-BN launches")
     towers = HdVilaTowers(model, "cuda")
     want = (towers.encode_video(batch["img_middle"], batch["img_other"]),
             towers.encode_text(batch["text_input_ids"], batch["text_input_mask"]))
     errs = [_max_abs(a, b) for a, b in zip(got, want)]
     print(f"  HD-VILA stage-1 preset fp32 (uint8 frames): exported in {export_s:.1f} s (host clock), {size:.1f} MiB "
           f"of weights and constants in the two programs; b=1 artifact vs live towers max_abs video "
-          f"{errs[0]:.3e} text {errs[1]:.3e} (tol {ARTIFACT_TOL:.0e}); no kernel launch [{card}]")
+          f"{errs[0]:.3e} text {errs[1]:.3e} (tol {ARTIFACT_TOL:.0e}); {bns} frozen-BN launches a video call and "
+          f"no other kernel [{card}]")
     check(all(math.isfinite(e) and e <= ARTIFACT_TOL for e in errs), f"HD-VILA artifact vs live {errs}")
     del model, art, towers
     release_memory()
@@ -3741,6 +4065,9 @@ def main() -> None:
                 print(line)
             del frames, kernel, want, got
 
+    with phase("3f frozen-BN kernels vs plain at layer1's bn3, and the stage-1 model's FrozenBatchNorms"):
+        frozen_bn_check_phase(card)
+
     with phase("4 B/32 retrieval eval (main path)"), tempfile.TemporaryDirectory() as out_dir:
         torch.cuda.reset_peak_memory_stats()
         with plain_on_cuda_guard() as plain_cuda_calls:
@@ -4338,6 +4665,9 @@ def main() -> None:
     with phase("6e timing: HD-VILA stage-1 train step and video tower at batch 8"):
         hdvila_timing_phase(card)
 
+    with phase("6h timing: frozen-BN kernels at layer1's bn3 against the plain version"):
+        frozen_bn_timing = frozen_bn_timing_phase(card)
+
     with phase("6f timing: eager and graphed train steps, fp32 and bf16 storage"):
         graph_timing_phase(card)
 
@@ -4435,6 +4765,14 @@ def main() -> None:
         )
     ]}
     check(all(k_["launches"] > 0 for k_ in summary["kernels"]), "a kernel was launched no time on the main paths")
+    summary["fused_kernels"] = [{
+        "name": "frozen_bn_act", "route": "cuda", "source": "xpretrain_tpu_torch/csrc/frozen_bn_act.cu",
+        "replaces": None, "launches": sum(counts.get("frozen_bn_act", 0) for counts in paths.values()),
+        "launches_by_path": {path: counts["frozen_bn_act"] for path, counts in paths.items()
+                             if counts.get("frozen_bn_act")},
+        **frozen_bn_timing,
+    }]
+    check(summary["fused_kernels"][0]["launches"] > 0, "the frozen-BN kernel was launched no time on the main paths")
     print(f"patch_embed_u8 beside its fp32 yardstick: kernel {patch_timing['kernel']:.4f} ms, fp32 addmm of the "
           f"gathered patches (TF32 off) {patch_timing['library_fp32']:.4f} ms (CUDA events) [{card}]")
     print(json.dumps(summary))

@@ -25,6 +25,7 @@ torch = pytest.importorskip("torch")
 from torch._subclasses.fake_tensor import FakeTensorMode  # noqa: E402
 
 from xpretrain_tpu_torch.ops import _kernels  # noqa: E402
+from xpretrain_tpu_torch.ops import frozen_bn as fb  # noqa: E402
 from xpretrain_tpu_torch.ops import patchify as pp  # noqa: E402
 from xpretrain_tpu_torch.ops import proxy_attention as pa  # noqa: E402
 from xpretrain_tpu_torch.ops import window_attention as wa  # noqa: E402
@@ -140,19 +141,30 @@ def _patch_cases():
         yield ("patch_embed_u8", pp._patch_launch, (frames, w, bias, 16, dt))
 
 
+def _frozen_bn_cases():
+    for dt in (torch.float32, torch.bfloat16):
+        x = torch.empty(2, 64, 5, 7, dtype=dt, device=CUDA, memory_format=torch.channels_last)
+        inv, shift = torch.empty(64, device=CUDA), torch.empty(64, device=CUDA)
+        for identity, relu in ((None, False), (None, True), (x, True)):
+            yield ("frozen_bn_act_fwd", fb._fwd_launch, (x, inv, shift, identity, relu))
+            for saved in (None, x):
+                yield ("frozen_bn_act_bwd", fb._bwd_launch, (x, x if relu else None, saved, inv, identity is not None))
+
+
 def test_each_fake_gives_what_the_body_allocates(monkeypatch):
     """On fake CUDA tensors, ``torch.ops.xpt.<op>`` (its registered fake)
     returns outputs of the shape, dtype, strides and device that the op's
     real body allocates (its launch and its pointer checks replaced by
     no-ops: a fake tensor has no data)."""
-    for name in ("proxy_attention_fwd", "proxy_attention_bwd", "window_attention_fwd", "patch_embed_u8"):
+    for name in ("proxy_attention_fwd", "proxy_attention_bwd", "window_attention_fwd", "patch_embed_u8",
+                 "frozen_bn_act_fwd", "frozen_bn_act_bwd"):
         monkeypatch.setattr(_kernels, name, lambda *args: None)
     monkeypatch.setattr(_kernels, "check_cp_async", lambda *args: None)
     for counter in _kernels.COUNTED:
         monkeypatch.setattr(counter, "launches", 0)
     seen = Counter()
     with FakeTensorMode():
-        cases = [*_proxy_cases(), *_window_cases(), *_patch_cases()]
+        cases = [*_proxy_cases(), *_window_cases(), *_patch_cases(), *_frozen_bn_cases()]
         for name, body, args in cases:
             got = getattr(torch.ops.xpt, name)(*args)
             want = body(*args)
@@ -160,7 +172,7 @@ def test_each_fake_gives_what_the_body_allocates(monkeypatch):
             assert [_meta(t) for t in got] == [_meta(t) for t in want], (name, args[-1])
             seen[name] += 1
     assert seen == {"proxy_attention_fwd": 8, "proxy_attention_bwd": 8, "window_attention_fwd": 4,
-                    "patch_embed_u8": 2}
+                    "patch_embed_u8": 2, "frozen_bn_act_fwd": 6, "frozen_bn_act_bwd": 12}
 
 
 def test_ops_refuse_cpu_tensors():
@@ -174,6 +186,11 @@ def test_ops_refuse_cpu_tensors():
     with pytest.raises(NotImplementedError):
         torch.ops.xpt.patch_embed_u8(torch.zeros(1, 16, 16, 3, dtype=torch.uint8), torch.zeros(768, 8),
                                      torch.zeros(8), 16, torch.float32)
+    x = torch.zeros(1, 4, 2, 2)
+    with pytest.raises(NotImplementedError):
+        torch.ops.xpt.frozen_bn_act_fwd(x, torch.ones(4), torch.zeros(4), None, True)
+    with pytest.raises(NotImplementedError):
+        torch.ops.xpt.frozen_bn_act_bwd(x, x, x, torch.ones(4), False)
 
 
 # -- tiny models exported on fake CUDA inputs ------------------------------------
@@ -220,6 +237,29 @@ def test_kernel_gated_lfvila_export_holds_one_window_op_per_gated_block(_fake_cu
     calls = _calls(_export_tower(model, "forward_video", (video,)))
     assert calls["xpt.window_attention_fwd.default"] == gated == 3
     assert _softmaxes(calls) == len(blocks) - gated
+
+
+def test_hdvila_resnet_export_holds_one_frozen_bn_op_per_bn(_fake_cuda_bindings):
+    """HD-VILA's ResNet-50 (the low-resolution one: three stages) exported on
+    fake CUDA inputs: each of its 43 FrozenBatchNorms is one
+    ``xpt::frozen_bn_act_fwd`` node, with its ReLU and residual add inside
+    (no relu left; the one add a BN keeps is its ``var + eps``), and each
+    call counted on
+    ``xpt.frozen_bn.kernel``."""
+    from xpretrain_tpu_torch.models.hd_vila.resnet import FrozenBatchNorm, ResNet
+    from xpretrain_tpu_torch.utils.profiling import counts
+
+    mode = FakeTensorMode(allow_non_fake_inputs=True)
+    model = _to_fake_cuda(ResNet(50, dtype=torch.bfloat16, num_stages=3, device="meta"), mode)
+    bns = sum(isinstance(m, FrozenBatchNorm) for m in model.modules())
+    with mode:
+        frames = torch.empty(2, 3, 64, 96, device=CUDA)
+    before = counts().get("xpt.frozen_bn.kernel", 0)
+    calls = _calls(_export_tower(model, "forward_to_stage", (frames,)))
+    assert calls["xpt.frozen_bn_act_fwd.default"] == bns == 43
+    assert counts()["xpt.frozen_bn.kernel"] - before == bns
+    assert not any("relu" in target for target in calls)
+    assert calls["aten.add.Tensor"] == bns  # each BN's var + eps, none over the maps
 
 
 # -- on the card -------------------------------------------------------------------

@@ -14,7 +14,9 @@ Written out here, with no torchvision.
   affine transform over stored statistics. As in flax, ``scale``, ``bias``,
   ``mean`` and ``var`` are parameters (the optimizer's frozen patterns decide
   whether they train), and ``rsqrt(var + eps) * scale`` is computed in fp32
-  before the cast to the activation dtype.
+  before the cast to the activation dtype. It takes the ReLU after it and, in
+  a block's last BN, the residual add, so that on CUDA the three are one
+  pass each way (``ops/frozen_bn.py``).
 - Convolutions pad ``k // 2`` on each side (the stride-2 1x1 downsample has
   none); the stem max-pool is ``nn.MaxPool2d(3, 2, 1)``, JAX's -inf padding.
 - The stem is always the direct 7x7/s2 convolution. ``s2d_stem`` is kept for
@@ -40,6 +42,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
+
+from xpretrain_tpu_torch.ops.frozen_bn import frozen_bn_act
 
 ARCH_SETTINGS = {
     18: ("basic", (2, 2, 2, 2)),
@@ -76,10 +80,11 @@ class FrozenBatchNorm(nn.Module):
         self.mean = nn.Parameter(torch.zeros(features, device=device))
         self.var = nn.Parameter(torch.ones(features, device=device))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, relu: bool = False, identity: torch.Tensor | None = None) -> torch.Tensor:
+        """``act(bn(x) [+ identity])``, ``act`` ReLU when ``relu``."""
         inv = torch.rsqrt(self.var + self.eps) * self.scale  # fp32, then the activation dtype
         shift = self.bias - self.mean * inv
-        return x * inv.to(x.dtype)[:, None, None] + shift.to(x.dtype)[:, None, None]
+        return frozen_bn_act(x, inv, shift, relu, identity)
 
 
 class BasicBlock(nn.Module):
@@ -97,10 +102,9 @@ class BasicBlock(nn.Module):
             self.downsample_bn = FrozenBatchNorm(planes, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = F.relu(self.bn1(self.conv1(x)))
-        out = self.bn2(self.conv2(out))
+        out = self.conv2(self.bn1(self.conv1(x), relu=True))
         identity = self.downsample_bn(self.downsample_conv(x)) if hasattr(self, "downsample_conv") else x
-        return F.relu(out + identity)
+        return self.bn2(out, relu=True, identity=identity)
 
 
 class Bottleneck(nn.Module):
@@ -122,11 +126,10 @@ class Bottleneck(nn.Module):
             self.downsample_bn = FrozenBatchNorm(out, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = F.relu(self.bn1(self.conv1(x)))
-        out = F.relu(self.bn2(self.conv2(out)))
-        out = self.bn3(self.conv3(out))
+        out = self.bn1(self.conv1(x), relu=True)
+        out = self.conv3(self.bn2(self.conv2(out), relu=True))
         identity = self.downsample_bn(self.downsample_conv(x)) if hasattr(self, "downsample_conv") else x
-        return F.relu(out + identity)
+        return self.bn3(out, relu=True, identity=identity)
 
 
 class ResNet(nn.Module):
@@ -174,7 +177,7 @@ class ResNet(nn.Module):
     def _stem(self, x: torch.Tensor) -> torch.Tensor:
         if x.is_cuda:
             x = x.contiguous(memory_format=torch.channels_last)
-        x = F.relu(self.bn1(self.conv1(x)))
+        x = self.bn1(self.conv1(x), relu=True)
         return F.max_pool2d(x, 3, 2, 1)  # = JAX's -inf pad by 1 + VALID 3x3/s2
 
     def _run_stage(self, x: torch.Tensor, stage_idx: int) -> torch.Tensor:

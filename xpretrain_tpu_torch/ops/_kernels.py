@@ -145,6 +145,14 @@ def load_library() -> ctypes.CDLL:
     lib.xpt_patch_embed_scratch_bytes.restype = ctypes.c_longlong
     lib.xpt_patch_embed_smem_bytes.argtypes = []
     lib.xpt_patch_embed_smem_bytes.restype = ctypes.c_int
+    lib.xpt_frozen_bn_act_fwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]
+    lib.xpt_frozen_bn_act_fwd.restype = ctypes.c_int
+    lib.xpt_frozen_bn_act_bwd.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_longlong] + [ctypes.c_int] * 2 + [
+        ctypes.c_void_p]
+    lib.xpt_frozen_bn_act_bwd.restype = ctypes.c_int
+    lib.xpt_frozen_bn_scratch_floats.argtypes = [ctypes.c_longlong, ctypes.c_int]
+    lib.xpt_frozen_bn_scratch_floats.restype = ctypes.c_longlong
     lib.xpt_cuda_error_string.argtypes = [ctypes.c_int]
     lib.xpt_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -361,3 +369,51 @@ def patch_embed_u8(
             torch.cuda.current_stream(frames.device).cuda_stream,
         )
     _check(lib, rc, "patch_embed_u8")
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def frozen_bn_act_fwd(
+    x: torch.Tensor, identity: Optional[torch.Tensor], inv: torch.Tensor, shift: torch.Tensor, y: torch.Tensor,
+    relu: bool,
+) -> None:
+    """Launch ``csrc/frozen_bn_act.cu``'s forward on the current stream:
+    ``y = act(x * inv + shift [+ identity])`` over channels_last
+    [N, C, H, W] maps (``identity`` may be None), bf16 or fp32; ``inv`` and
+    ``shift`` are contiguous fp32 [C]. The caller has checked device, dtype,
+    shape and the channels_last layout of every map."""
+    lib = load_library()
+    C = x.shape[1]
+    with torch.cuda.device(x.device):
+        rc = lib.xpt_frozen_bn_act_fwd(
+            x.data_ptr(), _ptr(identity), inv.data_ptr(), shift.data_ptr(), y.data_ptr(), x.numel() // C, C,
+            int(relu), int(x.dtype == torch.bfloat16), torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    _check(lib, rc, "frozen_bn_act_fwd")
+
+
+def frozen_bn_act_bwd(
+    g: torch.Tensor, y: Optional[torch.Tensor], x: Optional[torch.Tensor], inv: torch.Tensor,
+    dx: torch.Tensor, d_identity: Optional[torch.Tensor], sums: Optional[torch.Tensor],
+) -> None:
+    """Launch ``csrc/frozen_bn_act.cu``'s backward on the current stream:
+    ``dx`` and, where given, ``d_identity`` from the output gradient ``g``;
+    ``y`` (the forward's output, for the ReLU's mask) None without the
+    activation; given ``x``, the parameters' fp32 sums into ``sums`` [2, C]
+    (Σ g·mask·x, Σ g·mask over N·H·W), through a scratch of per-block
+    partials allocated here, and a second launch that adds them up. The
+    caller has checked device, dtype, shape and layout."""
+    lib = load_library()
+    C = g.shape[1]
+    rows = g.numel() // C
+    with torch.cuda.device(g.device):
+        scratch = None
+        if x is not None:
+            scratch = torch.empty(lib.xpt_frozen_bn_scratch_floats(rows, C), dtype=torch.float32, device=g.device)
+        rc = lib.xpt_frozen_bn_act_bwd(
+            g.data_ptr(), _ptr(y), _ptr(x), inv.data_ptr(), dx.data_ptr(), _ptr(d_identity), _ptr(scratch),
+            _ptr(sums), rows, C, int(g.dtype == torch.bfloat16), torch.cuda.current_stream(g.device).cuda_stream,
+        )
+    _check(lib, rc, "frozen_bn_act_bwd")
