@@ -725,10 +725,11 @@ def patch_inputs(shape: tuple, seed: int = 0):
 @contextlib.contextmanager
 def timed_train_steps(module=None, name: str = "make_model_train_step"):
     """CUDA-event times of every call, while inside, of the train steps that
-    ``module.name`` builds (default: ``GenericTrainer``'s
-    ``make_model_train_step``; ``ClipVipTrainer``'s is ``trainer.
-    make_train_step``): yields a list that fills with (start, end) event
-    pairs, one per step; read them after a synchronize."""
+    ``module.name`` builds (default: ``generic_trainer.make_model_train_step``,
+    the LF-VILA and HD-VILA trainers' step; ``ClipVipTrainer`` builds its own
+    through ``trainer.make_train_step``, which the default leaves untimed):
+    yields a list that fills with (start, end) event pairs, one per step;
+    read them after a synchronize."""
     import torch
     from xpretrain_tpu_torch.train import generic_trainer
 
@@ -783,7 +784,8 @@ def after_call(module, name: str):
 
 @contextlib.contextmanager
 def snapshot_params():
-    """While inside, every ``GenericTrainer`` copies its model's parameters
+    """While inside, every ``GenericTrainer`` (a ``ClipVipTrainer`` is one
+    too; the phases that use this build none) copies its model's parameters
     as it is built (before any step): yields the list of those copies."""
     from xpretrain_tpu_torch.train import generic_trainer
 

@@ -12,7 +12,8 @@ Scenarios:
 - ``clipvip``: ``tests/_mp_worker.py``'s tiny CLIP-ViP through
   ``ClipVipTrainer``: global batch 16 over the ranks' loaders, 3 steps of
   NCELearnableTempLoss with ZeRO-2 at min_size 64, then the 22-row eval at
-  global batch 8.
+  global batch 8; records each step's ``logit_scale`` metric beside the
+  parameter its forward read.
 - ``clipvip_bf16``: the same at ``param_dtype`` bf16 (fp32 masters), saving
   a checkpoint at step 2; records its step-3 loss, its final parameters and
   optimizer state, and the per-leaf sizes of each rank's state.
@@ -168,9 +169,18 @@ def _clipvip_trainer(out_dir: str, params_file: str = "", **cfg):
 def clipvip(out_dir: str) -> dict:
     trainer = _clipvip_trainer(out_dir)
     rows = _record(trainer)
+    forward_scales = []  # the logit_scale parameter as each step's forward reads it
+    step = trainer.train_step
+
+    def before_step(state, batch, seed):
+        forward_scales.append(float(torch.clamp(state.model.logit_scale.detach(), 0.0, 5.2983)))
+        return step(state, batch, seed)
+
+    trainer.train_step = before_step
     trainer.train()
     report = trainer.validate()
     return {"losses": [r["loss"] for r in rows], "grad_norms": [r["grad_norm"] for r in rows],
+            "logit_scale_metrics": [r["logit_scale"] for r in rows], "forward_logit_scales": forward_scales,
             "logit_scale": float(trainer.model.logit_scale.detach().reshape(-1)[0]),
             "t2v": report["t2v"], "v2t": report["v2t"], "t2v_dsl": report["t2v_dsl"]}
 

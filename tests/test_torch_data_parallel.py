@@ -186,6 +186,12 @@ def test_clipvip_two_ranks_match_one_rank_and_the_jax_run(runs):
     # both ranks hold the same global metrics and report
     assert r0 == r1
     assert len(r0["losses"]) == 3 and all(np.isfinite(r0["losses"]))
+    # the step averages the logit_scale metric over the ranks with the loss;
+    # a replicated value's mean over 2 ranks is that value, bit for bit: the
+    # forward's, not the updated parameter's
+    for run in (r0, one):
+        assert run["logit_scale_metrics"] == run["forward_logit_scales"]
+    assert r0["forward_logit_scales"][1] != r0["forward_logit_scales"][0]
     for other in (one, jx):
         np.testing.assert_allclose(r0["losses"], other["losses"], rtol=2e-5, atol=2e-6)
         np.testing.assert_allclose(r0["logit_scale"], other["logit_scale"], rtol=1e-5)

@@ -8,7 +8,8 @@ and parsed configs.
    ``xpretrain_tpu/`` that a program could read; no import of ``cv2`` or
    ``safetensors`` (the card's machine has neither) outside the three
    host-layer copies that read images and videos with cv2 where it exists
-   (``CV2_HOST_LAYER``).
+   (``CV2_HOST_LAYER``). The training layer every family shares (the step,
+   the loop, ``GenericTrainer``) imports no family's module.
 2. A fresh process in which importing those three raises: it imports every
    module of the port and runs both CPU runners; another, in which cv2 and
    safetensors cannot be imported either, runs the pretraining runner from a
@@ -155,6 +156,22 @@ def test_source_imports_nothing_the_card_lacks(source):
         found = [m for m in _imported_modules(ast.parse(f.read())) if m.split(".")[0] in NOT_ON_THE_CARD]
     if source in CV2_HOST_LAYER:
         found = [m for m in found if m != "cv2"]
+    assert found == [], f"{source}: {found}"
+
+
+# the training layer every family shares, and the modules of the families
+GENERIC_TRAINING = ("xpretrain_tpu_torch/parallel/train_step.py", "xpretrain_tpu_torch/train/checkpoints.py",
+                    "xpretrain_tpu_torch/train/generic_trainer.py", "xpretrain_tpu_torch/train/loop.py")
+FAMILY_MODULES = ("xpretrain_tpu_torch.train.trainer", "xpretrain_tpu_torch.models", "xpretrain_tpu_torch.cli")
+
+
+@pytest.mark.parametrize("source", GENERIC_TRAINING)
+def test_generic_training_layer_imports_no_family(source):
+    """``ClipVipTrainer`` builds on ``GenericTrainer`` and the one step body,
+    not they on it or on any model."""
+    with open(os.path.join(REPO, source)) as f:
+        found = [m for m in _imported_modules(ast.parse(f.read()))
+                 if any(m == family or m.startswith(family + ".") for family in FAMILY_MODULES)]
     assert found == [], f"{source}: {found}"
 
 

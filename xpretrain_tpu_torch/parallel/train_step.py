@@ -146,45 +146,17 @@ def make_train_step(
     device: torch.device | str,
     steps_per_call: int = 1,
 ) -> Callable[[TrainState, dict, int], tuple[TrainState, dict]]:
-    """Build ``step(state, batch, seed) -> (state, metrics)``.
+    """Build ``step(state, batch, seed) -> (state, metrics)`` of a dual-tower
+    model (CLIP-ViP): :func:`make_model_train_step` over ``apply_fn``'s
+    features, with ``loss_fn`` (:func:`contrastive_loss_from_outputs`) as the
+    loss and the forward's ``logit_scale`` as a metric, beside ``loss`` and
+    ``grad_norm``."""
 
-    ``apply_fn(model, batch, generator)`` returns the feature dict that
-    ``loss_fn`` takes (:func:`contrastive_loss_from_outputs`); ``batch`` holds
-    tensors on ``device``; ``seed`` seeds the step's dropout generator. In
-    order: clamp logit_scale to [0, ln 200], forward, loss, backward,
-    update, clamp. The metrics (``loss``, ``grad_norm`` of the raw
-    gradients, ``logit_scale`` of the forward) stay device tensors, so the
-    step does not wait for the card. With ``steps_per_call > 1`` the batch
-    is stacked on a leading axis (see the module's docstring). In a group
-    the gradients and ``loss`` are averaged over ranks."""
+    def apply_with_loss(model: nn.Module, batch: dict, generator: torch.Generator) -> dict:
+        outputs = apply_fn(model, batch, generator)
+        return {**outputs, "loss": contrastive_loss_from_outputs(outputs, loss_fn)}
 
-    def run(state: TrainState, batch: dict, generator: torch.Generator) -> dict:
-        model = state.model
-        named = dict(model.named_parameters())
-        # clamp before the forward, as the reference does each iteration
-        clamp_logit_scale(named, LOGIT_SCALE_MAX)
-        model.train()
-        for p in named.values():
-            p.grad = None
-        with step_scope(model):
-            with span("xpt.step.forward"):
-                outputs = apply_fn(model, batch, generator)
-                loss = contrastive_loss_from_outputs(outputs, loss_fn)
-            with span("xpt.step.backward"):
-                loss.backward()
-        with span("xpt.step.optimizer"):
-            grads = _global_grads(state.optimizer, named.values())
-            metrics = _global_metrics({"loss": loss.detach()})
-            metrics["grad_norm"] = state.optimizer.grad_norm(grads)
-            metrics["logit_scale"] = outputs["logit_scale"].detach().clone()
-            # the metric's norm is the one clipping needs: one pass, not two
-            state.optimizer.apply(grads, metrics["grad_norm"])
-        for p in named.values():
-            p.grad = None
-        clamp_logit_scale(named, LOGIT_SCALE_MAX)
-        return metrics
-
-    return _stepper(run, device, steps_per_call)
+    return make_model_train_step(apply_with_loss, device, metric_keys=("logit_scale",), steps_per_call=steps_per_call)
 
 
 def make_model_train_step(
@@ -194,21 +166,29 @@ def make_model_train_step(
     metric_keys: tuple[str, ...] = (),
     steps_per_call: int = 1,
 ) -> Callable[[TrainState, dict, int], tuple[TrainState, dict]]:
-    """Build ``step(state, batch, seed) -> (state, metrics)`` for models that
-    compute their own loss (LF-VILA; ``GenericTrainer`` drives it).
+    """Build ``step(state, batch, seed) -> (state, metrics)`` for a model
+    whose ``apply_fn`` computes the loss; every trainer's step.
 
     ``apply_fn(model, batch, generator)`` returns a dict holding ``loss_key``;
-    the ``metric_keys`` it also holds are copied (detached) into the metrics,
-    beside ``loss`` (fp32) and ``grad_norm`` of the raw gradients; in a group
-    each is averaged over ranks (the model's losses and metrics are per-rank
-    terms whose mean is the global value, ``parallel/mesh.py``). In order:
-    forward, backward, update. ``steps_per_call`` as :func:`make_train_step`."""
+    ``batch`` holds tensors on ``device``; ``seed`` seeds the step's dropout
+    generator. In order: clamp every ``logit_scale`` parameter to [0, ln 200]
+    (the reference clamps before each iteration; a model without one has
+    nothing to clamp), forward, backward, update, clamp. The ``metric_keys``
+    the outputs hold are copied into the metrics as they were in the forward,
+    beside ``loss`` (fp32) and ``grad_norm`` of the raw gradients; they stay
+    device tensors, so the step does not wait for the card. In a group the
+    gradients and each metric are averaged over ranks (the model's losses
+    and metrics are per-rank terms whose mean is the global value,
+    ``parallel/mesh.py``). With ``steps_per_call > 1`` the batch is stacked
+    on a leading axis (see the module's docstring)."""
 
     def run(state: TrainState, batch: dict, generator: torch.Generator) -> dict:
         model = state.model
-        params = list(model.parameters())
+        named = dict(model.named_parameters())
+        scales = {name: p for name, p in named.items() if "logit_scale" in name.lower()}
+        clamp_logit_scale(scales, LOGIT_SCALE_MAX)
         model.train()
-        for p in params:
+        for p in named.values():
             p.grad = None
         with step_scope(model):
             with span("xpt.step.forward"):
@@ -217,34 +197,25 @@ def make_model_train_step(
             with span("xpt.step.backward"):
                 loss.backward()
         with span("xpt.step.optimizer"):
-            grads = _global_grads(state.optimizer, params)
+            # every parameter's gradient (zeros where none), in the update's
+            # dtype, reduced over the mesh (GroupedAdamW.reduce_gradients)
+            grads = state.optimizer.upcast([p.grad if p.grad is not None else torch.zeros_like(p) for p in named.values()])
+            state.optimizer.reduce_gradients(grads)
             metrics = {"loss": loss.detach()}
             for key in metric_keys:
                 if key in outputs:
-                    metrics[key] = outputs[key].detach()
-            metrics = _global_metrics(metrics)
+                    # a copy: logit_scale is the parameter, which apply updates
+                    metrics[key] = outputs[key].detach().clone()
+            all_reduce_mean_(list(metrics.values()))
             metrics["grad_norm"] = state.optimizer.grad_norm(grads)
+            # the metric's norm is the one clipping needs: one pass, not two
             state.optimizer.apply(grads, metrics["grad_norm"])
-        for p in params:
+        for p in named.values():
             p.grad = None
+        clamp_logit_scale(scales, LOGIT_SCALE_MAX)
         return metrics
 
     return _stepper(run, device, steps_per_call)
-
-
-def _global_grads(optimizer: GroupedAdamW, params) -> list[torch.Tensor]:
-    """Every parameter's gradient (zeros where none), in the update's dtype,
-    reduced over the mesh (``GroupedAdamW.reduce_gradients``)."""
-    grads = optimizer.upcast([p.grad if p.grad is not None else torch.zeros_like(p) for p in params])
-    optimizer.reduce_gradients(grads)
-    return grads
-
-
-def _global_metrics(metrics: dict) -> dict:
-    """The metrics averaged over the group's ranks (in place: they are
-    fresh detached tensors)."""
-    all_reduce_mean_(list(metrics.values()))
-    return metrics
 
 
 def _stepper(run: Callable[[TrainState, dict, torch.Generator], dict], device: torch.device | str,

@@ -1,14 +1,21 @@
 """Generic trainer for models that compute their own loss
 (``xpretrain_tpu/train/generic_trainer.py``), on one device or on each rank
-of a group (as ``ClipVipTrainer``: the model laid out for ``--tp``, ``--cp``
-and ``--zero3``, ZeRO-2 under ``--zero2``, rank 0 writes).
+of a data-parallel group; the base of ``train/trainer.py:ClipVipTrainer``.
 
-The LF-VILA and HD-VILA counterpart of ``ClipVipTrainer``: the step
-loop with :func:`make_model_train_step`, the LR schedule, grouped AdamW,
-periodic checkpoints and resume, scalar logging, and an optional eval
+The step loop with :func:`make_model_train_step`, the LR schedule, grouped
+AdamW, periodic checkpoints and resume, scalar logging, and an optional eval
 callback with best-model tracking. As in JAX there is no validation at
 start; with ``num_train_steps`` 0 the loop takes no step, so neither the
 schedule nor the optimizer is evaluated.
+
+In a group (``parallel/mesh.py``) each rank trains on its loader's share of
+the global batch; ``--tp``, ``--cp`` and ``--zero3`` lay the model out on
+the mesh as JAX's ``resolve_shardings`` does (``parallel/fsdp.py:
+apply_layouts``), before the optimizer is built; ``--zero2`` then shards the
+state of the leaves the layouts leave whole (``optim/optimizer.py:
+zero2_shard``, leaves of at least JAX's 16384 elements); rank 0 alone writes
+the scalars, checkpoints (of the gathered state, in the reference layout)
+and best models.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ from xpretrain_tpu_torch.optim.optimizer import (
     master_weights,
     moment_dtype_from_cfg,
     param_dtype_from_cfg,
+    zero2_shard,
 )
 from xpretrain_tpu_torch.optim.schedules import get_schedule
 from xpretrain_tpu_torch.parallel.fsdp import apply_layouts, gathered
@@ -32,7 +40,6 @@ from xpretrain_tpu_torch.parallel.mesh import is_main_process, process_rank
 from xpretrain_tpu_torch.parallel.train_step import TrainState, batch_to_device, make_model_train_step
 from xpretrain_tpu_torch.train.checkpoints import BestModelSaver, CheckpointManager
 from xpretrain_tpu_torch.train.loop import drive_train_loop
-from xpretrain_tpu_torch.train.trainer import shard_optimizer
 from xpretrain_tpu_torch.utils.logging import LOGGER, RunningMeter, ScalarWriter
 
 
@@ -41,7 +48,16 @@ class GenericTrainer:
 
     ``param_paths`` maps parameter names to their flax paths, where the
     optimizer's no-decay and freeze patterns are matched (for LF-VILA,
-    ``models/lf_vila/convert.py:flax_param_paths``)."""
+    ``models/lf_vila/convert.py:flax_param_paths``). ``metric_keys`` are the
+    outputs the step copies into its metrics; every 0-d metric is logged."""
+
+    # What a family sets differently (JAX's two trainers): the defaults of
+    # three cfg keys, the train scalars logged (None: every 0-d metric, then
+    # steps_per_s), the eval's prefix and whether it also runs at start.
+    DEFAULTS = {"learning_rate": 5e-5, "weight_decay": 0.01, "grad_norm": 1.0}
+    TRAIN_SCALARS: Optional[tuple[str, ...]] = None
+    VAL_PREFIX = "val"
+    VALIDATE_AT_START = False
 
     def __init__(
         self,
@@ -77,23 +93,23 @@ class GenericTrainer:
         num_steps = int(cfg.get("num_train_steps", 1000))
         schedule = get_schedule(
             cfg.get("decay", "cosine"),
-            float(cfg.get("learning_rate", 5e-5)),
+            float(cfg.get("learning_rate", self.DEFAULTS["learning_rate"])),
             num_steps,
             warmup_ratio=float(cfg.get("warmup_ratio", 0.1)),
         )
         self.optimizer, _ = build_optimizer(
             dict(model.named_parameters()),
             schedule,
-            weight_decay=float(cfg.get("weight_decay", 0.01)),
+            weight_decay=float(cfg.get("weight_decay", self.DEFAULTS["weight_decay"])),
             betas=tuple(cfg.get("betas", (0.9, 0.98))),
             lr_mul=float(cfg.get("lr_mul", 1.0)),
             lr_mul_prefix=cfg.get("lr_mul_prefix", ""),
-            max_grad_norm=float(cfg.get("grad_norm", 1.0)),
+            max_grad_norm=float(cfg.get("grad_norm", self.DEFAULTS["grad_norm"])),
             no_decay_patterns=NO_DECAY_DEFAULT if no_decay_patterns is None else no_decay_patterns,
             grad_accum_steps=accum,
-            frozen_patterns=tuple(cfg.get("frozen_patterns", ())),
             moment_dtype=moment_dtype_from_cfg(cfg),
             paths=param_paths,
+            **self._optimizer_options(),
         )
         pd = param_dtype_from_cfg(cfg)
         if pd is not None:
@@ -101,13 +117,37 @@ class GenericTrainer:
             # masters in the optimizer (optim.master_weights)
             cast_params_for_storage(model, pd)
             self.optimizer = master_weights(self.optimizer)
-        self.optimizer = shard_optimizer(cfg, self.optimizer, self.layouts)
+        if self.layouts:
+            self.optimizer.set_layouts(self.layouts)
+        if cfg.get("zero2", False):
+            self.optimizer = zero2_shard(self.optimizer)
         self.num_train_steps = num_steps * accum
         self.steps_per_call = max(1, int(cfg.get("steps_per_call", 1)))
-        self.train_step = make_model_train_step(
-            apply_fn, self.device, metric_keys=metric_keys, steps_per_call=self.steps_per_call,
-        )
+        self.train_step = self._make_train_step()
         self.place_batch = batch_to_device(self.device)
+
+    # ---- what a family overrides --------------------------------------------
+
+    def _optimizer_options(self) -> dict:
+        """The family's own ``build_optimizer`` arguments."""
+        return {"frozen_patterns": tuple(self.cfg.get("frozen_patterns", ()))}
+
+    def _make_train_step(self):
+        return make_model_train_step(
+            self.apply_fn, self.device, metric_keys=self.metric_keys, steps_per_call=self.steps_per_call,
+        )
+
+    def _val_report(self) -> Optional[tuple[dict, float]]:
+        """The eval of the model as it stands: (the scalars logged under
+        ``VAL_PREFIX``, the score the best model is chosen by); None without
+        an eval."""
+        if self.eval_fn is None:
+            return None
+        with gathered(self.model):
+            report = self.eval_fn(self.model)
+        return {k: v for k, v in report.items() if isinstance(v, (int, float))}, report.get("score", 0.0)
+
+    # ---- the loop -------------------------------------------------------------
 
     def train(self) -> TrainState:
         cfg = self.cfg
@@ -121,28 +161,33 @@ class GenericTrainer:
             self.optimizer.sync_masters()
         batches = iter(self.train_loader)
         if state.step:
-            # as ClipVipTrainer: skip the batches an unbroken run took
+            # the JAX trainers replay the loader from its start; skipping the
+            # batches an unbroken run took makes a resumed run equal to it
             LOGGER.info("resuming at step %d: skipping %d train batches", state.step, state.step)
             for _ in range(state.step):
                 next(batches)
+
+        if self.VALIDATE_AT_START and cfg.get("validate_at_start", True):
+            report = self._val_report()
+            if report is not None:
+                self.writer.log_scalar_dict(report[0], prefix=self.VAL_PREFIX, step=state.step)
 
         def on_log(step, metrics, sps):
             loss = float(metrics["loss"])
             self.meter(loss)
             LOGGER.info("step %d/%d loss %.4f | %.2f steps/s", step, self.num_train_steps, loss, sps)
-            scalars = {k: float(v) for k, v in metrics.items() if v.dim() == 0}
-            scalars["steps_per_s"] = sps
-            self.writer.log_scalar_dict(scalars, prefix="train", step=step)
+            names = self.TRAIN_SCALARS or (*(k for k, v in metrics.items() if v.dim() == 0), "steps_per_s")
+            self.writer.log_scalar_dict(
+                {k: sps if k == "steps_per_s" else float(metrics[k]) for k in names}, prefix="train", step=step
+            )
 
         def on_validate(step, state):
-            if self.eval_fn is None:
+            report = self._val_report()
+            if report is None:
                 return
-            with gathered(state.model):
-                report = self.eval_fn(state.model)
-            self.best.maybe_save(step, report.get("score", 0.0), state.model)
-            self.writer.log_scalar_dict(
-                {k: v for k, v in report.items() if isinstance(v, (int, float))}, prefix="val", step=step
-            )
+            scalars, score = report
+            self.best.maybe_save(step, score, state.model)
+            self.writer.log_scalar_dict(scalars, prefix=self.VAL_PREFIX, step=step)
 
         def on_save(step, state):
             self.ckpt.save(step, {
