@@ -40,6 +40,16 @@ Phases, in order; any failure exits non-zero and prints no result:
    the parameters frozen); and one forward of the stage-1 model, whose 96
    FrozenBatchNorms all take the kernel (``xpt.frozen_bn.kernel`` 96,
    ``xpt.frozen_bn.plain`` 0, 96 launches);
+3g. the multi-tensor AdamW kernel (``csrc/adamw_multi_tensor.cu``, the
+   optimizer's update in one pass, a kernel of the port's own) against the
+   ``_foreach`` path at the three train cells' optimizers (the B/32
+   fine-tune, LF-VILA and HD-VILA stage 1, built from
+   ``benchmark/configs``), three updates each from the same state and
+   gradients (the second clipped): moments bit-equal, parameters within 2
+   fp32 ulps (the largest distance printed), every trained leaf on the
+   kernel (``xpt.adamw.kernel``, ``xpt.adamw.plain`` 0), one launch per 512
+   leaves; the B/32 leaf list also with bf16 moments and inside a captured
+   CUDA graph, replayed for three updates;
 4. run CLIP-ViP B/32 zero-shot retrieval eval (random weights from a seed,
    bf16, synthetic uint8 clips) through the CLI, counting kernel launches;
 4b. run the MSR-VTT B/32 fine-tune preset through the CLI for a few steps
@@ -178,6 +188,12 @@ Phases, in order; any failure exits non-zero and prints no result:
    ReLU): forward, and forward + backward through autograd, against the
    plain version (the module's eager arithmetic before the fusion) and the
    bound of their bytes;
+6i. time the multi-tensor AdamW kernel alone at each train cell's leaf
+   list against its byte bound (28 B an element), the ``_foreach`` chain
+   it replaces, both with the gradient norm's pass ahead of them (what the
+   op class ``optimizer_ms.train`` reads holds), and
+   ``torch.optim.AdamW(fused=True)`` on the same leaves as a yardstick that
+   the port never calls;
 6f. time the B/32 bf16 train step at b=32 eager and graphed (K = 4), with
    fp32 and with bf16 parameter storage, and LF-VILA stage 1 at b=16 eager
    and at K = 2: ms a step (5 windows of about 0.5 s, LF-VILA's 0.6),
@@ -282,6 +298,11 @@ TimeSformer attention and BERT in XLA): its phases check that they launch
 none, that every FrozenBatchNorm takes the frozen-BN kernel (as many
 launches as its modules' calls make, ``frozen_bn_calls``; no plain call) and
 that the encoder's inputs and parameters are on the card. The summary gives that kernel its own entry, ``fused_kernels``.
+Every path that trains updates through the AdamW kernel: its launches are
+held, on each path, to ceil(trained leaves / 512) for each update the
+optimizer made on the card, eager or replayed (``ADAMW_SEEN``), the
+``_foreach`` chain on CUDA tensors counts as a plain call, and the summary
+gives the kernel the second entry of ``fused_kernels``.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``
 (about 13 minutes on one H100, the kernels' build included).
@@ -408,6 +429,13 @@ HDVILA_TIMED_BATCH = 8  # phase 6e: the stage-1 preset's batch
 # clips: 32 middles of 640x1024, 160x256 after the stem), bf16 channels_last
 FROZEN_BN_SHAPE = (32, 256, 160, 256)
 FROZEN_BN_FORMS = {"affine": (False, False), "relu": (True, False), "relu_identity": (True, True)}
+# phases 3g and 6i: the optimizers of the three train cells, built from benchmark/configs/<config>.json as the
+# cells' programs build them; the multi-tensor AdamW kernel against the _foreach path over ADAMW_UPDATES updates
+ADAMW_CELLS = {"clipvip_b32": "clipvip_b32.train_graphed", "lfvila_stage1": "lfvila_stage1.pretrain",
+               "hdvila_stage1": "hdvila_stage1.pretrain"}
+ADAMW_UPDATES = 3
+ADAMW_MAX_ULP = 2  # the parameters' largest distance from the _foreach path, in fp32 ulps (moments: bit-equal)
+ADAMW_BYTES = 28  # an element's update reads p, g, m, v and writes p, m, v (fp32)
 ARTIFACT_BATCHES = (1, 7, 24)  # 7a: the B/32 kernel artifact called at these batch sizes
 ARTIFACT_TOL = 1e-4  # artifact vs live towers, max abs on the features (phase 5's bar)
 INT8_COS = 0.9994  # 7e: w8a8 against bf16 embedding cosine (JAX's bar at B/32, xpretrain_tpu/ops/quant.py)
@@ -616,12 +644,15 @@ def plain_on_cuda_guard():
     the main paths' kernels stand in for: both proxy-attention versions and
     their packed forms, the masked ``dot_attention`` that ``ProxyAttention``
     takes under dropout, the window-attention version and the plain patch
-    embed GEMM, and the frozen BN's plain version. Yields the list of calls."""
+    embed GEMM, the frozen BN's plain version, and the optimizer's
+    ``_foreach`` chain (``GroupedAdamW._update_plain``). Yields the list of
+    calls."""
     from xpretrain_tpu_torch.models.clip_vip import model as clip_vip_model
     from xpretrain_tpu_torch.ops import frozen_bn as fb
     from xpretrain_tpu_torch.ops import patchify as pp
     from xpretrain_tpu_torch.ops import proxy_attention as pa
     from xpretrain_tpu_torch.ops import window_attention as wa
+    from xpretrain_tpu_torch.optim.optimizer import GroupedAdamW
 
     hooks = [(pa, "proxy_attention_plain"), (pa, "proxy_attention_bwd_plain"),
              (pa, "proxy_attention_packed_plain"), (pa, "proxy_attention_packed_bwd_plain"),
@@ -637,8 +668,17 @@ def plain_on_cuda_guard():
             return fn(q, *args, **kwargs)
         return wrapped
 
+    def guard_optimizer(fn):
+        def wrapped(self, grads, *args, **kwargs):
+            if self.scalars.is_cuda:
+                calls.append((fn.__name__, len(grads)))
+            return fn(self, grads, *args, **kwargs)
+        return wrapped
+
+    hooks.append((GroupedAdamW, "_update_plain"))
+    originals.append(GroupedAdamW._update_plain)
     for (module, name), fn in zip(hooks, originals):
-        setattr(module, name, guard(fn))
+        setattr(module, name, guard_optimizer(fn) if module is GroupedAdamW else guard(fn))
     try:
         yield calls
     finally:
@@ -648,8 +688,10 @@ def plain_on_cuda_guard():
 
 def counted_wrappers() -> dict:
     """Kernel name -> the wrapper whose ``launches`` counts its launches: the
-    six of ``KERNELS`` and the frozen-BN kernels (forward and backward)."""
+    six of ``KERNELS``, the frozen-BN kernels (forward and backward) and the
+    optimizer's AdamW kernel."""
     from xpretrain_tpu_torch.ops import frozen_bn as fb
+    from xpretrain_tpu_torch.optim import adamw_kernel
     from xpretrain_tpu_torch.ops import patchify as pp
     from xpretrain_tpu_torch.ops import proxy_attention as pa
     from xpretrain_tpu_torch.ops import window_attention as wa
@@ -658,20 +700,78 @@ def counted_wrappers() -> dict:
             "proxy_attention_packed_fwd": pa.proxy_attention_packed,
             "proxy_attention_packed_bwd": pa.proxy_attention_packed_bwd,
             "patch_embed_u8": pp.fused_patch_embed, "window_attention_fwd": wa.window_attention,
-            "frozen_bn_act": fb.frozen_bn_act}
+            "frozen_bn_act": fb.frozen_bn_act, "adamw_multi_tensor": adamw_kernel.adamw_multi_tensor}
 
 
 def launch_counts() -> dict[str, int]:
     return {name: fn.launches for name, fn in counted_wrappers().items()}
 
 
+# the optimizer's updates on the card since the last reset_launches: device
+# updates (eager, or in a replayed graph), the AdamW launches they should make
+# (ceil(trained leaves / 512) each) and the trained leaf counts seen
+ADAMW_SEEN = {"updates": 0, "launches": 0, "leaves": set()}
+_ADAMW_CAPTURED: dict[int, tuple[int, int]] = {}  # id(graph) -> (updates, launches) its capture recorded
+
+
+def adamw_recorder() -> None:
+    """Hook, once, ``GroupedAdamW._update_kernel`` and ``GraphedStep``'s
+    capture and replay so that ``ADAMW_SEEN`` follows every update on the
+    card: an eager call counts at once, a captured one at each replay of its
+    graph. The expected launches come from the optimizer's own trained leaf
+    count, not from the kernel's wrapper."""
+    import torch
+    from xpretrain_tpu_torch.optim import adamw_kernel
+    from xpretrain_tpu_torch.optim.optimizer import GroupedAdamW
+    from xpretrain_tpu_torch.parallel.train_step import GraphedStep
+
+    if getattr(GroupedAdamW._update_kernel, "recorded", False):
+        return
+    update, capture, replay = GroupedAdamW._update_kernel, GraphedStep._capture, GraphedStep._replay
+    pending = [0, 0]  # the capture under way: updates, launches
+
+    def recorded_update(self, grads, gnorm):
+        trained = sum(len(idx) for idx in self.groups.values())
+        n = -(-trained // adamw_kernel.MAX_LEAVES)
+        ADAMW_SEEN["leaves"].add(trained)
+        if torch.cuda.is_current_stream_capturing():
+            pending[0] += 1
+            pending[1] += n
+        else:
+            ADAMW_SEEN["updates"] += 1
+            ADAMW_SEEN["launches"] += n
+        return update(self, grads, gnorm)
+
+    def recorded_capture(self, state, batch):
+        pending[:] = [0, 0]
+        out = capture(self, state, batch)
+        _ADAMW_CAPTURED[id(out.graph)] = tuple(pending)
+        return out
+
+    def recorded_replay(capture_, batch, seed):
+        updates, launches = _ADAMW_CAPTURED.get(id(capture_.graph), (0, 0))
+        ADAMW_SEEN["updates"] += updates
+        ADAMW_SEEN["launches"] += launches
+        return replay(capture_, batch, seed)
+
+    recorded_update.recorded = True
+    GroupedAdamW._update_kernel = recorded_update
+    GraphedStep._capture = recorded_capture
+    GraphedStep._replay = staticmethod(recorded_replay)
+
+
 def reset_launches() -> None:
+    adamw_recorder()
     for fn in counted_wrappers().values():
         fn.launches = 0
+    ADAMW_SEEN.update(updates=0, launches=0, leaves=set())
 
 
 def expected(**launches: int) -> dict[str, int]:
-    """Every counted kernel's expected launch count: 0 unless given."""
+    """Every counted kernel's expected launch count: 0 unless given, but the
+    AdamW kernel's, which defaults to what the optimizer's updates on the
+    card since the last :func:`reset_launches` make (``ADAMW_SEEN``)."""
+    launches.setdefault("adamw_multi_tensor", ADAMW_SEEN["launches"])
     return {name: launches.get(name, 0) for name in counted_wrappers()}
 
 
@@ -1932,6 +2032,259 @@ def frozen_bn_timing_phase(card: str) -> dict:
             "bound_by": by}
 
 
+def train_cell_optimizer(config: str, out_dir: str):
+    """The GroupedAdamW of the train cell over ``benchmark/configs/<config>.json``,
+    on the card, with the model at its initial weights: the trainer as the
+    cell's program builds it (its preset, its no-decay patterns and paths)."""
+    from xpretrain_tpu_torch.train.generic_trainer import GenericTrainer
+
+    with open(os.path.join(REPO, "benchmark", "configs", f"{config}.json")) as f:
+        cfg = json.load(f)
+    if config == "clipvip_b32":
+        from xpretrain_tpu_torch.train.trainer import ClipVipTrainer
+
+        return ClipVipTrainer({**cfg["preset"], "output_dir": out_dir}, train_loader=None, device="cuda").optimizer
+    if config == "lfvila_stage1":
+        from xpretrain_tpu_torch.cli.run_pretrain_lfvila import lfvila_config_from
+        from xpretrain_tpu_torch.models.lf_vila.convert import flax_param_paths
+        from xpretrain_tpu_torch.models.lf_vila.pretrain import LfVilaPretrain
+        from xpretrain_tpu_torch.optim.optimizer import NO_DECAY_LFVILA
+
+        preset = {**cfg["preset"]["train"], "output_dir": out_dir}
+        model = LfVilaPretrain(lfvila_config_from(preset), device="cuda")
+        return GenericTrainer(preset, model, None, None, no_decay_patterns=NO_DECAY_LFVILA,
+                              param_paths=flax_param_paths(model), device="cuda").optimizer
+    from xpretrain_tpu_torch.cli.run_pretrain_hdvila import HdVilaPretrainModel, hdvila_configs_from
+    from xpretrain_tpu_torch.models.hd_vila.convert import flax_param_paths
+
+    preset = {**cfg["preset"], "output_dir": out_dir}
+    enc_cfg, model_cfg = hdvila_configs_from(preset)
+    model = HdVilaPretrainModel(enc_cfg, model_cfg, temp=model_cfg.temp, device="cuda")
+    return GenericTrainer(preset, model, None, None, param_paths=flax_param_paths(model), device="cuda").optimizer
+
+
+def adamw_grads(optimizer, call: int) -> list:
+    """Seeded gradients for every parameter of ``optimizer``, fp32 on the
+    card: at 1e-4 (a norm below the cells' clip of 1-5 for up to 2.5e9
+    elements) except the second call's, at 1 (far above: the clip scales)."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(100 + call)
+    scale = 1.0 if call == 1 else 1e-4
+    return [torch.randn(t.shape, generator=g, device="cuda") * scale for t in optimizer.targets]
+
+
+def fp32_ulps(a, b) -> int:
+    """Largest distance between two fp32 tensors in units in the last place."""
+    import torch
+
+    def ordered(t):
+        i = t.contiguous().view(torch.int32).long()
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+    return int((ordered(a) - ordered(b)).abs().max().item()) if a.numel() else 0
+
+
+def adamw_foreach_update(optimizer, grads: list) -> None:
+    """``optimizer``'s device part of one update (no accumulation) through
+    its ``_foreach`` chain on the card, the kernel's reference: the norm, the
+    chain, the stored copies."""
+    grads = optimizer.upcast(grads)
+    gnorm = optimizer.grad_norm(grads) if optimizer.max_grad_norm is not None else None
+    optimizer._update_plain(grads, gnorm)
+    optimizer._store()
+
+
+def adamw_against_foreach(optimizer, what: str, apply=None) -> int:
+    """``ADAMW_UPDATES`` updates of ``optimizer``: each from one state and
+    one set of gradients, through the kernel (``apply(grads)``, default
+    ``optimizer.apply``) and through the ``_foreach`` path; moments
+    bit-equal, parameters within ``ADAMW_MAX_ULP``, every trained leaf on the
+    kernel in ceil(leaves / 512) launches. The state carries on from the
+    ``_foreach`` path's. Returns the largest parameter distance."""
+    import torch
+    from xpretrain_tpu_torch.optim import adamw_kernel
+    from xpretrain_tpu_torch.utils.profiling import counts
+
+    trained = sum(len(idx) for idx in optimizer.groups.values())
+    worst = 0
+    for call in range(ADAMW_UPDATES):
+        grads = adamw_grads(optimizer, call)
+        state = [*optimizer.targets, *optimizer.mu, *optimizer.nu]
+        start = [t.clone() for t in state]
+        optimizer.prepare()
+        before, launches = counts(), adamw_kernel.adamw_multi_tensor.launches
+        (apply or optimizer.apply)(grads)
+        torch.cuda.synchronize()
+        after = counts()
+        kernel = after.get("xpt.adamw.kernel", 0) - before.get("xpt.adamw.kernel", 0)
+        plain = after.get("xpt.adamw.plain", 0) - before.get("xpt.adamw.plain", 0)
+        n_launches = adamw_kernel.adamw_multi_tensor.launches - launches
+        got = [t.clone() for t in state]
+        for t, s0 in zip(state, start):
+            t.copy_(s0)
+        adamw_foreach_update(optimizer, grads)
+        optimizer.advance()
+        torch.cuda.synchronize()
+        n = len(optimizer.targets)
+        moments_equal = all(torch.equal(a, b) for a, b in zip(got[n:], state[n:]))
+        ulps = max(fp32_ulps(a, b) for a, b in zip(got[:n], state[:n]))
+        worst = max(worst, ulps)
+        print(f"  {what} update {call}: {trained} trained leaves, kernel {kernel}, plain {plain}, {n_launches} "
+              f"launches; moments bit-equal {moments_equal}, parameters within {ulps} ulp of the _foreach path")
+        if apply is None:
+            check(kernel == trained and plain == 0 and n_launches == -(-trained // adamw_kernel.MAX_LEAVES),
+                  f"3g {what}: kernel {kernel} plain {plain} launches {n_launches} of {trained} trained leaves")
+        check(moments_equal and ulps <= ADAMW_MAX_ULP, f"3g {what} update {call}: moments equal {moments_equal}, "
+              f"parameters {ulps} ulp (tol {ADAMW_MAX_ULP})")
+    return worst
+
+
+def adamw_check_phase(card: str) -> dict:
+    """Phase 3g: the AdamW kernel against the ``_foreach`` path at the three
+    train cells' optimizers, the B/32 one also with bf16 moments and
+    captured in a CUDA graph. Returns the largest parameter distance (ulp)
+    by case."""
+    import torch
+    from xpretrain_tpu_torch.optim import adamw_kernel
+    from xpretrain_tpu_torch.optim.optimizer import GroupedAdamW
+
+    worst = {}
+    with tempfile.TemporaryDirectory() as out_dir, torch.no_grad():
+        for config, cell in ADAMW_CELLS.items():
+            optimizer = train_cell_optimizer(config, out_dir)
+            n = sum(optimizer.targets[i].numel() for idx in optimizer.groups.values() for i in idx)
+            print(f"  {cell}: {len(optimizer.targets)} leaves, {sum(len(i) for i in optimizer.groups.values())} "
+                  f"trained in {len(optimizer.groups)} groups, {n / 1e6:.1f} M trained elements, clip "
+                  f"{optimizer.max_grad_norm}")
+            worst[cell] = adamw_against_foreach(optimizer, cell)
+            if config == "clipvip_b32":
+                named = {name: t.detach().clone() for name, t in zip(optimizer.names, optimizer.targets)}
+                bf16 = GroupedAdamW(named, dict(zip(optimizer.names, optimizer.labels)), optimizer.schedule,
+                                    0.2, (optimizer.b1, optimizer.b2), optimizer.eps, 1.0, optimizer.max_grad_norm,
+                                    moment_dtype=torch.bfloat16)
+                worst[f"{cell} bf16 moments"] = adamw_against_foreach(bf16, f"{cell} bf16 moments")
+                del bf16, named
+                worst[f"{cell} CUDA graph"] = adamw_graph_check(optimizer, cell)
+            del optimizer
+            release_memory()
+    check(adamw_kernel.adamw_multi_tensor.launches > 0, "3g: the AdamW kernel never launched")
+    return worst
+
+
+def adamw_graph_check(optimizer, cell: str) -> int:
+    """The kernel's update (gradient norm and kernel) captured in a CUDA
+    graph on static gradients and replayed, held to the ``_foreach`` path as
+    ``adamw_against_foreach``; each replay adds the capture's launches."""
+    import torch
+    from xpretrain_tpu_torch.optim import adamw_kernel
+
+    static = [torch.zeros_like(t) for t in optimizer.targets]
+
+    def run():
+        optimizer.apply(static, optimizer.grad_norm(static))
+
+    state = [*optimizer.targets, *optimizer.mu, *optimizer.nu]
+    start = [t.clone() for t in state]
+    optimizer.prepare()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    launches = adamw_kernel.adamw_multi_tensor.launches
+    with torch.cuda.graph(graph):
+        run()
+    captured = adamw_kernel.adamw_multi_tensor.launches - launches
+    adamw_kernel.adamw_multi_tensor.launches = launches
+    for t, s0 in zip(state, start):
+        t.copy_(s0)
+    check(captured > 0, f"3g {cell} CUDA graph: the capture recorded no AdamW launch")
+
+    def replay(grads):
+        for buf, g in zip(static, grads):
+            buf.copy_(g)
+        graph.replay()
+        adamw_kernel.adamw_multi_tensor.launches += captured
+
+    before = adamw_kernel.adamw_multi_tensor.launches
+    worst = adamw_against_foreach(optimizer, f"{cell} CUDA graph", apply=replay)
+    check(adamw_kernel.adamw_multi_tensor.launches - before == ADAMW_UPDATES * captured,
+          f"3g {cell} CUDA graph: launches counted at replay")
+    del graph, static
+    return worst
+
+
+def adamw_timing_phase(card: str) -> dict:
+    """Phase 6i: at each train cell's optimizer, the AdamW kernel alone and
+    the ``_foreach`` chain alone on the same leaves (``plain``), both after
+    the gradient norm's pass too (the whole update), and
+    ``torch.optim.AdamW(fused=True)`` on the same leaves (yardstick only: its
+    update has no clip or groups), in CUDA events and device time, against
+    the bytes' bound: 28 B an element for the update, 4 B more for the norm.
+    Returns the summary's fields by cell."""
+    import torch
+    from xpretrain_tpu_torch.optim import adamw_kernel
+
+    out = {}
+    with tempfile.TemporaryDirectory() as out_dir, torch.no_grad():
+        for config, cell in ADAMW_CELLS.items():
+            optimizer = train_cell_optimizer(config, out_dir)
+            grads = adamw_grads(optimizer, 0)
+            gnorm = optimizer.grad_norm(grads)
+            optimizer.prepare()
+            index = [i for idx in optimizer.groups.values() for i in idx]
+            group_of = {i: (2 + group, wd) for group, ((_, wd), idx) in enumerate(optimizer.groups.items())
+                        for i in idx}
+            table = adamw_kernel.LeafTable([optimizer.targets[i] for i in index], [optimizer.mu[i] for i in index],
+                                           [optimizer.nu[i] for i in index], [group_of[i][0] for i in index],
+                                           [group_of[i][1] for i in index], optimizer.scalars.device)
+            trained = [optimizer.targets[i] for i in index]
+            n = sum(t.numel() for t in trained)
+            fused = torch.optim.AdamW(trained, lr=1e-5, betas=(optimizer.b1, optimizer.b2), eps=optimizer.eps,
+                                      weight_decay=0.01, fused=True)
+            for t, i in zip(trained, index):
+                t.grad = grads[i]
+
+            def whole_plain():
+                adamw_foreach_update(optimizer, grads)
+
+            fns = {"kernel": lambda: adamw_kernel.adamw_multi_tensor(table, [grads[i] for i in index],
+                                                                     optimizer.scalars, gnorm, optimizer.hyper),
+                   "plain": lambda: optimizer._update_plain(grads, gnorm),
+                   "whole_kernel": lambda: optimizer.apply(grads), "whole_plain": whole_plain,
+                   "fused_adamw": fused.step}
+            runs = alternate(fns, iters=10)
+            ms = {name: mean(r) for name, r in runs.items()}
+            dev = {name: marked_device_ms(fn, iters=5) for name, fn in fns.items()}
+            check(all(math.isfinite(v) and v > 0 for v in ms.values()), f"6i {cell}: AdamW timing {ms}")
+            bound = ADAMW_BYTES * n / HBM_BYTES_PER_S * 1e3
+            whole_bound = (ADAMW_BYTES + 4) * n / HBM_BYTES_PER_S * 1e3
+
+            def device(name):
+                return "not measured" if dev[name] is None else f"{dev[name]:.4f}"
+
+            print(f"  {cell}: {len(trained)} trained leaves, {n / 1e6:.1f} M elements; update bound {bound:.4f} ms "
+                  f"({ADAMW_BYTES} B an element at {HBM_BYTES_PER_S / 1e12:.2f} TB/s) [{card}]")
+            print(f"    kernel {ms['kernel']:.4f} ms (device {device('kernel')}), share of the bound "
+                  f"{bound / ms['kernel']:.3f}; _foreach chain {ms['plain']:.4f} ms (device {device('plain')}); "
+                  f"torch.optim.AdamW(fused=True) {ms['fused_adamw']:.4f} ms (device {device('fused_adamw')})")
+            print(f"    with the norm's pass: kernel {ms['whole_kernel']:.4f} ms (device {device('whole_kernel')}), "
+                  f"_foreach {ms['whole_plain']:.4f} ms (device {device('whole_plain')}); bound {whole_bound:.4f} ms; "
+                  f"windows {runs['kernel']} / {runs['plain']}")
+            out[cell] = {"ms": ms["kernel"], "device_ms": dev["kernel"], "plain_ms": ms["plain"],
+                         "plain_device_ms": dev["plain"], "whole_ms": ms["whole_kernel"],
+                         "whole_device_ms": dev["whole_kernel"], "whole_plain_ms": ms["whole_plain"],
+                         "library_ms": ms["fused_adamw"], "bound_ms": bound, "whole_bound_ms": whole_bound,
+                         "bound_by": "bytes", "elements": n, "leaves": len(trained)}
+            for t in trained:
+                t.grad = None
+            del optimizer, grads, table, fused, trained, fns
+            release_memory()
+    return out
+
+
 def hdvila_timing_phase(card: str) -> dict:
     """Phase 6e: the stage-1 bf16 train step at batch 8 (the preset's) in
     windows of CUDA events, its device time by op class (``torch.profiler``)
@@ -2169,6 +2522,7 @@ def graphed_finetune_phase(card: str) -> dict:
     would corrupt if the snapshot did not come first)."""
     import torch
     from xpretrain_tpu_torch.cli import run_retrieval_clipvip
+    from xpretrain_tpu_torch.optim import adamw_kernel
 
     steps, every, k = GRAPHED_FINETUNE["steps"], GRAPHED_FINETUNE["every"], GRAPHED_FINETUNE["k"]
     with open(os.path.join(REPO, PRESET)) as f:
@@ -2206,8 +2560,9 @@ def graphed_finetune_phase(card: str) -> dict:
               f"recorded by the capture and added at each replay: {recorded}; plain path on CUDA: "
               f"{len(plain_cuda_calls)} calls")
         check(launches == want, "graphed fine-tune kernel launch counts")
-        check(recorded == [{"proxy_attention": VIDEO_LAYERS, "proxy_attention_bwd": VIDEO_LAYERS}],
-              f"the capture recorded {recorded}")
+        per_update = -(-sum(len(idx) for idx in trainer.optimizer.groups.values()) // adamw_kernel.MAX_LEAVES)
+        check(recorded == [{"proxy_attention": VIDEO_LAYERS, "proxy_attention_bwd": VIDEO_LAYERS,
+                            "adamw_multi_tensor": per_update}], f"the capture recorded {recorded}")
         check(not plain_cuda_calls, f"the plain version ran on CUDA tensors: {plain_cuda_calls[:4]}")
         tags = scalars(out_dir)
         losses, norms = tags["train/loss"], tags["train/grad_norm"]
@@ -2598,6 +2953,8 @@ def graph_equals_eager_phase(card: str) -> None:
         peak = torch.cuda.max_memory_allocated() / 2**30
         check(launches == expected(proxy_attention_fwd=VIDEO_LAYERS * k, proxy_attention_bwd=VIDEO_LAYERS * k),
               f"accum {accum}: graphed launches {launches}")
+        check(ADAMW_SEEN["updates"] == k // accum and launches["adamw_multi_tensor"] > 0,
+              f"accum {accum}: AdamW updates on the card {ADAMW_SEEN}, {k // accum} expected")
         captures = capture_launches(graphed)
         check(len(captures) == accum, f"accum {accum}: {len(captures)} graphs (one per micro-step index)")
         pairs = {"params": list(zip(eager_state.model.parameters(), graphed_state.model.parameters())),
@@ -2634,8 +2991,9 @@ PROFILE_ATTEMPTS = 3  # profiled windows a replay check may take: the profiler c
 
 
 def replays_against_device(call) -> dict:
-    """``call()`` under ``torch.profiler``: the proxy-attention launches the
-    wrappers counted against the proxy kernels the device ran, by name (a
+    """``call()`` under ``torch.profiler``: the proxy-attention and AdamW
+    launches the wrappers counted against those kernels the device ran, by
+    name (a
     graph's replay adds what its capture recorded, so this holds the added
     counts to what ran). Each profiled window runs ``call()`` twice, a
     sleep kernel between the two, and counts the second call's kernels: late
@@ -2667,10 +3025,11 @@ def replays_against_device(call) -> dict:
         kernels = {}
         for e in after:
             kernels[e.name] = kernels.get(e.name, 0) + 1
+        device["adamw"] = sum("xpt_adamw_multi_tensor_apply_kernel" in e.name for e in after)
         check(counted["proxy_attention_fwd"] > 0, f"no proxy launch counted: {counted}")
         attempts.append({"device": device, "kernels": len(after), "first_call_kernels": marks[-1]})
         if device == {"forward": counted["proxy_attention_fwd"], "backward dq": counted["proxy_attention_bwd"],
-                      "backward dkv": counted["proxy_attention_bwd"]}:
+                      "backward dkv": counted["proxy_attention_bwd"], "adamw": counted["adamw_multi_tensor"]}:
             return {"counted": {key: n for key, n in counted.items() if n}, "device": device, "kernels": kernels,
                     "attempts": attempts}
     fail(f"counted {counted} against the device's proxy kernels in {PROFILE_ATTEMPTS} profiled calls: {attempts}")
@@ -3862,6 +4221,7 @@ def main() -> None:
         from xpretrain_tpu_torch.models.common import dot_attention
         from xpretrain_tpu_torch.ops import _kernels
         from xpretrain_tpu_torch.models.lf_vila.tasks import LfVilaRetrieval
+        from xpretrain_tpu_torch.optim import adamw_kernel
         from xpretrain_tpu_torch.ops import patchify as pp
         from xpretrain_tpu_torch.ops import proxy_attention as pa
         from xpretrain_tpu_torch.ops import window_attention as wa
@@ -4070,6 +4430,9 @@ def main() -> None:
     with phase("3f frozen-BN kernels vs plain at layer1's bn3, and the stage-1 model's FrozenBatchNorms"):
         frozen_bn_check_phase(card)
 
+    with phase("3g AdamW multi-tensor kernel vs the _foreach path at the three train cells' optimizers"):
+        adamw_worst_ulps = adamw_check_phase(card)
+
     with phase("4 B/32 retrieval eval (main path)"), tempfile.TemporaryDirectory() as out_dir:
         torch.cuda.reset_peak_memory_stats()
         with plain_on_cuda_guard() as plain_cuda_calls:
@@ -4123,6 +4486,8 @@ def main() -> None:
               f"+ {validations} validations x {n_val} batches) forward, x {TRAIN_STEPS} steps backward); "
               f"plain path on CUDA: {len(plain_cuda_calls)} calls")
         check(train_launches == want, "fine-tune kernel launch counts")
+        check(ADAMW_SEEN["updates"] == TRAIN_STEPS and train_launches["adamw_multi_tensor"] > 0,
+              f"fine-tune AdamW updates on the card {ADAMW_SEEN} for {TRAIN_STEPS} steps")
         check(not plain_cuda_calls, f"the plain version ran on CUDA tensors: {plain_cuda_calls[:4]}")
         with open(os.path.join(out_dir, "log", "scalars.jsonl")) as f:
             rows = [json.loads(line) for line in f]
@@ -4670,6 +5035,9 @@ def main() -> None:
     with phase("6h timing: frozen-BN kernels at layer1's bn3 against the plain version"):
         frozen_bn_timing = frozen_bn_timing_phase(card)
 
+    with phase("6i timing: the AdamW kernel at the three train cells' leaf lists against the _foreach chain"):
+        adamw_timing = adamw_timing_phase(card)
+
     with phase("6f timing: eager and graphed train steps, fp32 and bf16 storage"):
         graph_timing_phase(card)
 
@@ -4775,6 +5143,14 @@ def main() -> None:
         **frozen_bn_timing,
     }]
     check(summary["fused_kernels"][0]["launches"] > 0, "the frozen-BN kernel was launched no time on the main paths")
+    summary["fused_kernels"].append({
+        "name": "adamw_multi_tensor", "route": "cuda", "source": "xpretrain_tpu_torch/csrc/adamw_multi_tensor.cu",
+        "replaces": None, "launches": sum(counts.get("adamw_multi_tensor", 0) for counts in paths.values()),
+        "launches_by_path": {path: counts["adamw_multi_tensor"] for path, counts in paths.items()
+                             if counts.get("adamw_multi_tensor")},
+        "max_ulps_vs_foreach": adamw_worst_ulps, "timing_by_cell": adamw_timing,
+    })
+    check(summary["fused_kernels"][1]["launches"] > 0, "the AdamW kernel was launched no time on the main paths")
     print(f"patch_embed_u8 beside its fp32 yardstick: kernel {patch_timing['kernel']:.4f} ms, fp32 addmm of the "
           f"gathered patches (TF32 off) {patch_timing['library_fp32']:.4f} ms (CUDA events) [{card}]")
     print(json.dumps(summary))

@@ -80,12 +80,15 @@ def test_graphed_steps_equal_eager_steps(accum):
 
 def test_every_kernel_wrapper_is_in_the_counted_registry():
     """The graphed step adds each capture's recorded launches, at replay, to
-    the wrappers of ``ops._kernels.COUNTED``: the seven wrappers that launch a
-    kernel are there, each with its ``launches`` count, and only they."""
+    the wrappers of ``ops._kernels.COUNTED``: the eight wrappers that launch a
+    kernel (the optimizer's among them) are there, each with its
+    ``launches`` count, and only they."""
     from xpretrain_tpu_torch.ops import _kernels, frozen_bn, patchify, window_attention
+    from xpretrain_tpu_torch.optim import adamw_kernel
 
     want = {pa.proxy_attention, pa.proxy_attention_bwd, pa.proxy_attention_packed, pa.proxy_attention_packed_bwd,
-            window_attention.window_attention, patchify.fused_patch_embed, frozen_bn.frozen_bn_act}
+            window_attention.window_attention, patchify.fused_patch_embed, frozen_bn.frozen_bn_act,
+            adamw_kernel.adamw_multi_tensor}
     assert set(_kernels.COUNTED) == want and len(_kernels.COUNTED) == len(want)
     assert all(isinstance(fn.launches, int) and fn.launches >= 0 for fn in _kernels.COUNTED)
 

@@ -58,6 +58,11 @@ KERNELS = {
     "void cublasLt::splitKreduce_kernel<32, 16, int, float, __nv_bfloat16>(...)": "GEMMs",
     "void at::native::(anonymous namespace)::multi_tensor_apply_kernel<TensorListMetadata<2>>(...)":
         "AdamW and norms (_foreach)",
+    # the port's own AdamW kernel stays in the optimizer's class
+    "void (anonymous namespace)::xpt_adamw_multi_tensor_apply_kernel<float>((anonymous namespace)::AdamwLeaves, ...)":
+        "AdamW and norms (_foreach)",
+    "void (anonymous namespace)::xpt_adamw_multi_tensor_apply_kernel<__nv_bfloat16>(...)":
+        "AdamW and norms (_foreach)",
     "void at::native::(anonymous namespace)::vectorized_layer_norm_kernel<float, float, false>(...)":
         "LayerNorm forward and backward",
     "void at::native::(anonymous namespace)::GammaBetaBackwardCUDAKernelTemplate<float>(...)":

@@ -22,12 +22,17 @@ import subprocess
 from pathlib import Path
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "xpretrain_tpu_torch"
 # the wrappers that count their kernel launches (:func:`counted`)
 COUNTED: list[Callable] = []
+# elements a block of the AdamW kernel updates, and leaves one launch takes
+# (kChunk and kMaxLeaves in csrc/adamw_multi_tensor.cu; load_library checks)
+ADAMW_CHUNK = 4096
+ADAMW_MAX_LEAVES = 512
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -153,8 +158,17 @@ def load_library() -> ctypes.CDLL:
     lib.xpt_frozen_bn_act_bwd.restype = ctypes.c_int
     lib.xpt_frozen_bn_scratch_floats.argtypes = [ctypes.c_longlong, ctypes.c_int]
     lib.xpt_frozen_bn_scratch_floats.restype = ctypes.c_longlong
+    lib.xpt_adamw_multi_tensor.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2 + [
+        ctypes.c_float] * 6 + [ctypes.c_int, ctypes.c_void_p]
+    lib.xpt_adamw_multi_tensor.restype = ctypes.c_int
+    lib.xpt_adamw_max_leaves.argtypes = []
+    lib.xpt_adamw_max_leaves.restype = ctypes.c_int
+    lib.xpt_adamw_chunk.argtypes = []
+    lib.xpt_adamw_chunk.restype = ctypes.c_int
     lib.xpt_cuda_error_string.argtypes = [ctypes.c_int]
     lib.xpt_cuda_error_string.restype = ctypes.c_char_p
+    if (lib.xpt_adamw_chunk(), lib.xpt_adamw_max_leaves()) != (ADAMW_CHUNK, ADAMW_MAX_LEAVES):
+        raise RuntimeError("ADAMW_CHUNK and ADAMW_MAX_LEAVES differ from csrc/adamw_multi_tensor.cu's")
     return lib
 
 
@@ -272,7 +286,8 @@ def kernel_resources(proxy_head_dim: int = 64, window_head_dim: int = 32) -> lis
     """Registers, spills and shared memory of every kernel entry point of the
     library, and its count of tensor-core ``HMMA`` instructions: the proxy
     attention at ``proxy_head_dim``, the window attention at
-    ``window_head_dim`` and the patch embed, each in bf16 and fp32.
+    ``window_head_dim`` and the patch embed, each in bf16 and fp32, and the
+    optimizer's update with fp32 and with bf16 moments.
     ``tensor_cores`` says which entry points compute on the tensor cores (and
     so must hold ``HMMA``); ``dynamic_smem`` is what a launch asks for (the
     fp32 proxy kernels' depends on D only through their tiles and is not
@@ -304,6 +319,10 @@ def kernel_resources(proxy_head_dim: int = 64, window_head_dim: int = 32) -> lis
         ("patch patch_weight_split_kernel", "patch_weight_split_kernel", "", "bfloat16", False, 0),
         ("patch patch_bias_shift_kernel", "patch_bias_shift_kernel", "", "float32", False, 0),
         ("patch patch_embed_fp32_kernel", "patch_embed_fp32_kernel", "", "float32", False, 0),
+        ("adamw xpt_adamw_multi_tensor_apply_kernel (fp32 moments)", "xpt_adamw_multi_tensor_apply_kernel", "IfE",
+         "float32", False, 0),
+        ("adamw xpt_adamw_multi_tensor_apply_kernel (bf16 moments)", "xpt_adamw_multi_tensor_apply_kernel",
+         "I13__nv_bfloat16E", "float32", False, 0),
     ]
     rows = []
     for label, name, args, dtype, tensor_cores, smem in kinds:
@@ -417,3 +436,31 @@ def frozen_bn_act_bwd(
             _ptr(sums), rows, C, int(g.dtype == torch.bfloat16), torch.cuda.current_stream(g.device).cuda_stream,
         )
     _check(lib, rc, "frozen_bn_act_bwd")
+
+
+def adamw_multi_tensor(ptrs: np.ndarray, numel: np.ndarray, first_chunk: np.ndarray, scalar_index: np.ndarray,
+                       wd: np.ndarray, moment_bf16: bool, scalars: torch.Tensor, gnorm: Optional[torch.Tensor],
+                       h) -> None:
+    """Launch ``csrc/adamw_multi_tensor.cu`` once on the current stream over
+    up to ``ADAMW_MAX_LEAVES`` leaves on the card that holds ``scalars``:
+    ``ptrs`` uint64 [leaves, 4], each leaf's (target, gradient, m, v)
+    addresses, all contiguous, fp32 but for m and v, bf16 if
+    ``moment_bf16``; ``numel`` int64 [leaves]; ``first_chunk`` int32
+    [leaves + 1], the chunk table; ``scalar_index`` int32 and ``wd`` fp32
+    [leaves], each leaf's group's entry of ``scalars`` (the device fp32
+    [c1, c2, -lr * mul ...]) and decay; ``gnorm`` the device fp32 global
+    norm, read when ``h.max_norm`` (``optim/adamw_kernel.py:Hyper``) is set,
+    else None."""
+    lib = load_library()
+    device = scalars.device
+    clip = h.max_norm is not None
+    if clip and (gnorm.device != device or gnorm.dtype != torch.float32):
+        raise ValueError(f"the clip reads a float32 norm on {device}, got {gnorm.dtype} on {gnorm.device}")
+    with torch.cuda.device(device):
+        rc = lib.xpt_adamw_multi_tensor(
+            ptrs.ctypes.data, numel.ctypes.data, first_chunk.ctypes.data, scalar_index.ctypes.data, wd.ctypes.data,
+            len(numel), int(moment_bf16), scalars.data_ptr(), gnorm.data_ptr() if clip else None, h.b1,
+            h.one_minus_b1, h.b2, h.one_minus_b2, h.eps, h.max_norm if clip else 0.0, int(clip),
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+    _check(lib, rc, "adamw_multi_tensor")

@@ -16,8 +16,14 @@ same leaves as in JAX. :class:`GroupedAdamW` is ``fused_grouped_adamw``, and
 - accumulation keeps the running mean of the k gradients (Welford, as
   ``MultiSteps``) and updates on every k-th call.
 
-The update runs in place on the parameters, with ``torch._foreach_*`` ops per
-group so that a step costs a few launches per group, not per tensor.
+The update runs in place on the parameters. On a card every trained leaf
+takes one hand-written multi-tensor kernel (``optim/adamw_kernel.py``,
+``csrc/adamw_multi_tensor.cu``): the clip, both moments, the bias
+corrections, the decay and the parameter add in one read and one write per
+element, every group in one launch, with the bits of the ``torch._foreach_*``
+chain that the CPU runs, a few launches per group. The counters
+``xpt.adamw.kernel`` and ``xpt.adamw.plain`` count the leaves that took each
+path.
 
 A step splits into a host part and a device part, so that the device part
 can be captured in a CUDA graph and replayed: :meth:`GroupedAdamW.prepare`
@@ -67,6 +73,7 @@ import torch
 
 import torch.distributed as dist
 
+from xpretrain_tpu_torch.optim import adamw_kernel
 from xpretrain_tpu_torch.parallel.mesh import (
     DataMesh,
     LeafLayout,
@@ -79,6 +86,7 @@ from xpretrain_tpu_torch.parallel.mesh import (
     gather_shards,
     local_leaf,
 )
+from xpretrain_tpu_torch.utils.profiling import count
 
 NO_DECAY_DEFAULT = ("bias", "layer_norm", "layernorm", "_norm", "norm_", "logit_scale")
 # LF-VILA also exempts position embeddings and the relative-position-bias
@@ -158,6 +166,7 @@ class GroupedAdamW:
         self.b1, self.b2 = betas
         self.eps = eps
         self.max_grad_norm = max_grad_norm if max_grad_norm and max_grad_norm > 0 else None
+        self.hyper = adamw_kernel.hyper(self.b1, self.b2, eps, self.max_grad_norm)
         self.moment_dtype = moment_dtype
         self.k = max(1, int(grad_accum_steps))
         self.count = 0  # inner Adam steps taken
@@ -173,6 +182,10 @@ class GroupedAdamW:
         # index -> the parameter's layout over the mesh's model axis and, under
         # ZeRO-3, its data axis (set_layouts)
         self.layouts: dict[int, LeafLayout] = {}
+        # the AdamW kernel's leaf table, built at the first update on a card,
+        # and the indices of its leaves
+        self._table: Optional[adamw_kernel.LeafTable] = None
+        self._index: list[int] = []
         self._init_state()
         # (lr multiplier or schedule group, weight decay) -> indices of the
         # parameters that use it, and each group's lr at an update count
@@ -206,6 +219,7 @@ class GroupedAdamW:
                 return torch.zeros((), dtype=dt, device=p.device)
             return torch.zeros_like(p, dtype=dt, memory_format=torch.contiguous_format)
 
+        self._table = None
         with torch.no_grad():
             self.mu = [moment(p, lb) for p, lb in zip(self.targets, self.labels)]
             self.nu = [moment(p, lb) for p, lb in zip(self.targets, self.labels)]
@@ -352,9 +366,36 @@ class GroupedAdamW:
         return [g if g.dtype == t.dtype else g.to(t.dtype) for g, t in zip(grads, self.targets)]
 
     def _update(self, grads: list[torch.Tensor], gnorm: Optional[torch.Tensor]) -> None:
+        if self.max_grad_norm is not None and gnorm is None:
+            gnorm = self.grad_norm(grads)
+        if self.scalars.is_cuda:
+            self._update_kernel(grads, gnorm)
+        else:
+            self._update_plain(grads, gnorm)
+        self._store()
+
+    def _update_kernel(self, grads: list[torch.Tensor], gnorm: Optional[torch.Tensor]) -> None:
+        """The update on a card: every trained leaf through the multi-tensor
+        kernel, with the leaf table built at the first call."""
+        if self._table is None:
+            # group by group, in the order of the _foreach chain
+            self._index = [i for idx in self.groups.values() for i in idx]
+            group_of = {i: (2 + group, wd) for group, ((_, wd), idx) in enumerate(self.groups.items()) for i in idx}
+            self._table = adamw_kernel.LeafTable(
+                [self._target(i) for i in self._index], [self.mu[i] for i in self._index],
+                [self.nu[i] for i in self._index], [group_of[i][0] for i in self._index],
+                [group_of[i][1] for i in self._index], self.scalars.device)
+        count("xpt.adamw.kernel", len(self._table))
+        index = self._index
+        block = [self._block(grads[i], i) for i in index] if self.shards else [grads[i] for i in index]
+        adamw_kernel.adamw_multi_tensor(self._table, block, self.scalars, gnorm, self.hyper)
+
+    def _update_plain(self, grads: list[torch.Tensor], gnorm: Optional[torch.Tensor]) -> None:
+        """The update as ``torch._foreach_*`` ops, a few per group: the CPU's
+        path and the kernel's reference (``adamw_kernel.adamw_update_plain``
+        computes it leaf by leaf)."""
+        count("xpt.adamw.plain", sum(len(idx) for idx in self.groups.values()))
         if self.max_grad_norm is not None:
-            if gnorm is None:
-                gnorm = self.grad_norm(grads)
             keep = gnorm < self.max_grad_norm
             # (g / gnorm) * max_norm when clipping, g / 1 * 1 (exact) when not;
             # 0-d device tensors, so no host sync
@@ -390,7 +431,6 @@ class GroupedAdamW:
                     self.nu[i].copy_(v[j])
                 u = [t.to(q.dtype) for t, q in zip(u, p)]
             torch._foreach_add_(p, u)
-        self._store()
 
     def _full(self, t: torch.Tensor, i: int, zero2: bool = True) -> torch.Tensor:
         """The full tensor of leaf ``i``'s state ``t``, in the reference
@@ -570,6 +610,7 @@ def zero2_shard(optimizer: GroupedAdamW, mesh: Optional[DataMesh] = None, min_si
         if dim is None:
             continue
         optimizer.shards[i] = (dim, n, rank)
+        optimizer._table = None
         if i in optimizer.masters:
             optimizer.targets[i] = optimizer._block(optimizer.targets[i], i).clone()
         dt = optimizer.moment_dtype or optimizer.targets[i].dtype
